@@ -1,0 +1,25 @@
+"""Shoal: a PGAS Active-Message communication library, PyTorch port.
+
+The N Shoal kernels are a leading kernel axis on one device; a link
+traversal is a gather over that axis.  Public surface:
+
+* :mod:`repro_torch.core.am`            -- AM wire format (Short/Medium/
+  Long, put/get, FIFO/memory, strided, async flag, CRC seal).
+* :mod:`repro_torch.core.handlers`      -- receiver-side handler table +
+  credits.
+* :mod:`repro_torch.core.gascore`       -- the AM engine (ingress/egress
+  datapaths on the DataMover kernels; the GAScore of Fig. 3).
+* :mod:`repro_torch.core.ops`           -- the user API: puts/gets/
+  barrier/wait.
+* :mod:`repro_torch.core.address_space` -- the partitioned global
+  address space.
+"""
+
+from repro_torch.core import am, gascore, handlers, ops
+from repro_torch.core.address_space import GlobalAddressSpace
+from repro_torch.core.state import PgasState, ShoalContext
+
+__all__ = [
+    "am", "gascore", "handlers", "ops",
+    "GlobalAddressSpace", "PgasState", "ShoalContext",
+]

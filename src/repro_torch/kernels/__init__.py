@@ -1,0 +1,34 @@
+"""Hand-written Hopper kernels of the PyTorch port, each beside its plain
+PyTorch version (``ref.py``) and a wrapper (``ops.py``) that launches
+the kernel on CUDA tensors and runs the plain version on CPU tensors:
+
+* ``am_pack`` -- the GAScore's DataMover: header-driven gather (packet
+  egress, get service) and in-order scatter with the built-in handlers
+  (Long ingress), replacing ``am_pack_pallas``/``am_unpack_pallas``.
+* ``jacobi``  -- the paper's stencil hot loop (Sec. IV-C), full-grid and
+  banded forms, replacing ``jacobi_step_pallas``.
+
+CUDA sources live under each kernel's ``csrc/`` and are compiled with
+``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
+"""
+
+from repro_torch.kernels.am_pack.am_pack import (datamover_gather_cuda,
+                                                 datamover_scatter_cuda)
+from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
+
+# every kernel wrapper that counts its launches, by kernel name
+LAUNCH_COUNTERS = {
+    "datamover_gather": datamover_gather_cuda,
+    "datamover_scatter": datamover_scatter_cuda,
+    "jacobi_sweep": jacobi_sweep_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel so far, by kernel name."""
+    return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in LAUNCH_COUNTERS.values():
+        fn.launches = 0

@@ -1,0 +1,147 @@
+// The GAScore's DataMover on Hopper: header-driven gather and scatter.
+//
+// Replaces the Pallas TPU kernels of the JAX package
+//   src/repro/kernels/am_pack/am_pack.py  am_pack_pallas    (gather)
+//   src/repro/kernels/am_pack/am_pack.py  am_unpack_pallas  (scatter)
+// and serves the whole GAScore, not only strided AMs: each kernel row k
+// (one Shoal kernel on the leading axis) has B blocks, block b moving
+// nwords[k][b] <= W words between a packet row and the segment at
+// addr[k][b].  am_pack / am_unpack are the special case
+// addr_b = addr + b*stride, nwords_b = blk_words, handler = write.
+//
+// Gather: out[k][b][j] = seg[k][addr+j] for j < nwords and addr+j inside
+// the segment, else 0.  Fully parallel: one CTA per (block, kernel row),
+// threads over lanes, so loads and stores coalesce.
+//
+// Scatter: for every kernel row, blocks apply IN ORDER (last writer
+// wins; a read-modify-write handler sees every earlier block), which is
+// what am_unpack_pallas's fori_loop and the GAScore's scanned ingress
+// do.  One CTA per kernel row walks the blocks with a __syncthreads()
+// between them; lanes of one block never alias, so they run in
+// parallel.  Lanes past nwords, of inactive blocks, or outside the
+// segment are dropped.  The handler op code is the built-in handler ID:
+// 0 nop, 1 write, 2 add, 3 max, 4 min (NaN-propagating, like
+// torch.maximum / jnp.maximum).
+//
+// Bound on an H100: both move a few words per lane and do at most one
+// operation per word, so they are bound by bytes (3.35 TB/s), and at the
+// GAScore's packet sizes (KiB per row) by launch latency.  The scatter
+// runs only K CTAs, one per kernel row: in-order blocks trade occupancy
+// for the ordering guarantee.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__global__ void gather_kernel(const uint32_t* __restrict__ seg, int S,
+                              const int* __restrict__ addr,
+                              const int* __restrict__ nwords, int B, int W,
+                              uint32_t* __restrict__ out) {
+  const int b = blockIdx.x;
+  const int k = blockIdx.y;
+  const size_t row = (size_t)k * B + b;
+  const long long a = addr[row];
+  const int nw = nwords[row];
+  const uint32_t* s = seg + (size_t)k * S;
+  uint32_t* o = out + row * W;
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    const long long idx = a + j;
+    uint32_t v = 0;
+    if (j < nw && idx >= 0 && idx < S) v = s[idx];
+    o[j] = v;
+  }
+}
+
+__device__ __forceinline__ float apply_op(int op, float r, float p) {
+  switch (op) {
+    case 1: return p;
+    case 2: return r + p;
+    case 3: return r != r ? r : (p != p ? p : (r > p ? r : p));   // NaN
+    case 4: return r != r ? r : (p != p ? p : (r < p ? r : p));   // wins
+    default: return r;
+  }
+}
+
+__device__ __forceinline__ int apply_op(int op, int r, int p) {
+  switch (op) {
+    case 1: return p;
+    case 2: return (int)((unsigned)r + (unsigned)p);   // wraps like int32
+    case 3: return r > p ? r : p;
+    case 4: return r < p ? r : p;
+    default: return r;
+  }
+}
+
+template <typename T>
+__global__ void scatter_kernel(T* __restrict__ seg, int S,
+                               const T* __restrict__ pay,
+                               const int* __restrict__ addr,
+                               const int* __restrict__ nwords,
+                               const int* __restrict__ handler,
+                               const int* __restrict__ active, int B, int W) {
+  const int k = blockIdx.x;
+  T* s = seg + (size_t)k * S;
+  for (int b = 0; b < B; ++b) {
+    const size_t row = (size_t)k * B + b;
+    if (active[row]) {
+      const long long a = addr[row];
+      const int nw = min(nwords[row], W);
+      const int op = min(max(handler[row], 0), 4);
+      const T* p = pay + row * W;
+      for (int j = threadIdx.x; j < nw; j += blockDim.x) {
+        const long long idx = a + j;
+        if (idx >= 0 && idx < S) s[idx] = apply_op(op, s[idx], p[j]);
+      }
+    }
+    __syncthreads();   // block b lands before block b+1 reads
+  }
+}
+
+int threads_for(int W) {
+  int t = ((W + 31) / 32) * 32;
+  if (t < 32) t = 32;
+  return t > 1024 ? 1024 : t;
+}
+
+}  // namespace
+
+extern "C" {
+
+// seg (K, S) 4-byte words; addr, nwords (K, B) int32; out (K, B, W).
+int datamover_gather(const void* seg, int K, int S, const int* addr,
+                     const int* nwords, int B, int W, void* out,
+                     void* stream) {
+  if (K <= 0 || B <= 0 || W <= 0 || K > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(B, K);
+  gather_kernel<<<grid, threads_for(W), 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)seg, S, addr, nwords, B, W, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// seg (K, S) updated in place; pay (K, B, W) of the segment's type;
+// addr, nwords, handler, active (K, B) int32.  dtype: 0 float32, 1 int32.
+int datamover_scatter(void* seg, int K, int S, const void* pay,
+                      const int* addr, const int* nwords, const int* handler,
+                      const int* active, int B, int W, int dtype,
+                      void* stream) {
+  if (K <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    scatter_kernel<float><<<K, threads_for(W), 0, st>>>(
+        (float*)seg, S, (const float*)pay, addr, nwords, handler, active,
+        B, W);
+  } else if (dtype == 1) {
+    scatter_kernel<int><<<K, threads_for(W), 0, st>>>(
+        (int*)seg, S, (const int*)pay, addr, nwords, handler, active, B, W);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* datamover_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -43,3 +43,9 @@ def lint_clean():
     from repro.analysis.jaxpr_lint import lint_clean as _lint_clean
 
     return _lint_clean
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (the PyTorch port's "
+        "hand-written kernels); skipped without one")

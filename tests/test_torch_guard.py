@@ -1,0 +1,182 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+runs on the CUDA card unless told otherwise, never hides a device or a
+kernel behind a fallback, and refuses what it does not implement."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import handlers as hd, ops
+from repro_torch.core.address_space import GlobalAddressSpace
+from repro_torch.core.state import (ERR_WAIT_UNDERFLOW, ShoalContext,
+                                    WaitUnderflowError, raise_on_error,
+                                    replace, state_from_numpy,
+                                    state_to_numpy)
+from repro_torch.kernels import (am_pack as dm, jacobi as jk, launch_counts,
+                                 reset_launch_counts)
+from repro_torch.runtime import TCP, LossyTransport
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|"
+                       r"from repro(\.| ))", re.M)
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    bad = [f"{f}: {m.group(0).strip()}" for f in files
+           for m in FORBIDDEN.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_port_imports_and_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels\n"
+        "import repro_torch.runtime, repro_torch.apps\n"
+        "from repro_torch.apps.jacobi import JacobiApp, jacobi_reference\n"
+        "g = np.arange(256, dtype=np.float32).reshape(16, 16)\n"
+        "out = JacobiApp(n=16, kernels=4, iters=3, device='cpu').run(g)\n"
+        "assert np.array_equal(out, jacobi_reference(g, 3, 'cpu'))\n"
+        "print('port-ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "port-ok" in proc.stdout
+
+
+def test_default_device_is_the_card():
+    """No device means CUDA; without a card that raises instead of
+    falling back to the CPU."""
+    from repro_torch.apps.jacobi import JacobiApp, jacobi_reference
+
+    if torch.cuda.is_available():
+        assert ShoalContext(2).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShoalContext(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        JacobiApp(n=8, kernels=2, iters=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        jacobi_reference(np.zeros((4, 4), np.float32), 1)
+    assert ShoalContext(2, device="cpu").device.type == "cpu"
+
+
+def test_non_cpu_tensors_never_reach_a_plain_version():
+    """A tensor that is not on the CPU goes to the kernel or raises: on
+    the ``meta`` device every wrapper refuses."""
+    seg = torch.zeros(2, 32, device="meta")
+    i32 = torch.zeros(2, 1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        dm.datamover_gather(seg, i32, i32, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        dm.datamover_scatter(seg, torch.zeros(2, 1, 8, device="meta"), i32,
+                             i32, i32, i32)
+    with pytest.raises(ValueError, match="CUDA"):
+        jk.jacobi_step(torch.zeros(8, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        jk.jacobi_band_step(torch.zeros(2, 6, 8, device="meta"))
+
+
+def test_custom_handlers_refused_off_the_cpu_and_run_on_it():
+    table = hd.HandlerTable()
+    hid = table.register("twice", lambda r, p: r + 2 * p)
+    assert hid == hd.NUM_BUILTIN and not table.builtin_only
+    seg = torch.zeros(1, 8, device="meta")
+    i32 = torch.zeros(1, 1, dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        dm.datamover_scatter(seg, torch.zeros(1, 1, 4, device="meta"), i32,
+                             i32, i32, i32, table)
+    ctx = ShoalContext(2, segment_words=16, device="cpu", handlers=table)
+    st = GlobalAddressSpace(ctx).make_global_state(np.ones(32, np.float32))
+    st = ops.put_long(ctx, st, torch.full((2, 4), 3.0), [(0, 1), (1, 0)],
+                      dst_addr=2, handler=hid, token=1)
+    np.testing.assert_array_equal(st.segment[:, 2:6].numpy(),
+                                  np.full((2, 4), 7.0))
+
+
+def test_lossy_transport_refused_at_call_time():
+    faults = types.SimpleNamespace(drop=0.1, dup=0.0, corrupt=0.0,
+                                   lossless=False)
+    ctx = ShoalContext(2, LossyTransport(faults=faults), 16, device="cpu")
+    st = ctx.make_state()
+    pat = [(0, 1)]
+    pay = torch.ones(2, 4)
+    calls = [
+        lambda: ops.put_long(ctx, st, pay, pat, 0),
+        lambda: ops.put_short(ctx, st, pat),
+        lambda: ops.put_medium(ctx, st, pay, pat),
+        lambda: ops.put_long_multi(ctx, st, [(pay, pat, 0)]),
+        lambda: ops.put_long_strided(ctx, st, pay, pat, 0, 4, blk_words=2,
+                                     nblocks=2),
+        lambda: ops.get_medium(ctx, st, pat, 0, 4),
+        lambda: ops.get_long(ctx, st, pat, 0, 4, 8),
+        lambda: ops.drain_deferred_acks(ctx, st, pat, 1),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="lossy"):
+            call()
+    with pytest.raises(ValueError):
+        LossyTransport()
+
+
+def test_cpu_context_never_launches_a_kernel():
+    from repro_torch.apps.jacobi import JacobiApp
+
+    reset_launch_counts()
+    ctx = ShoalContext(4, TCP, 32, device="cpu")
+    st = ctx.make_state()
+    ring = [(i, (i + 1) % 4) for i in range(4)]
+    st = ops.put_long(ctx, st, torch.ones(4, 8), ring, 0, token=1)
+    st, _ = ops.get_medium(ctx, st, ring, 0, 8, token=2)
+    JacobiApp(n=16, kernels=4, iters=2, device="cpu").run(
+        np.ones((16, 16), np.float32))
+    assert set(launch_counts().values()) == {0}
+
+
+def test_state_numpy_roundtrip_and_error_decode():
+    ctx = ShoalContext(3, segment_words=8, device="cpu")
+    st = ctx.make_state()
+    arrays = state_to_numpy(st)
+    back = state_to_numpy(state_from_numpy(arrays))
+    assert arrays.keys() == back.keys()
+    for f in arrays:
+        np.testing.assert_array_equal(arrays[f], back[f])
+    with pytest.raises(ValueError, match="missing"):
+        state_from_numpy({"segment": arrays["segment"]})
+    assert raise_on_error(st) is st
+    st = ops.wait_replies(ctx, st, token=torch.tensor([0, 4, 0]), n=1)
+    assert st.error.tolist() == [ERR_WAIT_UNDERFLOW] * 3
+    only_kernel_1 = st.error * torch.tensor([0, 1, 0], dtype=torch.int32)
+    with pytest.raises(WaitUnderflowError) as info:
+        raise_on_error(replace(st, error=only_kernel_1))
+    assert info.value.tokens == (0, 4) and info.value.kernels == (1,)
+
+
+def test_chip_smoke_refuses_without_its_card_or_its_repo(tmp_path):
+    """Without a CUDA card, or copied alone into a directory, the smoke
+    script exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the card path is exercised "
+                    "by running chip_smoke.py itself")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", alone)
+    for script in (REPO / "chip_smoke.py", alone):
+        proc = subprocess.run([sys.executable, str(script)],
+                              capture_output=True, text=True, timeout=300,
+                              cwd=script.parent)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
