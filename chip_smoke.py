@@ -10,6 +10,11 @@ application at its footnote-2 size (4096 x 4096 grid, 8 kernels, TCP
 with 9000-byte frames so every halo row is segmented, 1024 iterations)
 through ``JacobiApp``, checks it against the single-grid reference and
 profiles a 64-iteration window of it (device busy time, idle share).
+Phase 5 drives the ring collectives and the GAScore's RDMA ring on 8
+kernels at the width of tinyllama-1.1b's embedding gradient (8 x
+32000*2048 words, the data-parallel trainer's largest leaf), holds them
+to float64 sums and the ring kernel to its plain version bitwise, and
+times HUMboldt's two-sided send/recv beside an acked one-sided put.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -39,6 +44,11 @@ MTU_WORDS = 2250           # 9000-byte frame / 4-byte words
 SEG_WORDS = 4 * MTU_WORDS + 64
 K = 8
 RING = [(i, (i + 1) % K) for i in range(K)]
+LEAF_WORDS = 32000 * 2048  # tinyllama-1.1b's embedding (vocab x d_model)
+MB_WORDS = 32768           # bench_throughput.py's 1 MB ring payload
+HUM_BYTES = (8, 512, 4096)  # bench_latency.py's message sizes
+RING_SRC = "src/repro_torch/kernels/gascore_dma/csrc/gascore_dma.cu"
+RING_TPU = "src/repro/kernels/gascore_dma/gascore_dma.py:62"
 
 
 def say(phase: str, **kv) -> None:
@@ -103,14 +113,16 @@ def device_activity(torch, fn):
     return by_name, window
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3, kernel=None) -> float:
+def device_ms(fn, reps: int = 20, warmup: int = 3, kernel=None,
+              windows: int = 3) -> float:
     """Device time in ms per call of ``fn``, from the device time that
     ``torch.profiler`` records over ``reps`` calls.  With ``kernel``,
     ``fn`` launches that kernel once per call and the result is the mean
     over the launches the profiler saw of device kernels whose name
     holds that string (the profiler may miss one at a window's edge; it
     must see at least half); without it, every device activity of the
-    calls counts, divided by ``reps``."""
+    calls counts, divided by ``reps``.  A window in which the profiler
+    recorded too little is taken again, up to ``windows`` windows."""
     import torch
 
     for _ in range(warmup):
@@ -120,15 +132,22 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, kernel=None) -> float:
         for _ in range(reps):
             fn()
 
-    by_name, _ = device_activity(torch, calls)
-    if kernel is None:
-        require(by_name, "profiler recorded no device activity")
-        return sum(us for _, us in by_name.values()) / 1e3 / reps
-    seen = sum(c for name, (c, _) in by_name.items() if kernel in name)
-    require(reps // 2 <= seen <= reps,
-            f"profiler saw {seen} launches of {kernel} in {reps} calls")
-    return sum(us for name, (_, us) in by_name.items()
-               if kernel in name) / 1e3 / seen
+    for window in range(1, windows + 1):
+        by_name, _ = device_activity(torch, calls)
+        if kernel is None:
+            if by_name:
+                return sum(us for _, us in by_name.values()) / 1e3 / reps
+            seen = 0
+        else:
+            seen = sum(c for name, (c, _) in by_name.items() if kernel in name)
+            if reps // 2 <= seen <= reps:
+                return sum(us for name, (_, us) in by_name.items()
+                           if kernel in name) / 1e3 / seen
+        say("profile", window=window, kernel=kernel, launches_seen=seen,
+            activities=len(by_name), retry=window < windows)
+    raise AssertionError(f"profiler recorded too little device activity in "
+                         f"{windows} windows of {reps} calls "
+                         f"(kernel={kernel})")
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +181,13 @@ def check_gather(torch, dm, src, addr, nwords, W, what):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     require(torch.equal(got, want), f"gather {what}: max|err| {err}")
-    flat, mask = _lanes(torch, addr, nwords, src.shape[1], W)
+    flat, _ = _lanes(torch, addr, nwords, src.shape[1], W)
     flat_src = src.reshape(-1)
+    # every lane inside the segment is read (a lane past nwords is the
+    # word there times 0), so it counts towards the bytes bound
+    idx = addr[..., None].long() + torch.arange(W, device=addr.device)
+    read = int(((idx >= 0) & (idx < src.shape[1])).sum())
+
     def kernel():
         return dm.datamover_gather_cuda(src, addr, nwords, W)
 
@@ -174,11 +198,39 @@ def check_gather(torch, dm, src, addr, nwords, W, what):
         plain=device_ms(lambda: dm.datamover_gather_ref(src, addr, nwords,
                                                         W)),
         lib=device_ms(lambda: flat_src[flat]),
-        # valid words read once, addr/nwords read, packet rows written
-        nbytes=int(mask.sum()) * 4 + 2 * addr.numel() * 4 + got.numel() * 4)
+        # in-segment words read once, addr/nwords read, rows written
+        nbytes=read * 4 + 2 * addr.numel() * 4 + got.numel() * 4)
     say("kernels", kernel="datamover_gather", case=what,
         shape=tuple(got.shape), max_abs_err=err, **_times(out))
     return out
+
+
+def check_gather_masked(torch, dm, seg, i32):
+    """Gather kernel vs plain version, bitwise, where the lanes past
+    ``nwords`` hold NaN, +-inf and negative words: both multiply every
+    lane by its mask, so a masked NaN or inf reads NaN and a masked
+    negative -0.0."""
+    seg = seg.clone()
+    seg[:, 0::5] = float("nan")
+    seg[:, 1::5] = float("inf")
+    seg[:, 2::5] = -float("inf")
+    seg[:, 3::5] = -seg[:, 3::5].abs() - 1
+    addr = i32([[b * MTU_WORDS + 3 * k for b in range(4)] for k in range(K)])
+    nwords = i32([[(b * 700 + k * 97) % MTU_WORDS for b in range(4)]
+                  for k in range(K)])
+    got = dm.datamover_gather_cuda(seg, addr, nwords, MTU_WORDS)
+    want = dm.datamover_gather_ref(seg, addr, nwords, MTU_WORDS)
+    torch.cuda.synchronize()
+    bits_got, bits_want = got.view(torch.int32), want.view(torch.int32)
+    require(torch.equal(bits_got, bits_want),
+            f"gather masked lanes: {int((bits_got != bits_want).sum())} "
+            "words differ bitwise")
+    nan = int(got.isnan().sum())
+    neg_zero = int((bits_got == -2 ** 31).sum())
+    require(nan > 0 and neg_zero > 0, "masked lanes: no NaN or -0.0 seen")
+    say("kernels", kernel="datamover_gather", case="masked-nan-inf",
+        shape=tuple(got.shape), bitwise="equal", nan_lanes=nan,
+        neg_zero_lanes=neg_zero)
 
 
 def check_scatter(torch, dm, seg, pay, addr, nwords, handler, active, what):
@@ -247,6 +299,7 @@ def phase_kernels(torch, device):
                  i32([[MTU_WORDS]] * K), MTU_WORDS, "put_long-1seg")
     check_gather(torch, dm, seg, i32([[SEG_WORDS - 100, -5]] * K),
                  i32([[MTU_WORDS, 50]] * K), MTU_WORDS, "ragged-edges")
+    check_gather_masked(torch, dm, seg, i32)
 
     # -- scatter: disjoint and aliasing strides, every built-in handler --
     for dtype in (torch.float32, torch.int32):
@@ -318,16 +371,6 @@ def phase_kernels(torch, device):
     say("kernels", kernel="jacobi_sweep", case=f"band-{K}x{rows + 2}x{n}",
         max_abs_err=b_err, **_times(band))
 
-    def entry(name, source, replaces, m):
-        t_bytes = m["nbytes"] / HBM_BPS * 1e3
-        t_ops = m.get("ops", 0) / F32_FLOPS * 1e3
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": 0, "max_abs_err": m["err"],
-                "ms": m["ms"], "plain_ms": m["plain"],
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": m["lib"]}
-
     src = "src/repro_torch/kernels/am_pack/csrc/am_pack.cu"
     return {
         "datamover_gather": entry(
@@ -340,6 +383,18 @@ def phase_kernels(torch, device):
             "jacobi_sweep", "src/repro_torch/kernels/jacobi/csrc/jacobi.cu",
             "src/repro/kernels/jacobi/jacobi.py:48", band),
     }
+
+
+def entry(name, source, replaces, m):
+    """One kernel's record of the JSON line (launches filled in later)."""
+    t_bytes = m["nbytes"] / HBM_BPS * 1e3
+    t_ops = m.get("ops", 0) / F32_FLOPS * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": m["err"],
+            "ms": m["ms"], "plain_ms": m["plain"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": m["lib"]}
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +587,261 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
             per_iter=count / iters, name=name[:70].replace(" ", "_"))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the ring collectives, the RDMA ring and HUMboldt on 8 kernels
+# ---------------------------------------------------------------------------
+
+def host_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Host-clock ms per call of ``fn`` over ``reps`` calls that end in a
+    device synchronisation (on a CUDA device)."""
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _ring_main_path(torch, coll, gd, ctx, data):
+    """The path's entry points as a user calls them: the data-parallel
+    trainer's ``shoal`` backend (``ring_all_reduce`` of a gradient leaf
+    in float32 and, compressed, in int32 with its size-1 scale), the
+    ring reduce-scatter / all-gather, broadcast, all-to-all and barrier,
+    and the GAScore's RDMA ring all-reduce.  Each call is checked for
+    its exchange count; returns the outputs by name."""
+    calls = [
+        ("ar_f32", 2 * (K - 1),
+         lambda: coll.ring_all_reduce(ctx, data["leaf"])),
+        ("ar_i32", 2 * (K - 1),
+         lambda: coll.ring_all_reduce(ctx, data["leaf_i32"])),
+        ("ar_scale", 2 * (K - 1),
+         lambda: coll.ring_all_reduce(ctx, data["scale"])),
+        ("rs", K - 1, lambda: coll.ring_reduce_scatter(ctx, data["mb"])),
+        ("ag", K - 1, lambda: coll.ring_all_gather(ctx, out["rs"])),
+        ("bc", 2 * (K - 1),
+         lambda: coll.broadcast_from(ctx, data["bc"], root=5)),
+        ("a2a", 1, lambda: coll.all_to_all_vectored(ctx, data["mb"])),
+        ("barrier", 0, lambda: coll.tree_barrier(ctx)),
+        ("dma_f32", 0, lambda: gd.ring_allreduce_dma(data["leaf"])),
+        ("dma_bf16", 0, lambda: gd.ring_allreduce_dma(data["leaf_bf16"])),
+    ]
+    out = {}
+    for name, n_ex, fn in calls:
+        before = ctx.exchanges
+        out[name] = fn()
+        require(ctx.exchanges - before == n_ex,
+                f"{name}: {ctx.exchanges - before} exchanges, expected {n_ex}")
+    return out
+
+
+def _check_sums(torch, data, out):
+    """Every result against its closed form: float64 sums within the
+    reference's tolerances relative to the largest |sum| (float32 1e-5,
+    bfloat16 5e-2), int32 exactly, copies and barriers bitwise."""
+    def close(got, want, tol, what):
+        err = (got.double() - want).abs().max().item()
+        limit = tol * want.abs().max().item()
+        require(err <= limit, f"{what}: max|err| {err} > {limit}")
+        return err
+
+    leaf, mb = data["leaf"], data["mb"]
+    c = mb.shape[1] // K
+    sum64 = leaf.sum(0, dtype=torch.float64)
+    ar = out["ar_f32"]
+    require(torch.equal(ar, ar[:1].expand_as(ar)), "ar_f32: rows differ")
+    errs = dict(
+        ar_f32=close(ar[:1], sum64, 1e-5, "ar_f32"),
+        dma_f32=close(out["dma_f32"], sum64, 1e-5, "dma_f32"),
+        dma_bf16=close(out["dma_bf16"], data["leaf_bf16"].sum(
+            0, dtype=torch.float64), 5e-2, "dma_bf16"),
+        ar_scale=close(out["ar_scale"], data["scale"].sum(
+            0, dtype=torch.float64), 1e-5, "ar_scale"),
+        rs=close(out["rs"], mb.reshape(K, K, c).sum(0, dtype=torch.float64),
+                 1e-5, "rs"))
+    i32 = out["ar_i32"]
+    require(torch.equal(i32, data["leaf_i32"].sum(0, dtype=torch.int32)
+                        .expand_as(i32)), "ar_i32 differs from the sum")
+    require(torch.equal(out["ag"], out["rs"][None].expand(K, K, c)),
+            "ag: rows are not the chunks in kernel order")
+    require(torch.equal(out["bc"], data["bc"][5].expand_as(out["bc"])),
+            "bc: not the root's payload everywhere")
+    for k in range(K):
+        for i in range(K):
+            require(torch.equal(out["a2a"][k, i * c:(i + 1) * c],
+                                mb[i, k * c:(k + 1) * c]), "a2a blocks")
+    require(out["barrier"].tolist() == [K] * K, "tree_barrier")
+    return errs
+
+
+def phase_collectives(torch, device, leaf_words=LEAF_WORDS,
+                      mb_words=MB_WORDS):
+    """Phase 5.  The main path (counts reset before it, read after it),
+    every result against its closed form, then every ring kernel against
+    its plain version on the same inputs, bitwise, with device times;
+    then HUMboldt against closed forms, timed beside an acked put."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.kernels import (gascore_dma as gd, launch_counts,
+                                     reset_launch_counts)
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    data = dict(leaf=torch.randn(K, leaf_words, generator=gen, device=device),
+                leaf_i32=torch.randint(-127, 128, (K, leaf_words),
+                                       generator=gen, device=device,
+                                       dtype=torch.int32),
+                scale=torch.rand(K, 1, generator=gen, device=device),
+                mb=torch.randn(K, mb_words, generator=gen, device=device))
+    data["leaf_bf16"] = data["leaf"].to(torch.bfloat16)
+    data["bc"] = data["mb"].clone()
+    data["bc"][:, ::3] = 0.0                  # payloads may hold zeros
+    ctx = ShoalContext(K, device=device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    out = _ring_main_path(torch, coll, gd, ctx, data)
+    if cuda:
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    if cuda:
+        require(counts["ring_allreduce_dma"] >= 2
+                and counts["ring_collective"] >= 5,
+                f"ring kernels not launched on the main path: {counts}")
+    errs = _check_sums(torch, data, out)
+    say("collectives", main_path="ok", exchanges=ctx.exchanges,
+        launches=counts, **{f"sum_err_{k}": v for k, v in errs.items()})
+    if cuda:      # host clock per all-reduce call, synchronised
+        ms = host_ms(torch, lambda: coll.ring_all_reduce(ctx, data["leaf"]),
+                     reps=10)
+        say("collectives", case="all_reduce-tinyllama-embedding-f32",
+            call_host_ms=f"{ms:.4f}")
+
+    leaf, leaf_i32, mb = data["leaf"], data["leaf_i32"], data["mb"]
+    c_leaf, c_mb = leaf_words // K, mb_words // K
+    ops_leaf = (K - 1) * leaf_words               # K-1 adds per word
+    cases = [
+        ("ring_allreduce_dma", "tinyllama-embedding-f32", out["dma_f32"],
+         lambda: gd.ring_allreduce_dma(leaf),
+         lambda: gd.ring_allreduce_dma_ref(leaf),
+         lambda: leaf.sum(0, keepdim=True).expand_as(leaf).contiguous(),
+         2 * leaf.nbytes, ops_leaf),
+        ("ring_allreduce_dma", "tinyllama-embedding-bf16", out["dma_bf16"],
+         lambda: gd.ring_allreduce_dma(data["leaf_bf16"]),
+         lambda: gd.ring_allreduce_dma_ref(data["leaf_bf16"]),
+         lambda: data["leaf_bf16"].sum(0, keepdim=True).expand_as(
+             data["leaf_bf16"]).contiguous(),
+         2 * data["leaf_bf16"].nbytes, ops_leaf),
+    ]
+    for dt, x in (("f32", leaf), ("int32", leaf_i32)):
+        buf = x.reshape(K, K, c_leaf)
+        cases.append(
+            ("ring_collective", f"all_reduce-tinyllama-embedding-{dt}",
+             out[f"ar_{'f32' if dt == 'f32' else 'i32'}"].reshape(K, K, -1),
+             lambda buf=buf: gd.ring_collective(buf, gd.ALL_REDUCE),
+             lambda buf=buf: gd.ring_collective_ref(buf, gd.ALL_REDUCE),
+             lambda x=x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
+             2 * x.nbytes, ops_leaf))
+    buf_mb = mb.reshape(K, K, c_mb)
+    cases += [
+        ("ring_collective", "reduce_scatter-1MB", out["rs"],
+         lambda: gd.ring_collective(buf_mb, gd.REDUCE_SCATTER),
+         lambda: gd.ring_collective_ref(buf_mb, gd.REDUCE_SCATTER),
+         lambda: buf_mb.sum(0), mb.nbytes + mb.nbytes // K,
+         (K - 1) * mb_words),
+        ("ring_collective", "all_gather-1MB", out["ag"],
+         lambda: gd.ring_collective(out["rs"], gd.ALL_GATHER),
+         lambda: gd.ring_collective_ref(out["rs"], gd.ALL_GATHER),
+         lambda: out["rs"][None].expand(K, K, c_mb).contiguous(),
+         mb.nbytes + mb.nbytes // K, 0),
+    ]
+    entries = {}
+    for name, case, main_out, kernel, plain, lib, nbytes, ops in cases:
+        got, want = kernel(), plain()
+        if cuda:
+            torch.cuda.synchronize()
+        require(torch.equal(got, want) and torch.equal(main_out, want),
+                f"{name} {case}: kernel, main path and plain version "
+                "differ")
+        err = (got.double() - want.double()).abs().max().item()
+        m = dict(err=err, nbytes=nbytes, ops=ops, ms=None, plain=None,
+                 lib=None)
+        if cuda:
+            m.update(ms=device_ms(kernel, kernel="ring_kernel"),
+                     plain=device_ms(plain, reps=5), lib=device_ms(lib))
+        rec = entry(name, RING_SRC, RING_TPU, m)
+        say("collectives", kernel=name, case=case, shape=tuple(got.shape),
+            bitwise="equal", max_abs_err=err,
+            kernel_ms=rec["ms"], bound_ms=f"{rec['bound_ms']:.5f}",
+            bound_by=rec["bound_by"], plain_ms=rec["plain_ms"],
+            library_ms=rec["library_ms"])
+        entries.setdefault(name, rec)             # the leaf f32 case
+        del got, want
+    for name in entries:
+        entries[name]["launches"] = counts[name]
+    phase_humboldt(torch, device)
+    return entries
+
+
+def phase_humboldt(torch, device, reps=20):
+    """HUMboldt ``sendrecv`` on the 8-kernel ring over TCP at
+    bench_latency.py's sizes and a 4-segment message (64-byte frames):
+    received data, credits and exchanges (4 per segment) against closed
+    forms, and host ms per call beside an acked ``put_long`` +
+    ``wait_replies`` of the same size (2 exchanges) -- the paper's
+    one-sided vs two-sided comparison."""
+    from repro_torch.core import humboldt, ops
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.runtime import TCP
+
+    pred = [(k - 1) % K for k in range(K)]
+    cases = [(nb, TCP) for nb in HUM_BYTES]
+    cases.append((256, dataclasses.replace(TCP, max_packet_bytes=64)))
+    for nbytes, transport in cases:
+        words = nbytes // 4
+        segments = -(-words // transport.max_packet_words)
+        ctx = ShoalContext(K, transport, 4096, device=device)
+        pay = ((torch.arange(K, device=device, dtype=torch.float32)[:, None]
+                + 1) * (torch.arange(words, device=device) + 1))
+        st = ctx.make_state()
+        before = ctx.exchanges
+        st, recv = humboldt.sendrecv(ctx, st, pay, RING, token=4)
+        require(ctx.exchanges - before == humboldt.HOPS_PER_MESSAGE * segments,
+                f"humboldt {nbytes}B: {ctx.exchanges - before} exchanges")
+        require(torch.equal(recv, pay[pred]), f"humboldt {nbytes}B: data")
+        require(st.credits[:, 4].tolist() == [segments] * K,
+                f"humboldt {nbytes}B: credits {st.credits[:, 4].tolist()}")
+        st = ops.wait_replies(ctx, st, 4, segments)
+        before = ctx.exchanges
+        st = ops.put_long(ctx, st, pay, RING, dst_addr=0, token=5)
+        st = ops.wait_replies(ctx, st, 5, 1)
+        require(ctx.exchanges - before == 2, "acked put: 2 exchanges")
+        require(torch.equal(st.segment[:, :words], pay[pred]), "put data")
+        require(bool((st.credits == 0).all()) and bool((st.error == 0).all()),
+                f"humboldt {nbytes}B: credits/error not zero")
+        state = {"st": ctx.make_state()}
+
+        def two_sided():
+            s, _ = humboldt.sendrecv(ctx, state["st"], pay, RING, token=4)
+            state["st"] = ops.wait_replies(ctx, s, 4, segments)
+
+        def one_sided():
+            s = ops.put_long(ctx, state["st"], pay, RING, dst_addr=0, token=5)
+            state["st"] = ops.wait_replies(ctx, s, 5, 1)
+
+        say("humboldt", bytes=nbytes, segments=segments,
+            mtu_bytes=transport.max_packet_bytes,
+            exchanges_two_sided=humboldt.HOPS_PER_MESSAGE * segments,
+            exchanges_one_sided=2,
+            two_sided_host_ms=f"{host_ms(torch, two_sided, reps):.4f}",
+            one_sided_host_ms=f"{host_ms(torch, one_sided, reps):.4f}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
@@ -572,8 +882,9 @@ def main() -> int:
     say("ops", launches=grew)
 
     counts = phase_jacobi(torch, device)
-    for name, entry in kernels.items():
-        entry["launches"] = counts[name]
+    for name, rec in kernels.items():
+        rec["launches"] = counts[name]
+    kernels.update(phase_collectives(torch, device))
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

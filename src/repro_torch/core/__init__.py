@@ -11,15 +11,19 @@ traversal is a gather over that axis.  Public surface:
   datapaths on the DataMover kernels; the GAScore of Fig. 3).
 * :mod:`repro_torch.core.ops`           -- the user API: puts/gets/
   barrier/wait.
+* :mod:`repro_torch.core.collectives`   -- ring reduce-scatter/all-gather/
+  all-reduce on the ring kernel, broadcast, all-to-all, barrier.
+* :mod:`repro_torch.core.humboldt`      -- two-sided 4-phase baseline.
 * :mod:`repro_torch.core.address_space` -- the partitioned global
   address space.
 """
 
-from repro_torch.core import am, gascore, handlers, ops
+from repro_torch.core import (am, collectives, gascore, handlers, humboldt,
+                              ops)
 from repro_torch.core.address_space import GlobalAddressSpace
 from repro_torch.core.state import PgasState, ShoalContext
 
 __all__ = [
-    "am", "gascore", "handlers", "ops",
+    "am", "collectives", "gascore", "handlers", "humboldt", "ops",
     "GlobalAddressSpace", "PgasState", "ShoalContext",
 ]

@@ -37,9 +37,11 @@ _I_NWORDS = am.FIELDS.index("nwords")
 _I_SRC_ADDR = am.FIELDS.index("src_addr")
 
 
-def _lane_mask(nwords: torch.Tensor, width: int) -> torch.Tensor:
+def _lane_mask(nwords: torch.Tensor, width: int,
+               dtype=torch.bool) -> torch.Tensor:
     """mask[..., i] = i < nwords[...]  (valid payload lanes)."""
-    return torch.arange(width, device=nwords.device) < nwords[..., None]
+    return (torch.arange(width, device=nwords.device)
+            < nwords[..., None]).to(dtype)
 
 
 def _rows(h: am.Header) -> am.Header:
@@ -77,8 +79,10 @@ def egress_batch(ctx: ShoalContext, state: PgasState, hdr_rows: torch.Tensor,
 
     FIFO AMs read row ``b`` from word ``b * packet_words`` of the flat
     kernel payload; memory-sourced AMs read each row at its header's
-    ``src_addr`` (clipped into ``[0, S]``) from the local segment.  Lanes
-    beyond a row's ``nwords``, or beyond the source's end, are zero.
+    ``src_addr`` (clipped into ``[0, S]``) from the local segment.  A
+    lane beyond the source's end reads 0, and every lane is multiplied
+    by its mask ``lane < nwords`` as the reference does (``rows *
+    mask``): a masked float lane holding NaN or +-inf stays NaN.
     """
     K, nseg = hdr_rows.shape[0], hdr_rows.shape[1]
     nwords = hdr_rows[..., _I_NWORDS]
@@ -142,11 +146,12 @@ def ingress_long_batch(ctx: ShoalContext, state: PgasState,
 def ingress_medium(state: PgasState, hdr: am.Header, payload: torch.Tensor,
                    packet_words: int):
     """Medium-put ingress: deliver payload to the kernel (xpams_rx "To
-    Kernels" path).  Returns ``(state, delivered)``, zero on kernels that
-    take no part."""
+    Kernels" path).  Returns ``(state, delivered)``, the payload times
+    its lane mask times the kernel's active flag, as the reference
+    multiplies (so a masked NaN stays NaN)."""
     active = hdr.msg_class == am.MEDIUM
-    keep = _lane_mask(hdr.nwords, packet_words) & active[..., None]
-    delivered = torch.where(keep, payload, 0)
+    lanes = _lane_mask(hdr.nwords, packet_words, payload.dtype)
+    delivered = payload * lanes * active.to(payload.dtype)[..., None]
     state = replace(state, rx_words=state.rx_words
                     + torch.where(active, hdr.nwords, 0))
     return state, delivered
@@ -159,8 +164,8 @@ def ingress_medium_batch(state: PgasState, hdr_rows: torch.Tensor,
     (full rows first, so the first ``nwords`` lanes are the message)."""
     h = am.decode(hdr_rows)
     active = h.msg_class == am.MEDIUM
-    keep = _lane_mask(h.nwords, packet_words) & active[..., None]
-    delivered = torch.where(keep, pay_rows, 0)
+    lanes = _lane_mask(h.nwords, packet_words, pay_rows.dtype)
+    delivered = pay_rows * lanes * active.to(pay_rows.dtype)[..., None]
     rx = torch.where(active, h.nwords, 0).sum(dim=1, dtype=torch.int32)
     state = replace(state, rx_words=state.rx_words + rx)
     return state, delivered.reshape(delivered.shape[0], -1)
@@ -289,8 +294,12 @@ def serve_get_batch(ctx: ShoalContext, state: PgasState,
     """Get service over a ``(K, nseg, HDR_WORDS)`` request stack: every
     row reads ``nwords`` at ``src_addr`` in one DataMover gather, and the
     whole response ships back as one packet stack.  Rows that are not
-    get requests answer with a NOP header and zero data.  Returns
-    ``(state, resp_rows, data_rows)``."""
+    get requests answer with a NOP header and data times 0.  Returns
+    ``(state, resp_rows, data_rows)``.
+
+    The reference computes ``data * mask * is_get``; gathering with
+    ``nwords = 0`` on rows that are not gets gives ``data * (mask &
+    is_get)``, the same bits for every word (NaN included)."""
     h = am.decode(hdr_rows)
     is_get = h.flag(am.FLAG_GET)
     data = dm.datamover_gather(

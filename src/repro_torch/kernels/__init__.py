@@ -7,6 +7,10 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   (Long ingress), replacing ``am_pack_pallas``/``am_unpack_pallas``.
 * ``jacobi``  -- the paper's stencil hot loop (Sec. IV-C), full-grid and
   banded forms, replacing ``jacobi_step_pallas``.
+* ``gascore_dma`` -- the GAScore's RDMA ring: ring all-reduce by
+  one-sided puts with ADD on arrival, and the ring reduce-scatter /
+  all-gather / all-reduce schedules of ``core.collectives``, replacing
+  ``ring_allreduce_dma_local``.
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
@@ -14,6 +18,8 @@ CUDA sources live under each kernel's ``csrc/`` and are compiled with
 
 from repro_torch.kernels.am_pack.am_pack import (datamover_gather_cuda,
                                                  datamover_scatter_cuda)
+from repro_torch.kernels.gascore_dma.gascore_dma import (
+    ring_allreduce_dma_cuda, ring_collective_cuda)
 from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
 
 # every kernel wrapper that counts its launches, by kernel name
@@ -21,6 +27,8 @@ LAUNCH_COUNTERS = {
     "datamover_gather": datamover_gather_cuda,
     "datamover_scatter": datamover_scatter_cuda,
     "jacobi_sweep": jacobi_sweep_cuda,
+    "ring_allreduce_dma": ring_allreduce_dma_cuda,
+    "ring_collective": ring_collective_cuda,
 }
 
 

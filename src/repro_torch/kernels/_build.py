@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "am_pack": _PKG / "am_pack" / "csrc" / "am_pack.cu",
     "jacobi": _PKG / "jacobi" / "csrc" / "jacobi.cu",
+    "gascore_dma": _PKG / "gascore_dma" / "csrc" / "gascore_dma.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -21,7 +21,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.load("am_pack")
     if not getattr(lib, "_typed", False):
-        lib.datamover_gather.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _P]
+        lib.datamover_gather.argtypes = [_P, _I, _I, _P, _P, _I, _I, _P, _I,
+                                         _P]
         lib.datamover_gather.restype = _I
         lib.datamover_scatter.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _P]
@@ -75,7 +76,8 @@ def datamover_gather_cuda(seg: torch.Tensor, addr: torch.Tensor,
     lib = _lib()
     status = lib.datamover_gather(
         seg.data_ptr(), K, S, addr.data_ptr(), nwords.data_ptr(), B, W,
-        out.data_ptr(), torch.cuda.current_stream(seg.device).cuda_stream)
+        out.data_ptr(), _DTYPES[seg.dtype],
+        torch.cuda.current_stream(seg.device).cuda_stream)
     _check_status(lib, status, "datamover_gather")
     datamover_gather_cuda.launches += 1
     return out

@@ -9,9 +9,13 @@
 // addr[k][b].  am_pack / am_unpack are the special case
 // addr_b = addr + b*stride, nwords_b = blk_words, handler = write.
 //
-// Gather: out[k][b][j] = seg[k][addr+j] for j < nwords and addr+j inside
-// the segment, else 0.  Fully parallel: one CTA per (block, kernel row),
-// threads over lanes, so loads and stores coalesce.
+// Gather: v = seg[k][addr+j] for addr+j inside the segment, else 0, and
+// out[k][b][j] = v * (j < nwords), as the reference GAScore masks a
+// packet (`rows * mask`): a float32 lane past nwords is v * 0, so NaN
+// and +-inf give NaN and a negative word gives -0.0; every lane is
+// multiplied, so the kernel and the plain version round alike on the
+// card.  int32 lanes past nwords are 0.  Fully parallel: one CTA per
+// (block, kernel row), threads over lanes, so loads and stores coalesce.
 //
 // Scatter: for every kernel row, blocks apply IN ORDER (last writer
 // wins; a read-modify-write handler sees every earlier block), which is
@@ -30,26 +34,33 @@
 // for the ordering guarantee.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-__global__ void gather_kernel(const uint32_t* __restrict__ seg, int S,
+__device__ __forceinline__ float lane_mask(float v, bool keep) {
+  return __fmul_rn(v, keep ? 1.0f : 0.0f);    // v * mask, never a select
+}
+
+__device__ __forceinline__ int lane_mask(int v, bool keep) {
+  return keep ? v : 0;
+}
+
+template <typename T>
+__global__ void gather_kernel(const T* __restrict__ seg, int S,
                               const int* __restrict__ addr,
                               const int* __restrict__ nwords, int B, int W,
-                              uint32_t* __restrict__ out) {
+                              T* __restrict__ out) {
   const int b = blockIdx.x;
   const int k = blockIdx.y;
   const size_t row = (size_t)k * B + b;
   const long long a = addr[row];
   const int nw = nwords[row];
-  const uint32_t* s = seg + (size_t)k * S;
-  uint32_t* o = out + row * W;
+  const T* s = seg + (size_t)k * S;
+  T* o = out + row * W;
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
     const long long idx = a + j;
-    uint32_t v = 0;
-    if (j < nw && idx >= 0 && idx < S) v = s[idx];
-    o[j] = v;
+    const T v = (idx >= 0 && idx < S) ? s[idx] : T(0);
+    o[j] = lane_mask(v, j < nw);
   }
 }
 
@@ -108,14 +119,23 @@ int threads_for(int W) {
 
 extern "C" {
 
-// seg (K, S) 4-byte words; addr, nwords (K, B) int32; out (K, B, W).
+// seg (K, S); addr, nwords (K, B) int32; out (K, B, W) of the segment's
+// type.  dtype: 0 float32, 1 int32.
 int datamover_gather(const void* seg, int K, int S, const int* addr,
-                     const int* nwords, int B, int W, void* out,
+                     const int* nwords, int B, int W, void* out, int dtype,
                      void* stream) {
   if (K <= 0 || B <= 0 || W <= 0 || K > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(B, K);
-  gather_kernel<<<grid, threads_for(W), 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)seg, S, addr, nwords, B, W, (uint32_t*)out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    gather_kernel<float><<<grid, threads_for(W), 0, st>>>(
+        (const float*)seg, S, addr, nwords, B, W, (float*)out);
+  } else if (dtype == 1) {
+    gather_kernel<int><<<grid, threads_for(W), 0, st>>>(
+        (const int*)seg, S, addr, nwords, B, W, (int*)out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,9 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
 def datamover_gather(seg: torch.Tensor, addr: torch.Tensor,
                      nwords: torch.Tensor, W: int) -> torch.Tensor:
     """Read ``(K, B, W)`` packet rows from ``seg (K, S)``: row ``(k, b)``
-    holds ``nwords[k, b]`` words from ``addr[k, b]``, zero elsewhere and
-    where the address leaves the segment."""
+    holds ``nwords[k, b]`` words from ``addr[k, b]``; a lane past
+    ``nwords`` is the word there times 0 (zero, -0.0 or NaN), and a
+    lane whose address leaves the segment reads 0."""
     if seg.device.type == "cpu":
         return datamover_gather_ref(seg, addr, nwords, W)
     return datamover_gather_cuda(seg, _i32(addr), _i32(nwords), W)

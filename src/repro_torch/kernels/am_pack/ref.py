@@ -15,15 +15,18 @@ from repro_torch.core import handlers as hd
 
 def datamover_gather_ref(seg: torch.Tensor, addr: torch.Tensor,
                          nwords: torch.Tensor, W: int) -> torch.Tensor:
-    """``out[k, b, j] = seg[k, addr[k, b] + j]`` for ``j < nwords[k, b]``
-    and an address inside the segment, else 0."""
+    """``out[k, b, j] = v * (j < nwords[k, b])`` with ``v = seg[k,
+    addr[k, b] + j]`` for an address inside the segment, else 0: a
+    float lane past ``nwords`` is ``v * 0`` (NaN for NaN or +-inf, -0.0
+    for a negative word), as the reference GAScore's ``rows * mask``."""
     K, S = seg.shape
     B = addr.shape[1]
     lanes = torch.arange(W, device=seg.device)
     idx = addr[..., None].long() + lanes
-    valid = (lanes < nwords[..., None]) & (idx >= 0) & (idx < S)
+    inside = (idx >= 0) & (idx < S)
     vals = seg.gather(1, idx.clamp(0, max(S - 1, 0)).reshape(K, B * W))
-    return torch.where(valid, vals.reshape(K, B, W), 0)
+    vals = torch.where(inside, vals.reshape(K, B, W), 0)
+    return vals * (lanes < nwords[..., None]).to(seg.dtype)
 
 
 def datamover_scatter_ref(seg: torch.Tensor, pay: torch.Tensor,

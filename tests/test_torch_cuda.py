@@ -3,10 +3,12 @@ without one).  Run on a machine with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: DataMover exact; Jacobi float32 1e-6, bfloat16 2e-2 (the
-kernel and its plain version round the same operations, so in practice
-both are exact); the Jacobi app 1e-5 against the single-grid reference,
-as examples/jacobi_stencil.py holds the JAX app.
+Tolerances: DataMover exact, bitwise where masked lanes hold NaN/inf;
+Jacobi float32 1e-6, bfloat16 2e-2 (the kernel and its plain version
+round the same operations, so in practice both are exact); the Jacobi
+app 1e-5 against the single-grid reference, as examples/jacobi_stencil.py
+holds the JAX app; the ring kernel bitwise against its plain version
+(same adds in the same order, rounded to the type after each).
 """
 
 import dataclasses
@@ -15,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (am_pack as dm, jacobi as jk, launch_counts,
+from repro_torch.kernels import (am_pack as dm, gascore_dma as gd,
+                                 jacobi as jk, launch_counts,
                                  reset_launch_counts)
 
 pytestmark = pytest.mark.cuda
@@ -103,3 +106,86 @@ def test_jacobi_app_on_the_card(cuda):
     assert app.ctx.exchanges == 2 * 10 + 2
     assert counts["jacobi_sweep"] == 10
     assert counts["datamover_gather"] > 0 and counts["datamover_scatter"] > 0
+
+
+def test_gather_masked_lanes_bitwise(cuda):
+    """Lanes past nwords over NaN, +-inf and negative words: the kernel
+    multiplies every lane by its mask, as its plain version does."""
+    gen = torch.Generator().manual_seed(5)
+    seg = torch.randn(4, 256, generator=gen)
+    seg[:, ::5] = float("nan")
+    seg[:, 1::5] = float("inf")
+    seg[:, 2::5] = -float("inf")
+    seg[:, 3::5] = -seg[:, 3::5].abs() - 1
+    seg = seg.to(cuda)
+    addr = _i32([[b * 40 + k for b in range(6)] for k in range(4)], cuda)
+    nwords = _i32([[(b * 7 + k) % 33 for b in range(6)] for k in range(4)],
+                  cuda)
+    got = dm.datamover_gather(seg, addr, nwords, 32)
+    want = dm.datamover_gather_ref(seg, addr, nwords, 32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(got.isnan().any()) and bool((got.view(torch.int32)
+                                             == -2 ** 31).any())
+
+
+def _ring_input(K, shape, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-127, 128, (K,) + shape, generator=gen,
+                             dtype=torch.int32)
+    return torch.randn((K,) + shape, generator=gen).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("K", [8, 3])
+def test_ring_kernel_matches_plain_bitwise(cuda, dtype, K):
+    """Both schedules, every collective, at chunk lengths that are not
+    multiples of K, of the vector width or of the tile."""
+    for i, chunk in enumerate((1, 37, 130, 4096, 4099)):
+        x = _ring_input(K, (chunk,), dtype, i).to(cuda)
+        assert torch.equal(gd.ring_allreduce_dma(x),
+                           gd.ring_allreduce_dma_ref(x)), ("dma", chunk)
+        buf = _ring_input(K, (K, chunk), dtype, i + 10).to(cuda)
+        for schedule, arg in ((gd.REDUCE_SCATTER, buf), (gd.ALL_GATHER, x),
+                              (gd.ALL_REDUCE, buf)):
+            assert torch.equal(gd.ring_collective(arg, schedule),
+                               gd.ring_collective_ref(arg, schedule)), (
+                schedule, chunk)
+
+
+def test_collectives_on_the_card_match_the_cpu(cuda):
+    """Collectives on a CUDA context: one ring launch per ring
+    collective, the CPU context's results bit for bit, the same exchange
+    counts."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.state import ShoalContext
+
+    x = _ring_input(8, (5, 37), torch.float32, 3)
+    results, exchanges = [], []
+    for device in ("cpu", cuda):
+        ctx = ShoalContext(8, device=device)
+        xd = x.to(device)
+        reset_launch_counts()
+        rs = coll.ring_reduce_scatter(ctx, xd)
+        out = [coll.ring_all_reduce(ctx, xd), rs,
+               coll.ring_all_gather(ctx, rs),
+               coll.broadcast_from(ctx, xd, root=5),
+               coll.all_to_all_vectored(ctx, xd[:, :4, :32].reshape(8, 8, 16)),
+               coll.tree_barrier(ctx)]
+        results.append([o.cpu() for o in out])
+        exchanges.append(ctx.exchanges)
+    counts = launch_counts()
+    for got, want in zip(results[1], results[0]):
+        assert torch.equal(got, want)
+    assert exchanges == [4 * 7 + 2 * 7 + 1] * 2
+    assert counts["ring_collective"] == 3 and counts["ring_allreduce_dma"] == 0
+
+
+def test_ring_kernel_refuses_what_it_cannot_hold(cuda):
+    with pytest.raises(ValueError, match="does not fit"):
+        gd.ring_collective(torch.zeros(200, 200, 4, device=cuda),
+                           gd.ALL_REDUCE)
+    with pytest.raises(TypeError, match="float32, bfloat16 and int32"):
+        gd.ring_allreduce_dma(torch.zeros(4, 8, dtype=torch.float64,
+                                          device=cuda))

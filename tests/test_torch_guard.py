@@ -20,7 +20,8 @@ from repro_torch.core.state import (ERR_WAIT_UNDERFLOW, ShoalContext,
                                     WaitUnderflowError, raise_on_error,
                                     replace, state_from_numpy,
                                     state_to_numpy)
-from repro_torch.kernels import (am_pack as dm, jacobi as jk, launch_counts,
+from repro_torch.kernels import (am_pack as dm, gascore_dma as gd,
+                                 jacobi as jk, launch_counts,
                                  reset_launch_counts)
 from repro_torch.runtime import TCP, LossyTransport
 
@@ -89,6 +90,13 @@ def test_non_cpu_tensors_never_reach_a_plain_version():
         jk.jacobi_step(torch.zeros(8, 8, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         jk.jacobi_band_step(torch.zeros(2, 6, 8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        gd.ring_allreduce_dma(torch.zeros(2, 8, device="meta"))
+    for schedule, shape in ((gd.REDUCE_SCATTER, (2, 2, 4)),
+                            (gd.ALL_GATHER, (2, 4)),
+                            (gd.ALL_REDUCE, (2, 2, 4))):
+        with pytest.raises(ValueError, match="CUDA"):
+            gd.ring_collective(torch.zeros(shape, device="meta"), schedule)
 
 
 def test_custom_handlers_refused_off_the_cpu_and_run_on_it():
@@ -135,6 +143,7 @@ def test_lossy_transport_refused_at_call_time():
 
 def test_cpu_context_never_launches_a_kernel():
     from repro_torch.apps.jacobi import JacobiApp
+    from repro_torch.core import collectives as coll, humboldt
 
     reset_launch_counts()
     ctx = ShoalContext(4, TCP, 32, device="cpu")
@@ -142,6 +151,11 @@ def test_cpu_context_never_launches_a_kernel():
     ring = [(i, (i + 1) % 4) for i in range(4)]
     st = ops.put_long(ctx, st, torch.ones(4, 8), ring, 0, token=1)
     st, _ = ops.get_medium(ctx, st, ring, 0, 8, token=2)
+    x = torch.ones(4, 10)
+    coll.ring_all_gather(ctx, coll.ring_reduce_scatter(ctx, x))
+    coll.ring_all_reduce(ctx, x)
+    gd.ring_allreduce_dma(x)
+    st, _ = humboldt.sendrecv(ctx, st, x, ring, token=3)
     JacobiApp(n=16, kernels=4, iters=2, device="cpu").run(
         np.ones((16, 16), np.float32))
     assert set(launch_counts().values()) == {0}

@@ -20,7 +20,8 @@ from repro.core.state import PgasState as JaxState, ShoalContext as JaxCtx
 from repro.kernels.am_pack.am_pack import am_pack_pallas, am_unpack_pallas
 from repro.kernels.jacobi import jacobi_step as jax_jacobi_step
 from repro.runtime.topology import make_cpu_mesh
-from repro_torch.kernels import (am_pack as dm, jacobi as jk, launch_counts,
+from repro_torch.kernels import (am_pack as dm, gascore_dma as gd,
+                                 jacobi as jk, launch_counts,
                                  reset_launch_counts)
 
 RNG = np.random.default_rng(11)
@@ -186,5 +187,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     dm.am_unpack(seg[0], torch.ones(8), 0, 4, 4, 2)
     jk.jacobi_run(torch.zeros(8, 8), 2)
     jk.jacobi_band_step(torch.zeros(2, 6, 8))
+    gd.ring_allreduce_dma(torch.ones(3, 5))
+    gd.ring_collective(torch.ones(3, 3, 5), gd.ALL_REDUCE)
     assert launch_counts() == {"datamover_gather": 0,
-                               "datamover_scatter": 0, "jacobi_sweep": 0}
+                               "datamover_scatter": 0, "jacobi_sweep": 0,
+                               "ring_allreduce_dma": 0, "ring_collective": 0}
