@@ -15,7 +15,15 @@ kernels at the width of tinyllama-1.1b's embedding gradient (8 x
 32000*2048 words, the data-parallel trainer's largest leaf), holds them
 to float64 sums and the ring kernel to its plain version bitwise, and
 times HUMboldt's two-sided send/recv beside an acked one-sided put.
-Kernel times are device times from ``torch.profiler``.  One line per
+Phase 6 serves tinyllama-1.1b at full width and depth (22 layers,
+bfloat16, random weights from a seed) through ``ServeEngine`` -- 4
+lanes, 2048 slots, 8 requests of 128-1024 prompt tokens and 32 new
+tokens each, greedy -- whose prompt passes run the flash-attention
+kernel; it holds that kernel to its plain version and one prefill's
+logits (bfloat16, and the same weights in float32) to the same prefill
+with the plain version in the kernel's place, and profiles a prefill and
+a window of decode steps (device busy time, idle share).  Kernel times
+are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card and ``nvcc``;
@@ -38,6 +46,7 @@ SRC = os.path.join(REPO, "src")
 
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM dense bfloat16 tensor-core rate
 JACOBI_N, JACOBI_K, JACOBI_ITERS = 4096, 8, 1024
 PROFILE_ITERS = 64         # iterations in the profiled Jacobi window
 MTU_WORDS = 2250           # 9000-byte frame / 4-byte words
@@ -49,6 +58,17 @@ MB_WORDS = 32768           # bench_throughput.py's 1 MB ring payload
 HUM_BYTES = (8, 512, 4096)  # bench_latency.py's message sizes
 RING_SRC = "src/repro_torch/kernels/gascore_dma/csrc/gascore_dma.cu"
 RING_TPU = "src/repro/kernels/gascore_dma/gascore_dma.py:62"
+FLASH_SRC = "src/repro_torch/kernels/attention/csrc/flash.cu"
+FLASH_TPU = "src/repro/kernels/attention/flash.py:80"
+ARCH = "tinyllama-1.1b"
+LANES, SLOTS, REQUESTS, MAX_NEW = 4, 2048, 8, 32
+PROMPT_MIN, PROMPT_MAX = 128, 1024
+# the reference's flash tolerances (tests/test_kernels.py:109)
+FLASH_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+# kernel vs its plain version through a whole prefill, relative to the
+# largest |logit|: the reduced model's bfloat16 tolerance, and the
+# reference's float32 flash tolerance
+LOGIT_TOL = {"bfloat16": 3e-2, "float32": 2e-3}
 
 
 def say(phase: str, **kv) -> None:
@@ -388,7 +408,7 @@ def phase_kernels(torch, device):
 def entry(name, source, replaces, m):
     """One kernel's record of the JSON line (launches filled in later)."""
     t_bytes = m["nbytes"] / HBM_BPS * 1e3
-    t_ops = m.get("ops", 0) / F32_FLOPS * 1e3
+    t_ops = m.get("ops", 0) / m.get("rate", F32_FLOPS) * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": m["err"],
             "ms": m["ms"], "plain_ms": m["plain"],
@@ -537,19 +557,9 @@ def phase_jacobi(torch, device, n=JACOBI_N, kernels=JACOBI_K,
     return counts
 
 
-def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
-    """Where an iteration of the Jacobi run goes, on its configuration:
-    the aten operations it dispatches (a count over runs of 1 and 3
-    iterations, differenced), and over one profiled window of ``iters``
-    iterations its host-clock ms, the device's busy ms (self device time
-    of every device activity, also by name) and the device's idle share
-    ``1 - busy / window`` -- busy time and window from the same run."""
+def count_ops_mode():
+    """A dispatch mode that counts the aten operations run inside it."""
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from repro_torch.apps.jacobi import JacobiApp
-    from repro_torch.core.address_space import GlobalAddressSpace
-
-    kernels, rows, n = blocks.shape
 
     class CountOps(TorchDispatchMode):
         count = 0
@@ -557,6 +567,22 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             self.count += 1
             return func(*args, **(kwargs or {}))
+
+    return CountOps
+
+
+def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
+    """Where an iteration of the Jacobi run goes, on its configuration:
+    the aten operations it dispatches (a count over runs of 1 and 3
+    iterations, differenced), and over one profiled window of ``iters``
+    iterations its host-clock ms, the device's busy ms (self device time
+    of every device activity, also by name) and the device's idle share
+    ``1 - busy / window`` -- busy time and window from the same run."""
+    from repro_torch.apps.jacobi import JacobiApp
+    from repro_torch.core.address_space import GlobalAddressSpace
+
+    kernels, rows, n = blocks.shape
+    CountOps = count_ops_mode()
 
     def fresh(k_iters):
         app = JacobiApp(n=n, kernels=kernels, iters=k_iters, device=device)
@@ -842,6 +868,262 @@ def phase_humboldt(torch, device, reps=20):
             one_sided_host_ms=f"{host_ms(torch, one_sided, reps):.4f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: tinyllama-1.1b served through ServeEngine, the flash kernel
+# ---------------------------------------------------------------------------
+
+def serve_prompts(vocab: int, seed: int = 13) -> list[np.ndarray]:
+    """``REQUESTS`` prompts of 128-1024 tokens from the seed: the first
+    exactly 1024, the second not a multiple of 128."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, REQUESTS)
+    lens[0] = PROMPT_MAX
+    if lens[1] % 128 == 0:
+        lens[1] += 1 if lens[1] < PROMPT_MAX else -1
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def check_flash(torch, device):
+    """The flash kernel against its plain version on the card, at
+    tinyllama-1.1b's prefill (B 1, S 1024, H 32, K 4, dh 64) in bfloat16
+    and float32, at a ragged S, and at a reference test shape with
+    dh 128; device times of the kernel, the plain version and
+    ``scaled_dot_product_attention`` (the library yardstick, used nowhere
+    in the port) at tinyllama's shape.  Returns the bfloat16 record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    cases = [("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.bfloat16),
+             ("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.float32),
+             ("ragged-1000", (1, 1000, 32, 4, 64), torch.bfloat16),
+             ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
+    records = {}
+    for case, (B, S, H, Kv, dh), dtype in cases:
+        q = torch.randn(B, S, H, dh, generator=gen, device=device).to(dtype)
+        k = torch.randn(B, S, Kv, dh, generator=gen, device=device).to(dtype)
+        v = torch.randn(B, S, Kv, dh, generator=gen, device=device).to(dtype)
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).split(".")[-1]]
+        err = (got.float() - want.float()).abs().max().item()
+        rel = (got.float() - want.float()).abs() - tol * want.float().abs()
+        require(bool(torch.isfinite(got).all()) and rel.max().item() <= tol,
+                f"flash {case} {dtype}: max|err| {err} beyond atol=rtol={tol}")
+        line = dict(kernel="flash_attention", case=case,
+                    shape=f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}",
+                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                    tol=tol)
+        if case == "tinyllama-prefill":
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            m = dict(
+                err=err,
+                ms=device_ms(lambda: fa.flash_attention(q, k, v),
+                             kernel="flash_attention_kernel"),
+                plain=device_ms(lambda: fa.flash_attention_ref(q, k, v),
+                                reps=5),
+                lib=device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                # q, k, v read once, o written once; 2 S^2 dh operations
+                # per head for the causal QK^T and PV
+                nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                ops=2 * B * H * S * S * dh,
+                rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+            rec = entry("flash_attention", FLASH_SRC, FLASH_TPU, m)
+            records[line["dtype"]] = rec
+            line.update(kernel_ms=f"{m['ms']:.5f}",
+                        plain_ms=f"{m['plain']:.5f}",
+                        library_ms=f"{m['lib']:.5f}",
+                        bound_ms=f"{rec['bound_ms']:.5f}",
+                        bound_by=rec["bound_by"])
+        say("serving", **line)
+        del q, k, v, got, want
+    return records["bfloat16"]
+
+
+def check_prefill_logits(torch, model, params, prompt):
+    """One full-width prefill's last-token logits through the flash
+    kernel (fresh lane) against the same prefill with the kernel's plain
+    version in its place (checked), and against the same prefill through
+    the plain route ``_attend`` (reported: in bfloat16 that route rounds
+    its scores where the kernel keeps them in float32).  The plain route
+    is taken by a cache that is not fresh: one slot holds a position past
+    the prompt, which the causal mask excludes, so the function is the
+    same."""
+    from repro_torch.kernels import attention as fa, launch_counts
+    from repro_torch.models import attention as attn
+
+    tokens = torch.as_tensor(prompt.astype(np.int64),
+                             device=model.device)[None]
+
+    def prefill(cache):
+        before = launch_counts()["flash_attention"]
+        logits, _ = model.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        return logits.float(), launch_counts()["flash_attention"] - before
+
+    kernel, n_kernel = prefill(model.make_cache(1, SLOTS))
+    attn.flash_attention = fa.flash_attention_ref
+    try:
+        plain, n_plain = prefill(model.make_cache(1, SLOTS))
+    finally:
+        attn.flash_attention = fa.flash_attention
+    cache = model.make_cache(1, SLOTS)
+    for seg in cache:
+        for blk in seg.values():
+            blk["pos"][:, :, -1] = 2 ** 30
+    route, n_route = prefill(cache)
+    require((n_kernel, n_plain, n_route) == (model.cfg.n_layers, 0, 0),
+            f"logit check: flash launches {n_kernel, n_plain, n_route}")
+    require(bool(torch.isfinite(kernel).all())
+            and kernel.shape == (1, model.cfg.vocab), "prefill logits")
+    dtype = str(model.cfg.dtype).split(".")[-1]
+    tol = LOGIT_TOL[dtype]
+    top = plain.abs().max().item()
+    err = (kernel - plain).abs().max().item()
+    require(err <= tol * top, f"prefill logits ({dtype}), kernel vs its "
+            f"plain version: max|err| {err} > {tol} * {top}")
+    route_err = (kernel - route).abs().max().item()
+    say("serving", check="prefill-logits", dtype=dtype,
+        prompt_tokens=len(prompt), max_abs_logit=top,
+        kernel_vs_plain_err=err, limit=f"{tol}*max|logit|",
+        kernel_vs_attend_route_err=route_err,
+        attend_route_rel=f"{route_err / top:.5f}",
+        argmax_equal=bool(kernel.argmax() == plain.argmax()
+                          == route.argmax()))
+
+
+def profile_serving(torch, model, params, prompt, steps=8):
+    """Where serving's time goes, on the served configuration: one
+    profiled prefill of ``prompt`` and one profiled window of ``steps``
+    decode steps with all 4 lanes busy -- host-clock ms, the device's
+    busy ms (self device time of every device activity), its idle share
+    ``1 - busy / window``, the flash kernel's share, and the aten
+    operations one decode step dispatches."""
+    from repro_torch.serving import Request, ServeEngine
+
+    engine = ServeEngine(model, params, lanes=LANES, slots=SLOTS)
+    endless = 10 ** 9
+    by_name, window = device_activity(
+        torch, lambda: engine.submit(Request(0, prompt, endless)))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    flash = sum(us for name, (_, us) in by_name.items()
+                if "flash_attention_kernel" in name) / 1e3
+    say("profile", serving="prefill", prompt_tokens=len(prompt),
+        window_ms=f"{window * 1e3:.3f}", device_busy_ms=f"{busy:.4f}",
+        idle_share=f"{1 - busy / (window * 1e3):.4f}",
+        flash_ms=f"{flash:.4f}",
+        device_activities=sum(c for c, _ in by_name.values()))
+    for rid in range(1, LANES):
+        engine.submit(Request(rid, prompt[:PROMPT_MIN], endless))
+    with count_ops_mode()() as mode:
+        engine.step()
+    by_name, window = device_activity(
+        torch, lambda: [engine.step() for _ in range(steps)])
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    say("profile", serving="decode", lanes=LANES, steps=steps,
+        aten_ops_per_step=mode.count,
+        window_ms_per_step=f"{window * 1e3 / steps:.4f}",
+        device_busy_ms_per_step=f"{busy / steps:.5f}",
+        idle_share=f"{1 - busy / (window * 1e3):.4f}",
+        device_activities_per_step=sum(c for c, _ in by_name.values())
+        / steps)
+    for name, (count, us) in top:
+        say("profile", serving="decode",
+            device_ms_per_step=f"{us / 1e3 / steps:.5f}",
+            per_step=count / steps, name=name[:70].replace(" ", "_"))
+
+
+def phase_serving(torch, device):
+    """Phase 6.  The kernel against its plain version, then the main
+    path: ``ServeEngine.run`` on tinyllama-1.1b at full width and depth
+    (counts reset before it, read after it), every request and slot
+    event checked; then one prefill's logits, kernel vs plain attention.
+    Returns the flash kernel's record."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServeEngine
+
+    record = check_flash(torch, device)
+    cfg = configs.full(ARCH)
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    say("serving", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        dtype=str(cfg.dtype).split(".")[-1], params=cfg.num_params(params),
+        init_s=f"{time.perf_counter() - t0:.2f}")
+    prompts = serve_prompts(cfg.vocab)
+
+    # warm-up (cuBLAS, the kernel library) on an engine of its own
+    ServeEngine(model, params, lanes=1, slots=SLOTS).run(
+        [Request(-1, prompts[1][:PROMPT_MIN], 2)])
+
+    batches = []
+    engine = ServeEngine(model, params, lanes=LANES, slots=SLOTS,
+                         event_sink=batches.append)
+    prefill_ms, step_ms = [], []
+
+    def timed(fn, log, keep=lambda out: True):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            if keep(out):
+                log.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    engine.submit = timed(engine.submit, prefill_ms, keep=bool)
+    engine.step = timed(engine.step, step_ms)
+    reqs = [Request(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    require(len(done) == REQUESTS
+            and all(len(r.out) == MAX_NEW and r.done for r in reqs)
+            and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+            f"serving: {len(done)} of {REQUESTS} requests finished, "
+            f"tokens {[len(r.out) for r in reqs]}")
+    require(counts["flash_attention"] == REQUESTS * cfg.n_layers,
+            f"flash launches {counts['flash_attention']} != "
+            f"{REQUESTS} x {cfg.n_layers}")
+    events = [e for b in batches for e in b]
+    for kind in ("acquire", "release"):
+        require(sorted(e.rid for e in events if e.kind == kind)
+                == list(range(REQUESTS)), f"slot events {kind}: {events}")
+    require(engine.events.pending == 0, "slot events left undelivered")
+    tokens = sum(len(r.out) for r in reqs)
+    say("serving", main_path="ok", requests=REQUESTS, lanes=LANES,
+        slots=SLOTS, prompt_tokens=[len(p) for p in prompts],
+        new_tokens=tokens, launches=counts,
+        events=len(events), seconds=f"{seconds:.4f}",
+        tokens_per_s=f"{tokens / seconds:.2f}")
+    say("serving", prefill_ms_per_request=[f"{ms:.3f}" for ms in prefill_ms],
+        prefill_ms_mean=f"{np.mean(prefill_ms):.3f}",
+        decode_ms_per_step=f"{np.mean(step_ms):.4f}",
+        decode_steps=len(step_ms),
+        decode_ms_min_max=f"{min(step_ms):.4f}/{max(step_ms):.4f}")
+    check_prefill_logits(torch, model, params, prompts[0])
+    profile_serving(torch, model, params, prompts[0])
+    # the same weights in float32: only the kernel's own rounding is left
+    f32 = build_model(dataclasses.replace(cfg, dtype=torch.float32),
+                      device=device)
+    check_prefill_logits(torch, f32, f32.init(torch.Generator(
+        device=device).manual_seed(0)), prompts[0])
+    record["launches"] = counts["flash_attention"]
+    return record
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
@@ -885,6 +1167,7 @@ def main() -> int:
     for name, rec in kernels.items():
         rec["launches"] = counts[name]
     kernels.update(phase_collectives(torch, device))
+    kernels["flash_attention"] = phase_serving(torch, device)
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -53,7 +53,10 @@ class PgasState:
 
     @staticmethod
     def make(num_kernels: int, segment_words: int, dtype=torch.float32,
-             device="cpu") -> "PgasState":
+             device=None) -> "PgasState":
+        """A zero state on ``device`` (default: the CUDA card)."""
+        device = resolve_device(device)
+
         def z(*shape, dt=torch.int32):
             return torch.zeros((num_kernels,) + shape, dtype=dt,
                                device=device)
@@ -83,10 +86,12 @@ def replace(state: PgasState, **kw) -> PgasState:
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
-                     device="cpu") -> PgasState:
-    """Build a state from numpy ``(K, ...)`` leaves keyed by field name
-    (e.g. a stacked global state of the JAX package read back to the
-    host).  Every field must be present."""
+                     device=None) -> PgasState:
+    """Build a state on ``device`` (default: the CUDA card) from numpy
+    ``(K, ...)`` leaves keyed by field name (e.g. a stacked global state
+    of the JAX package read back to the host).  Every field must be
+    present."""
+    device = resolve_device(device)
     missing = set(FIELDS) - set(arrays)
     if missing:
         raise ValueError(f"state_from_numpy: missing fields {sorted(missing)}")

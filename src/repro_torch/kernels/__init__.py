@@ -11,6 +11,8 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   one-sided puts with ADD on arrival, and the ring reduce-scatter /
   all-gather / all-reduce schedules of ``core.collectives``, replacing
   ``ring_allreduce_dma_local``.
+* ``attention`` -- causal flash attention over a prompt (GQA layout),
+  the LM stack's prefill and forward, replacing ``flash_attention_pallas``.
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
@@ -18,6 +20,7 @@ CUDA sources live under each kernel's ``csrc/`` and are compiled with
 
 from repro_torch.kernels.am_pack.am_pack import (datamover_gather_cuda,
                                                  datamover_scatter_cuda)
+from repro_torch.kernels.attention.flash import flash_attention_cuda
 from repro_torch.kernels.gascore_dma.gascore_dma import (
     ring_allreduce_dma_cuda, ring_collective_cuda)
 from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
@@ -29,6 +32,7 @@ LAUNCH_COUNTERS = {
     "jacobi_sweep": jacobi_sweep_cuda,
     "ring_allreduce_dma": ring_allreduce_dma_cuda,
     "ring_collective": ring_collective_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 

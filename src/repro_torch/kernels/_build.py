@@ -28,6 +28,7 @@ SOURCES = {
     "am_pack": _PKG / "am_pack" / "csrc" / "am_pack.cu",
     "jacobi": _PKG / "jacobi" / "csrc" / "jacobi.cu",
     "gascore_dma": _PKG / "gascore_dma" / "csrc" / "gascore_dma.cu",
+    "flash": _PKG / "attention" / "csrc" / "flash.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,23 @@
+"""Flash-attention wrapper: the CUDA kernel for CUDA tensors, the plain
+version for CPU tensors, and nothing else (no fallback)."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.attention.flash import flash_attention_cuda
+from repro_torch.kernels.attention.ref import flash_attention_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal attention of a prompt over itself, by index, with
+    ``sm_scale = 1/sqrt(dh)`` and any ``S``: ``q (B, S, H, dh)``,
+    ``k, v (B, S, K, dh)`` -> ``(B, S, H, dh)``.  The counterpart of the
+    JAX package's ``kernels.attention.flash_attention`` (there
+    ``(BH, S, dh)`` padded to a block multiple; here the heads stay in
+    place, kv heads are shared by ``H // K`` query heads without a copy,
+    and the kernel masks its last block instead of padding)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    return flash_attention_cuda(q, k, v)

@@ -372,7 +372,7 @@ def test_masked_lanes_match_reference_in_gascore_stages():
     proto = JaxState.make(S, jnp.float32)
     d = {f: np.stack([np.asarray(getattr(proto, f))] * N) for f in FIELDS}
     d["segment"] = seg
-    st = state_from_numpy(d)
+    st = state_from_numpy(d, device="cpu")
     jst = [JaxState(**{f: jnp.asarray(d[f][k]) for f in FIELDS})
            for k in range(N)]
     jctx = JaxCtx(mesh=make_cpu_mesh(1, ("kernel",)), axes=("kernel",),

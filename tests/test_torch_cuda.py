@@ -8,7 +8,10 @@ Jacobi float32 1e-6, bfloat16 2e-2 (the kernel and its plain version
 round the same operations, so in practice both are exact); the Jacobi
 app 1e-5 against the single-grid reference, as examples/jacobi_stencil.py
 holds the JAX app; the ring kernel bitwise against its plain version
-(same adds in the same order, rounded to the type after each).
+(same adds in the same order, rounded to the type after each); flash
+attention float32 2e-3, bfloat16 3e-2 against its plain version (the
+reference's tolerances, tests/test_kernels.py:109); the engine on the
+card serves the CPU run's tokens exactly (float32 tinyllama-smoke).
 """
 
 import dataclasses
@@ -189,3 +192,118 @@ def test_ring_kernel_refuses_what_it_cannot_hold(cuda):
     with pytest.raises(TypeError, match="float32, bfloat16 and int32"):
         gd.ring_allreduce_dma(torch.zeros(4, 8, dtype=torch.float64,
                                           device=cuda))
+
+
+# -- causal flash attention ------------------------------------------------
+# Tolerances: the reference's own (tests/test_kernels.py:109), float32
+# 2e-3 and bfloat16 3e-2; the kernel and its plain version sum in other
+# orders and bfloat16 rounds p at other places.
+
+def _qkv(B, S, H, K, dh, dtype, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, H, dh, generator=gen)
+    k = torch.randn(B, S, K, dh, generator=gen)
+    v = torch.randn(B, S, K, dh, generator=gen)
+    return [t.to(device, dtype) for t in (q, k, v)]
+
+
+def _flash_close(got, want, dtype):
+    tol = 2e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,dh", [
+    (1, 1024, 32, 4, 64),           # tinyllama-1.1b's prefill
+    (1, 128, 4, 4, 128),            # a reference test shape, dh 128
+    (2, 256, 2, 1, 64),
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, H, K, dh):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _qkv(B, S, H, K, dh, dtype, S + dh, cuda)
+    _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
+                 dtype)
+
+
+@pytest.mark.parametrize("S", [1, 2, 31, 63, 65, 200])
+@pytest.mark.parametrize("dh", [16, 48, 100])
+def test_flash_kernel_ragged_sequence_and_head_dim(cuda, S, dh):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _qkv(2, S, 6, 3, dh, torch.float32, S * dh, cuda)
+    _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
+                 torch.float32)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views of one fused projection (no copy), and a q whose
+    head dim is not contiguous."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, K, dh = 2, 77, 4, 2, 32
+    gen = torch.Generator().manual_seed(9)
+    qkv = torch.randn(B, S, (H + 2 * K) * dh, generator=gen).to(cuda)
+    q = qkv[..., :H * dh].view(B, S, H, dh)
+    k = qkv[..., H * dh:(H + K) * dh].view(B, S, K, dh)
+    v = qkv[..., (H + K) * dh:].view(B, S, K, dh)
+    assert not q.is_contiguous()
+    _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
+                 torch.float32)
+    qt = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert qt.stride(-1) != 1
+    _flash_close(fa.flash_attention(qt, k, v),
+                 fa.flash_attention_ref(q, k, v), torch.float32)
+
+
+def test_flash_kernel_counts_launches_and_refuses(cuda):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _qkv(1, 40, 4, 2, 16, torch.bfloat16, 1, cuda)
+    reset_launch_counts()
+    for _ in range(3):
+        fa.flash_attention(q, k, v)
+    assert launch_counts()["flash_attention"] == 3
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*_qkv(1, 8, 2, 2, 129, torch.float32, 2, cuda))
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fa.flash_attention(*_qkv(1, 8, 2, 2, 8, torch.float64, 2, cuda))
+    with pytest.raises(ValueError, match="H % K"):
+        fa.flash_attention(*_qkv(1, 8, 3, 2, 8, torch.float32, 2, cuda))
+    assert launch_counts()["flash_attention"] == 3
+
+
+def test_engine_on_the_card_serves_the_cpu_tokens(cuda):
+    """tinyllama-smoke (float32) served on the card through the flash
+    kernel gives the CPU run's tokens; every prompt pass launches the
+    kernel once per layer, decode never."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServeEngine
+
+    prompts = [[3, 14, 15, 9, 2], [7, 8], [30, 2, 9], [11, 12, 13, 5],
+               [1, 4], [22, 40, 8]]
+    max_new = [5, 3, 4, 5, 3, 4]
+    cfg = configs.reduced("tinyllama-1.1b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    outs = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        engine = ServeEngine(model, _to(params, device), lanes=2, slots=16)
+        reset_launch_counts()
+        done = engine.run([Request(i, np.asarray(p, np.int32), m)
+                           for i, (p, m) in enumerate(zip(prompts,
+                                                          max_new))])
+        outs[str(device)] = {r.rid: r.out for r in done}
+        flash = launch_counts()["flash_attention"]
+    assert outs["cpu"] == outs[str(cuda)]
+    assert flash == len(prompts) * cfg.n_layers
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

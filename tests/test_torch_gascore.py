@@ -34,7 +34,7 @@ def _states(seed, dtype="float32"):
     d["tx_words"] = rng.integers(0, 100, K).astype(np.int32)
     jax_states = [JaxState(**{f: jnp.asarray(d[f][k]) for f in FIELDS})
                   for k in range(K)]
-    return state_from_numpy(d), jax_states, rng
+    return state_from_numpy(d, device="cpu"), jax_states, rng
 
 
 def _ctxs():

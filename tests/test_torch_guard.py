@@ -76,6 +76,73 @@ def test_default_device_is_the_card():
     assert ShoalContext(2, device="cpu").device.type == "cpu"
 
 
+def test_state_helpers_default_to_the_card():
+    """``PgasState.make`` and ``state_from_numpy`` place their tensors on
+    the card unless given ``device="cpu"``; without a card they raise."""
+    from repro_torch.core.state import PgasState
+
+    arrays = state_to_numpy(PgasState.make(2, 8, device="cpu"))
+    if torch.cuda.is_available():
+        assert PgasState.make(2, 8).segment.device.type == "cuda"
+        assert state_from_numpy(arrays).credits.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PgasState.make(2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state_from_numpy(arrays)
+    assert state_from_numpy(arrays, device="cpu").segment.shape == (2, 8)
+
+
+def test_serving_entry_points_default_to_the_card():
+    """``build_model`` (and so ``ServeEngine``, which serves on its
+    model's device), the weight conversion and ``launch.serve`` pick the
+    card by default and raise without one."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import (cache_from_numpy,
+                                            params_from_numpy)
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine
+
+    cfg = configs.reduced("tinyllama-1.1b")
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced", "--requests", "1"])
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    engine = ServeEngine(model, params, lanes=1, slots=8)
+    assert engine.device.type == "cpu"
+    assert engine.cache[0]["b0_dense"]["k"].device.type == "cpu"
+    tree = {"embed": np.zeros((4, 2), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy(cfg, tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cache_from_numpy(cfg, [])
+
+
+def test_serving_stack_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.models, repro_torch.serving, repro_torch.actors\n"
+        "import repro_torch.configs, repro_torch.launch.serve\n"
+        "import repro_torch.models.convert, repro_torch.kernels.attention\n"
+        "from repro_torch.launch import serve\n"
+        "assert serve.main(['--reduced', '--device', 'cpu', '--requests',\n"
+        "                   '2', '--max-new', '3']) == 0\n"
+        "print('serve-ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "serve-ok" in proc.stdout
+
+
 def test_non_cpu_tensors_never_reach_a_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises: on
     the ``meta`` device every wrapper refuses."""
@@ -165,12 +232,12 @@ def test_state_numpy_roundtrip_and_error_decode():
     ctx = ShoalContext(3, segment_words=8, device="cpu")
     st = ctx.make_state()
     arrays = state_to_numpy(st)
-    back = state_to_numpy(state_from_numpy(arrays))
+    back = state_to_numpy(state_from_numpy(arrays, device="cpu"))
     assert arrays.keys() == back.keys()
     for f in arrays:
         np.testing.assert_array_equal(arrays[f], back[f])
     with pytest.raises(ValueError, match="missing"):
-        state_from_numpy({"segment": arrays["segment"]})
+        state_from_numpy({"segment": arrays["segment"]}, device="cpu")
     assert raise_on_error(st) is st
     st = ops.wait_replies(ctx, st, token=torch.tensor([0, 4, 0]), n=1)
     assert st.error.tolist() == [ERR_WAIT_UNDERFLOW] * 3

@@ -23,6 +23,7 @@ from repro.runtime.topology import make_cpu_mesh
 from repro_torch.kernels import (am_pack as dm, gascore_dma as gd,
                                  jacobi as jk, launch_counts,
                                  reset_launch_counts)
+from repro_torch.kernels.attention import flash_attention
 
 RNG = np.random.default_rng(11)
 
@@ -189,6 +190,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     jk.jacobi_band_step(torch.zeros(2, 6, 8))
     gd.ring_allreduce_dma(torch.ones(3, 5))
     gd.ring_collective(torch.ones(3, 3, 5), gd.ALL_REDUCE)
+    flash_attention(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 1, 8),
+                    torch.ones(1, 4, 1, 8))
     assert launch_counts() == {"datamover_gather": 0,
                                "datamover_scatter": 0, "jacobi_sweep": 0,
-                               "ring_allreduce_dma": 0, "ring_collective": 0}
+                               "ring_allreduce_dma": 0, "ring_collective": 0,
+                               "flash_attention": 0}
