@@ -18,9 +18,13 @@ times HUMboldt's two-sided send/recv beside an acked one-sided put.
 Phase 6 serves tinyllama-1.1b at full width and depth (22 layers,
 bfloat16, random weights from a seed) through ``ServeEngine`` -- 4
 lanes, 2048 slots, 8 requests of 128-1024 prompt tokens and 32 new
-tokens each, greedy -- whose prompt passes run the flash-attention
-kernel; it holds that kernel to its plain version and one prefill's
-logits (bfloat16, and the same weights in float32) to the same prefill
+tokens each, greedy -- whose prompt passes run the Hopper flash-attention
+kernel (``flash_sm90.cu``: TMA tile ring, ``wgmma``; every launch counted).
+It holds that kernel and the simple one (``flash.cu``, which serves
+float32 and other head dims) to their plain version on the same inputs,
+at tinyllama-1.1b's and qwen2-1.5b's prefill shapes and two ragged
+lengths, holds one prefill's logits (bfloat16 through the Hopper kernel,
+the same weights in float32 through the simple one) to the same prefill
 with the plain version in the kernel's place, and profiles a prefill and
 a window of decode steps (device busy time, idle share).  Kernel times
 are device times from ``torch.profiler``.  One line per
@@ -59,6 +63,7 @@ HUM_BYTES = (8, 512, 4096)  # bench_latency.py's message sizes
 RING_SRC = "src/repro_torch/kernels/gascore_dma/csrc/gascore_dma.cu"
 RING_TPU = "src/repro/kernels/gascore_dma/gascore_dma.py:62"
 FLASH_SRC = "src/repro_torch/kernels/attention/csrc/flash.cu"
+FLASH_SM90_SRC = "src/repro_torch/kernels/attention/csrc/flash_sm90.cu"
 FLASH_TPU = "src/repro/kernels/attention/flash.py:80"
 ARCH = "tinyllama-1.1b"
 LANES, SLOTS, REQUESTS, MAX_NEW = 4, 2048, 8, 32
@@ -405,16 +410,23 @@ def phase_kernels(torch, device):
     }
 
 
-def entry(name, source, replaces, m):
-    """One kernel's record of the JSON line (launches filled in later)."""
+def bound(m):
+    """The least time the card could take for a kernel's work, in ms,
+    and what sets it: bytes over the memory rate, or operations over
+    the rate of their type."""
     t_bytes = m["nbytes"] / HBM_BPS * 1e3
     t_ops = m.get("ops", 0) / m.get("rate", F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def entry(name, source, replaces, m):
+    """One kernel's record of the JSON line (launches filled in later)."""
+    bound_ms, bound_by = bound(m)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": m["err"],
-            "ms": m["ms"], "plain_ms": m["plain"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": m["lib"]}
+            "ms": m["ms"], "plain_ms": m["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": m["lib"]}
 
 
 # ---------------------------------------------------------------------------
@@ -883,13 +895,34 @@ def serve_prompts(vocab: int, seed: int = 13) -> list[np.ndarray]:
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
 
 
+def _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype):
+    return [torch.randn(*shape, generator=gen, device=device).to(dtype)
+            for shape in ((B, S, H, dh), (B, S, Kv, dh), (B, S, Kv, dh))]
+
+
+def _flash_err(torch, got, want, tol, what):
+    """max |err| of ``got``; raises beyond atol = rtol = ``tol``."""
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    require(bool(torch.isfinite(got).all())
+            and (diff - tol * want.float().abs()).max().item() <= tol,
+            f"{what}: max|err| {err} beyond atol=rtol={tol}")
+    return err
+
+
 def check_flash(torch, device):
-    """The flash kernel against its plain version on the card, at
-    tinyllama-1.1b's prefill (B 1, S 1024, H 32, K 4, dh 64) in bfloat16
-    and float32, at a ragged S, and at a reference test shape with
-    dh 128; device times of the kernel, the plain version and
-    ``scaled_dot_product_attention`` (the library yardstick, used nowhere
-    in the port) at tinyllama's shape.  Returns the bfloat16 record."""
+    """Both flash kernels against the plain version on the card, on the
+    same inputs: the Hopper kernel (``flash_sm90.cu``, which the wrapper
+    picks for every bfloat16 input here) and the simple kernel
+    (``flash.cu``, forced), at tinyllama-1.1b's prefill (B 1, S 1024,
+    H 32, K 4, dh 64), qwen2-1.5b's (B 1, S 1024, H 12, K 2, dh 128), a
+    ragged S = 1000 and a served prompt's S = 903; the simple kernel
+    alone in float32 (tinyllama's shape and a reference shape at
+    dh 128).  At the two prefill shapes, device times of each kernel,
+    the plain version and ``scaled_dot_product_attention`` (the library
+    yardstick, used nowhere in the port).  Returns the records of the
+    simple kernel (bfloat16, tinyllama) and of the Hopper kernel."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import attention as fa
@@ -897,31 +930,32 @@ def check_flash(torch, device):
     gen = torch.Generator(device=device).manual_seed(21)
     cases = [("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.bfloat16),
              ("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.float32),
+             ("qwen2-1.5b-prefill", (1, 1024, 12, 2, 128), torch.bfloat16),
              ("ragged-1000", (1, 1000, 32, 4, 64), torch.bfloat16),
+             ("served-903", (1, 903, 32, 4, 64), torch.bfloat16),
              ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
-    records = {}
+    records, timed = {}, {}
     for case, (B, S, H, Kv, dh), dtype in cases:
-        q = torch.randn(B, S, H, dh, generator=gen, device=device).to(dtype)
-        k = torch.randn(B, S, Kv, dh, generator=gen, device=device).to(dtype)
-        v = torch.randn(B, S, Kv, dh, generator=gen, device=device).to(dtype)
-        got = fa.flash_attention(q, k, v)
+        q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
+        name = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[name]
         want = fa.flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        tol = FLASH_TOL[str(dtype).split(".")[-1]]
-        err = (got.float() - want.float()).abs().max().item()
-        rel = (got.float() - want.float()).abs() - tol * want.float().abs()
-        require(bool(torch.isfinite(got).all()) and rel.max().item() <= tol,
-                f"flash {case} {dtype}: max|err| {err} beyond atol=rtol={tol}")
-        line = dict(kernel="flash_attention", case=case,
-                    shape=f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}",
-                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                    tol=tol)
-        if case == "tinyllama-prefill":
+        route = fa.flash_kernel_for(q, k, v)
+        require(route == ("sm90" if dtype == torch.bfloat16 else "simple"),
+                f"flash {case} {name}: dispatched to {route}")
+        errs = {"simple": _flash_err(
+            torch, fa.flash_attention_cuda(q, k, v, kernel="simple"), want,
+            tol, f"simple flash kernel {case} {name}")}
+        if route == "sm90":
+            errs["sm90"] = _flash_err(torch, fa.flash_attention(q, k, v),
+                                      want, tol,
+                                      f"sm90 flash kernel {case} {name}")
+        line = dict(case=case, shape=f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}",
+                    dtype=name, tol=tol,
+                    **{f"{r}_max_abs_err": e for r, e in errs.items()})
+        if case.endswith("-prefill"):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            m = dict(
-                err=err,
-                ms=device_ms(lambda: fa.flash_attention(q, k, v),
-                             kernel="flash_attention_kernel"),
+            base = dict(
                 plain=device_ms(lambda: fa.flash_attention_ref(q, k, v),
                                 reps=5),
                 lib=device_ms(lambda: F.scaled_dot_product_attention(
@@ -931,16 +965,35 @@ def check_flash(torch, device):
                 nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
                 ops=2 * B * H * S * S * dh,
                 rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-            rec = entry("flash_attention", FLASH_SRC, FLASH_TPU, m)
-            records[line["dtype"]] = rec
-            line.update(kernel_ms=f"{m['ms']:.5f}",
-                        plain_ms=f"{m['plain']:.5f}",
-                        library_ms=f"{m['lib']:.5f}",
-                        bound_ms=f"{rec['bound_ms']:.5f}",
-                        bound_by=rec["bound_by"])
-        say("serving", **line)
-        del q, k, v, got, want
-    return records["bfloat16"]
+            for r, err in errs.items():
+                ms = device_ms(
+                    lambda: fa.flash_attention_cuda(q, k, v, kernel=r),
+                    kernel=("flash_attention_kernel_sm90" if r == "sm90"
+                            else "flash_attention_kernel"))
+                timed[case, name, r] = dict(base, err=err, ms=ms)
+            bound_ms, bound_by = bound(base)
+            line.update({f"{r}_ms": f"{m['ms']:.5f}"
+                         for (c, n, r), m in timed.items()
+                         if (c, n) == (case, name)},
+                        plain_ms=f"{base['plain']:.5f}",
+                        library_ms=f"{base['lib']:.5f}",
+                        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+        say("serving", kernel="flash_attention", **line)
+        del q, k, v, want
+    tiny = ("tinyllama-prefill", "bfloat16")
+    records["flash_attention"] = entry("flash_attention", FLASH_SRC,
+                                       FLASH_TPU, timed[(*tiny, "simple")])
+    sm90 = entry("flash_attention_sm90", FLASH_SM90_SRC, FLASH_TPU,
+                 timed[(*tiny, "sm90")])
+    sm90["simple_ms"] = timed[(*tiny, "simple")]["ms"]
+    qwen = timed["qwen2-1.5b-prefill", "bfloat16", "sm90"]
+    sm90["qwen2_dh128"] = {
+        "shape": "B1xS1024xH12xK2xdh128", "ms": qwen["ms"],
+        "simple_ms": timed["qwen2-1.5b-prefill", "bfloat16", "simple"]["ms"],
+        "plain_ms": qwen["plain"], "library_ms": qwen["lib"],
+        "bound_ms": bound(qwen)[0], "max_abs_err": qwen["err"]}
+    records["flash_attention_sm90"] = sm90
+    return records
 
 
 def check_prefill_logits(torch, model, params, prompt):
@@ -958,11 +1011,14 @@ def check_prefill_logits(torch, model, params, prompt):
     tokens = torch.as_tensor(prompt.astype(np.int64),
                              device=model.device)[None]
 
+    names = ("flash_attention", "flash_attention_sm90")
+
     def prefill(cache):
-        before = launch_counts()["flash_attention"]
+        before = launch_counts()
         logits, _ = model.prefill(params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
-        return logits.float(), launch_counts()["flash_attention"] - before
+        after = launch_counts()
+        return logits.float(), tuple(after[n] - before[n] for n in names)
 
     kernel, n_kernel = prefill(model.make_cache(1, SLOTS))
     attn.flash_attention = fa.flash_attention_ref
@@ -975,8 +1031,12 @@ def check_prefill_logits(torch, model, params, prompt):
         for blk in seg.values():
             blk["pos"][:, :, -1] = 2 ** 30
     route, n_route = prefill(cache)
-    require((n_kernel, n_plain, n_route) == (model.cfg.n_layers, 0, 0),
-            f"logit check: flash launches {n_kernel, n_plain, n_route}")
+    layers = model.cfg.n_layers
+    # bfloat16 goes through the Hopper kernel, float32 the simple one
+    sm90 = layers if model.cfg.dtype == torch.bfloat16 else 0
+    require((n_kernel, n_plain, n_route) == ((layers, sm90), (0, 0), (0, 0)),
+            f"logit check: (flash, sm90) launches "
+            f"{(n_kernel, n_plain, n_route)}")
     require(bool(torch.isfinite(kernel).all())
             and kernel.shape == (1, model.cfg.vocab), "prefill logits")
     dtype = str(model.cfg.dtype).split(".")[-1]
@@ -987,7 +1047,8 @@ def check_prefill_logits(torch, model, params, prompt):
             f"plain version: max|err| {err} > {tol} * {top}")
     route_err = (kernel - route).abs().max().item()
     say("serving", check="prefill-logits", dtype=dtype,
-        prompt_tokens=len(prompt), max_abs_logit=top,
+        prompt_tokens=len(prompt), kernel="sm90" if sm90 else "simple",
+        max_abs_logit=top,
         kernel_vs_plain_err=err, limit=f"{tol}*max|logit|",
         kernel_vs_attend_route_err=route_err,
         attend_route_rel=f"{route_err / top:.5f}",
@@ -1037,18 +1098,77 @@ def profile_serving(torch, model, params, prompt, steps=8):
             per_step=count / steps, name=name[:70].replace(" ", "_"))
 
 
+def ab_prefill(torch, model, params, prompt, rounds=2):
+    """One prompt's prefill with the Hopper flash kernel (the main path)
+    and with the simple kernel forced in its place, in turns (sm90,
+    simple, simple, sm90, ...): host-clock ms of each synchronised
+    prefill (fresh cache made outside the clock), then one profiled
+    prefill of each -- device busy ms, idle share, the flash kernels'
+    ms."""
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import attention as attn
+
+    tokens = torch.as_tensor(prompt.astype(np.int64),
+                             device=model.device)[None]
+    kernels = {"sm90": fa.flash_attention,
+               "simple": lambda q, k, v: fa.flash_attention_cuda(
+                   q, k, v, kernel="simple")}
+
+    def prefill(cache):
+        model.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+
+    host = {r: [] for r in kernels}
+    try:
+        for r in ("sm90", "simple", "simple", "sm90") * rounds:
+            attn.flash_attention = kernels[r]
+            cache = model.make_cache(1, SLOTS)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill(cache)
+            host[r].append((time.perf_counter() - t) * 1e3)
+        for r in kernels:
+            attn.flash_attention = kernels[r]
+            # the profiler can miss part of a window: take it again until
+            # it saw every layer's flash launch
+            for attempt in range(1, 4):
+                cache = model.make_cache(1, SLOTS)
+                by_name, window = device_activity(torch,
+                                                  lambda: prefill(cache))
+                seen = sum(c for name, (c, _) in by_name.items()
+                           if "flash_attention_kernel" in name)
+                if seen == model.cfg.n_layers:
+                    break
+                say("profile", ab_prefill=r, window=attempt,
+                    flash_launches_seen=seen, retry=attempt < 3)
+            require(seen == model.cfg.n_layers,
+                    f"profiled prefill ({r}) saw {seen} flash launches")
+            busy = sum(us for _, us in by_name.values()) / 1e3
+            flash = sum(us for name, (_, us) in by_name.items()
+                        if "flash_attention_kernel" in name) / 1e3
+            say("profile", ab_prefill=r, prompt_tokens=len(prompt),
+                host_ms=[f"{ms:.3f}" for ms in host[r]],
+                host_ms_mean=f"{np.mean(host[r]):.3f}",
+                profiled_window_ms=f"{window * 1e3:.3f}",
+                device_busy_ms=f"{busy:.4f}",
+                idle_share=f"{1 - busy / (window * 1e3):.4f}",
+                flash_ms=f"{flash:.4f}")
+    finally:
+        attn.flash_attention = fa.flash_attention
+
+
 def phase_serving(torch, device):
     """Phase 6.  The kernel against its plain version, then the main
     path: ``ServeEngine.run`` on tinyllama-1.1b at full width and depth
     (counts reset before it, read after it), every request and slot
     event checked; then one prefill's logits, kernel vs plain attention.
-    Returns the flash kernel's record."""
+    Returns the records of the two flash kernels."""
     from repro_torch import configs
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import build_model
     from repro_torch.serving import Request, ServeEngine
 
-    record = check_flash(torch, device)
+    records = check_flash(torch, device)
     cfg = configs.full(ARCH)
     model = build_model(cfg, device=device)
     t0 = time.perf_counter()
@@ -1094,9 +1214,13 @@ def phase_serving(torch, device):
             and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
             f"serving: {len(done)} of {REQUESTS} requests finished, "
             f"tokens {[len(r.out) for r in reqs]}")
-    require(counts["flash_attention"] == REQUESTS * cfg.n_layers,
-            f"flash launches {counts['flash_attention']} != "
-            f"{REQUESTS} x {cfg.n_layers}")
+    # every prompt is bfloat16 at dh 64, so every prompt pass of every
+    # layer takes the Hopper kernel
+    require(counts["flash_attention"] == counts["flash_attention_sm90"]
+            == REQUESTS * cfg.n_layers,
+            f"flash launches {counts['flash_attention']}, sm90 "
+            f"{counts['flash_attention_sm90']}, want {REQUESTS} x "
+            f"{cfg.n_layers}")
     events = [e for b in batches for e in b]
     for kind in ("acquire", "release"):
         require(sorted(e.rid for e in events if e.kind == kind)
@@ -1115,13 +1239,36 @@ def phase_serving(torch, device):
         decode_ms_min_max=f"{min(step_ms):.4f}/{max(step_ms):.4f}")
     check_prefill_logits(torch, model, params, prompts[0])
     profile_serving(torch, model, params, prompts[0])
+    ab_prefill(torch, model, params, prompts[0])
     # the same weights in float32: only the kernel's own rounding is left
     f32 = build_model(dataclasses.replace(cfg, dtype=torch.float32),
                       device=device)
     check_prefill_logits(torch, f32, f32.init(torch.Generator(
         device=device).manual_seed(0)), prompts[0])
-    record["launches"] = counts["flash_attention"]
-    return record
+    # the wrapper's counter (either kernel) and the Hopper kernel's own
+    records["flash_attention"]["launches"] = counts["flash_attention"]
+    records["flash_attention"]["simple_kernel_launches"] = (
+        counts["flash_attention"] - counts["flash_attention_sm90"])
+    records["flash_attention_sm90"]["launches"] = \
+        counts["flash_attention_sm90"]
+    return records
+
+
+def ptxas_summary(log: str) -> dict:
+    """``{"dh64": "110 registers, 0 bytes spill stores, ...", ...}`` from
+    the Hopper flash kernel's ``ptxas -v`` log (one entry per head-dim
+    instantiation)."""
+    out, dh = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            dh = "dh128" if "ILi128E" in line else (
+                "dh64" if "ILi64E" in line else None)
+        elif dh and "spill" in line:
+            out[dh] = line.strip()
+        elif dh and "registers" in line:
+            out[dh] = line.split("Used", 1)[-1].strip() + "; " \
+                + out.get(dh, "")
+    return out
 
 
 def main() -> int:
@@ -1167,7 +1314,9 @@ def main() -> int:
     for name, rec in kernels.items():
         rec["launches"] = counts[name]
     kernels.update(phase_collectives(torch, device))
-    kernels["flash_attention"] = phase_serving(torch, device)
+    kernels.update(phase_serving(torch, device))
+    kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
+        logs.get("flash_sm90", ""))
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -12,7 +12,9 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   all-gather / all-reduce schedules of ``core.collectives``, replacing
   ``ring_allreduce_dma_local``.
 * ``attention`` -- causal flash attention over a prompt (GQA layout),
-  the LM stack's prefill and forward, replacing ``flash_attention_pallas``.
+  the LM stack's prefill and forward, replacing ``flash_attention_pallas``:
+  a Hopper kernel (TMA tile ring, ``wgmma``) for bfloat16 at head dim 64
+  and 128, and a simple kernel for every other input it holds.
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
@@ -20,7 +22,8 @@ CUDA sources live under each kernel's ``csrc/`` and are compiled with
 
 from repro_torch.kernels.am_pack.am_pack import (datamover_gather_cuda,
                                                  datamover_scatter_cuda)
-from repro_torch.kernels.attention.flash import flash_attention_cuda
+from repro_torch.kernels.attention.flash import (flash_attention_cuda,
+                                                 launch_flash_sm90)
 from repro_torch.kernels.gascore_dma.gascore_dma import (
     ring_allreduce_dma_cuda, ring_collective_cuda)
 from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
@@ -32,7 +35,8 @@ LAUNCH_COUNTERS = {
     "jacobi_sweep": jacobi_sweep_cuda,
     "ring_allreduce_dma": ring_allreduce_dma_cuda,
     "ring_collective": ring_collective_cuda,
-    "flash_attention": flash_attention_cuda,
+    "flash_attention": flash_attention_cuda,        # either flash kernel
+    "flash_attention_sm90": launch_flash_sm90,      # the Hopper kernel
 }
 
 

@@ -29,6 +29,7 @@ SOURCES = {
     "jacobi": _PKG / "jacobi" / "csrc" / "jacobi.cu",
     "gascore_dma": _PKG / "gascore_dma" / "csrc" / "gascore_dma.cu",
     "flash": _PKG / "attention" / "csrc" / "flash.cu",
+    "flash_sm90": _PKG / "attention" / "csrc" / "flash_sm90.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

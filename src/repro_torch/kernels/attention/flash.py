@@ -1,9 +1,19 @@
-"""ctypes binding of the causal flash-attention kernel in ``csrc/flash.cu``.
+"""ctypes bindings of the two causal flash-attention kernels.
 
-:func:`flash_attention_cuda` takes CUDA tensors only, checks them, reads
-every stride of q, k and v (no view is made contiguous), allocates the
-output, launches on PyTorch's current stream, raises if the launch
-fails, and counts its launches in ``flash_attention_cuda.launches``.
+* ``csrc/flash_sm90.cu`` (``flash_attention_sm90_fwd``): the Hopper
+  kernel -- TMA tile ring, ``wgmma`` on the tensor cores -- for bfloat16
+  q, k, v with head dim 64 or 128 laid out on TMA's 16-byte grid.
+* ``csrc/flash.cu`` (``flash_attention_fwd``): the simple kernel --
+  float32 FMAs, any strides -- for everything else it holds (float32,
+  other head dims up to 128, views whose head dim is not contiguous).
+
+:func:`flash_kernel_for` decides between them from shapes, strides,
+dtype and alignment alone, before the launch; nothing is retried.
+:func:`flash_attention_cuda` takes CUDA tensors only, checks them,
+allocates the output, launches the chosen kernel on PyTorch's current
+stream and raises if the launch fails.  Launches are counted on
+``flash_attention_cuda.launches`` (either kernel) and on
+``launch_flash_sm90.launches`` (the Hopper kernel alone).
 """
 
 from __future__ import annotations
@@ -15,8 +25,11 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DH = 128                # largest head dim the kernel holds
+MAX_DH = 128                # largest head dim the simple kernel holds
+SM90_HEAD_DIMS = (64, 128)  # head dims the Hopper kernel holds
+TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
 MAX_GRID_YZ = 65535         # heads (grid y) and batch (grid z)
+KERNELS = ("sm90", "simple")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _Strides = ctypes.c_longlong * 4
 
@@ -34,11 +47,41 @@ def _lib():
     return lib
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """Causal attention by index on the card: ``q (B, S, H, dh)``,
-    ``k, v (B, S, K, dh)`` with ``H % K == 0`` and ``dh <= 128``, float32
-    or bfloat16 -> a new contiguous ``(B, S, H, dh)``."""
+def _lib_sm90():
+    lib = _build.load("flash_sm90")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_sm90_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I,
+                                                 _I, _I, _Strides, _Strides,
+                                                 _Strides, _P]
+        lib.flash_attention_sm90_fwd.restype = _I
+        lib.flash_sm90_error_string.argtypes = [_I]
+        lib.flash_sm90_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> str:
+    """``"sm90"`` when the Hopper kernel takes these inputs, else
+    ``"simple"``.  A pure function of dtype, shapes, strides and the
+    pointers' alignment: bfloat16 q, k and v with head dim 64 or 128,
+    the head dim contiguous, every other stride a positive multiple of
+    16 bytes and every pointer 16-byte aligned (what a TMA tensor map
+    takes)."""
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        return "simple"
+    if q.shape[-1] not in SM90_HEAD_DIMS:
+        return "simple"
+    for t in (q, k, v):
+        *outer, inner = t.stride()
+        if inner != 1 or t.data_ptr() % TMA_ALIGN:
+            return "simple"
+        if any(s <= 0 or s * t.element_size() % TMA_ALIGN for s in outer):
+            return "simple"
+    return "sm90"
+
+
+def _check(q, k, v):
     for t in (q, k, v):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda takes CUDA tensors on "
@@ -62,20 +105,67 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"head dim {dh} outside the kernel's 1..{MAX_DH}")
     if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
         raise ValueError(f"{B} sequences x {H} heads exceed the grid")
-    out = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+
+
+def _args(q, k, v, out):
+    B, S, H, dh = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, k.shape[2], dh, _Strides(*q.stride()), _Strides(*k.stride()),
+            _Strides(*v.stride()))
+
+
+def launch_flash_sm90(q, k, v, out) -> None:
+    """Launch the Hopper kernel on checked inputs it takes; raises if the
+    launch fails."""
+    lib = _lib_sm90()
+    status = lib.flash_attention_sm90_fwd(
+        *_args(q, k, v, out), torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"flash_attention_sm90_fwd: error {status} "
+                           f"({lib.flash_sm90_error_string(status).decode()})")
+    launch_flash_sm90.launches += 1
+
+
+def _launch_simple(q, k, v, out) -> None:
+    """Launch the simple kernel on checked inputs; raises if the launch
+    fails."""
     lib = _lib()
     status = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        K, dh, _Strides(*q.stride()), _Strides(*k.stride()),
-        _Strides(*v.stride()), _DTYPES[q.dtype],
+        *_args(q, k, v, out), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {status} "
                            f"({lib.flash_error_string(status).decode()})")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kernel: str | None = None) -> torch.Tensor:
+    """Causal attention by index on the card: ``q (B, S, H, dh)``,
+    ``k, v (B, S, K, dh)`` with ``H % K == 0`` and ``dh <= 128``, float32
+    or bfloat16 -> a new contiguous ``(B, S, H, dh)``.  The kernel is
+    :func:`flash_kernel_for`'s choice; ``kernel="simple"`` forces the
+    simple one (for comparisons: nothing on the main path sets it), and
+    ``kernel="sm90"`` raises on inputs the Hopper kernel does not take."""
+    _check(q, k, v)
+    route = flash_kernel_for(q, k, v)
+    if kernel is not None:
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {KERNELS}, got "
+                             f"{kernel!r}")
+        if kernel == "sm90" and route != "sm90":
+            raise ValueError("the sm90 kernel does not take these inputs "
+                             "(see flash_kernel_for)")
+        route = kernel
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if route == "sm90":
+        launch_flash_sm90(q, k, v, out)
+    else:
+        _launch_simple(q, k, v, out)
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+launch_flash_sm90.launches = 0

@@ -1,4 +1,5 @@
-"""Flash-attention wrapper: the CUDA kernel for CUDA tensors, the plain
+"""Flash-attention wrapper: a CUDA kernel for CUDA tensors (the Hopper
+kernel or the simple one, chosen by shape before the launch), the plain
 version for CPU tensors, and nothing else (no fallback)."""
 
 from __future__ import annotations

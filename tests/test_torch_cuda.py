@@ -10,7 +10,9 @@ app 1e-5 against the single-grid reference, as examples/jacobi_stencil.py
 holds the JAX app; the ring kernel bitwise against its plain version
 (same adds in the same order, rounded to the type after each); flash
 attention float32 2e-3, bfloat16 3e-2 against its plain version (the
-reference's tolerances, tests/test_kernels.py:109); the engine on the
+reference's tolerances, tests/test_kernels.py:109), the Hopper flash
+kernel also against the simple one at 3e-2, and bitwise against itself
+where only future keys change; the engine on the
 card serves the CPU run's tokens exactly (float32 tinyllama-smoke).
 """
 
@@ -271,6 +273,91 @@ def test_flash_kernel_counts_launches_and_refuses(cuda):
     with pytest.raises(ValueError, match="H % K"):
         fa.flash_attention(*_qkv(1, 8, 3, 2, 8, torch.float32, 2, cuda))
     assert launch_counts()["flash_attention"] == 3
+
+
+# -- the Hopper flash kernel (csrc/flash_sm90.cu) ----------------------------
+# The wrapper sends every bfloat16 input at dh 64 / 128 on TMA's 16-byte
+# grid to it (tests/test_torch_flash_dispatch.py); the same tolerance.
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 190, 903, 1024])
+@pytest.mark.parametrize("dh,H,K", [
+    (64, 8, 8), (64, 8, 2), (64, 8, 1),        # GQA groups 1, 4 and 8
+    (128, 8, 8), (128, 8, 2), (128, 8, 1),
+])
+def test_flash_sm90_matches_plain_and_simple_kernel(cuda, S, dh, H, K):
+    from repro_torch.kernels import attention as fa
+
+    B = 2 if S < 512 else 1
+    q, k, v = _qkv(B, S, H, K, dh, torch.bfloat16, S * dh + K, cuda)
+    assert fa.flash_kernel_for(q, k, v) == "sm90"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v)
+    simple = fa.flash_attention_cuda(q, k, v, kernel="simple")
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
+        == (2, 1)
+    _flash_close(got, fa.flash_attention_ref(q, k, v), torch.bfloat16)
+    _flash_close(got, simple, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_sm90_is_causal(cuda, dh):
+    """Changing keys and values from position t on leaves every row
+    before t bitwise unchanged (t inside a 64-row block, so the diagonal
+    tile's mask is what keeps them out)."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, K, t = 2, 300, 4, 2, 137
+    q, k, v = _qkv(B, S, H, K, dh, torch.bfloat16, 5, cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t:] = 8 * torch.randn_like(k2[:, t:].float()).bfloat16()
+    v2[:, t:] = -v2[:, t:] + 3
+    out, out2 = fa.flash_attention(q, k, v), fa.flash_attention(q, k2, v2)
+    assert launch_counts()["flash_attention_sm90"] >= 2
+    assert torch.equal(out[:, :t], out2[:, :t])
+    assert not torch.equal(out[:, t:], out2[:, t:])
+
+
+def test_flash_sm90_reads_fused_projection_views(cuda):
+    """q, k, v as views of one fused bfloat16 projection (no copy): TMA
+    reads them through their strides."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, K, dh = 2, 150, 4, 2, 64
+    gen = torch.Generator().manual_seed(17)
+    qkv = torch.randn(B, S, (H + 2 * K) * dh + 8, generator=gen).to(
+        cuda, torch.bfloat16)[..., 8:]
+    q = qkv[..., :H * dh].view(B, S, H, dh)
+    k = qkv[..., H * dh:(H + K) * dh].view(B, S, K, dh)
+    v = qkv[..., (H + K) * dh:].view(B, S, K, dh)
+    assert not q.is_contiguous() and fa.flash_kernel_for(q, k, v) == "sm90"
+    _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
+                 torch.bfloat16)
+
+
+def test_flash_launch_counters_show_which_kernel_ran(cuda):
+    from repro_torch.kernels import attention as fa
+
+    def counts():
+        c = launch_counts()
+        return c["flash_attention"], c["flash_attention_sm90"]
+
+    bf16 = _qkv(1, 70, 4, 2, 64, torch.bfloat16, 3, cuda)
+    reset_launch_counts()
+    fa.flash_attention(*bf16)
+    assert counts() == (1, 1)
+    fa.flash_attention(*_qkv(1, 70, 4, 2, 64, torch.float32, 3, cuda))
+    assert counts() == (2, 1)
+    fa.flash_attention(*_qkv(1, 70, 4, 2, 48, torch.bfloat16, 3, cuda))
+    assert counts() == (3, 1)
+    fa.flash_attention_cuda(*bf16, kernel="simple")
+    assert counts() == (4, 1)
+    with pytest.raises(ValueError, match="sm90 kernel does not take"):
+        fa.flash_attention_cuda(
+            *_qkv(1, 70, 4, 2, 64, torch.float32, 3, cuda), kernel="sm90")
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        fa.flash_attention_cuda(*bf16, kernel="library")
+    assert counts() == (4, 1)
 
 
 def test_engine_on_the_card_serves_the_cpu_tokens(cuda):

@@ -1,0 +1,134 @@
+"""Which flash-attention kernel takes which input, decided on the CPU.
+
+``kernels.attention.flash.flash_kernel_for`` is a pure function of
+dtype, shapes, strides and pointer alignment: the Hopper kernel
+(``csrc/flash_sm90.cu``, TMA + ``wgmma``) takes bfloat16 q, k, v with
+head dim 64 or 128 on TMA's 16-byte grid, and the simple kernel
+(``csrc/flash.cu``) everything else the wrapper accepts.  Both kernels
+run only on the card (``tests/test_torch_cuda.py``); here the choice,
+the build registry and the counters are checked without one.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import LAUNCH_COUNTERS, _build
+from repro_torch.kernels import attention as fa
+from repro_torch.kernels.attention import flash as fl
+from repro_torch.models import attention as tattn
+
+BF16 = torch.bfloat16
+
+
+def _qkv(B=1, S=40, H=4, K=2, dh=64, dtype=BF16):
+    return (torch.zeros(B, S, H, dh, dtype=dtype),
+            torch.zeros(B, S, K, dh, dtype=dtype),
+            torch.zeros(B, S, K, dh, dtype=dtype))
+
+
+def _fused(B, S, H, K, dh, width, offset=0, dtype=BF16):
+    """q, k, v as views of one fused projection of ``width`` columns,
+    starting ``offset`` elements in (no copy)."""
+    qkv = torch.zeros(B, S, width, dtype=dtype)[..., offset:]
+    q = qkv[..., :H * dh].view(B, S, H, dh)
+    k = qkv[..., H * dh:(H + K) * dh].view(B, S, K, dh)
+    v = qkv[..., (H + K) * dh:(H + 2 * K) * dh].view(B, S, K, dh)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2), (8, 1), (32, 4), (12, 2)])
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 65), (1, 1024)])
+def test_hopper_kernel_takes_bf16_at_head_dims_64_and_128(dh, H, K, B, S):
+    assert fl.flash_kernel_for(*_qkv(B, S, H, K, dh)) == "sm90"
+
+
+def _head_dim_not_contiguous():
+    q, k, v = _qkv()
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v
+
+
+def _mixed_dtypes():
+    q, k, v = _qkv()
+    return q.float(), k, v
+
+
+def _shared_kv_heads():
+    q, k, v = _qkv(K=1)
+    return q, k.expand(1, 40, 2, 64), v.expand(1, 40, 2, 64)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _qkv(dtype=torch.float32),          # float32: the simple kernel
+    lambda: _qkv(dh=128, dtype=torch.float32),
+    lambda: _qkv(dh=16), lambda: _qkv(dh=32), lambda: _qkv(dh=48),
+    lambda: _qkv(dh=100), lambda: _qkv(dh=96),
+    _mixed_dtypes,
+    _head_dim_not_contiguous,                   # stride(-1) != 1
+    _shared_kv_heads,                           # a zero stride
+    # a row of 3*64 + 4 columns: 392-byte strides, off the 16-byte grid
+    lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 4),
+    # strides on the grid, pointers 8 bytes off it
+    lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 8, offset=4),
+], ids=["float32", "float32-dh128", "dh16", "dh32", "dh48", "dh100", "dh96",
+        "mixed-dtypes", "head-dim-strided", "zero-stride",
+        "stride-off-grid", "pointer-off-grid"])
+def test_other_inputs_go_to_the_simple_kernel(make):
+    assert fl.flash_kernel_for(*make()) == "simple"
+
+
+def test_hopper_kernel_takes_fused_projection_views():
+    """Views of one fused qkv projection load by TMA without a copy when
+    their strides and pointers sit on the 16-byte grid."""
+    q, k, v = _fused(2, 77, 4, 2, 64, 8 * 64 + 8, offset=8)
+    assert not q.is_contiguous()
+    assert fl.flash_kernel_for(q, k, v) == "sm90"
+
+
+def test_prompt_pass_of_a_bf16_gqa_layer_takes_the_hopper_kernel(
+        monkeypatch):
+    """The q, k, v that the model's prompt pass hands the flash route
+    (projections, rope, reshape) at dh 64 in bfloat16 are inputs the
+    Hopper kernel takes."""
+    H, K, dh, d, S = 4, 2, 64, 256, 9
+    gen = torch.Generator().manual_seed(3)
+    params = {name: torch.randn(d, n, generator=gen).to(BF16)
+              for name, n in (("wq", H * dh), ("wk", K * dh),
+                              ("wv", K * dh))}
+    params["wo"] = torch.randn(H * dh, d, generator=gen).to(BF16)
+    x = torch.randn(1, S, d, generator=gen).to(BF16)
+    seen = []
+
+    def spy(q, k, v):
+        seen.append(fl.flash_kernel_for(q, k, v))
+        return fa.flash_attention_ref(q, k, v)
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    tattn.gqa(params, x, torch.arange(S)[None], H=H, K=K, dh=dh)
+    assert seen == ["sm90"]
+
+
+def test_wrapper_refuses_cpu_tensors_whatever_the_kernel():
+    """A tensor off the card never reaches either kernel: the wrapper
+    refuses it before choosing, a forced kernel included."""
+    for kernel in (None, "sm90", "simple"):
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention_cuda(*_qkv(), kernel=kernel)
+
+
+def test_build_registers_the_hopper_source_for_sm90a():
+    src = _build.SOURCES["flash_sm90"]
+    assert src.name == "flash_sm90.cu" and src.exists()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    text = src.read_text()
+    # chip_smoke.py and the profiler match kernels on this substring
+    assert "flash_attention_kernel_sm90" in text
+    for ptx in ("cp.async.bulk.tensor", "mbarrier.try_wait",
+                "wgmma.mma_async"):
+        assert ptx in text
+    assert _build.library_path("flash_sm90").name.startswith("libflash_sm90")
+
+
+def test_counters_name_both_flash_kernels():
+    assert LAUNCH_COUNTERS["flash_attention"] is fl.flash_attention_cuda
+    assert LAUNCH_COUNTERS["flash_attention_sm90"] is fl.launch_flash_sm90

@@ -192,7 +192,10 @@ def test_cpu_tensors_never_launch_a_kernel():
     gd.ring_collective(torch.ones(3, 3, 5), gd.ALL_REDUCE)
     flash_attention(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 1, 8),
                     torch.ones(1, 4, 1, 8))
+    flash_attention(*(torch.ones(1, 4, h, 64, dtype=torch.bfloat16)
+                      for h in (2, 1, 1)))
     assert launch_counts() == {"datamover_gather": 0,
                                "datamover_scatter": 0, "jacobi_sweep": 0,
                                "ring_allreduce_dma": 0, "ring_collective": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0,
+                               "flash_attention_sm90": 0}
