@@ -12,9 +12,13 @@ through ``JacobiApp``, checks it against the single-grid reference and
 profiles a 64-iteration window of it (device busy time, idle share).
 Phase 5 drives the ring collectives and the GAScore's RDMA ring on 8
 kernels at the width of tinyllama-1.1b's embedding gradient (8 x
-32000*2048 words, the data-parallel trainer's largest leaf), holds them
-to float64 sums and the ring kernel to its plain version bitwise, and
-times HUMboldt's two-sided send/recv beside an acked one-sided put.
+32000*2048 words, the data-parallel trainer's largest leaf), at 1 MB,
+at its 2048-word norm leaf and a 1-word scale, holds them to float64
+sums, each call's ring kernel (the cluster kernel ``gascore_dma_sm90.cu``
+or the simple ``gascore_dma.cu``, by ``ring_kernel_for``) to the launch
+counters, and both ring kernels to their plain version bitwise, times
+them beside the library call in turns, and times HUMboldt's two-sided
+send/recv beside an acked one-sided put.
 Phase 6 serves tinyllama-1.1b at full width and depth (22 layers,
 bfloat16, random weights from a seed) through ``ServeEngine`` -- 4
 lanes, 2048 slots, 8 requests of 128-1024 prompt tokens and 32 new
@@ -59,8 +63,10 @@ K = 8
 RING = [(i, (i + 1) % K) for i in range(K)]
 LEAF_WORDS = 32000 * 2048  # tinyllama-1.1b's embedding (vocab x d_model)
 MB_WORDS = 32768           # bench_throughput.py's 1 MB ring payload
+NORM_WORDS = 2048          # tinyllama-1.1b's RMSNorm gain (d_model)
 HUM_BYTES = (8, 512, 4096)  # bench_latency.py's message sizes
 RING_SRC = "src/repro_torch/kernels/gascore_dma/csrc/gascore_dma.cu"
+RING_SM90_SRC = "src/repro_torch/kernels/gascore_dma/csrc/gascore_dma_sm90.cu"
 RING_TPU = "src/repro/kernels/gascore_dma/gascore_dma.py:62"
 FLASH_SRC = "src/repro_torch/kernels/attention/csrc/flash.cu"
 FLASH_SM90_SRC = "src/repro_torch/kernels/attention/csrc/flash_sm90.cu"
@@ -629,6 +635,14 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
 # phase 5: the ring collectives, the RDMA ring and HUMboldt on 8 kernels
 # ---------------------------------------------------------------------------
 
+def ring_buffer(torch, x, n):
+    """``x (K, ...)`` as the ring collectives hand it to the kernel: every
+    kernel's flat value zero-padded to ``(K, n, ceil(size / n))``."""
+    from repro_torch.core.collectives import _pad_to_chunks
+
+    return _pad_to_chunks(x, n)[0]
+
+
 def host_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Host-clock ms per call of ``fn`` over ``reps`` calls that end in a
     device synchronisation (on a CUDA device)."""
@@ -649,10 +663,13 @@ def host_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 def _ring_main_path(torch, coll, gd, ctx, data):
     """The path's entry points as a user calls them: the data-parallel
     trainer's ``shoal`` backend (``ring_all_reduce`` of a gradient leaf
-    in float32 and, compressed, in int32 with its size-1 scale), the
-    ring reduce-scatter / all-gather, broadcast, all-to-all and barrier,
-    and the GAScore's RDMA ring all-reduce.  Each call is checked for
-    its exchange count; returns the outputs by name."""
+    in float32 and, compressed, in int32 with its size-1 scale, and of
+    tinyllama-1.1b's 2048-word RMSNorm gain), the ring reduce-scatter /
+    all-gather, broadcast, all-to-all and barrier, and the GAScore's RDMA
+    ring all-reduce.  Each call is checked for its exchange count;
+    returns the outputs by name and each call's launches by counter."""
+    from repro_torch.kernels import launch_counts
+
     calls = [
         ("ar_f32", 2 * (K - 1),
          lambda: coll.ring_all_reduce(ctx, data["leaf"])),
@@ -660,6 +677,8 @@ def _ring_main_path(torch, coll, gd, ctx, data):
          lambda: coll.ring_all_reduce(ctx, data["leaf_i32"])),
         ("ar_scale", 2 * (K - 1),
          lambda: coll.ring_all_reduce(ctx, data["scale"])),
+        ("ar_norm", 2 * (K - 1),
+         lambda: coll.ring_all_reduce(ctx, data["norm"])),
         ("rs", K - 1, lambda: coll.ring_reduce_scatter(ctx, data["mb"])),
         ("ag", K - 1, lambda: coll.ring_all_gather(ctx, out["rs"])),
         ("bc", 2 * (K - 1),
@@ -669,13 +688,15 @@ def _ring_main_path(torch, coll, gd, ctx, data):
         ("dma_f32", 0, lambda: gd.ring_allreduce_dma(data["leaf"])),
         ("dma_bf16", 0, lambda: gd.ring_allreduce_dma(data["leaf_bf16"])),
     ]
-    out = {}
+    out, launches = {}, {}
     for name, n_ex, fn in calls:
-        before = ctx.exchanges
+        before, counts = ctx.exchanges, launch_counts()
         out[name] = fn()
         require(ctx.exchanges - before == n_ex,
                 f"{name}: {ctx.exchanges - before} exchanges, expected {n_ex}")
-    return out
+        launches[name] = {k: v - counts[k] for k, v in launch_counts().items()
+                          if v != counts[k]}
+    return out, launches
 
 
 def _check_sums(torch, data, out):
@@ -700,6 +721,8 @@ def _check_sums(torch, data, out):
             0, dtype=torch.float64), 5e-2, "dma_bf16"),
         ar_scale=close(out["ar_scale"], data["scale"].sum(
             0, dtype=torch.float64), 1e-5, "ar_scale"),
+        ar_norm=close(out["ar_norm"], data["norm"].sum(
+            0, dtype=torch.float64), 1e-5, "ar_norm"),
         rs=close(out["rs"], mb.reshape(K, K, c).sum(0, dtype=torch.float64),
                  1e-5, "rs"))
     i32 = out["ar_i32"]
@@ -717,12 +740,74 @@ def _check_sums(torch, data, out):
     return errs
 
 
+RING_TURNS = ("sm90", "simple", "library", "library", "simple", "sm90")
+# the main-path calls ring_kernel_for sends to the cluster kernel
+RING_SM90_CALLS = ("rs", "ag", "ar_norm")
+
+
+def _ring_cases(torch, gd, data, out):
+    """``(call, case, wrapper, schedule, kernel input, main-path output
+    shaped as the kernel's, library call, bytes, adds)`` for every
+    phase-5 ring case."""
+    leaf, mb = data["leaf"], data["mb"]
+    leaf_words, mb_words = leaf.shape[1], mb.shape[1]
+    c_mb = mb_words // K
+    ops_leaf = (K - 1) * leaf_words               # K-1 adds per word
+
+    def allreduce(x):
+        return lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()
+
+    cases = []
+    for call, case, key in (("dma_f32", "dma-leaf-f32", "leaf"),
+                            ("dma_bf16", "dma-leaf-bf16", "leaf_bf16")):
+        x = data[key]
+        cases.append((call, case, "ring_allreduce_dma", gd.DMA, x,
+                      out[call], allreduce(x), 2 * x.nbytes, ops_leaf))
+    for call, case, key in (("ar_f32", "all_reduce-leaf-f32", "leaf"),
+                            ("ar_i32", "all_reduce-leaf-int32", "leaf_i32"),
+                            ("ar_norm", "all_reduce-norm-2048", "norm"),
+                            ("ar_scale", "all_reduce-scale-1", "scale")):
+        x = data[key]
+        buf = ring_buffer(torch, x, K)
+        cases.append((call, case, "ring_collective", gd.ALL_REDUCE, buf,
+                      ring_buffer(torch, out[call], K), allreduce(x),
+                      2 * buf.nbytes, (K - 1) * buf[0].numel()))
+    buf_mb = mb.reshape(K, K, c_mb)
+    rs = out["rs"]
+    cases += [
+        ("rs", "reduce_scatter-1MB", "ring_collective", gd.REDUCE_SCATTER,
+         buf_mb, rs, lambda: buf_mb.sum(0), mb.nbytes + mb.nbytes // K,
+         (K - 1) * mb_words),
+        ("ag", "all_gather-1MB", "ring_collective", gd.ALL_GATHER, rs,
+         out["ag"], lambda: rs[None].expand(K, K, c_mb).contiguous(),
+         mb.nbytes + mb.nbytes // K, 0),
+    ]
+    return cases
+
+
+def _ring_fns(gd, wrapper, schedule, x):
+    """The cluster kernel forced, the simple kernel forced, and the plain
+    version, on ``x``."""
+    if wrapper == "ring_allreduce_dma":
+        return (lambda: gd.ring_allreduce_dma_cuda(x, kernel="sm90"),
+                lambda: gd.ring_allreduce_dma_cuda(x, kernel="simple"),
+                lambda: gd.ring_allreduce_dma_ref(x))
+    return (lambda: gd.ring_collective_cuda(x, schedule, kernel="sm90"),
+            lambda: gd.ring_collective_cuda(x, schedule, kernel="simple"),
+            lambda: gd.ring_collective_ref(x, schedule))
+
+
 def phase_collectives(torch, device, leaf_words=LEAF_WORDS,
                       mb_words=MB_WORDS):
     """Phase 5.  The main path (counts reset before it, read after it),
-    every result against its closed form, then every ring kernel against
-    its plain version on the same inputs, bitwise, with device times;
-    then HUMboldt against closed forms, timed beside an acked put."""
+    every result against its closed form, each ring call's kernel against
+    ``ring_kernel_for``'s route by the launch counters (the 1 MB
+    reduce-scatter / all-gather and the norm leaf through the cluster
+    kernel); then at every ring case both ring kernels against the plain
+    version on the same inputs, bitwise, with device times of the
+    cluster kernel, the simple kernel and the library call in turns;
+    then HUMboldt against closed forms, timed beside an acked put.
+    Returns one record per ring case."""
     from repro_torch.core import collectives as coll
     from repro_torch.core.state import ShoalContext
     from repro_torch.kernels import (gascore_dma as gd, launch_counts,
@@ -734,7 +819,9 @@ def phase_collectives(torch, device, leaf_words=LEAF_WORDS,
                                        generator=gen, device=device,
                                        dtype=torch.int32),
                 scale=torch.rand(K, 1, generator=gen, device=device),
-                mb=torch.randn(K, mb_words, generator=gen, device=device))
+                mb=torch.randn(K, mb_words, generator=gen, device=device),
+                norm=torch.randn(K, NORM_WORDS, generator=gen,
+                                 device=device))
     data["leaf_bf16"] = data["leaf"].to(torch.bfloat16)
     data["bc"] = data["mb"].clone()
     data["bc"][:, ::3] = 0.0                  # payloads may hold zeros
@@ -743,87 +830,100 @@ def phase_collectives(torch, device, leaf_words=LEAF_WORDS,
     if cuda:
         torch.cuda.synchronize()
     reset_launch_counts()
-    out = _ring_main_path(torch, coll, gd, ctx, data)
+    out, per_call = _ring_main_path(torch, coll, gd, ctx, data)
     if cuda:
         torch.cuda.synchronize()
     counts = launch_counts()
     if cuda:
         require(counts["ring_allreduce_dma"] >= 2
-                and counts["ring_collective"] >= 5,
+                and counts["ring_collective"] >= 6,
                 f"ring kernels not launched on the main path: {counts}")
+    routes = {}
+    for (call, case, wrapper, schedule, x, *_rest) in _ring_cases(
+            torch, gd, data, out):
+        routes[call] = gd.ring_kernel_for(K, x.shape[-1], x.dtype, schedule)
+        if cuda:
+            require(per_call[call].get(wrapper) == 1
+                    and per_call[call].get("ring_cluster_sm90", 0)
+                    == (routes[call] == "sm90"),
+                    f"{call} ({case}): launches {per_call[call]}, route "
+                    f"{routes[call]}")
+    require(all(routes[c] == "sm90" for c in RING_SM90_CALLS),
+            f"routes {routes}: {RING_SM90_CALLS} must take the cluster "
+            "kernel")
     errs = _check_sums(torch, data, out)
     say("collectives", main_path="ok", exchanges=ctx.exchanges,
         launches=counts, **{f"sum_err_{k}": v for k, v in errs.items()})
+    say("collectives", routes=json.dumps(routes),
+        launches_per_call=json.dumps(per_call))
     if cuda:      # host clock per all-reduce call, synchronised
         ms = host_ms(torch, lambda: coll.ring_all_reduce(ctx, data["leaf"]),
                      reps=10)
         say("collectives", case="all_reduce-tinyllama-embedding-f32",
             call_host_ms=f"{ms:.4f}")
 
-    leaf, leaf_i32, mb = data["leaf"], data["leaf_i32"], data["mb"]
-    c_leaf, c_mb = leaf_words // K, mb_words // K
-    ops_leaf = (K - 1) * leaf_words               # K-1 adds per word
-    cases = [
-        ("ring_allreduce_dma", "tinyllama-embedding-f32", out["dma_f32"],
-         lambda: gd.ring_allreduce_dma(leaf),
-         lambda: gd.ring_allreduce_dma_ref(leaf),
-         lambda: leaf.sum(0, keepdim=True).expand_as(leaf).contiguous(),
-         2 * leaf.nbytes, ops_leaf),
-        ("ring_allreduce_dma", "tinyllama-embedding-bf16", out["dma_bf16"],
-         lambda: gd.ring_allreduce_dma(data["leaf_bf16"]),
-         lambda: gd.ring_allreduce_dma_ref(data["leaf_bf16"]),
-         lambda: data["leaf_bf16"].sum(0, keepdim=True).expand_as(
-             data["leaf_bf16"]).contiguous(),
-         2 * data["leaf_bf16"].nbytes, ops_leaf),
-    ]
-    for dt, x in (("f32", leaf), ("int32", leaf_i32)):
-        buf = x.reshape(K, K, c_leaf)
-        cases.append(
-            ("ring_collective", f"all_reduce-tinyllama-embedding-{dt}",
-             out[f"ar_{'f32' if dt == 'f32' else 'i32'}"].reshape(K, K, -1),
-             lambda buf=buf: gd.ring_collective(buf, gd.ALL_REDUCE),
-             lambda buf=buf: gd.ring_collective_ref(buf, gd.ALL_REDUCE),
-             lambda x=x: x.sum(0, keepdim=True).expand_as(x).contiguous(),
-             2 * x.nbytes, ops_leaf))
-    buf_mb = mb.reshape(K, K, c_mb)
-    cases += [
-        ("ring_collective", "reduce_scatter-1MB", out["rs"],
-         lambda: gd.ring_collective(buf_mb, gd.REDUCE_SCATTER),
-         lambda: gd.ring_collective_ref(buf_mb, gd.REDUCE_SCATTER),
-         lambda: buf_mb.sum(0), mb.nbytes + mb.nbytes // K,
-         (K - 1) * mb_words),
-        ("ring_collective", "all_gather-1MB", out["ag"],
-         lambda: gd.ring_collective(out["rs"], gd.ALL_GATHER),
-         lambda: gd.ring_collective_ref(out["rs"], gd.ALL_GATHER),
-         lambda: out["rs"][None].expand(K, K, c_mb).contiguous(),
-         mb.nbytes + mb.nbytes // K, 0),
-    ]
-    entries = {}
-    for name, case, main_out, kernel, plain, lib, nbytes, ops in cases:
-        got, want = kernel(), plain()
+    records = []
+    for (call, case, wrapper, schedule, x, main_out, lib, nbytes,
+         ops) in _ring_cases(torch, gd, data, out):
+        sm90, simple, plain = _ring_fns(gd, wrapper, schedule, x)
+        if not cuda:                  # a CPU rehearsal has no kernels
+            sm90 = simple = plain
+        got, want = sm90(), plain()
+        forced = simple()
         if cuda:
             torch.cuda.synchronize()
-        require(torch.equal(got, want) and torch.equal(main_out, want),
-                f"{name} {case}: kernel, main path and plain version "
-                "differ")
+        require(torch.equal(got, want) and torch.equal(forced, want)
+                and torch.equal(main_out, want),
+                f"{wrapper} {case}: cluster kernel, simple kernel, main "
+                "path and plain version differ")
         err = (got.double() - want.double()).abs().max().item()
+        del got, want, forced
+        K_, c = x.shape[0], x.shape[-1]
+        plan = gd.cluster_tile_plan(K_, c, x.dtype, schedule)
         m = dict(err=err, nbytes=nbytes, ops=ops, ms=None, plain=None,
                  lib=None)
+        turns = {"sm90": [], "simple": [], "library": []}
+        clusters = None
         if cuda:
-            m.update(ms=device_ms(kernel, kernel="ring_kernel"),
-                     plain=device_ms(plain, reps=5), lib=device_ms(lib))
-        rec = entry(name, RING_SRC, RING_TPU, m)
-        say("collectives", kernel=name, case=case, shape=tuple(got.shape),
-            bitwise="equal", max_abs_err=err,
-            kernel_ms=rec["ms"], bound_ms=f"{rec['bound_ms']:.5f}",
-            bound_by=rec["bound_by"], plain_ms=rec["plain_ms"],
-            library_ms=rec["library_ms"])
-        entries.setdefault(name, rec)             # the leaf f32 case
-        del got, want
-    for name in entries:
-        entries[name]["launches"] = counts[name]
+            fns = {"sm90": sm90, "simple": simple, "library": lib}
+            subs = {"sm90": "ring_cluster_kernel_sm90",
+                    "simple": "ring_kernel", "library": None}
+            for r in RING_TURNS:
+                turns[r].append(device_ms(fns[r], kernel=subs[r]))
+            m.update(plain=device_ms(plain, reps=5),
+                     lib=float(np.mean(turns["library"])))
+            clusters = gd.cluster_max_active(K_, c, x.dtype, schedule)
+        mean = {r: float(np.mean(v)) if v else None for r, v in turns.items()}
+        # one record per case, named by the kernel the main path ran;
+        # launches are that call's, path_launches the whole path's
+        ran = per_call[call]
+        if routes[call] == "sm90":
+            rec = entry("ring_cluster_sm90", RING_SM90_SRC, RING_TPU,
+                        dict(m, ms=mean["sm90"]))
+            rec.update(launches=ran.get("ring_cluster_sm90", 0),
+                       path_launches=counts["ring_cluster_sm90"])
+        else:
+            rec = entry(wrapper, RING_SRC, RING_TPU,
+                        dict(m, ms=mean["simple"]))
+            rec.update(launches=ran.get(wrapper, 0)
+                       - ran.get("ring_cluster_sm90", 0),
+                       path_launches=counts[wrapper])
+        rec.update(case=case, main_path_route=routes[call],
+                   sm90_ms=mean["sm90"], simple_ms=mean["simple"],
+                   turns_ms=turns, plan=plan._asdict(),
+                   max_active_clusters=clusters)
+        records.append(rec)
+        fmt = (lambda v: f"{v:.6f}" if v is not None else None)
+        say("collectives", kernel=rec["name"], case=case,
+            shape=tuple(x.shape), schedule=schedule, route=routes[call],
+            bitwise="equal",
+            max_abs_err=err, plan=tuple(plan), max_active_clusters=clusters,
+            sm90_ms=fmt(mean["sm90"]), simple_ms=fmt(mean["simple"]),
+            library_ms=fmt(m["lib"]), plain_ms=fmt(m["plain"]),
+            bound_ms=f"{rec['bound_ms']:.6f}", bound_by=rec["bound_by"],
+            turns_ms={r: [fmt(t) for t in v] for r, v in turns.items()})
     phase_humboldt(torch, device)
-    return entries
+    return records
 
 
 def phase_humboldt(torch, device, reps=20):
@@ -1254,6 +1354,27 @@ def phase_serving(torch, device):
     return records
 
 
+def ring_ptxas_summary(log: str) -> dict:
+    """The cluster ring kernel's ``ptxas -v`` log in brief: how many
+    instantiations, their registers (least-most) and the largest spill
+    store and load in bytes."""
+    import re
+
+    regs, spills, entries, inside = [], [0], 0, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = "ring_cluster_kernel_sm90" in line
+            entries += inside
+        elif inside and "registers" in line:
+            regs += [int(v) for v in re.findall(r"Used (\d+) registers",
+                                                line)]
+        elif inside and "spill" in line:
+            spills += [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+    return {"instantiations": entries,
+            "registers": f"{min(regs, default=0)}-{max(regs, default=0)}",
+            "spill_bytes_max": max(spills)}
+
+
 def ptxas_summary(log: str) -> dict:
     """``{"dh64": "110 registers, 0 bytes spill stores, ...", ...}`` from
     the Hopper flash kernel's ``ptxas -v`` log (one entry per head-dim
@@ -1296,6 +1417,9 @@ def main() -> int:
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         sources=",".join(logs))
     for name, log in logs.items():
+        if name == "gascore_dma_sm90":      # one line per instantiation
+            say("build", source=name, ptxas=ring_ptxas_summary(log))
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
@@ -1313,13 +1437,16 @@ def main() -> int:
     counts = phase_jacobi(torch, device)
     for name, rec in kernels.items():
         rec["launches"] = counts[name]
-    kernels.update(phase_collectives(torch, device))
+    rings = phase_collectives(torch, device)
+    next(r for r in rings if r["name"] == "ring_cluster_sm90")["ptxas"] = \
+        ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
     kernels.update(phase_serving(torch, device))
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
 
     print(card, flush=True)
-    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
+    print(json.dumps({"kernels": list(kernels.values()) + rings}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,9 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
 * ``gascore_dma`` -- the GAScore's RDMA ring: ring all-reduce by
   one-sided puts with ADD on arrival, and the ring reduce-scatter /
   all-gather / all-reduce schedules of ``core.collectives``, replacing
-  ``ring_allreduce_dma_local``.
+  ``ring_allreduce_dma_local``: a Hopper kernel (a thread-block cluster,
+  one CTA per Shoal kernel, DSMEM puts, mbarrier semaphores) for
+  2 <= K <= 8, and a simple kernel for every other K it holds.
 * ``attention`` -- causal flash attention over a prompt (GQA layout),
   the LM stack's prefill and forward, replacing ``flash_attention_pallas``:
   a Hopper kernel (TMA tile ring, ``wgmma``) for bfloat16 at head dim 64
@@ -25,7 +27,7 @@ from repro_torch.kernels.am_pack.am_pack import (datamover_gather_cuda,
 from repro_torch.kernels.attention.flash import (flash_attention_cuda,
                                                  launch_flash_sm90)
 from repro_torch.kernels.gascore_dma.gascore_dma import (
-    ring_allreduce_dma_cuda, ring_collective_cuda)
+    launch_ring_sm90, ring_allreduce_dma_cuda, ring_collective_cuda)
 from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
 
 # every kernel wrapper that counts its launches, by kernel name
@@ -33,8 +35,9 @@ LAUNCH_COUNTERS = {
     "datamover_gather": datamover_gather_cuda,
     "datamover_scatter": datamover_scatter_cuda,
     "jacobi_sweep": jacobi_sweep_cuda,
-    "ring_allreduce_dma": ring_allreduce_dma_cuda,
-    "ring_collective": ring_collective_cuda,
+    "ring_allreduce_dma": ring_allreduce_dma_cuda,  # either ring kernel
+    "ring_collective": ring_collective_cuda,        # either ring kernel
+    "ring_cluster_sm90": launch_ring_sm90,          # the cluster kernel
     "flash_attention": flash_attention_cuda,        # either flash kernel
     "flash_attention_sm90": launch_flash_sm90,      # the Hopper kernel
 }

@@ -28,6 +28,7 @@ SOURCES = {
     "am_pack": _PKG / "am_pack" / "csrc" / "am_pack.cu",
     "jacobi": _PKG / "jacobi" / "csrc" / "jacobi.cu",
     "gascore_dma": _PKG / "gascore_dma" / "csrc" / "gascore_dma.cu",
+    "gascore_dma_sm90": _PKG / "gascore_dma" / "csrc" / "gascore_dma_sm90.cu",
     "flash": _PKG / "attention" / "csrc" / "flash.cu",
     "flash_sm90": _PKG / "attention" / "csrc" / "flash_sm90.cu",
 }

@@ -7,8 +7,9 @@ Tolerances: DataMover exact, bitwise where masked lanes hold NaN/inf;
 Jacobi float32 1e-6, bfloat16 2e-2 (the kernel and its plain version
 round the same operations, so in practice both are exact); the Jacobi
 app 1e-5 against the single-grid reference, as examples/jacobi_stencil.py
-holds the JAX app; the ring kernel bitwise against its plain version
-(same adds in the same order, rounded to the type after each); flash
+holds the JAX app; both ring kernels bitwise against their plain version
+and each other (same adds in the same order, rounded to the type after
+each); flash
 attention float32 2e-3, bfloat16 3e-2 against its plain version (the
 reference's tolerances, tests/test_kernels.py:109), the Hopper flash
 kernel also against the simple one at 3e-2, and bitwise against itself
@@ -185,6 +186,80 @@ def test_collectives_on_the_card_match_the_cpu(cuda):
         assert torch.equal(got, want)
     assert exchanges == [4 * 7 + 2 * 7 + 1] * 2
     assert counts["ring_collective"] == 3 and counts["ring_allreduce_dma"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("K", [2, 3, 5, 8])
+def test_cluster_ring_kernel_matches_plain_and_simple_bitwise(cuda, dtype, K):
+    """The cluster kernel (forced, and where ``ring_kernel_for`` routes
+    to it) against the plain version and the simple kernel, all four
+    schedules, chunks that are not multiples of K, of the vector width
+    or of the tile; 4096 is 1 MB's chunk (32768 words / 8)."""
+    reset_launch_counts()
+    launches = 0
+    for i, chunk in enumerate((1, 37, 130, 4096, 4099)):
+        x = _ring_input(K, (chunk,), dtype, i).to(cuda)
+        buf = _ring_input(K, (K, chunk), dtype, i + 10).to(cuda)
+        want = gd.ring_allreduce_dma_ref(x)
+        for kernel in ("sm90", "simple", None):
+            assert torch.equal(gd.ring_allreduce_dma_cuda(x, kernel=kernel),
+                               want), ("dma", kernel, chunk)
+        launches += 1 + (gd.ring_kernel_for(K, chunk, dtype, gd.DMA)
+                         == "sm90")
+        for schedule, arg in ((gd.REDUCE_SCATTER, buf), (gd.ALL_GATHER, x),
+                              (gd.ALL_REDUCE, buf)):
+            want = gd.ring_collective_ref(arg, schedule)
+            for kernel in ("sm90", "simple", None):
+                assert torch.equal(gd.ring_collective_cuda(
+                    arg, schedule, kernel=kernel), want), (
+                        schedule, kernel, chunk)
+            launches += 1 + (gd.ring_kernel_for(K, chunk, dtype, schedule)
+                             == "sm90")
+    assert launch_counts()["ring_cluster_sm90"] == launches
+
+
+def test_collectives_on_the_card_take_the_cluster_kernel(cuda):
+    """On 8 kernels the main path's small ring collectives are one launch
+    each, of the kernel ``ring_kernel_for`` measured faster: the 1 MB
+    reduce-scatter and all-gather and tinyllama's 2048-word norm leaf on
+    the cluster kernel, the 1-word scale on the simple kernel."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.state import ShoalContext
+
+    ctx = ShoalContext(8, device=cuda)
+    mb = _ring_input(8, (32768,), torch.float32, 1).to(cuda)
+    norm = _ring_input(8, (2048,), torch.float32, 2).to(cuda)
+    scale = _ring_input(8, (1,), torch.float32, 3).to(cuda)
+    reset_launch_counts()
+    rs = coll.ring_reduce_scatter(ctx, mb)
+    ag = coll.ring_all_gather(ctx, rs)
+    ar_norm = coll.ring_all_reduce(ctx, norm)
+    counts = launch_counts()
+    assert counts["ring_cluster_sm90"] == counts["ring_collective"] == 3
+    ar_scale = coll.ring_all_reduce(ctx, scale)
+    counts = launch_counts()
+    assert counts["ring_cluster_sm90"] == 3 and counts["ring_collective"] == 4
+    cpu = ShoalContext(8, device="cpu")
+    want_rs = coll.ring_reduce_scatter(cpu, mb.cpu())
+    assert torch.equal(rs.cpu(), want_rs)
+    assert torch.equal(ag.cpu(), coll.ring_all_gather(cpu, want_rs))
+    for got, v in zip((ar_norm, ar_scale), (norm, scale)):
+        assert torch.equal(got.cpu(), coll.ring_all_reduce(cpu, v.cpu()))
+
+
+def test_cluster_ring_kernel_refuses_rings_beyond_the_cluster(cuda):
+    x = torch.zeros(200, 200, 4, device=cuda)
+    with pytest.raises(ValueError, match="2 <= K <= 8"):
+        gd.ring_collective_cuda(x, gd.ALL_REDUCE, kernel="sm90")
+    with pytest.raises(ValueError, match="2 <= K <= 8"):
+        gd.ring_allreduce_dma_cuda(torch.zeros(200, 8, device=cuda),
+                                   kernel="sm90")
+    # K = 200 takes the simple kernel, which holds it for dma
+    reset_launch_counts()
+    y = _ring_input(200, (8,), torch.float32, 4).to(cuda)
+    assert torch.equal(gd.ring_allreduce_dma(y), gd.ring_allreduce_dma_ref(y))
+    assert launch_counts()["ring_cluster_sm90"] == 0
 
 
 def test_ring_kernel_refuses_what_it_cannot_hold(cuda):

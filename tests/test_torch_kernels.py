@@ -197,5 +197,6 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert launch_counts() == {"datamover_gather": 0,
                                "datamover_scatter": 0, "jacobi_sweep": 0,
                                "ring_allreduce_dma": 0, "ring_collective": 0,
+                               "ring_cluster_sm90": 0,
                                "flash_attention": 0,
                                "flash_attention_sm90": 0}
