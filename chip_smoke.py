@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card, drives the
+holds each against its plain PyTorch version on the card (both DataMover
+designs -- the Hopper one, ``am_pack_sm90.cu``, and the simple one,
+``am_pack.cu`` -- bitwise, in float32, int32 and bfloat16, timed in turns
+beside an empty kernel's launch floor), drives the
 paper's microbenchmark ops on 8 kernels, then runs the paper's Jacobi
 application at its footnote-2 size (4096 x 4096 grid, 8 kernels, TCP
 with 9000-byte frames so every halo row is segmented, 1024 iterations)
@@ -204,43 +207,112 @@ def _times(m) -> dict:
                 library_ms=f"{m['lib']:.5f}", call_ms=f"{m['call']:.5f}")
 
 
+# the DataMover's two designs: kernel name in the profiler, launch counter
+DM_KERNELS = {"gather": {"sm90": "gather_sm90_kernel",
+                         "simple": "gather_kernel"},
+              "scatter": {"sm90": "scatter_sm90_kernel",
+                          "simple": "scatter_kernel"}}
+DM_COUNTERS = {("gather", "sm90"): "datamover_gather_sm90",
+               ("gather", "simple"): "datamover_gather",
+               ("scatter", "sm90"): "datamover_scatter_sm90",
+               ("scatter", "simple"): "datamover_scatter"}
+DM_SRC = {"sm90": "src/repro_torch/kernels/am_pack/csrc/am_pack_sm90.cu",
+          "simple": "src/repro_torch/kernels/am_pack/csrc/am_pack.cu"}
+DM_TPU = {"gather": "src/repro/kernels/am_pack/am_pack.py:41",
+          "scatter": "src/repro/kernels/am_pack/am_pack.py:58"}
+DM_TURNS = ("sm90", "simple", "simple", "sm90")
+
+
+def _bits(torch, t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _dm_designs(torch, dtype):
+    """The designs that move ``dtype``: the simple one 32-bit words only."""
+    return ("sm90", "simple") if dtype in (torch.float32, torch.int32) \
+        else ("sm90",)
+
+
+def floor_ms(torch, device) -> float:
+    """Device ms of an empty kernel launched like a DataMover kernel: the
+    launch floor the DataMover's times are read against."""
+    import importlib
+
+    dmm = importlib.import_module("repro_torch.kernels.am_pack.am_pack")
+    return device_ms(lambda: dmm.launch_empty_sm90(device),
+                     kernel="empty_sm90_kernel")
+
+
+def _dm_time(torch, op, fns, designs, device, lib, plain, call):
+    """Device ms of each design in turns (Hopper, simple, simple,
+    Hopper), of the empty kernel, the plain version and the library
+    call, and the routed wrapper's call ms."""
+    turns = {r: [] for r in designs}
+    for r in DM_TURNS:
+        if r in designs:
+            turns[r].append(device_ms(fns[r], kernel=DM_KERNELS[op][r]))
+    return dict(turns_ms=turns,
+                design_ms={r: float(np.mean(v)) for r, v in turns.items()},
+                floor=floor_ms(torch, device), plain=plain, lib=lib,
+                call=call_ms(call))
+
+
+def _dm_say(op, what, shape, route, m, **extra):
+    design = m["design_ms"]
+    other = {r: v for r, v in design.items() if r != route}
+    say("kernels", kernel=f"datamover_{op}", case=what, shape=shape,
+        route=route, bitwise="equal", **extra,
+        kernel_ms=f"{design[route]:.5f}",
+        other_design_ms=json.dumps({r: round(v, 6) for r, v in
+                                    other.items()}),
+        floor_ms=f"{m['floor']:.5f}", plain_ms=f"{m['plain']:.5f}",
+        library_ms=f"{m['lib']:.5f}", call_ms=f"{m['call']:.5f}",
+        bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.7f}")
+
+
 def check_gather(torch, dm, src, addr, nwords, W, what):
-    """Gather kernel vs plain version (exact), then the times of the
-    kernel, the plain version and one indexing call (``src[idx]``)."""
-    got = dm.datamover_gather_cuda(src, addr, nwords, W)
+    """Both gather designs against the plain version (bitwise), then the
+    device times of each design in turns, the empty kernel, the plain
+    version and one indexing call (``src[idx]``)."""
+    K, B = addr.shape
+    route = dm.datamover_kernel_for("gather", K, B, W, src.dtype)
+    designs = _dm_designs(torch, src.dtype)
     want = dm.datamover_gather_ref(src, addr, nwords, W)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    require(torch.equal(got, want), f"gather {what}: max|err| {err}")
+    for r in designs:
+        got = dm.datamover_gather_cuda(src, addr, nwords, W, kernel=r)
+        torch.cuda.synchronize()
+        require(torch.equal(_bits(torch, got), _bits(torch, want)),
+                f"gather {what} ({r}): "
+                f"{int((_bits(torch, got) != _bits(torch, want)).sum())} "
+                "words differ bitwise")
     flat, _ = _lanes(torch, addr, nwords, src.shape[1], W)
     flat_src = src.reshape(-1)
     # every lane inside the segment is read (a lane past nwords is the
     # word there times 0), so it counts towards the bytes bound
     idx = addr[..., None].long() + torch.arange(W, device=addr.device)
     read = int(((idx >= 0) & (idx < src.shape[1])).sum())
-
-    def kernel():
-        return dm.datamover_gather_cuda(src, addr, nwords, W)
-
-    out = dict(
-        err=err,
-        ms=device_ms(kernel, kernel="gather_kernel"),
-        call=call_ms(kernel),
-        plain=device_ms(lambda: dm.datamover_gather_ref(src, addr, nwords,
-                                                        W)),
-        lib=device_ms(lambda: flat_src[flat]),
-        # in-segment words read once, addr/nwords read, rows written
-        nbytes=read * 4 + 2 * addr.numel() * 4 + got.numel() * 4)
-    say("kernels", kernel="datamover_gather", case=what,
-        shape=tuple(got.shape), max_abs_err=err, **_times(out))
-    return out
+    elt = src.element_size()
+    fns = {r: (lambda r=r: dm.datamover_gather_cuda(src, addr, nwords, W,
+                                                    kernel=r))
+           for r in designs}
+    m = _dm_time(torch, "gather", fns, designs, src.device,
+                 lib=device_ms(lambda: flat_src[flat]),
+                 plain=device_ms(lambda: dm.datamover_gather_ref(
+                     src, addr, nwords, W)),
+                 call=lambda: dm.datamover_gather_cuda(src, addr, nwords, W))
+    # in-segment words read once, addr/nwords read, rows written
+    m.update(err=0.0, route=route, ms=m["design_ms"][route], case=what,
+             nbytes=read * elt + 2 * addr.numel() * 4 + want.numel() * elt)
+    _dm_say("gather", what, tuple(want.shape), route, m,
+            dtype=str(src.dtype).split(".")[-1])
+    return m
 
 
 def check_gather_masked(torch, dm, seg, i32):
-    """Gather kernel vs plain version, bitwise, where the lanes past
-    ``nwords`` hold NaN, +-inf and negative words: both multiply every
-    lane by its mask, so a masked NaN or inf reads NaN and a masked
-    negative -0.0."""
+    """Both gather designs against the plain version, bitwise, where the
+    lanes past ``nwords`` hold NaN, +-inf and negative words: all
+    multiply every lane by its mask, so a masked NaN or inf reads NaN
+    and a masked negative -0.0."""
     seg = seg.clone()
     seg[:, 0::5] = float("nan")
     seg[:, 1::5] = float("inf")
@@ -249,55 +321,64 @@ def check_gather_masked(torch, dm, seg, i32):
     addr = i32([[b * MTU_WORDS + 3 * k for b in range(4)] for k in range(K)])
     nwords = i32([[(b * 700 + k * 97) % MTU_WORDS for b in range(4)]
                   for k in range(K)])
-    got = dm.datamover_gather_cuda(seg, addr, nwords, MTU_WORDS)
     want = dm.datamover_gather_ref(seg, addr, nwords, MTU_WORDS)
-    torch.cuda.synchronize()
-    bits_got, bits_want = got.view(torch.int32), want.view(torch.int32)
-    require(torch.equal(bits_got, bits_want),
-            f"gather masked lanes: {int((bits_got != bits_want).sum())} "
-            "words differ bitwise")
-    nan = int(got.isnan().sum())
-    neg_zero = int((bits_got == -2 ** 31).sum())
-    require(nan > 0 and neg_zero > 0, "masked lanes: no NaN or -0.0 seen")
-    say("kernels", kernel="datamover_gather", case="masked-nan-inf",
-        shape=tuple(got.shape), bitwise="equal", nan_lanes=nan,
-        neg_zero_lanes=neg_zero)
+    neg_zero = -2 ** (8 * seg.element_size() - 1)
+    for r in _dm_designs(torch, seg.dtype):
+        got = dm.datamover_gather_cuda(seg, addr, nwords, MTU_WORDS, kernel=r)
+        torch.cuda.synchronize()
+        bits_got, bits_want = _bits(torch, got), _bits(torch, want)
+        require(torch.equal(bits_got, bits_want),
+                f"gather masked lanes ({r}, {seg.dtype}): "
+                f"{int((bits_got != bits_want).sum())} words differ bitwise")
+        nan = int(got.isnan().sum())
+        zeros = int((bits_got == neg_zero).sum())
+        require(nan > 0 and zeros > 0, "masked lanes: no NaN or -0.0 seen")
+        say("kernels", kernel="datamover_gather", case="masked-nan-inf",
+            design=r, dtype=str(seg.dtype).split(".")[-1],
+            shape=tuple(got.shape), bitwise="equal", nan_lanes=nan,
+            neg_zero_lanes=zeros)
 
 
 def check_scatter(torch, dm, seg, pay, addr, nwords, handler, active, what):
-    """Scatter kernel vs plain version (exact), then the times of the
-    kernel, the plain version and one ``index_put_`` of the same lanes."""
-    got = dm.datamover_scatter_cuda(seg.clone(), pay, addr, nwords, handler,
-                                    active)
+    """Both scatter designs against the plain version (bitwise), then the
+    device times of each design in turns, the empty kernel, the plain
+    version and one ``index_put_`` of the same lanes."""
+    K, B, W = pay.shape
+    route = dm.datamover_kernel_for("scatter", K, B, W, seg.dtype)
+    designs = _dm_designs(torch, seg.dtype)
     want = dm.datamover_scatter_ref(seg.clone(), pay, addr, nwords, handler,
                                     active)
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs().max().item()
-    require(torch.equal(got, want), f"scatter {what}: max|err| {err}")
-    W = pay.shape[2]
+    for r in designs:
+        got = dm.datamover_scatter_cuda(seg.clone(), pay, addr, nwords,
+                                        handler, active, kernel=r)
+        torch.cuda.synchronize()
+        require(torch.equal(_bits(torch, got), _bits(torch, want)),
+                f"scatter {what} ({r}): "
+                f"{int((_bits(torch, got) != _bits(torch, want)).sum())} "
+                "words differ bitwise")
     flat, mask = _lanes(torch, addr, nwords, seg.shape[1], W, active)
     vals = pay[mask]
     work = seg.clone()
     flat_seg = work.reshape(-1)
     rmw = bool(((handler > 1) & (active != 0)).any())   # add/max/min read
-    def kernel():
-        return dm.datamover_scatter_cuda(work, pay, addr, nwords, handler,
-                                         active)
-
-    out = dict(
-        err=err,
-        ms=device_ms(kernel, kernel="scatter_kernel"),
-        call=call_ms(kernel),
-        plain=device_ms(lambda: dm.datamover_scatter_ref(
-            work, pay, addr, nwords, handler, active), reps=5),
-        lib=device_ms(lambda: flat_seg.index_put_((flat,), vals)),
-        # payload words read, segment words written (and read for
-        # read-modify-write handlers), four (K, B) int32 tables read
-        nbytes=int(mask.sum()) * 4 * (3 if rmw else 2)
-        + 4 * addr.numel() * 4)
-    say("kernels", kernel="datamover_scatter", case=what,
-        shape=tuple(pay.shape), max_abs_err=err, **_times(out))
-    return out
+    elt = seg.element_size()
+    fns = {r: (lambda r=r: dm.datamover_scatter_cuda(
+        work, pay, addr, nwords, handler, active, kernel=r))
+        for r in designs}
+    m = _dm_time(torch, "scatter", fns, designs, seg.device,
+                 lib=device_ms(lambda: flat_seg.index_put_((flat,), vals)),
+                 plain=device_ms(lambda: dm.datamover_scatter_ref(
+                     work, pay, addr, nwords, handler, active), reps=5),
+                 call=lambda: dm.datamover_scatter_cuda(
+                     work, pay, addr, nwords, handler, active))
+    # payload words read, segment words written (and read for
+    # read-modify-write handlers), four (K, B) int32 tables read
+    m.update(err=0.0, route=route, ms=m["design_ms"][route], case=what,
+             nbytes=int(mask.sum()) * elt * (3 if rmw else 2)
+             + 4 * addr.numel() * 4)
+    _dm_say("scatter", what, tuple(pay.shape), route, m,
+            dtype=str(seg.dtype).split(".")[-1])
+    return m
 
 
 def phase_kernels(torch, device):
@@ -318,12 +399,16 @@ def phase_kernels(torch, device):
     def i32(rows):
         return torch.tensor(rows, dtype=torch.int32, device=device)
 
-    # -- gather at the shapes of the microbenchmark puts and gets -------
+    # -- gather at the shapes of the microbenchmark puts and gets, both
+    #    designs (DataMover numbers by case, for the JSON records) -------
+    dmc = {"gather": {}, "scatter": {}}
     seg = randn(K, SEG_WORDS)
     starts = [0, MTU_WORDS, 2 * MTU_WORDS, 3 * MTU_WORDS]
     full = i32([[MTU_WORDS] * 4] * K)
-    check_gather(torch, dm, seg, i32([starts] * K), full, MTU_WORDS,
-                 "get_medium-4seg")
+    dmc["gather"]["ops"] = check_gather(
+        torch, dm, seg, i32([starts] * K), full, MTU_WORDS, "get_medium-4seg")
+    check_gather(torch, dm, seg.to(torch.bfloat16), i32([starts] * K), full,
+                 MTU_WORDS, "get_medium-4seg-bf16")
     check_gather(torch, dm, randn(K, 4 * MTU_WORDS), i32([starts] * K), full,
                  MTU_WORDS, "put_long-4seg")
     check_gather(torch, dm, randn(K, MTU_WORDS), i32([[0]] * K),
@@ -331,9 +416,10 @@ def phase_kernels(torch, device):
     check_gather(torch, dm, seg, i32([[SEG_WORDS - 100, -5]] * K),
                  i32([[MTU_WORDS, 50]] * K), MTU_WORDS, "ragged-edges")
     check_gather_masked(torch, dm, seg, i32)
+    check_gather_masked(torch, dm, seg.to(torch.bfloat16), i32)
 
     # -- scatter: disjoint and aliasing strides, every built-in handler --
-    for dtype in (torch.float32, torch.int32):
+    for dtype in (torch.float32, torch.int32, torch.bfloat16):
         for stride, what in ((80, "disjoint"), (24, "aliasing")):
             B, W = 40, 64
             check_scatter(
@@ -345,20 +431,34 @@ def phase_kernels(torch, device):
                 i32([[int((b * 7 + k) % 6 != 0) for b in range(B)]
                      for k in range(K)]),
                 f"{what}-{str(dtype).split('.')[-1]}")
+    # the ops phase's aliasing strided put as its ingress lands it: two
+    # packets of 35 blocks of 64 words, 40 of them live, stride 24
+    B, W = 70, 64
+    dmc["scatter"]["ops"] = check_scatter(
+        torch, dm, randn(K, SEG_WORDS), randn(K, B, W),
+        i32([[4900 + 24 * b for b in range(B)]] * K), i32([[W] * B] * K),
+        i32([[1] * B] * K), i32([[int(b < 40) for b in range(B)]] * K),
+        "strided-ingress-70x64")
 
     # -- the DataMover at the Jacobi run's shapes (JSON numbers): the up
     #    halo put, whose senders are kernels 1..7 and receivers 0..6 ----
     n, rows = JACOBI_N, JACOBI_N // JACOBI_K
     W, tail = MTU_WORDS, JACOBI_N - MTU_WORDS
     sends = [0] + [1] * (K - 1)
-    gather = check_gather(torch, dm, randn(K, n), i32([[0, W]] * K),
-                          i32([[W * s, tail * s] for s in sends]), W,
-                          "jacobi-halo-egress")
-    scatter = check_scatter(torch, dm, randn(K, 2 * n), randn(K, 2, W),
-                            i32([[n, n + W]] * K), i32([[W, tail]] * K),
-                            i32([[1, 1]] * K),
-                            i32([[s, s] for s in sends[::-1]]),
-                            "jacobi-halo-ingress")
+    for dtype in (torch.float32, torch.bfloat16):
+        label = "" if dtype == torch.float32 else "-bf16"
+        g = check_gather(torch, dm, randn(K, n, dtype=dtype),
+                         i32([[0, W]] * K),
+                         i32([[W * s, tail * s] for s in sends]), W,
+                         "jacobi-halo-egress" + label)
+        sc = check_scatter(torch, dm, randn(K, 2 * n, dtype=dtype),
+                           randn(K, 2, W, dtype=dtype),
+                           i32([[n, n + W]] * K), i32([[W, tail]] * K),
+                           i32([[1, 1]] * K),
+                           i32([[s, s] for s in sends[::-1]]),
+                           "jacobi-halo-ingress" + label)
+        if dtype == torch.float32:
+            dmc["gather"]["jacobi"], dmc["scatter"]["jacobi"] = g, sc
 
     # -- Jacobi: full grid f32 / bf16 and the banded form ----------------
     weight = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
@@ -402,18 +502,35 @@ def phase_kernels(torch, device):
     say("kernels", kernel="jacobi_sweep", case=f"band-{K}x{rows + 2}x{n}",
         max_abs_err=b_err, **_times(band))
 
-    src = "src/repro_torch/kernels/am_pack/csrc/am_pack.cu"
     return {
-        "datamover_gather": entry(
-            "datamover_gather", src,
-            "src/repro/kernels/am_pack/am_pack.py:41", gather),
-        "datamover_scatter": entry(
-            "datamover_scatter", src,
-            "src/repro/kernels/am_pack/am_pack.py:58", scatter),
         "jacobi_sweep": entry(
             "jacobi_sweep", "src/repro_torch/kernels/jacobi/csrc/jacobi.cu",
             "src/repro/kernels/jacobi/jacobi.py:48", band),
-    }
+    }, dmc
+
+
+def dm_records(dmc, paths):
+    """One JSON record for every DataMover kernel the main path launched
+    (``paths``: launches by path and counter), measured at the Jacobi
+    run's shape if Jacobi launched it, else at the ops phase's; with
+    the other design's time in the same call and the launch floor."""
+    records = []
+    for (op, design), name in DM_COUNTERS.items():
+        per_path = {p: c.get(name, 0) for p, c in paths.items()}
+        launches = per_path["ops"] + per_path["jacobi"]
+        if not launches:
+            continue
+        case = "jacobi" if per_path["jacobi"] else "ops"
+        m = dmc[op][case]
+        rec = entry(name, DM_SRC[design], DM_TPU[op],
+                    dict(m, ms=m["design_ms"][design]))
+        rec.update(launches=launches, path_launches=per_path,
+                   case=m["case"], main_path_route=m["route"],
+                   sm90_ms=m["design_ms"].get("sm90"),
+                   simple_ms=m["design_ms"].get("simple"),
+                   floor_ms=m["floor"], turns_ms=m["turns_ms"])
+        records.append(rec)
+    return records
 
 
 def bound(m):
@@ -442,11 +559,13 @@ def entry(name, source, replaces, m):
 def phase_ops(torch, device):
     """put_long acked/async at 1 and 4 segments, an H_ADD put, a 4-segment
     get_medium, strided puts, barrier and waits, each against its
-    closed-form result and its exchange count."""
+    closed-form result and its exchange count.  Returns the launches of
+    the get_medium call (the DataMover's get service), by counter."""
     from repro_torch.core import handlers as hd
     from repro_torch.core import ops
     from repro_torch.core.address_space import GlobalAddressSpace
     from repro_torch.core.state import ShoalContext
+    from repro_torch.kernels import launch_counts
     from repro_torch.runtime import TCP, UDP
 
     mtu_words, seg_words = MTU_WORDS, SEG_WORDS
@@ -494,9 +613,11 @@ def phase_ops(torch, device):
     want[:, :mtu_words] += 1
     words += mtu_words
 
-    before = ctx.exchanges
+    before, counts = ctx.exchanges, launch_counts()
     st, got = ops.get_medium(ctx, st, RING, src_addr=0,
                              nwords=4 * mtu_words, token=3)
+    get_service = {k: v - counts[k] for k, v in launch_counts().items()
+                   if v != counts[k]}
     exch(ctx, before, 2, "get_medium 4seg")
     st = ops.wait_replies(ctx, st, 3, 1)
     require(np.array_equal(got.cpu().numpy(), want[succ, :4 * mtu_words]),
@@ -527,7 +648,9 @@ def phase_ops(torch, device):
             and bool((st.rx_words == words).all()),
             f"tx/rx words {st.tx_words.tolist()} {st.rx_words.tolist()}, "
             f"expected {words}")
-    say("ops", segments="closed-form", credits=0, error=0, words=words)
+    say("ops", segments="closed-form", credits=0, error=0, words=words,
+        get_service_launches=json.dumps(get_service))
+    return get_service
 
 
 # ---------------------------------------------------------------------------
@@ -564,9 +687,9 @@ def phase_jacobi(torch, device, n=JACOBI_N, kernels=JACOBI_K,
             "jacobi final credits/error not zero")
     if device.type == "cuda":
         require(counts["jacobi_sweep"] >= iters, f"jacobi launches {counts}")
-        require(counts["datamover_gather"] > 0
-                and counts["datamover_scatter"] > 0,
-                f"DataMover launches {counts}")
+        require(counts["datamover_gather_sm90"] > 0
+                and counts["datamover_scatter_sm90"] > 0,
+                f"Hopper DataMover launches {counts}")
     say("jacobi", grid=f"{n}x{n}", kernels=kernels, iters=iters,
         max_abs_err=err, exchanges=app.ctx.exchanges,
         ms_per_iter=f"{seconds * 1e3 / iters:.4f}", launches=counts)
@@ -619,13 +742,22 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
         torch, lambda: app.run_blocks(st, blocks))
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    dm_names = tuple(f"void (anonymous namespace)::{k}<"
+                     for k in ("scatter_walk_sm90_kernel", *(
+                         k for op in DM_KERNELS.values()
+                         for k in op.values())))
+    dm = [(c, us) for name, (c, us) in by_name.items()
+          if name.startswith(dm_names)]
     say("profile", iters=iters,
         aten_ops_per_iter=(dispatched[1] - dispatched[0]) / 2,
         window_ms_per_iter=f"{window * 1e3 / iters:.4f}",
         device_busy_ms_per_iter=f"{busy_us / 1e3 / iters:.5f}",
         idle_share=f"{1 - busy_us / 1e6 / window:.4f}",
         device_activities_per_iter=sum(c for c, _ in by_name.values())
-        / iters)
+        / iters,
+        datamover_ms_per_iter=f"{sum(us for _, us in dm) / 1e3 / iters:.5f}",
+        datamover_launches_per_iter=sum(c for c, _ in dm) / iters,
+        datamover_share_of_busy=f"{sum(us for _, us in dm) / busy_us:.4f}")
     for name, (count, us) in top:
         say("profile", device_ms_per_iter=f"{us / 1e3 / iters:.5f}",
             per_iter=count / iters, name=name[:70].replace(" ", "_"))
@@ -1354,16 +1486,16 @@ def phase_serving(torch, device):
     return records
 
 
-def ring_ptxas_summary(log: str) -> dict:
-    """The cluster ring kernel's ``ptxas -v`` log in brief: how many
-    instantiations, their registers (least-most) and the largest spill
-    store and load in bytes."""
+def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
+    """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
+    default): how many instantiations, their registers (least-most) and
+    the largest spill store and load in bytes."""
     import re
 
     regs, spills, entries, inside = [], [0], 0, False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            inside = "ring_cluster_kernel_sm90" in line
+            inside = kernel in line
             entries += inside
         elif inside and "registers" in line:
             regs += [int(v) for v in re.findall(r"Used (\d+) registers",
@@ -1403,7 +1535,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.kernels import _build, launch_counts
+    from repro_torch.kernels import (_build, launch_counts,
+                                     reset_launch_counts)
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1420,23 +1553,36 @@ def main() -> int:
         if name == "gascore_dma_sm90":      # one line per instantiation
             say("build", source=name, ptxas=ring_ptxas_summary(log))
             continue
+        if name == "am_pack_sm90":
+            for k in ("gather_sm90_kernel", "scatter_sm90_kernel",
+                      "scatter_walk_sm90_kernel"):
+                say("build", source=name, kernel=k,
+                    ptxas=ring_ptxas_summary(log, k))
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    kernels = phase_kernels(torch, device)
+    kernels, dmc = phase_kernels(torch, device)
+    say("kernels", kernel="empty_sm90_kernel", case="launch-floor",
+        floor_ms=f"{floor_ms(torch, device):.5f}")
 
-    before = launch_counts()
-    phase_ops(torch, device)
-    after = launch_counts()
-    grew = {k: after[k] - before[k] for k in after}
-    require(grew["datamover_gather"] > 0 and grew["datamover_scatter"] > 0,
-            f"ops did not launch both DataMover kernels: {grew}")
+    reset_launch_counts()
+    get_service = phase_ops(torch, device)
+    grew = launch_counts()
+    require(grew["datamover_gather_sm90"] > 0
+            and grew["datamover_scatter_sm90"] > 0,
+            f"ops did not launch both Hopper DataMover kernels: {grew}")
     say("ops", launches=grew)
 
     counts = phase_jacobi(torch, device)
-    for name, rec in kernels.items():
-        rec["launches"] = counts[name]
+    kernels["jacobi_sweep"]["launches"] = counts["jacobi_sweep"]
+    dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
+                           "jacobi": counts})
+    for op in ("gather", "scatter"):       # the routed kernel ran
+        name = DM_COUNTERS[op, dmc[op]["jacobi"]["route"]]
+        require(any(r["name"] == name and r["path_launches"]["jacobi"] > 0
+                    for r in dms), f"{name}: no Jacobi launches")
     rings = phase_collectives(torch, device)
     next(r for r in rings if r["name"] == "ring_cluster_sm90")["ptxas"] = \
         ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
@@ -1445,7 +1591,7 @@ def main() -> int:
         logs.get("flash_sm90", ""))
 
     print(card, flush=True)
-    print(json.dumps({"kernels": list(kernels.values()) + rings}),
+    print(json.dumps({"kernels": dms + list(kernels.values()) + rings}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,11 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
 
 * ``am_pack`` -- the GAScore's DataMover: header-driven gather (packet
   egress, get service) and in-order scatter with the built-in handlers
-  (Long ingress), replacing ``am_pack_pallas``/``am_unpack_pallas``.
+  (Long ingress), replacing ``am_pack_pallas``/``am_unpack_pallas``: a
+  Hopper design (a gather tiled over the card with every load in
+  flight, a scatter that applies the words one block owns in parallel
+  and walks the blocks in order only where they meet; 32- and 16-bit
+  words) and the simple design, chosen by ``datamover_kernel_for``.
 * ``jacobi``  -- the paper's stencil hot loop (Sec. IV-C), full-grid and
   banded forms, replacing ``jacobi_step_pallas``.
 * ``gascore_dma`` -- the GAScore's RDMA ring: ring all-reduce by
@@ -22,8 +26,10 @@ CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
 """
 
-from repro_torch.kernels.am_pack.am_pack import (datamover_gather_cuda,
-                                                 datamover_scatter_cuda)
+from repro_torch.kernels.am_pack.am_pack import (launch_gather,
+                                                 launch_gather_sm90,
+                                                 launch_scatter,
+                                                 launch_scatter_sm90)
 from repro_torch.kernels.attention.flash import (flash_attention_cuda,
                                                  launch_flash_sm90)
 from repro_torch.kernels.gascore_dma.gascore_dma import (
@@ -32,8 +38,10 @@ from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
 
 # every kernel wrapper that counts its launches, by kernel name
 LAUNCH_COUNTERS = {
-    "datamover_gather": datamover_gather_cuda,
-    "datamover_scatter": datamover_scatter_cuda,
+    "datamover_gather": launch_gather,              # the simple design
+    "datamover_scatter": launch_scatter,            # the simple design
+    "datamover_gather_sm90": launch_gather_sm90,    # the Hopper design
+    "datamover_scatter_sm90": launch_scatter_sm90,  # the Hopper design
     "jacobi_sweep": jacobi_sweep_cuda,
     "ring_allreduce_dma": ring_allreduce_dma_cuda,  # either ring kernel
     "ring_collective": ring_collective_cuda,        # either ring kernel

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel source name -> path of its .cu file
 SOURCES = {
     "am_pack": _PKG / "am_pack" / "csrc" / "am_pack.cu",
+    "am_pack_sm90": _PKG / "am_pack" / "csrc" / "am_pack_sm90.cu",
     "jacobi": _PKG / "jacobi" / "csrc" / "jacobi.cu",
     "gascore_dma": _PKG / "gascore_dma" / "csrc" / "gascore_dma.cu",
     "gascore_dma_sm90": _PKG / "gascore_dma" / "csrc" / "gascore_dma_sm90.cu",

@@ -3,7 +3,10 @@ without one).  Run on a machine with an H100 and nvcc:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: DataMover exact, bitwise where masked lanes hold NaN/inf;
+Tolerances: DataMover exact, bitwise where masked lanes hold NaN/inf,
+both designs against the plain version and each other (NaN for NaN
+where a max/min scatter meets NaN words: the plain version's NaN bits
+depend on torch's path);
 Jacobi float32 1e-6, bfloat16 2e-2 (the kernel and its plain version
 round the same operations, so in practice both are exact); the Jacobi
 app 1e-5 against the single-grid reference, as examples/jacobi_stencil.py
@@ -26,6 +29,7 @@ import torch
 from repro_torch.kernels import (am_pack as dm, gascore_dma as gd,
                                  jacobi as jk, launch_counts,
                                  reset_launch_counts)
+from test_torch_parity import CASES as PARITY_CASES, _inputs, _transport
 
 pytestmark = pytest.mark.cuda
 
@@ -111,7 +115,15 @@ def test_jacobi_app_on_the_card(cuda):
                                rtol=0, atol=1e-5)
     assert app.ctx.exchanges == 2 * 10 + 2
     assert counts["jacobi_sweep"] == 10
-    assert counts["datamover_gather"] > 0 and counts["datamover_scatter"] > 0
+    # a 256-word halo row is 4 packets of 64 words: the narrow gather
+    # takes the simple design, the 4-block scatter the Hopper one
+    routes = {op: dm.datamover_kernel_for(op, 8, 4, 64, torch.float32)
+              for op in ("gather", "scatter")}
+    assert routes == {"gather": "simple", "scatter": "sm90"}
+    assert counts["datamover_gather"] > 0 \
+        and counts["datamover_scatter_sm90"] > 0
+    assert counts["datamover_gather_sm90"] == counts["datamover_scatter"] \
+        == 0
 
 
 def test_gather_masked_lanes_bitwise(cuda):
@@ -132,6 +144,215 @@ def test_gather_masked_lanes_bitwise(cuda):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert bool(got.isnan().any()) and bool((got.view(torch.int32)
                                              == -2 ** 31).any())
+
+
+# -- the two DataMover designs ---------------------------------------------
+
+DM_WORDS = [torch.float32, torch.int32, torch.bfloat16, torch.float16]
+DM_LAYOUTS = {          # layout: (K, B, W, S)
+    "disjoint": (4, 24, 40, 2048),
+    "aliasing": (4, 40, 64, 2048),
+    "edges": (4, 16, 300, 1024),
+    "random": (3, 9, 33, 200),
+    "jacobi": (8, 2, 2250, 8192),        # Jacobi's halo egress / ingress
+    "micro": (8, 4, 2250, 9064),         # a 4-segment put, get, service
+    "strided": (8, 70, 64, 9064),        # the ops phase's strided ingress
+}
+
+
+def _dm_case(layout, dtype, seed, device, nan=False):
+    """seg, pay, addr, nwords, handler, active of one layout (every
+    built-in handler, an out-of-range op code, inactive blocks)."""
+    K, B, W, S = DM_LAYOUTS[layout]
+    rng = np.random.default_rng(seed)
+    if layout in ("disjoint", "jacobi", "micro"):
+        addr = np.tile(W * np.arange(B) + (S - B * W) // 3, (K, 1))
+    elif layout in ("aliasing", "strided"):
+        addr = np.tile(100 + 24 * np.arange(B), (K, 1))
+    elif layout == "edges":
+        addr = rng.integers(-W - 2, S + 2, (K, B))
+    else:
+        addr = rng.integers(-3, S, (K, B))
+    nwords = np.clip(W - rng.integers(-2, 4, (K, B)), -1, W + 2)
+    handler = rng.integers(-1, 7, (K, B))
+    active = (rng.random((K, B)) < 0.85).astype(np.int32)
+
+    def words(shape):
+        if dtype == torch.int32:
+            x = rng.integers(-1000, 1000, shape)
+            x.reshape(-1)[::13] = 2 ** 31 - 7            # add wraps
+            return torch.from_numpy(x.astype(np.int32))
+        x = (rng.standard_normal(shape) * 8).astype(np.float32)
+        if nan:
+            x.reshape(-1)[::9] = np.nan
+        return torch.from_numpy(x).to(dtype)
+
+    ints = [torch.from_numpy(np.asarray(x, np.int32)).to(device)
+            for x in (addr, nwords, handler, active)]
+    return [words((K, S)).to(device), words((K, B, W)).to(device)] + ints
+
+
+def _same_bits(got, want, nan_ok=False):
+    bits = {4: torch.int32, 2: torch.int16}[got.element_size()]
+    if not nan_ok or got.dtype == torch.int32:
+        return torch.equal(got.view(bits), want.view(bits))
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(
+        got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+def _designs(dtype):
+    return ("sm90", "simple", None) if dtype in (torch.float32,
+                                                 torch.int32) else ("sm90",
+                                                                    None)
+
+
+@pytest.mark.parametrize("layout", list(DM_LAYOUTS))
+@pytest.mark.parametrize("dtype", DM_WORDS)
+def test_datamover_designs_match_plain_and_each_other_bitwise(cuda, dtype,
+                                                              layout):
+    """Gather and scatter on both designs (the simple one moves 32-bit
+    words only) and on ``datamover_kernel_for``'s route, bitwise equal
+    to the plain version on the same inputs, so to each other."""
+    seg, pay, addr, nwords, handler, active = _dm_case(layout, dtype, 7,
+                                                       cuda)
+    W = pay.shape[2]
+    want_g = dm.datamover_gather_ref(seg, addr, nwords, W)
+    want_s = dm.datamover_scatter_ref(seg.clone(), pay, addr, nwords,
+                                      handler, active)
+    for kernel in _designs(dtype):
+        got_g = dm.datamover_gather_cuda(seg, addr, nwords, W, kernel=kernel)
+        got_s = dm.datamover_scatter_cuda(seg.clone(), pay, addr, nwords,
+                                          handler, active, kernel=kernel)
+        assert _same_bits(got_g, want_g), ("gather", kernel)
+        assert _same_bits(got_s, want_s), ("scatter", kernel)
+
+
+@pytest.mark.parametrize("dtype", DM_WORDS)
+def test_datamover_scatter_max_min_keep_nan(cuda, dtype):
+    """NaN words through every handler: max/min propagate NaN, add and
+    write carry it, on both designs (NaN for NaN: see the docstring)."""
+    for layout in ("aliasing", "edges"):
+        seg, pay, addr, nwords, handler, active = _dm_case(
+            layout, dtype, 11, cuda, nan=True)
+        want = dm.datamover_scatter_ref(seg.clone(), pay, addr, nwords,
+                                        handler, active)
+        for kernel in _designs(dtype):
+            got = dm.datamover_scatter_cuda(seg.clone(), pay, addr, nwords,
+                                            handler, active, kernel=kernel)
+            assert _same_bits(got, want, nan_ok=True), (layout, kernel)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 17, 64, 65, 300, 2048, 2049])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_datamover_scatter_staged_and_walked_at_every_b(cuda, dtype, B):
+    """The Hopper scatter staged (headers in shared memory, the ownership
+    partition) at block counts on both sides of 32 and 64 (the bitmask's
+    words), and walked (every block in order) past STAGE_MAX_B, aliasing,
+    against the plain version."""
+    import importlib
+
+    dmm = importlib.import_module("repro_torch.kernels.am_pack.am_pack")
+    K, W = 3, 24
+    gen = torch.Generator().manual_seed(B)
+    seg = (torch.randn(K, 10 * B + 64, generator=gen) * 8).to(dtype).to(
+        cuda)
+    pay = (torch.randn(K, B, W, generator=gen) * 8).to(dtype).to(cuda)
+    addr = _i32([[50 + b * (7 + k) for b in range(B)] for k in range(K)],
+                cuda)
+    nwords = _i32([[W - (b + k) % 5 for b in range(B)] for k in range(K)],
+                  cuda)
+    handler = _i32([[(b * 3 + k) % 5 for b in range(B)] for k in range(K)],
+                   cuda)
+    active = _i32([[int((b + k) % 7 != 2) for b in range(B)]
+                   for k in range(K)], cuda)
+    want = dm.datamover_scatter_ref(seg.clone(), pay, addr, nwords, handler,
+                                    active)
+    plan = dmm.datamover_plan("scatter", K, B, W, dtype)
+    assert plan.walk == (B > dmm.STAGE_MAX_B)
+    got = seg.clone()
+    dmm.launch_scatter_sm90(got, pay, addr, nwords, handler, active, plan)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_gather_masked_lanes_bitwise_16bit(cuda, dtype):
+    """The masked-lanes case in 16-bit words: NaN, +-inf and negative
+    words past nwords read NaN, NaN and -0.0 (``__hmul`` by 0)."""
+    gen = torch.Generator().manual_seed(6)
+    seg = torch.randn(4, 256, generator=gen)
+    seg[:, ::5] = float("nan")
+    seg[:, 1::5] = float("inf")
+    seg[:, 2::5] = -float("inf")
+    seg[:, 3::5] = -seg[:, 3::5].abs() - 1
+    seg = seg.to(dtype).to(cuda)
+    addr = _i32([[b * 40 + k for b in range(6)] for k in range(4)], cuda)
+    nwords = _i32([[(b * 7 + k) % 33 for b in range(6)] for k in range(4)],
+                  cuda)
+    got = dm.datamover_gather(seg, addr, nwords, 32)
+    want = dm.datamover_gather_ref(seg, addr, nwords, 32)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert bool(got.isnan().any()) and bool((got.view(torch.int16)
+                                             == -2 ** 15).any())
+
+
+def test_datamover_route_shows_in_launch_counts(cuda):
+    """Each call launches the design ``datamover_kernel_for`` names, once,
+    and only that design's counter moves."""
+    import importlib
+
+    dmm = importlib.import_module("repro_torch.kernels.am_pack.am_pack")
+    names = {("gather", "sm90"): "datamover_gather_sm90",
+             ("gather", "simple"): "datamover_gather",
+             ("scatter", "sm90"): "datamover_scatter_sm90",
+             ("scatter", "simple"): "datamover_scatter"}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (2, 4, dmm.STAGE_MAX_B, dmm.STAGE_MAX_B + 1):
+            K, W = 2, 16
+            seg = torch.zeros(K, 8192, dtype=dtype, device=cuda)
+            pay = torch.ones(K, B, W, dtype=dtype, device=cuda)
+            addr = _i32([[b * W for b in range(B)]] * K, cuda)
+            ones = torch.ones_like(addr)
+            for op in ("gather", "scatter"):
+                reset_launch_counts()
+                if op == "gather":
+                    dm.datamover_gather(seg, addr, ones * W, W)
+                else:
+                    dm.datamover_scatter(seg, pay, addr, ones * W, ones,
+                                         ones)
+                route = dm.datamover_kernel_for(op, K, B, W, dtype)
+                grew = {n: c for n, c in launch_counts().items() if c}
+                assert grew == {names[op, route]: 1}, (op, B, dtype, grew)
+
+
+@pytest.mark.parametrize("name", list(PARITY_CASES))
+def test_parity_op_cases_on_the_card_match_the_cpu(cuda, name):
+    """Every op program of tests/test_torch_parity.py (held there to the
+    JAX package on the CPU) on a CUDA context: the state and the
+    delivered buffers bit for bit as the port's CPU run, the same
+    exchanges.  They cross the DataMover's edge lanes."""
+    from repro_torch import runtime
+    from repro_torch.core import handlers as hd, ops
+    from repro_torch.core.address_space import GlobalAddressSpace
+    from repro_torch.core.state import ShoalContext, state_to_numpy
+
+    case = PARITY_CASES[name]
+    runs = []
+    for device in ("cpu", cuda):
+        ctx = ShoalContext(8, _transport(runtime, case), case.segment_words,
+                           device=device)
+        seg0, pay = _inputs(name)
+        st = GlobalAddressSpace(ctx).make_global_state(seg0.reshape(-1))
+        st, extras = case.prog(ops, hd, ctx, st, torch.from_numpy(pay).to(
+            device))
+        runs.append((state_to_numpy(st), [e.cpu().numpy() for e in extras],
+                     ctx.exchanges))
+    (cpu, cpu_x, cpu_ex), (card, card_x, card_ex) = runs
+    for f, arr in cpu.items():
+        np.testing.assert_array_equal(card[f], arr, err_msg=f"{name}: {f}")
+    for a, b in zip(card_x, cpu_x):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert card_ex == cpu_ex == case.exchanges
 
 
 def _ring_input(K, shape, dtype, seed):

@@ -195,7 +195,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     flash_attention(*(torch.ones(1, 4, h, 64, dtype=torch.bfloat16)
                       for h in (2, 1, 1)))
     assert launch_counts() == {"datamover_gather": 0,
-                               "datamover_scatter": 0, "jacobi_sweep": 0,
+                               "datamover_scatter": 0,
+                               "datamover_gather_sm90": 0,
+                               "datamover_scatter_sm90": 0, "jacobi_sweep": 0,
                                "ring_allreduce_dma": 0, "ring_collective": 0,
                                "ring_cluster_sm90": 0,
                                "flash_attention": 0,

@@ -84,6 +84,87 @@ def _multi_and_get_long(ops, hd, ctx, st, p):
     return st, ()
 
 
+RING2 = [(i, (i + 2) % N) for i in range(N)]        # 0->2, 1->3, ...
+
+
+def _put_past_end(ops, hd, ctx, st, p):
+    st = ops.put_long(ctx, st, p[..., :12], RING,
+                      dst_addr=ctx.segment_words - 5, token=1)
+    st = ops.wait_replies(ctx, st, token=1, n=1)
+    return st, ()
+
+
+def _get_past_end(ops, hd, ctx, st, p):
+    st, got = ops.get_medium(ctx, st, RING, src_addr=ctx.segment_words - 6,
+                             nwords=12, token=2)
+    st = ops.wait_replies(ctx, st, token=2, n=1)
+    return st, (got,)
+
+
+def _tail_past_end(ops, hd, ctx, st, p):
+    st = ops.put_long(ctx, st, p, RING, dst_addr=ctx.segment_words - 40,
+                      token=1)
+    st = ops.wait_replies(ctx, st, token=1, n=1)
+    return st, ()
+
+
+def _from_segment(ops, hd, ctx, st, p):
+    st = ops.put_long(ctx, st, None, RING, dst_addr=40, from_segment_addr=3,
+                      nwords=36, token=1)
+    st = ops.wait_replies(ctx, st, token=1, n=1)
+    return st, ()
+
+
+def _shorts_max_min(ops, hd, ctx, st, p):
+    st = ops.put_short(ctx, st, RING, handler=hd.H_MAX, arg=3, token=5)
+    st = ops.put_short(ctx, st, RING, handler=hd.H_MIN, arg=-2, token=6)
+    st = ops.put_short(ctx, st, RING, handler=hd.H_MAX, arg=-4, token=6,
+                       asynchronous=True)
+    return st, ()
+
+
+def _long(handler_name, addr):
+    def prog(ops, hd, ctx, st, p):
+        st = ops.put_long(ctx, st, p, RING, dst_addr=addr, token=3,
+                          handler=getattr(hd, handler_name))
+        st = ops.wait_replies(ctx, st, token=3, n=1)
+        return st, ()
+    return prog
+
+
+def _partial_medium(ops, hd, ctx, st, p):
+    st, got = ops.put_medium(ctx, st, None, RING, from_segment_addr=7,
+                             nwords=21, token=6)
+    st = ops.wait_replies(ctx, st, token=6, n=1)
+    return st, (got,)
+
+
+def _wait_underflow(ops, hd, ctx, st, p):
+    st = ops.put_long(ctx, st, p[..., :8], RING, dst_addr=0, token=7)
+    st = ops.wait_replies(ctx, st, token=7, n=2)
+    return st, ()
+
+
+def _multi_three(ops, hd, ctx, st, p):
+    me = ctx.my_id()
+    st = ops.put_long_multi(ctx, st, [(p[..., :8], EVEN, 0),
+                                      (p[..., 8:16], ODD, 8),
+                                      (p[..., :4], RING2, 20)],
+                            tokens=[1, 2, 3])
+    st = ops.wait_replies(ctx, st, 1 + me % 2, 1)
+    st = ops.wait_replies(ctx, st, 3, 1)
+    return st, ()
+
+
+def _udp(ops, hd, ctx, st, p):
+    st = ops.put_long(ctx, st, p, RING, dst_addr=30)
+    st, got = ops.put_medium(ctx, st, p[..., :8], RING)
+    st = ops.put_long_strided(ctx, st, p[..., :12], RING, 50, 5,
+                              blk_words=3, nblocks=4, handler=hd.H_ADD)
+    st = ops.put_short(ctx, st, RING, handler=hd.H_ADD, arg=2, token=4)
+    return st, (got,)
+
+
 @dataclasses.dataclass(frozen=True)
 class Case:
     prog: object
@@ -92,6 +173,7 @@ class Case:
     segment_words: int = 96
     payload_words: int = 16
     exchanges: int = 2
+    errors: bool = False          # the program latches an error bit
 
 
 CASES = {
@@ -114,6 +196,27 @@ CASES = {
     "strided-disjoint-write": Case(_strided(6, "H_WRITE"), mtu_bytes=SMALL,
                                    payload_words=24),
     "multi-get_long": Case(_multi_and_get_long, exchanges=4),
+    # the DataMover's edge lanes: addresses past the segment end, reads
+    # from the segment, negative and out-of-range strides, the max/min
+    # handlers, a partial last row; and the op layer's edges
+    "put-past-end": Case(_put_past_end),
+    "get-past-end": Case(_get_past_end),
+    "put_long-tail-past-end": Case(_tail_past_end, mtu_bytes=SMALL,
+                                   payload_words=64),
+    "put_long-from_segment_addr": Case(_from_segment, mtu_bytes=SMALL),
+    "strided-negative-write": Case(_strided(-7, "H_WRITE"), mtu_bytes=SMALL,
+                                   payload_words=24),
+    "strided-negative-add": Case(_strided(-2, "H_ADD"), mtu_bytes=SMALL,
+                                 payload_words=24),
+    "strided-out-of-range": Case(_strided(19, "H_WRITE"), mtu_bytes=SMALL,
+                                 payload_words=24),
+    "shorts-max-min": Case(_shorts_max_min, exchanges=5),
+    "long-max": Case(_long("H_MAX", 6)),
+    "long-min": Case(_long("H_MIN", 70)),
+    "medium-partial-nwords": Case(_partial_medium, mtu_bytes=SMALL),
+    "wait-underflow": Case(_wait_underflow, errors=True),
+    "multi-three-items": Case(_multi_three, exchanges=4),
+    "udp": Case(_udp, acked=False, exchanges=4),
 }
 
 
@@ -207,7 +310,7 @@ def test_ops_match_reference(reference, name):
             e.numpy(), reference[f"{name}/extra{i}"],
             err_msg=f"{name}: extra{i}")
     assert ctx.exchanges == case.exchanges, (name, ctx.exchanges)
-    assert not got["error"].any()
+    assert bool(got["error"].any()) == case.errors, (name, got["error"])
 
 
 if __name__ == "__main__":
