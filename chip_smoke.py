@@ -22,6 +22,15 @@ or the simple ``gascore_dma.cu``, by ``ring_kernel_for``) to the launch
 counters, and both ring kernels to their plain version bitwise, times
 them beside the library call in turns, and times HUMboldt's two-sided
 send/recv beside an acked one-sided put.
+Phase 7 drives the rest of Shoal's message layer on 8 kernels: a
+vectored put of 34 x 64-word blocks (f32 and bf16, acked and async),
+the reliable put of 16 x 2250 words a kernel over a lossy ring (0 / 1 /
+5 % drop, duplicates, corruption) and bench_faults.py's 16-word put,
+1024 four-word mailbox sends in one flush, a grouped MultiMailbox flush
+and a ReplyMailbox over 4 puts; each run on the card bitwise equal to
+the same program on the CPU, at the reference's exchange counts; then
+both DataMover designs at each of those shapes against the plain
+version, timed in turns.
 Phase 6 serves tinyllama-1.1b at full width and depth (22 layers,
 bfloat16, random weights from a seed) through ``ServeEngine`` -- 4
 lanes, 2048 slots, 8 requests of 128-1024 prompt tokens and 32 new
@@ -148,7 +157,7 @@ def device_activity(torch, fn):
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3, kernel=None,
-              windows: int = 3) -> float:
+              windows: int = 6) -> float:
     """Device time in ms per call of ``fn``, from the device time that
     ``torch.profiler`` records over ``reps`` calls.  With ``kernel``,
     ``fn`` launches that kernel once per call and the result is the mean
@@ -156,7 +165,8 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, kernel=None,
     holds that string (the profiler may miss one at a window's edge; it
     must see at least half); without it, every device activity of the
     calls counts, divided by ``reps``.  A window in which the profiler
-    recorded too little is taken again, up to ``windows`` windows."""
+    recorded too little (it can drop a whole window's activities) is
+    taken again after a pause, up to ``windows`` windows."""
     import torch
 
     for _ in range(warmup):
@@ -179,6 +189,7 @@ def device_ms(fn, reps: int = 20, warmup: int = 3, kernel=None,
                            if kernel in name) / 1e3 / seen
         say("profile", window=window, kernel=kernel, launches_seen=seen,
             activities=len(by_name), retry=window < windows)
+        time.sleep(0.5)
     raise AssertionError(f"profiler recorded too little device activity in "
                          f"{windows} windows of {reps} calls "
                          f"(kernel={kernel})")
@@ -243,18 +254,20 @@ def floor_ms(torch, device) -> float:
                      kernel="empty_sm90_kernel")
 
 
-def _dm_time(torch, op, fns, designs, device, lib, plain, call):
-    """Device ms of each design in turns (Hopper, simple, simple,
-    Hopper), of the empty kernel, the plain version and the library
-    call, and the routed wrapper's call ms."""
+def _dm_time(torch, op, fns, designs, device, lib, plain, call, floor=None,
+             order=DM_TURNS):
+    """Device ms of each design in turns (``order``: Hopper, simple,
+    simple, Hopper), of the empty kernel (unless ``floor`` gives it),
+    the plain version and the library call, and the routed wrapper's
+    call ms."""
     turns = {r: [] for r in designs}
-    for r in DM_TURNS:
+    for r in order:
         if r in designs:
             turns[r].append(device_ms(fns[r], kernel=DM_KERNELS[op][r]))
     return dict(turns_ms=turns,
                 design_ms={r: float(np.mean(v)) for r, v in turns.items()},
-                floor=floor_ms(torch, device), plain=plain, lib=lib,
-                call=call_ms(call))
+                floor=floor_ms(torch, device) if floor is None else floor,
+                plain=plain, lib=lib, call=call_ms(call))
 
 
 def _dm_say(op, what, shape, route, m, **extra):
@@ -270,7 +283,8 @@ def _dm_say(op, what, shape, route, m, **extra):
         bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.7f}")
 
 
-def check_gather(torch, dm, src, addr, nwords, W, what):
+def check_gather(torch, dm, src, addr, nwords, W, what, floor=None,
+                 order=DM_TURNS):
     """Both gather designs against the plain version (bitwise), then the
     device times of each design in turns, the empty kernel, the plain
     version and one indexing call (``src[idx]``)."""
@@ -299,7 +313,8 @@ def check_gather(torch, dm, src, addr, nwords, W, what):
                  lib=device_ms(lambda: flat_src[flat]),
                  plain=device_ms(lambda: dm.datamover_gather_ref(
                      src, addr, nwords, W)),
-                 call=lambda: dm.datamover_gather_cuda(src, addr, nwords, W))
+                 call=lambda: dm.datamover_gather_cuda(src, addr, nwords, W),
+                 floor=floor, order=order)
     # in-segment words read once, addr/nwords read, rows written
     m.update(err=0.0, route=route, ms=m["design_ms"][route], case=what,
              nbytes=read * elt + 2 * addr.numel() * 4 + want.numel() * elt)
@@ -339,7 +354,8 @@ def check_gather_masked(torch, dm, seg, i32):
             neg_zero_lanes=zeros)
 
 
-def check_scatter(torch, dm, seg, pay, addr, nwords, handler, active, what):
+def check_scatter(torch, dm, seg, pay, addr, nwords, handler, active, what,
+                  floor=None, order=DM_TURNS, plain_reps=5):
     """Both scatter designs against the plain version (bitwise), then the
     device times of each design in turns, the empty kernel, the plain
     version and one ``index_put_`` of the same lanes."""
@@ -368,9 +384,11 @@ def check_scatter(torch, dm, seg, pay, addr, nwords, handler, active, what):
     m = _dm_time(torch, "scatter", fns, designs, seg.device,
                  lib=device_ms(lambda: flat_seg.index_put_((flat,), vals)),
                  plain=device_ms(lambda: dm.datamover_scatter_ref(
-                     work, pay, addr, nwords, handler, active), reps=5),
+                     work, pay, addr, nwords, handler, active),
+                     reps=plain_reps, warmup=min(plain_reps, 3)),
                  call=lambda: dm.datamover_scatter_cuda(
-                     work, pay, addr, nwords, handler, active))
+                     work, pay, addr, nwords, handler, active), floor=floor,
+                 order=order)
     # payload words read, segment words written (and read for
     # read-modify-write handlers), four (K, B) int32 tables read
     m.update(err=0.0, route=route, ms=m["design_ms"][route], case=what,
@@ -509,7 +527,7 @@ def phase_kernels(torch, device):
     }, dmc
 
 
-def dm_records(dmc, paths):
+def dm_records(dmc, paths, shapes=None):
     """One JSON record for every DataMover kernel the main path launched
     (``paths``: launches by path and counter), measured at the Jacobi
     run's shape if Jacobi launched it, else at the ops phase's; with
@@ -517,7 +535,8 @@ def dm_records(dmc, paths):
     records = []
     for (op, design), name in DM_COUNTERS.items():
         per_path = {p: c.get(name, 0) for p, c in paths.items()}
-        launches = per_path["ops"] + per_path["jacobi"]
+        launches = per_path["ops"] + per_path["jacobi"] \
+            + per_path["messages"]
         if not launches:
             continue
         case = "jacobi" if per_path["jacobi"] else "ops"
@@ -529,6 +548,15 @@ def dm_records(dmc, paths):
                    sm90_ms=m["design_ms"].get("sm90"),
                    simple_ms=m["design_ms"].get("simple"),
                    floor_ms=m["floor"], turns_ms=m["turns_ms"])
+        # the message layer's shapes that route to this design
+        rec["message_shapes"] = [
+            {"case": ms["case"], "ms": ms["design_ms"][design],
+             "other_design_ms": {r: v for r, v in ms["design_ms"].items()
+                                 if r != design},
+             "plain_ms": ms["plain"], "library_ms": ms["lib"],
+             "bound_ms": bound(ms)[0]}
+            for (o, _), ms in (shapes or {}).items()
+            if o == op and ms["route"] == design]
         records.append(rec)
     return records
 
@@ -761,6 +789,379 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
     for name, (count, us) in top:
         say("profile", device_ms_per_iter=f"{us / 1e3 / iters:.5f}",
             per_iter=count / iters, name=name[:70].replace(" ", "_"))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the rest of Shoal's message layer (vectored puts, the reliable
+# put over lossy links, mailboxes) on 8 kernels
+# ---------------------------------------------------------------------------
+
+MSG_SEG_WORDS = 65536      # each kernel's segment in the message phase
+REL_SEGS = 16              # reliable put: 16 x 2250 words (144 KB) a kernel
+VEC_BLOCKS, VEC_WORDS = 34, 64   # 2176 payload + 34 address words
+MBOX_SENDS, MBOX_WORDS = 1024, 4     # bench_comm.py's mailbox flush
+# the reliable put's fault settings (max_retries 4): drop 0 % keeps the
+# reliable path with a drop that never fires, as bench_faults.py does
+REL_FAULTS = {"drop-0pct": dict(drop=1e-12), "drop-1pct": dict(drop=0.01),
+              "drop-5pct": dict(drop=0.05), "dup-5pct": dict(dup=0.05),
+              "corrupt-2pct": dict(corrupt=0.02)}
+
+
+def _same_state(torch, a, b, what):
+    """Every PgasState field of a card run bitwise equal to the CPU
+    run's."""
+    import dataclasses as dc
+
+    for f in dc.fields(a):
+        x, y = getattr(a, f.name).cpu(), getattr(b, f.name)
+        if x.is_floating_point():
+            x, y = _bits(torch, x), _bits(torch, y)
+        require(torch.equal(x, y), f"{what}: {f.name} differs between the "
+                f"card and the CPU ({int((x != y).sum())} words)")
+
+
+def _on_both(torch, device, prog, what):
+    """Run ``prog(device) -> (ctx, state)`` on the card, then on the CPU;
+    require the two states bitwise equal and the same exchange count.
+    Returns the card's ``(ctx, state)``, the DataMover launches of the
+    card run by counter and its host ms."""
+    from repro_torch.kernels import launch_counts
+
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx, st = prog(device)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    ctx_c, st_c = prog(torch.device("cpu"))
+    _same_state(torch, st, st_c, what)
+    require(ctx.exchanges == ctx_c.exchanges,
+            f"{what}: {ctx.exchanges} exchanges on the card, "
+            f"{ctx_c.exchanges} on the CPU")
+    require(any(k.startswith("datamover") for k in launched),
+            f"{what}: no DataMover launch on the card ({launched})")
+    return ctx, st, launched, host_ms
+
+
+def _vectored_prog(torch, pay, dtype, asynchronous):
+    from repro_torch.core import ops
+    from repro_torch.core.state import ShoalContext, replace
+    from repro_torch.runtime import TCP
+
+    def prog(dev):
+        ctx = ShoalContext(K, dataclasses.replace(
+            TCP, max_packet_bytes=4 * MTU_WORDS), MSG_SEG_WORDS, device=dev)
+        st = ctx.make_state()
+        st = replace(st, segment=st.segment.to(dtype))
+        p = torch.from_numpy(pay).to(device=dev, dtype=dtype)
+        blocks = [p[:, i * VEC_WORDS:(i + 1) * VEC_WORDS]
+                  for i in range(VEC_BLOCKS)]
+        addrs = [100 + 67 * i for i in range(VEC_BLOCKS)]
+        st = ops.put_long_vectored(ctx, st, blocks, RING, addrs, token=1,
+                                   asynchronous=asynchronous)
+        if not asynchronous:
+            st = ops.wait_replies(ctx, st, 1, 1)
+        return ctx, st
+    return prog
+
+
+def _reliable_prog(torch, pay, faults, mtu_words, seg_words, seed):
+    from repro_torch.core import ops
+    from repro_torch.core.faults import FaultModel
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.runtime import LossyTransport
+
+    def prog(dev):
+        t = LossyTransport(faults=FaultModel(seed=seed, **faults),
+                           max_packet_bytes=4 * mtu_words, max_retries=4)
+        ctx = ShoalContext(K, t, seg_words, device=dev)
+        st = ops.put_long(ctx, ctx.make_state(),
+                          torch.from_numpy(pay).to(dev), RING, dst_addr=10,
+                          token=1)
+        return ctx, ops.wait_replies(ctx, st, 1, 1, timeout=True)
+    return prog
+
+
+def _mailbox_progs(torch, pay):
+    from repro_torch.actors import MultiMailbox
+    from repro_torch.core import ops
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.runtime import TCP
+
+    even = [(i, i + 1) for i in range(0, K, 2)]
+    odd = [(i, (i + 1) % K) for i in range(1, K, 2)]
+
+    def ctx_on(dev):
+        return ShoalContext(K, dataclasses.replace(
+            TCP, max_packet_bytes=4 * MTU_WORDS), MSG_SEG_WORDS, device=dev)
+
+    def flush_1024(dev):
+        ctx = ctx_on(dev)
+        st = ctx.make_state()
+        mb = ctx.mailbox(RING, msg_words=MBOX_WORDS, watermark=1 << 20,
+                         token=5)
+        base = np.arange(MBOX_WORDS, dtype=np.float32)
+        for i in range(MBOX_SENDS):
+            st = mb.send(st, base + i, dst_addr=MBOX_WORDS * i)
+        st = mb.flush(st)
+        return ctx, ops.wait_replies(ctx, st, 5, 1)
+
+    def grouped(dev):
+        ctx = ctx_on(dev)
+        st = ctx.make_state()
+        p = torch.from_numpy(pay[:, :512]).to(dev)
+        mmb = MultiMailbox(ctx, [even, odd], msg_words=MBOX_WORDS,
+                           watermark=1 << 20, token=6)
+        for i in range(64):
+            st = mmb.send(st, 0, p[:, 4 * i:4 * i + 4], dst_addr=4 * i)
+            st = mmb.send(st, 1, p[:, 256 + 4 * i:260 + 4 * i],
+                          dst_addr=1024 + 4 * i)
+        st = mmb.flush(st)
+        return ctx, ops.wait_replies(ctx, st, 6, 1)
+
+    def replies(dev):
+        ctx = ctx_on(dev)
+        st = ctx.make_state()
+        rmb = ctx.reply_mailbox()
+        p = torch.from_numpy(pay[:, :MTU_WORDS]).to(dev)
+        for i in range(4):
+            st = ops.put_long(ctx, st, p, RING, dst_addr=MTU_WORDS * i,
+                              token=2, reply_via=rmb)
+        st = rmb.flush(st)
+        return ctx, ops.wait_replies(ctx, st, 2, 4)
+
+    return {"mailbox-1024x4": (flush_1024, 2),
+            "multi-mailbox-2x64": (grouped, 2),
+            "reply-mailbox-4puts": (replies, 5)}
+
+
+def _pred_rows(a):
+    return a[[(k - 1) % K for k in range(K)]]
+
+
+def phase_messages(torch, device):
+    """Vectored puts (34 x 64 words, f32 and bf16, acked and async), the
+    reliable put (16 x 2250 words a kernel over a lossy ring at 0 / 1 /
+    5 % drop, 5 % duplicates and 2 % corruption; bench_faults.py's
+    16-word put at 0 / 1 / 5 %) and the mailboxes (1024 four-word sends
+    in one flush, a grouped MultiMailbox flush, a ReplyMailbox
+    coalescing a 4-put phase), each on the card and on the CPU, bitwise
+    equal, at the reference's exchange counts.  Returns the launch
+    counts after the phase (the caller zeroes them before it)."""
+    from repro_torch.core import ops
+    from repro_torch.core.state import ERR_RETRY_EXHAUSTED
+    from repro_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(17)
+
+    # -- vectored puts -------------------------------------------------------
+    pay = rng.standard_normal((K, VEC_BLOCKS * VEC_WORDS)).astype(np.float32)
+    want_exch = {("float32", False): 2, ("float32", True): 1,
+                 ("bfloat16", False): 4, ("bfloat16", True): 3}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for asynchronous in (False, True):
+            what = f"vectored-{name}-{'async' if asynchronous else 'acked'}"
+            ctx, st, launched, ms = _on_both(
+                torch, device, _vectored_prog(torch, pay, dtype,
+                                              asynchronous), what)
+            n = want_exch[name, asynchronous]
+            require(ctx.exchanges == n,
+                    f"{what}: {ctx.exchanges} exchanges, expected {n}")
+            seg = st.segment.float().cpu().numpy()
+            src = _pred_rows(torch.from_numpy(pay).to(dtype).float().numpy())
+            for i in range(VEC_BLOCKS):
+                a = 100 + 67 * i
+                require(np.array_equal(
+                    seg[:, a:a + VEC_WORDS],
+                    src[:, i * VEC_WORDS:(i + 1) * VEC_WORDS]),
+                    f"{what}: block {i} did not land")
+            require(bool((st.credits == 0).all()), f"{what}: credits")
+            say("messages", run=what, exchanges=ctx.exchanges,
+                host_ms=f"{ms:.3f}", datamover_launches=json.dumps(launched),
+                bitwise_cpu="equal")
+    from repro_torch.core.state import ShoalContext
+    ctx = ShoalContext(K, segment_words=MSG_SEG_WORDS, device=device)
+    try:
+        ops.put_long_vectored(ctx, ctx.make_state(),
+                              [torch.ones(K, 8, device=device)] * 2, RING,
+                              [64, 68])
+        raise AssertionError("an aliasing address list was not refused")
+    except ops.VectoredAliasError:
+        say("messages", run="vectored-alias", refused="VectoredAliasError")
+
+    # -- the reliable put ---------------------------------------------------
+    rel = rng.standard_normal((K, REL_SEGS * MTU_WORDS)).astype(np.float32)
+    for name, faults in REL_FAULTS.items():
+        what = f"reliable-{name}"
+        ctx, st, launched, ms = _on_both(
+            torch, device, _reliable_prog(torch, rel, faults, MTU_WORDS,
+                                          MSG_SEG_WORDS, seed=7), what)
+        require(ctx.exchanges == 10, f"{what}: {ctx.exchanges} exchanges")
+        require(bool((st.dedup_seen == 0).all()), f"{what}: ledger residue")
+        require(not bool((st.error & ERR_RETRY_EXHAUSTED).any()),
+                f"{what}: retries exhausted")
+        require(np.array_equal(
+            st.segment[:, 10:10 + rel.shape[1]].cpu().numpy(),
+            _pred_rows(rel)), f"{what}: delivery not bit-identical")
+        say("messages", run=what, exchanges=ctx.exchanges,
+            host_ms=f"{ms:.3f}", tx_words=int(st.tx_words.sum()),
+            retransmits=json.dumps(st.retransmits.tolist()),
+            error=json.dumps(st.error.tolist()), ledger="drained",
+            datamover_launches=json.dumps(launched), bitwise_cpu="equal")
+    bench = ((np.arange(16, dtype=np.float32) + 1)[None]
+             * (np.arange(K, dtype=np.float32) + 1)[:, None])
+    for pct, drop in (("0", 1e-12), ("1", 0.01), ("5", 0.05)):
+        what = f"reliable-bench_faults-{pct}pct"
+        ctx, st, launched, ms = _on_both(
+            torch, device, _reliable_prog(torch, bench, dict(drop=drop), 4,
+                                          64, seed=7), what)
+        require(bool((st.dedup_seen == 0).all())
+                and not bool((st.error & ERR_RETRY_EXHAUSTED).any())
+                and np.array_equal(st.segment[:, 10:26].cpu().numpy(),
+                                   _pred_rows(bench)), f"{what}: delivery")
+        say("messages", run=what, exchanges=ctx.exchanges,
+            host_ms=f"{ms:.3f}", tx_words=int(st.tx_words.sum()),
+            mean_retransmits=float(st.retransmits.float().mean()),
+            datamover_launches=json.dumps(launched), bitwise_cpu="equal")
+
+    # -- mailboxes -----------------------------------------------------------
+    mpay = rng.standard_normal((K, 4096)).astype(np.float32)
+    for what, (prog, n) in _mailbox_progs(torch, mpay).items():
+        ctx, st, launched, ms = _on_both(torch, device, prog, what)
+        require(ctx.exchanges == n,
+                f"{what}: {ctx.exchanges} exchanges, expected {n}")
+        require(bool((st.credits == 0).all())
+                and bool((st.error == 0).all()), f"{what}: credits/error")
+        say("messages", run=what, exchanges=ctx.exchanges,
+            host_ms=f"{ms:.3f}", datamover_launches=json.dumps(launched),
+            bitwise_cpu="equal")
+    seg = st.segment.cpu().numpy()          # the 4-put reply phase
+    require(all(np.array_equal(seg[:, MTU_WORDS * i:MTU_WORDS * (i + 1)],
+                               _pred_rows(mpay[:, :MTU_WORDS]))
+                for i in range(4)), "reply-mailbox puts did not land")
+    counts = launch_counts()
+    count_message_ops(torch, device, rel)
+    return counts
+
+
+def count_message_ops(torch, device, rel):
+    """Aten operations dispatched by the credit-file updates of the
+    1024-send flush (scatter-adds, and the row-by-row walk they
+    replace) and by one whole reliable 16 x 2250 put at 1 % drop."""
+    from repro_torch.core import gascore as gc
+    from repro_torch.core import ops
+    from repro_torch.core.state import ShoalContext
+
+    ctx = ShoalContext(K, segment_words=MSG_SEG_WORDS, device=device)
+    mb = ctx.mailbox(RING, msg_words=MBOX_WORDS, watermark=1 << 20, token=5)
+    st = ctx.make_state()
+    for i in range(MBOX_SENDS):
+        st = mb.send(st, np.arange(MBOX_WORDS, dtype=np.float32) + i,
+                     dst_addr=MBOX_WORDS * i)
+    hdrs, pays, _ = mb._stack()
+    hdr_r, _ = ops._exchange(ctx, RING, hdrs, pays)
+    counted = {}
+    for name, fn in (("flush_credit_rows", gc._credit_rows),
+                     ("flush_credit_walk", gc._credit_walk)):
+        mode = count_ops_mode()()
+        with mode:
+            fn(ctx, st, hdr_r)
+        counted[name] = mode.count
+    prog = _reliable_prog(torch, rel, dict(drop=0.01), MTU_WORDS,
+                          MSG_SEG_WORDS, seed=7)
+    mode = count_ops_mode()()
+    with mode:
+        prog(device)
+    counted["reliable_put_16x2250"] = mode.count
+    say("messages", aten_ops=json.dumps(counted))
+
+
+def check_message_shapes(torch, device):
+    """Both DataMover designs at the message layer's shapes, bitwise
+    against the plain version and timed one turn each (the sweep takes
+    both orders): the 1024-send mailbox flush, the vectored put's egress
+    row and its 34 blocks (uniform and ragged, f32 and bf16), the
+    reliable put's egress and its stack of 32 rows with gated
+    duplicates, and bench_faults' 4 x 4 put.  Returns each shape's
+    measurements by (op, case)."""
+    from repro_torch.kernels import am_pack as dm
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(device=device,
+                                                     dtype=dtype)
+
+    def i32(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=device)
+
+    out = {}
+    kw = dict(floor=floor_ms(torch, device), order=("sm90", "simple"))
+    ones = [[1] * MBOX_SENDS] * K
+    out["scatter", "mailbox-1024x4"] = check_scatter(
+        torch, dm, randn(K, MSG_SEG_WORDS), randn(K, MBOX_SENDS, MBOX_WORDS),
+        i32([[MBOX_WORDS * b for b in range(MBOX_SENDS)]] * K),
+        i32([[MBOX_WORDS] * MBOX_SENDS] * K), i32(ones), i32(ones),
+        "mailbox-1024x4", plain_reps=1, **kw)
+    vec_addr = i32([[100 + 67 * b for b in range(VEC_BLOCKS)]] * K)
+    ragged = [VEC_WORDS - (7 * b) % 32 for b in range(VEC_BLOCKS)]
+    offs = np.cumsum([0] + ragged[:-1]).tolist()
+    vb = [[1] * VEC_BLOCKS] * K
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "" if dtype == torch.float32 else "-bf16"
+        n = VEC_BLOCKS * VEC_WORDS
+        out["gather", "vectored-egress" + tag] = check_gather(
+            torch, dm, randn(K, n, dtype=dtype), i32([[0]] * K),
+            i32([[n]] * K), n, "vectored-egress-1x2176" + tag, **kw)
+        out["scatter", "vectored-34x64" + tag] = check_scatter(
+            torch, dm, randn(K, MSG_SEG_WORDS, dtype=dtype),
+            randn(K, VEC_BLOCKS, VEC_WORDS, dtype=dtype), vec_addr,
+            i32([[VEC_WORDS] * VEC_BLOCKS] * K), i32(vb), i32(vb),
+            "vectored-34x64" + tag, **kw)
+        out["gather", "vectored-ragged" + tag] = check_gather(
+            torch, dm, randn(K, sum(ragged), dtype=dtype), i32([offs] * K),
+            i32([ragged] * K), VEC_WORDS, "vectored-ragged-34x64" + tag,
+            **kw)
+        out["scatter", "vectored-ragged" + tag] = check_scatter(
+            torch, dm, randn(K, MSG_SEG_WORDS, dtype=dtype),
+            randn(K, VEC_BLOCKS, VEC_WORDS, dtype=dtype), vec_addr,
+            i32([ragged] * K), i32(vb), i32(vb),
+            "vectored-ragged-34x64" + tag, **kw)
+    # the reliable put: egress of 16 segments, then a stack of the 16
+    # rows and their duplicates, the dedup verdict as the active mask
+    rel_addr = [10 + MTU_WORDS * s for s in range(REL_SEGS)]
+    out["gather", "reliable-egress"] = check_gather(
+        torch, dm, randn(K, REL_SEGS * MTU_WORDS),
+        i32([[MTU_WORDS * s for s in range(REL_SEGS)]] * K),
+        i32([[MTU_WORDS] * REL_SEGS] * K), MTU_WORDS,
+        "reliable-egress-16x2250", **kw)
+    gate = [[int(s % 5 != 3) for s in range(REL_SEGS)]
+            + [int(s % 7 == 0) for s in range(REL_SEGS)] for _ in range(K)]
+    rows = randn(K, REL_SEGS, MTU_WORDS)
+    out["scatter", "reliable-stack"] = check_scatter(
+        torch, dm, randn(K, MSG_SEG_WORDS),
+        torch.cat([rows, rows], dim=1).contiguous(),
+        i32([rel_addr * 2] * K), i32([[MTU_WORDS] * 2 * REL_SEGS] * K),
+        i32([[1] * 2 * REL_SEGS] * K), i32(gate),
+        "reliable-stack-32x2250-gated-dup", **kw)
+    out["gather", "bench_faults-egress"] = check_gather(
+        torch, dm, randn(K, 16), i32([[0, 4, 8, 12]] * K),
+        i32([[4] * 4] * K), 4, "bench_faults-egress-4x4", **kw)
+    small = randn(K, 4, 4)
+    out["scatter", "bench_faults-stack"] = check_scatter(
+        torch, dm, randn(K, 64), torch.cat([small, small], 1).contiguous(),
+        i32([[10, 14, 18, 22] * 2] * K), i32([[4] * 8] * K),
+        i32([[1] * 8] * K), i32([[1, 1, 1, 1, 0, 1, 0, 0]] * K),
+        "bench_faults-stack-8x4-gated-dup", **kw)
+    for (op, case), m in out.items():
+        faster = min(m["design_ms"], key=m["design_ms"].get)
+        say("kernels", kernel=f"datamover_{op}", case=case,
+            route=m["route"], faster_in_this_call=faster,
+            route_is_faster=faster == m["route"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1577,8 +1978,20 @@ def main() -> int:
 
     counts = phase_jacobi(torch, device)
     kernels["jacobi_sweep"]["launches"] = counts["jacobi_sweep"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    messages = phase_messages(torch, device)
+    require(messages["datamover_gather_sm90"] + messages["datamover_gather"]
+            > 0 and messages["datamover_scatter_sm90"]
+            + messages["datamover_scatter"] > 0,
+            f"the message phase did not launch the DataMover: {messages}")
+    say("messages", launches=messages,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    shapes = check_message_shapes(torch, device)
+    say("kernels", message_shapes_seconds=f"{time.perf_counter() - t0:.1f}")
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
-                           "jacobi": counts})
+                           "jacobi": counts, "messages": messages}, shapes)
     for op in ("gather", "scatter"):       # the routed kernel ran
         name = DM_COUNTERS[op, dmc[op]["jacobi"]["route"]]
         require(any(r["name"] == name and r["path_launches"]["jacobi"] > 0

@@ -5,11 +5,18 @@
 
 For the gather and the scatter of ``kernels/am_pack`` on K = 1 and 8
 kernel rows, B = 1 to 256 packet rows per kernel row (the scatter also
-512 to 2048 at rows of 16 and 64 lanes), W = 16 to 2250 lanes, disjoint
+512 to 2048 at rows of 4 to 64 lanes), W = 4 to 2250 lanes, disjoint
 and aliasing blocks (the scatter's blocks start W / 3 apart, so every
 word meets about three of them), every built-in handler mixed in each
-scatter call (and each handler alone on 8 x B x 64, B = 2, 40, 256), in
-float32, int32 and bfloat16: launches the Hopper design
+scatter call (and each handler alone on 8 x B x 64, B = 2, 40, 256);
+at W = 4, 8, 64 and 2250 also ragged rows (each row W / 2 to W words
+at an address 0-2 words off the row's 16-byte boundary, the vectored
+put's blocks) and, for the scatter, gated duplicate rows (the second
+half of the stack repeats the first half's addresses and payload, and
+the active mask lets through most first copies and a few second ones:
+the reliable put's dedup-gated stack); and the message layer's own
+shapes (the mailbox flush, the vectored put, the reliable put and the
+bench_faults put); in float32, int32 and bfloat16: launches the Hopper design
 (``csrc/am_pack_sm90.cu``, the scatter staged up to ``STAGE_MAX_B``)
 and the simple design (``csrc/am_pack.cu``; 32-bit words only) on the
 same input, holds both bitwise to the plain version, and prints the
@@ -39,7 +46,20 @@ RUNS = (("gather", "float32"), ("gather", "int32"), ("gather", "bfloat16"),
 KS = (1, 8)
 BS = (1, 2, 4, 8, 16, 40, 64, 128, 256)
 WIDE_BS = (512, 1024, 2048)            # scatter only, W <= 64
-WS = (16, 64, 256, 1024, 1536, 2250)
+WS = (4, 8, 16, 64, 256, 1024, 1536, 2250)
+RAGGED_WS = (4, 8, 64, 2250)           # ragged rows, gated duplicates
+# the message layer's shapes on 8 kernels, (op, B, W, layout): the
+# 1024-send mailbox flush, the 34 x 64 vectored put (its egress is one
+# 2176-word row), the 16 x 2250 reliable put (egress; its stack of 32
+# rows with duplicates) and bench_faults' 4 x 4 put (stack of 8)
+MESSAGE_POINTS = (("scatter", 1024, 4, "disjoint"),
+                ("scatter", 34, 64, "disjoint"),
+                ("scatter", 34, 64, "ragged"),
+                ("gather", 1, 2176, "disjoint"),
+                ("gather", 16, 2250, "disjoint"),
+                ("scatter", 32, 2250, "gated-dup"),
+                ("gather", 4, 4, "disjoint"),
+                ("scatter", 8, 4, "gated-dup"))
 WINDOWS = (("sm90", "simple"), ("simple", "sm90"))   # two turns each
 NAMES = {"sm90": {"gather": "gather_sm90_kernel",
                   "scatter": "scatter_sm90_kernel"},
@@ -69,10 +89,15 @@ def turn_ms(torch, cs, fns, names, order, reps=20, tries=4):
 
 
 def case(torch, op, K, B, W, layout, handler, dtype, gen, dev):
-    """seg, pay, addr, nwords, handler, active of one sweep point; every
-    block is active and moves W words (the scatter's handler per block
-    is ``handler``, or every built-in handler in turn when None)."""
-    stride = W if layout == "disjoint" else max(W // 3, 1)
+    """seg, pay, addr, nwords, handler, active of one sweep point (the
+    scatter's handler per block is ``handler``, or every built-in
+    handler in turn when None).  Disjoint and aliasing blocks are all
+    active and move W words; ragged rows move W / 2 to W words from an
+    address 0-2 words off the W-word grid; gated duplicates repeat the
+    first half of the stack and let through the first copies but every
+    fifth and every seventh second copy."""
+    stride = W if layout in ("disjoint", "ragged", "gated-dup") \
+        else max(W // 3, 1)
     S = stride * (B - 1) + W + 64
     if dtype == torch.int32:
         seg = torch.randint(-1000, 1000, (K, S), generator=gen, device=dev,
@@ -89,6 +114,16 @@ def case(torch, op, K, B, W, layout, handler, dtype, gen, dev):
         if handler is None else torch.full((K, B), handler, device=dev,
                                            dtype=torch.int32)
     active = torch.ones((K, B), device=dev, dtype=torch.int32)
+    if layout == "ragged":
+        addr = (addr + b % 3).contiguous()
+        nwords = (W - (b * 7) % max(W // 2, 1)).expand(K, B).contiguous()
+    elif layout == "gated-dup":
+        half = (B + 1) // 2
+        first = b % half
+        addr = (32 + stride * first).expand(K, B).contiguous()
+        pay = pay[:, first.long()].contiguous()
+        active = torch.where(b < half, (b % 5 != 3).int(),
+                             (b % 7 == 0).int()).expand(K, B).contiguous()
     return seg, pay, addr, nwords, hid.contiguous(), active
 
 
@@ -96,16 +131,20 @@ def points(op):
     """(K, B, W, layout, handler) of every sweep point of ``op``."""
     out = []
     layouts = ("disjoint",) if op == "gather" else ("disjoint", "aliasing")
+    new = ("ragged",) if op == "gather" else ("ragged", "gated-dup")
     for K in KS:
         for W in WS:
             bs = BS + (WIDE_BS if op == "scatter" and W <= 64 else ())
             for B in bs:
-                for layout in layouts:
+                for layout in layouts + (new if W in RAGGED_WS else ()):
                     out.append((K, B, W, layout, None))
     if op == "scatter":
         for B in (2, 40, 256):
             for h in range(5):
                 out.append((8, B, 64, "aliasing", h))
+    for o, B, W, layout in MESSAGE_POINTS:
+        if o == op and (8, B, W, layout, None) not in out:
+            out.append((8, B, W, layout, None))
     return out
 
 

@@ -6,7 +6,8 @@ A port of the JAX package ``repro`` with the same module names; it
 imports neither JAX nor ``repro``.  Subpackages:
 
   core       the Shoal library (AM wire, GAScore, ops, address space)
-  runtime    Galapagos analogue (transports)
+  runtime    Galapagos analogue (topology, transports, routing)
+  actors     mailboxes: tiny AMs and acks coalesced into one exchange
   kernels    hand-written CUDA kernels for Hopper + their plain versions
   apps       the paper's Jacobi application
 

@@ -9,8 +9,10 @@ traversal is a gather over that axis.  Public surface:
   credits.
 * :mod:`repro_torch.core.gascore`       -- the AM engine (ingress/egress
   datapaths on the DataMover kernels; the GAScore of Fig. 3).
-* :mod:`repro_torch.core.ops`           -- the user API: puts/gets/
-  barrier/wait.
+* :mod:`repro_torch.core.ops`           -- the user API: puts (vectored,
+  and reliable over a lossy transport)/gets/barrier/wait.
+* :mod:`repro_torch.core.faults`        -- seedable drop/duplicate/
+  corrupt injection at the exchange (lossy links).
 * :mod:`repro_torch.core.collectives`   -- ring reduce-scatter/all-gather/
   all-reduce on the ring kernel, broadcast, all-to-all, barrier.
 * :mod:`repro_torch.core.humboldt`      -- two-sided 4-phase baseline.
@@ -18,12 +20,12 @@ traversal is a gather over that axis.  Public surface:
   address space.
 """
 
-from repro_torch.core import (am, collectives, gascore, handlers, humboldt,
-                              ops)
+from repro_torch.core import (am, collectives, faults, gascore, handlers,
+                              humboldt, ops)
 from repro_torch.core.address_space import GlobalAddressSpace
 from repro_torch.core.state import PgasState, ShoalContext
 
 __all__ = [
-    "am", "collectives", "gascore", "handlers", "humboldt", "ops",
+    "am", "collectives", "faults", "gascore", "handlers", "humboldt", "ops",
     "GlobalAddressSpace", "PgasState", "ShoalContext",
 ]

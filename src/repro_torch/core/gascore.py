@@ -11,6 +11,7 @@ and emit the automatic reply.  Here each stage is a function over
                                 (DataMover gather kernel)
     am_rx / DataMover write  -> :func:`ingress_long_batch`,
                                 :func:`ingress_stack`,
+                                :func:`ingress_reliable_stack`,
                                 :func:`ingress_strided_batch`
                                 (DataMover scatter kernel)
     xpams_rx handler+reply   -> :func:`ingress_short`, ack lanes,
@@ -25,6 +26,8 @@ function returns a new state; the input state is not modified.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -115,12 +118,16 @@ def egress(ctx: ShoalContext, state: PgasState, hdr: am.Header,
 # --------------------------------------------------------------------------
 
 def _ingress_long_rows(ctx: ShoalContext, state: PgasState, h: am.Header,
-                       pay_rows: torch.Tensor) -> PgasState:
+                       pay_rows: torch.Tensor,
+                       gate: torch.Tensor | None = None) -> PgasState:
     """Land ``(K, nseg)`` Long rows in the segment, in row order, through
     each row's handler (the reference's ``_ingress_long_padded`` under a
     scan).  ``dst_addr`` clips into ``[0, S]`` and lanes past the
-    segment end are dropped."""
+    segment end are dropped.  ``gate`` (``(K, nseg)`` bool) further
+    restricts which rows apply (the reliable path's dedup verdict)."""
     active = h.msg_class == am.LONG
+    if gate is not None:
+        active = active & gate
     segment = dm.datamover_scatter(
         state.segment.clone(), pay_rows,
         h.dst_addr.clamp(0, ctx.segment_words), h.nwords, h.handler,
@@ -141,6 +148,32 @@ def ingress_long_batch(ctx: ShoalContext, state: PgasState,
                        packet_words: int) -> PgasState:
     """Absorb a whole ``(K, nseg, ...)`` segment stack, rows in order."""
     return _ingress_long_rows(ctx, state, am.decode(hdr_rows), pay_rows)
+
+
+def ingress_vectored(ctx: ShoalContext, state: PgasState, h: am.Header,
+                     addrs: torch.Tensor, payload: torch.Tensor,
+                     sizes: list[int]) -> PgasState:
+    """Vectored Long-put ingress: block ``i`` of the flat ``(K, nwords)``
+    payload (``sizes[i]`` words) lands at ``addrs[:, i]`` through the
+    packet's handler.  The ``B`` blocks are the rows of ONE in-order
+    DataMover scatter (the reference runs one ``ingress_long`` per
+    block); blocks of one size are a view of the payload, ragged ones
+    come out of one DataMover gather, each row ``sizes[i]`` words at
+    its offset.  Kernels that see a NOP header keep their segment."""
+    K, B = addrs.shape
+    dev = payload.device
+    size = torch.tensor(sizes, dtype=torch.int32, device=dev).expand(K, B)
+    if len(set(sizes)) == 1:
+        rows = payload.reshape(K, B, sizes[0])
+    else:
+        offs = torch.tensor([sum(sizes[:i]) for i in range(B)],
+                            dtype=torch.int32, device=dev).expand(K, B)
+        rows = dm.datamover_gather(payload.contiguous(), offs, size,
+                                   max(sizes))
+    sub = am.Header(**{f: getattr(h, f)[:, None].expand(K, B)
+                       for f in am.FIELDS})
+    sub = dataclasses.replace(sub, nwords=size, dst_addr=addrs)
+    return _ingress_long_rows(ctx, state, sub, rows)
 
 
 def ingress_medium(state: PgasState, hdr: am.Header, payload: torch.Tensor,
@@ -267,22 +300,158 @@ def ingress_ack_lanes(state: PgasState, hdr: am.Header) -> PgasState:
                         torch.where(carry, hdr.pb_count, 0)))
 
 
-def ingress_stack(ctx: ShoalContext, state: PgasState, hdr_rows: torch.Tensor,
-                  pay_rows: torch.Tensor, packet_words: int) -> PgasState:
-    """Mixed-class ingress for a stack of independent packet rows (the
-    grouped put path): Long rows land in the segment through their
-    handler (one in-order DataMover scatter for the whole stack), Short
-    rows run on the credit file, ack lanes are absorbed, NOP rows do
-    nothing.  Segment and credit files are disjoint, so landing every
-    Long row first and then walking the rows' credit updates in order
-    gives the reference's row-by-row result."""
-    h = am.decode(hdr_rows)
-    state = _ingress_long_rows(ctx, state, h, pay_rows)
+def _credit_walk(ctx: ShoalContext, state: PgasState,
+                 hdr_rows: torch.Tensor) -> PgasState:
+    """The rows' Short and ack-lane updates one row after another."""
     for r in range(hdr_rows.shape[1]):
         hr = am.decode(hdr_rows[:, r])
         state = ingress_short(ctx, state, hr)
         state = ingress_ack_lanes(state, hr)
     return state
+
+
+def _credit_rows(ctx: ShoalContext, state: PgasState,
+                 hdr_rows: torch.Tensor, additive: bool | None = None
+                 ) -> PgasState:
+    """The Short and ack-lane updates of a ``(K, R)`` row stack on the
+    credit files.  When every user Short row runs H_ADD or H_NOP, every
+    update is an int32 addition (replies +1, H_ADD +arg, deferred acks
+    +1, piggybacked acks +pb_count): additions commute and wrap alike
+    in any order, so three scatter-adds give the row-by-row walk's
+    bits.  A stack with any other Short handler (write, max, min,
+    custom) is walked in row order.  ``additive`` is the caller's
+    knowledge of its rows (True: only adding Short handlers, False:
+    walk); None reads one bool back from the device to decide."""
+    h = am.decode(hdr_rows)
+    short = h.msg_class == am.SHORT
+    is_reply = short & h.flag(am.FLAG_REPLY)
+    is_user = short & ~h.flag(am.FLAG_REPLY)
+    hid = h.handler.clamp(0, len(ctx.handlers) - 1)
+    if additive is None:
+        additive = not bool(
+            (is_user & (hid != hd.H_ADD) & (hid != hd.H_NOP)).any())
+    if not additive:
+        return _credit_walk(ctx, state, hdr_rows)
+    live = h.msg_class != am.NOP
+    defer = live & h.flag(am.FLAG_DEFER_ACK) \
+        & ~h.flag(am.FLAG_ASYNC) & ~h.flag(am.FLAG_REPLY)
+    carry = live & h.flag(am.FLAG_PIGGYBACK)
+    top = hd.NUM_TOKENS - 1
+    tok = h.token.clamp(0, top).long()
+    grant = is_reply.to(torch.int32) + torch.where(
+        is_user & (hid == hd.H_ADD), h.dst_addr, 0)
+    credits = state.credits.clone()
+    credits.scatter_add_(1, tok, grant.to(credits.dtype))
+    credits.scatter_add_(1, h.pb_token.clamp(0, top).long(),
+                         torch.where(carry, h.pb_count, 0).to(credits.dtype))
+    deferred = state.deferred_acks.clone()
+    deferred.scatter_add_(1, tok, defer.to(deferred.dtype))
+    return replace(state, credits=credits, deferred_acks=deferred)
+
+
+def adds_only(handlers: hd.HandlerTable, short_handlers) -> bool | None:
+    """Whether every handler a stack's user Short rows may carry adds
+    (H_ADD, or H_NOP) once clipped into ``handlers``: the ``additive``
+    of :func:`ingress_stack`.  ``short_handlers`` are ints, or None for
+    one not known on the host (then None: decide on the device)."""
+    last = len(handlers) - 1
+    out = True
+    for h in short_handlers:
+        if h is None:
+            return None
+        out &= min(max(int(h), 0), last) in (hd.H_ADD, hd.H_NOP)
+    return out
+
+
+def ingress_stack(ctx: ShoalContext, state: PgasState, hdr_rows: torch.Tensor,
+                  pay_rows: torch.Tensor, packet_words: int, *,
+                  additive: bool | None = None) -> PgasState:
+    """Mixed-class ingress for a stack of independent packet rows (the
+    grouped put and mailbox flush paths): Long rows land in the segment
+    through their handler (one in-order DataMover scatter for the whole
+    stack), Short rows run on the credit file, ack lanes are absorbed,
+    NOP rows do nothing.  Segment and credit files are disjoint, so
+    landing every Long row first and then applying the rows' credit
+    updates (:func:`_credit_rows`, ``additive`` as there) gives the
+    reference's row-by-row result."""
+    h = am.decode(hdr_rows)
+    state = _ingress_long_rows(ctx, state, h, pay_rows)
+    return _credit_rows(ctx, state, hdr_rows, additive)
+
+
+def ingress_reliable_stack(ctx: ShoalContext, state: PgasState,
+                           hdr_rows: torch.Tensor, pay_rows: torch.Tensor,
+                           packet_words: int, *, dedup: bool = True):
+    """Dedup-gated Long-stack ingress for the lossy-transport path.
+
+    Rows arrive out of a faulted exchange (drops and CRC-failed rows
+    already NOPed, duplicates materialised as extra rows -- see
+    :func:`repro_torch.core.faults.deliver`), possibly REDELIVERED by a
+    sender retransmitting after a lost ack.  The redelivery ledger makes
+    application idempotent, keyed on (token, epoch, seq):
+
+    * a row whose epoch is <= the last *completed* epoch on its token is
+      stale -- not applied, but a stale FINAL row still re-acks (the
+      data landed earlier; it is the ack that keeps dying);
+    * an in-flight row applies only if its segment bit is not yet in
+      ``dedup_seen[token]``, then sets the bit (a duplicate later in
+      the same stack sees it);
+    * when the final (non-async) row finds the arrival mask complete
+      (bits 0..seg_final all set), the message completes:
+      ``dedup_epoch[token]`` latches the epoch and the mask drains to
+      zero.
+
+    The verdicts walk the rows in order on ``(K,)`` tensors (the
+    reference's scan carry); then every fresh Long row lands in ONE
+    gated DataMover scatter, rows in order.  Segment stacks are limited
+    to 31 rows so the arrival mask fits an int32.  ``dedup=False``
+    applies every delivered row and acks every final row (a
+    retransmitted H_ADD double-accumulates).
+
+    Returns ``(state, ack_hdr)``: ``ack_hdr`` ``(K, HDR_WORDS)`` is the
+    reply owed this round, that of the last row that completed or
+    re-acked (NOP where none did).
+    """
+    h = am.decode(hdr_rows)
+    K, R = h.type.shape
+    active = h.msg_class == am.LONG
+    is_final = active & ~h.flag(am.FLAG_ASYNC) & ~h.flag(am.FLAG_REPLY)
+    if dedup:
+        ks = _kernel_rows(hdr_rows)
+        tok = h.token.clamp(0, hd.NUM_TOKENS - 1).long()
+        seg_i = (h.seq // packet_words).clamp(0, 30).to(torch.int64)
+        bit = (1 << seg_i).to(torch.int32)
+        full = ((1 << (seg_i + 1)) - 1).to(torch.int32)
+        done_f = state.dedup_epoch.clone()
+        infl_f = state.dedup_inflight.clone()
+        seen_f = state.dedup_seen.clone()
+        fresh = torch.zeros_like(active)
+        ack_now = torch.zeros_like(active)
+        for r in range(R):
+            t, a, ep, b = tok[:, r], active[:, r], h.epoch[:, r], bit[:, r]
+            done, infl, seen0 = done_f[ks, t], infl_f[ks, t], seen_f[ks, t]
+            stale = a & (ep <= done)
+            track = a & ~stale
+            seen = torch.where(infl == ep, seen0, 0)
+            fresh[:, r] = track & ((seen & b) == 0)
+            seen2 = torch.where(track, seen | b, seen)
+            complete = is_final[:, r] & ~stale & (seen2 == full[:, r])
+            done_f[ks, t] = torch.where(complete, ep, done)
+            infl_f[ks, t] = torch.where(track, ep, infl)
+            seen_f[ks, t] = torch.where(
+                complete, 0, torch.where(track, seen2, seen0))
+            ack_now[:, r] = complete | (stale & is_final[:, r])
+        state = replace(state, dedup_epoch=done_f, dedup_inflight=infl_f,
+                        dedup_seen=seen_f)
+    else:
+        fresh, ack_now = active, is_final
+    state = _ingress_long_rows(ctx, state, h, pay_rows, gate=fresh)
+    order = torch.arange(1, R + 1, device=hdr_rows.device)
+    last = (ack_now * order).amax(dim=1) - 1
+    row = hdr_rows[_kernel_rows(hdr_rows), last.clamp(min=0)]
+    ack_hdr = torch.where((last >= 0)[:, None], am.reply_for(am.decode(row)),
+                          0)
+    return state, ack_hdr
 
 
 # --------------------------------------------------------------------------

@@ -20,6 +20,12 @@ single exchange and absorbed in row order by the GAScore.  Replies
 coalesce (every segment but the last is async), so an acked >MTU
 message costs 2 link traversals and earns ONE credit.
 
+Lossy transports: on a :class:`~repro_torch.runtime.transport.
+LossyTransport` with a non-zero fault model, ``put_long`` runs the
+reliable put (CRC-sealed, epoch-stamped packets, receiver-side dedup,
+bounded retransmit -- :func:`_put_long_reliable`); every other op
+refuses such a transport.
+
 Ops take a :class:`~repro_torch.core.state.PgasState` and return a new
 one.  Per-kernel arguments (addresses, tokens, wait counts) are ints or
 ``(K,)`` tensors; payloads are ``(K, ...)``.
@@ -29,12 +35,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import am
+from repro_torch.core import faults as flt
 from repro_torch.core import gascore as gc
 from repro_torch.core import handlers as hd
-from repro_torch.core.state import (ERR_WAIT_UNDERFLOW, PgasState,
+from repro_torch.core.state import (ERR_CRC, ERR_RETRY_EXHAUSTED,
+                                    ERR_WAIT_UNDERFLOW, PgasState,
                                     ShoalContext, replace)
 from repro_torch.runtime.transport import is_lossy as _transport_is_lossy
 
@@ -42,9 +51,11 @@ Pattern = list[tuple[int, int]]
 
 
 class VectoredAliasError(ValueError):
-    """A batched put's destination intervals alias each other at one
-    destination kernel, so the landed value would depend on the order of
-    the stack's rows."""
+    """A vectored or batched put's destination intervals alias each
+    other at one destination kernel (two blocks of one packet, or two
+    items of one batched call), so the landed value would depend on the
+    receiver's scatter order -- duplicate addresses are the degenerate
+    case."""
 
 
 def static_int(x) -> int | None:
@@ -156,14 +167,21 @@ def _mask_nonparticipants(ctx: ShoalContext, pattern: Pattern,
 
 
 def _deliver_reply(ctx: ShoalContext, state: PgasState, pattern: Pattern,
-                   hdr_at_dst: am.Header, *,
-                   asynchronous: bool = False) -> PgasState:
+                   hdr_at_dst: am.Header, *, asynchronous: bool = False,
+                   token=0, reply_via=None) -> PgasState:
     """Ship the auto-reply back along the reversed pattern and absorb it.
 
     For batched >MTU plans this runs once with the *final* segment's
     header -- the only acked one -- so a whole message costs one reply.
-    Statically-async messages ship nothing."""
+    Statically-async messages ship nothing.  When ``reply_via`` (a
+    :class:`repro_torch.actors.ReplyMailbox`) is given, the reply is
+    deferred instead of shipped: the mailbox records one owed credit
+    for ``(pattern, token)`` and its flush returns all owed credits for
+    a destination as ONE coalesced Short AM."""
     if not ctx.transport.acked or asynchronous:
+        return state
+    if reply_via is not None:
+        reply_via.note(pattern, token)
         return state
     rep = gc.auto_reply(hdr_at_dst)
     rep_back, _ = _exchange(ctx, _reverse(pattern), rep, None)
@@ -217,8 +235,8 @@ def _seg_types(ctx: ShoalContext, msg_class: int, nseg: int, *,
 
 
 def _check_ack_lanes(op: str, ctx: ShoalContext, *, asynchronous,
-                     defer_ack, piggyback_token) -> None:
-    """Validation of the deferred-ack / piggyback arguments."""
+                     defer_ack, piggyback_token, reply_via=None) -> None:
+    """Validation of the deferred-ack / piggyback / reply_via arguments."""
     if defer_ack:
         if asynchronous:
             raise ValueError(
@@ -228,6 +246,11 @@ def _check_ack_lanes(op: str, ctx: ShoalContext, *, asynchronous,
             raise ValueError(
                 f"{op}: defer_ack needs an acked transport — this "
                 "transport never replies, so there is no ack to defer")
+        if reply_via is not None:
+            raise ValueError(
+                f"{op}: defer_ack (receiver-side ledger) and reply_via "
+                "(sender-side reply mailbox) are two different deferred-"
+                "ack mechanisms; pick one")
     if piggyback_token is not None:
         if static_int(piggyback_token) is None:
             raise ValueError(
@@ -244,6 +267,7 @@ _I_TYPE = am.FIELDS.index("type")
 _I_TOKEN = am.FIELDS.index("token")
 _I_PB_TOKEN = am.FIELDS.index("pb_token")
 _I_PB_COUNT = am.FIELDS.index("pb_count")
+_I_EPOCH = am.FIELDS.index("epoch")
 
 
 def _attach_piggyback(ctx: ShoalContext, state: PgasState, pattern: Pattern,
@@ -266,13 +290,127 @@ def _attach_piggyback(ctx: ShoalContext, state: PgasState, pattern: Pattern,
 
 
 def _require_lossless(op: str, ctx: ShoalContext) -> None:
-    """This package has no retransmit/dedup protocol yet: ops refuse a
-    lossy transport rather than pretend the link is perfect."""
+    """Ops without a reliability protocol refuse lossy transports rather
+    than pretend the link is perfect (the plain exchange injects no
+    faults)."""
     if _transport_is_lossy(ctx.transport):
         raise NotImplementedError(
-            f"{op}: no retransmit/dedup protocol on a lossy transport in "
-            "repro_torch yet (the reliable put lands with the faults "
-            "slice of the port); use a lossless transport")
+            f"{op}: no retransmit/dedup protocol on a lossy transport — "
+            "only put_long (and wait_replies) defend against loss; use a "
+            "lossless transport or route this op over put_long")
+
+
+# --------------------------------------------------------------------------
+# lossy-transport plumbing: sealed + faulted exchanges, bounded retransmit
+# --------------------------------------------------------------------------
+
+def _lossy_recv_probs(ctx: ShoalContext, pattern: Pattern) -> torch.Tensor:
+    """``(K, 3)`` float32 (drop, dup, corrupt) of every receiver's
+    incoming link for one traversal of ``pattern``: each link is
+    classified on its own (LOCAL/ICI links stay lossless inside a lossy
+    exchange); a kernel that receives nothing gets zeros."""
+    tbl = np.zeros((ctx.num_kernels, 3), np.float32)
+    for s, d in pattern:
+        tbl[d] = ctx.transport.probs_for(s, d)
+    return torch.from_numpy(tbl).to(ctx.device)
+
+
+def _lossy_exchange(ctx: ShoalContext, state: PgasState, pattern: Pattern,
+                    pkt: torch.Tensor, dtype: torch.dtype, *, token, epoch,
+                    rnd: int, direction: int):
+    """One sealed link traversal over a lossy transport.
+
+    ``pkt`` is the fused ``(K, nseg, HDR_WORDS + W)`` int32 stack (``W``
+    may be 0 for header-only acks).  The stack is CRC-sealed, shipped,
+    faulted receiver-side (:mod:`repro_torch.core.faults`), CRC-checked,
+    and rows failing the check are NOPed with ``ERR_CRC`` latched (a
+    corrupt packet degenerates to a drop the retransmit loop recovers
+    from).  Returns ``(state, hdr_rows, pay_rows)``, the stacks ``(K, 2
+    * nseg, ...)`` with duplicate deliveries in the second half.
+    """
+    pkt = am.seal_packet(pkt)
+    remote = [(s, d) for (s, d) in pattern if s != d]
+    pkt_r = _permute(ctx, pattern, pkt) if remote else pkt
+    probs = _lossy_recv_probs(ctx, pattern)
+    draws = ctx.transport.faults.draw(ctx.my_id(), token, epoch, rnd,
+                                      direction, pkt.shape[-2],
+                                      pkt.shape[-1])
+    delivered = flt.deliver(pkt_r, draws, probs[:, 0], probs[:, 1],
+                            probs[:, 2])
+    ok = am.packet_crc_ok(delivered)
+    state = replace(state, error=state.error | torch.where(
+        (~ok).any(dim=1), ERR_CRC, 0).to(torch.int32))
+    delivered = torch.where(ok[..., None], delivered, 0)
+    return (state, delivered[..., :am.HDR_WORDS],
+            am.from_wire(delivered[..., am.HDR_WORDS:], dtype))
+
+
+def _put_long_reliable(ctx: ShoalContext, state: PgasState, pattern: Pattern,
+                       hdrs: torch.Tensor, buf: torch.Tensor, W: int,
+                       nwords: int, token, *, acked: bool,
+                       dedup: bool) -> PgasState:
+    """Bounded-retransmit delivery of one sealed Long packet stack.
+
+    Senders re-ship the (NOP-masked, so only still-pending senders pay
+    wire words) stack until the receiver's ack survives the reverse
+    link, up to ``max_retries`` extra rounds.  Every round runs, as in
+    the reference's static program: a sender whose ack came home ships
+    NOP rows, and the round's exchanges count all the same (two per
+    round when acked).  The per-kernel ``retransmits`` counter records
+    the rounds actually re-sent in.  Receivers run the dedup-gated
+    ingress so redelivery is idempotent; a completed (or stale-
+    redelivered final) row re-acks, covering the lost-ack case.  On
+    success the sender grants itself the message's ONE credit on
+    ``token``; on exhaustion it latches ``ERR_RETRY_EXHAUSTED`` instead
+    and the credit never appears (``wait_replies(..., timeout=True)``
+    observes that gracefully).
+    """
+    K = ctx.num_kernels
+    ks = torch.arange(K, device=ctx.device)
+    tok_c = torch.as_tensor(token, dtype=torch.int32, device=ctx.device
+                            ).expand(K).clamp(0, hd.NUM_TOKENS - 1)
+    sender = _is_sender(ctx, pattern)
+    epoch = state.send_epoch[ks, tok_c.long()] + 1
+    send_epoch = state.send_epoch.clone()
+    send_epoch[ks, tok_c.long()] += sender.to(torch.int32)
+    state = replace(state, send_epoch=send_epoch)
+    hdrs = hdrs.clone()
+    hdrs[..., _I_EPOCH] = torch.where(hdrs[..., _I_TYPE] != 0,
+                                      epoch[:, None], 0)
+    attempts = 1 + (ctx.transport.max_retries if acked else 0)
+    pending = sender
+    # tx under loss counts FULL wire cost (headers + payload per data
+    # round, header-only acks) so goodput = payload / tx_words is honest
+    wire = am.wire_words(buf.dtype, nwords) + hdrs.shape[1] * am.HDR_WORDS
+    for rnd in range(attempts):
+        if rnd:
+            state = replace(state, retransmits=state.retransmits
+                            + pending.to(torch.int32))
+        rows = torch.where(pending[:, None, None], hdrs, 0)
+        pay = torch.where(pending[:, None, None], buf, torch.zeros_like(buf))
+        state = replace(state, tx_words=state.tx_words + torch.where(
+            pending, wire, 0).to(torch.int32))
+        state, hdr_r, pay_r = _lossy_exchange(
+            ctx, state, pattern, am.pack_packet(rows, pay), buf.dtype,
+            token=tok_c, epoch=epoch, rnd=rnd, direction=flt.DIR_DATA)
+        state, ack_hdr = gc.ingress_reliable_stack(ctx, state, hdr_r, pay_r,
+                                                   W, dedup=dedup)
+        if not acked:
+            return state
+        state = replace(state, tx_words=state.tx_words + torch.where(
+            ack_hdr[:, _I_TYPE] != 0, am.HDR_WORDS, 0).to(torch.int32))
+        state, rep_r, _ = _lossy_exchange(
+            ctx, state, _reverse(pattern), ack_hdr[:, None], torch.int32,
+            token=tok_c, epoch=epoch, rnd=rnd, direction=flt.DIR_REPLY)
+        t_col = rep_r[..., _I_TYPE]
+        got = (((t_col & am._CLASS_MASK) == am.SHORT)
+               & ((t_col & am.FLAG_REPLY) != 0)
+               & (rep_r[..., _I_TOKEN] == tok_c[:, None])).any(dim=1)
+        pending = pending & ~got
+    credits = state.credits.clone()
+    credits[ks, tok_c.long()] += (sender & ~pending).to(torch.int32)
+    return replace(state, credits=credits, error=state.error | torch.where(
+        pending, ERR_RETRY_EXHAUSTED, 0).to(torch.int32))
 
 
 def _count_tx(ctx: ShoalContext, state: PgasState, pattern: Pattern,
@@ -297,12 +435,14 @@ def _plan(ctx: ShoalContext, nwords: int, limit: int):
 # --------------------------------------------------------------------------
 
 def put_short(ctx: ShoalContext, state: PgasState, pattern: Pattern, *,
-              handler=hd.H_ADD, arg=1, token=0,
-              asynchronous: bool = False) -> PgasState:
+              handler=hd.H_ADD, arg=1, token=0, asynchronous: bool = False,
+              reply_via=None) -> PgasState:
     """Short AM: signal the destination (no payload).
 
     The handler runs on the destination's credit word ``token`` with
     ``arg``; the default (H_ADD, 1) is a counting semaphore.
+    ``reply_via`` defers the ack into a reply mailbox
+    (:func:`_deliver_reply`).
     """
     _require_lossless("put_short", ctx)
     t = am.make_type(am.SHORT, asynchronous=asynchronous)
@@ -312,7 +452,8 @@ def put_short(ctx: ShoalContext, state: PgasState, pattern: Pattern, *,
     hdr_r, _ = _exchange(ctx, pattern, hdr, None)
     h = am.decode(hdr_r)
     state = gc.ingress_short(ctx, state, h)
-    return _deliver_reply(ctx, state, pattern, h, asynchronous=asynchronous)
+    return _deliver_reply(ctx, state, pattern, h, asynchronous=asynchronous,
+                          token=token, reply_via=reply_via)
 
 
 # --------------------------------------------------------------------------
@@ -322,7 +463,8 @@ def put_short(ctx: ShoalContext, state: PgasState, pattern: Pattern, *,
 def put_medium(ctx: ShoalContext, state: PgasState,
                payload: torch.Tensor | None, pattern: Pattern, *,
                handler=hd.H_NOP, token=0, asynchronous: bool = False,
-               from_segment_addr=None, nwords: int | None = None):
+               from_segment_addr=None, nwords: int | None = None,
+               reply_via=None):
     """Medium AM: point-to-point payload straight to the destination
     kernel (returned value).  ``from_segment_addr`` selects the
     memory-sourced variant (``nwords`` read from the local segment);
@@ -350,7 +492,8 @@ def put_medium(ctx: ShoalContext, state: PgasState,
     hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
     state, delivered = gc.ingress_medium_batch(state, hdr_r, pay_r, W)
     state = _deliver_reply(ctx, state, pattern, am.decode(hdr_r[:, -1]),
-                           asynchronous=asynchronous)
+                           asynchronous=asynchronous, token=token,
+                           reply_via=reply_via)
     return state, delivered[:, :nwords]
 
 
@@ -362,7 +505,8 @@ def put_long(ctx: ShoalContext, state: PgasState,
              payload: torch.Tensor | None, pattern: Pattern, dst_addr, *,
              handler=hd.H_WRITE, token=0, asynchronous: bool = False,
              from_segment_addr=None, nwords: int | None = None,
-             defer_ack: bool = False, piggyback_token=None) -> PgasState:
+             reply_via=None, defer_ack: bool = False, piggyback_token=None,
+             dedup: bool = True) -> PgasState:
     """Long AM: one-sided put into the destination kernel's segment at
     ``dst_addr``, applied through ``handler`` (H_WRITE = plain put,
     H_ADD = remote accumulate, ...).  FIFO variant when ``payload`` is
@@ -377,15 +521,38 @@ def put_long(ctx: ShoalContext, state: PgasState,
     packet crossing the reverse link carries it home -- another put with
     ``piggyback_token=token`` or :func:`drain_deferred_acks`.
     ``piggyback_token=t`` loads THIS packet's piggyback lane with the
-    sender's ledgered acks for ``t``.
+    sender's ledgered acks for ``t``.  ``reply_via`` defers the ack into
+    a reply mailbox instead (:func:`_deliver_reply`).
+
+    On a lossy transport (a :class:`~repro_torch.runtime.transport.
+    LossyTransport` with a non-zero fault model) the put runs the
+    reliability protocol instead: packets are CRC-sealed and
+    epoch-stamped, receivers dedup redelivery, and (if acked) senders
+    retransmit up to ``max_retries`` rounds before latching
+    ``ERR_RETRY_EXHAUSTED`` -- see :func:`_put_long_reliable`.
+    ``dedup=False`` disables the receiver ledger.  The ack-lane
+    machinery (defer_ack / piggyback / reply_via) presumes a lossless
+    reply and is refused on lossy transports.
     """
-    _require_lossless("put_long", ctx)
     nwords = _resolve_nwords(ctx, payload, from_segment_addr, nwords,
                              "put_long")
     fifo = from_segment_addr is None
     _check_ack_lanes("put_long", ctx, asynchronous=asynchronous,
-                     defer_ack=defer_ack, piggyback_token=piggyback_token)
+                     defer_ack=defer_ack, piggyback_token=piggyback_token,
+                     reply_via=reply_via)
+    lossy = _transport_is_lossy(ctx.transport)
+    if lossy and (defer_ack or piggyback_token is not None
+                  or reply_via is not None):
+        raise NotImplementedError(
+            "put_long: deferred/piggybacked acks assume a lossless reply "
+            "path and cannot ride a lossy transport (a dropped piggyback "
+            "lane would strand the ledger); use plain acked puts")
     nseg, W, offs, ws = _plan(ctx, nwords, ctx.transport.max_packet_words)
+    if lossy and nseg > 31:
+        raise NotImplementedError(
+            f"put_long: {nseg} segments > 31 — the dedup ledger's arrival "
+            "bitmask is one int32 per token; raise the MTU or split the "
+            "message")
     hdrs = am.encode_batch(
         nseg,
         type=_seg_types(ctx, am.LONG, nseg, asynchronous=asynchronous,
@@ -399,6 +566,15 @@ def put_long(ctx: ShoalContext, state: PgasState,
                                         piggyback_token)
     hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
     buf = gc.egress_batch(ctx, state, hdrs, payload if fifo else None, W)
+    if lossy:
+        if not am.wire_dtype_ok(buf.dtype):
+            raise NotImplementedError(
+                "put_long: the lossy-transport seal covers the fused int32 "
+                "packet; sub-32-bit payloads use the split fallback and "
+                "have no integrity protection yet")
+        return _put_long_reliable(
+            ctx, state, pattern, hdrs, buf, W, nwords, token,
+            acked=ctx.transport.acked and not asynchronous, dedup=dedup)
     state = _count_tx(ctx, state, pattern, nwords)
     hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
     state = gc.ingress_long_batch(ctx, state, hdr_r, pay_r, W)
@@ -406,7 +582,8 @@ def put_long(ctx: ShoalContext, state: PgasState,
     last = am.decode(hdr_r[:, -1])
     state = gc.ingress_ack_lanes(state, last)
     return _deliver_reply(ctx, state, pattern, last,
-                          asynchronous=asynchronous or defer_ack)
+                          asynchronous=asynchronous or defer_ack,
+                          token=token, reply_via=reply_via)
 
 
 def group_disjoint_patterns(patterns: list[Pattern]) -> list[list[int]]:
@@ -477,7 +654,7 @@ def _counted_group_reply(ctx: ShoalContext, state: PgasState,
 def put_long_multi(ctx: ShoalContext, state: PgasState, items, *,
                    handler=hd.H_WRITE, token=0, tokens=None,
                    asynchronous: bool = False, defer_ack: bool = False,
-                   piggyback_tokens=None) -> PgasState:
+                   piggyback_tokens=None, reply_via=None) -> PgasState:
     """Multi-destination Long put: batch several puts over different
     patterns into as few exchanges as possible.
 
@@ -491,7 +668,8 @@ def put_long_multi(ctx: ShoalContext, state: PgasState, items, *,
 
     Ack accounting: one credit per item, on that item's token.  On the
     immediate-ack path each group costs ONE extra reply exchange
-    (:func:`_counted_group_reply`).  With ``defer_ack=True`` there is no
+    (:func:`_counted_group_reply`); with ``reply_via`` every item's ack
+    is noted in the reply mailbox instead.  With ``defer_ack=True`` there is no
     reply exchange: receivers ledger the acks and
     ``piggyback_tokens[i]`` loads item *i*'s final packet with the
     sender's ledgered acks for that token.
@@ -514,7 +692,8 @@ def put_long_multi(ctx: ShoalContext, state: PgasState, items, *,
             f"put_long_multi: {k} items but {len(pbs)} piggyback_tokens")
     for pb in pbs:
         _check_ack_lanes("put_long_multi", ctx, asynchronous=asynchronous,
-                         defer_ack=defer_ack, piggyback_token=pb)
+                         defer_ack=defer_ack, piggyback_token=pb,
+                         reply_via=reply_via)
     parsed = []
     for i, item in enumerate(items):
         try:
@@ -570,9 +749,14 @@ def put_long_multi(ctx: ShoalContext, state: PgasState, items, *,
         union = sorted(set(union))
         hdr_r, pay_r = _exchange(ctx, union, torch.cat(hdr_rows, dim=1),
                                  torch.cat(pay_rows, dim=1))
-        state = gc.ingress_stack(ctx, state, hdr_r, pay_r, W)
+        # Long rows only: every credit update adds
+        state = gc.ingress_stack(ctx, state, hdr_r, pay_r, W, additive=True)
         if acked and not defer_ack:
-            state = _counted_group_reply(ctx, state, union, hdr_r)
+            if reply_via is not None:
+                for i in grp:
+                    reply_via.note(parsed[i][1], toks[i])
+            else:
+                state = _counted_group_reply(ctx, state, union, hdr_r)
     return state
 
 
@@ -611,7 +795,8 @@ def put_long_strided(ctx: ShoalContext, state: PgasState,
                      payload: torch.Tensor, pattern: Pattern, dst_addr,
                      stride, *, blk_words: int, nblocks: int,
                      handler=hd.H_WRITE, token=0,
-                     asynchronous: bool = False) -> PgasState:
+                     asynchronous: bool = False,
+                     reply_via=None) -> PgasState:
     """Strided Long put: ``nblocks`` blocks of ``blk_words`` land at
     ``dst_addr + i*stride`` (THeGASNet's strided access, carried forward
     by the paper).  ``payload`` is the packed ``(K, nblocks*blk_words)``
@@ -646,7 +831,76 @@ def put_long_strided(ctx: ShoalContext, state: PgasState,
     state = gc.ingress_strided_batch(ctx, state, hdr_r, pay_r, blk_words,
                                      min(per, nblocks))
     return _deliver_reply(ctx, state, pattern, am.decode(hdr_r[:, -1]),
-                          asynchronous=asynchronous)
+                          asynchronous=asynchronous, token=token,
+                          reply_via=reply_via)
+
+
+def put_long_vectored(ctx: ShoalContext, state: PgasState,
+                      blocks: list[torch.Tensor], pattern: Pattern,
+                      dst_addrs, *, handler=hd.H_WRITE, token=0,
+                      asynchronous: bool = False,
+                      reply_via=None) -> PgasState:
+    """Vectored Long put: ``blocks[i]`` (``(K, w_i)``) lands at
+    ``dst_addrs[i]`` (an int or a ``(K,)`` tensor; or pass a ``(K, B)``
+    tensor).  One AM on the wire: the destination address list rides
+    inside the fused packet as an extra int32 section (``header ++
+    addrs ++ payload``), so the whole message is a single exchange; the
+    receiver lands the blocks as the ``B`` rows of one DataMover scatter
+    (per-row ``nwords`` and ``dst_addr``), in block order.  Vectored
+    puts do not segment.  Blocks whose known destination intervals
+    overlap raise :class:`VectoredAliasError`."""
+    _require_lossless("put_long_vectored", ctx)
+    K = ctx.num_kernels
+    if torch.is_tensor(dst_addrs):
+        addrs = dst_addrs.to(device=ctx.device, dtype=torch.int32)
+        if addrs.dim() == 1:
+            addrs = addrs.expand(K, -1)
+        n_addrs = addrs.shape[-1]
+        statics = [None] * n_addrs
+    else:
+        n_addrs = len(dst_addrs)
+        statics = [static_int(a) for a in dst_addrs]
+    if n_addrs != len(blocks):
+        raise ValueError(
+            f"put_long_vectored: {len(blocks)} blocks but {n_addrs} "
+            "dst_addrs — one destination address per block")
+    sizes = [_resolve_nwords(ctx, b, None, None, "put_long_vectored")
+             for b in blocks]
+    nwords = sum(sizes)
+    if nwords + len(blocks) > ctx.transport.max_packet_words:
+        raise ValueError(
+            f"put_long_vectored: {nwords} payload words + {len(blocks)} "
+            f"in-packet addresses exceed the transport MTU "
+            f"({ctx.transport.max_packet_words} words); vectored puts do "
+            "not segment — split the block list across messages")
+    ivs = [Interval(a, w) for a, w in zip(statics, sizes)]
+    for i in range(len(ivs)):
+        for j in range(i + 1, len(ivs)):
+            if ivs[i].known and ivs[j].known and ivs[i].overlaps(ivs[j]):
+                raise VectoredAliasError(
+                    f"put_long_vectored: destination blocks {i} ({ivs[i]}) "
+                    f"and {j} ({ivs[j]}) overlap inside one packet, so the "
+                    "landed value depends on the receiver's scatter order "
+                    "(duplicate addresses are the degenerate case). Give "
+                    "each block a disjoint interval.")
+    if not torch.is_tensor(dst_addrs):
+        addrs = torch.stack([torch.as_tensor(a, dtype=torch.int32,
+                                             device=ctx.device).expand(K)
+                             for a in dst_addrs], dim=1)
+    payload = torch.cat([b.reshape(K, -1) for b in blocks], dim=1)
+    t = am.make_type(am.LONG, asynchronous=asynchronous, fifo=True,
+                     vectored=True)
+    hdr = am.encode(type=t, src=ctx.my_id(), dst=_dst_of(ctx, pattern),
+                    nwords=nwords, handler=handler, token=token,
+                    nblocks=len(blocks))
+    hdr = _mask_nonparticipants(ctx, pattern, hdr)
+    buf = gc.egress(ctx, state, am.decode(hdr), payload, nwords)
+    state = _count_tx(ctx, state, pattern, nwords)
+    hdr_r, addrs_r, pay_r = _exchange(ctx, pattern, hdr, buf, extra=addrs)
+    h = am.decode(hdr_r)
+    state = gc.ingress_vectored(ctx, state, h, addrs_r, pay_r, sizes)
+    return _deliver_reply(ctx, state, pattern, h, asynchronous=asynchronous,
+                          token=token, reply_via=reply_via)
 
 
 # --------------------------------------------------------------------------

@@ -42,9 +42,9 @@ class PgasState:
     # a reply exchange; the next packet this kernel sends over the
     # reverse link carries the count home in its pb_token/pb_count lane.
 
-    # lossy-transport reliability state: per-(sender, token) send epochs,
-    # the receiver's redelivery ledger and the retry counter.  Carried so
-    # states convert field for field; no op of this package writes them.
+    # lossy-transport reliability state (the reliable put_long): per-
+    # (sender, token) send epochs, the receiver's redelivery ledger and
+    # the retry counter.
     send_epoch: torch.Tensor       # (K, NUM_TOKENS) int32
     dedup_epoch: torch.Tensor      # (K, NUM_TOKENS) int32
     dedup_inflight: torch.Tensor   # (K, NUM_TOKENS) int32
@@ -270,6 +270,22 @@ class ShoalContext:
     def make_state(self, dtype=torch.float32) -> PgasState:
         return PgasState.make(self.num_kernels, self.segment_words, dtype,
                               self.device)
+
+    def mailbox(self, pattern, **kw):
+        """Per-destination coalescing mailbox over this context (the
+        actor layer, :mod:`repro_torch.actors`): N tiny sends along
+        ``pattern`` flush as ONE exchange."""
+        from repro_torch.actors import Mailbox  # deferred: actors imports core
+
+        return Mailbox(self, pattern, **kw)
+
+    def reply_mailbox(self):
+        """Deferred-ack mailbox: pass as ``reply_via=`` to put ops so
+        their acks coalesce into one Short AM per destination at
+        flush."""
+        from repro_torch.actors import ReplyMailbox  # deferred: actors imports core
+
+        return ReplyMailbox(self)
 
     def pattern(self, pattern) -> PatternTable:
         """The device tables of ``pattern`` (``(src, dst)`` pairs), built

@@ -45,8 +45,9 @@ STAGE_MAX_B = 2048          # staged headers: 16 bytes a block in 48 KB
 GRID_MAX = 65535            # the grid's y (B) and z (K) dimensions
 # datamover_kernel_for's routes, from scripts/datamover_sweep.py
 # (PERF.md): the shapes at which the Hopper design won both turns at
-# every K (1, 8) and layout (disjoint, aliasing) measured, with a
-# measured point on each side of each bound.  Below them the simple
+# every K (1, 8) and layout (disjoint, aliasing; ragged rows and gated
+# duplicate rows at W 4, 8, 64 and 2250) measured, with a measured
+# point on each side of each bound.  Below them the simple
 # design won by 0-10 % (a narrow row is one launch and two dependent
 # loads in either, and the Hopper kernels spend more instructions on
 # each); the staged scatter won at every B measured, up to STAGE_MAX_B.

@@ -690,3 +690,168 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# -- the message layer: vectored puts, the reliable put, mailboxes ----------
+
+def _card_and_cpu_states(cuda, run):
+    """``run(device) -> (ctx, state)`` on the CPU and on the card; the
+    two states' fields bit for bit, and the same exchanges."""
+    import dataclasses as dc
+
+    (ctx_c, st_c), (ctx_g, st_g) = run("cpu"), run(cuda)
+    for f in dc.fields(st_c):
+        a, b = getattr(st_g, f.name).cpu(), getattr(st_c, f.name)
+        assert _same_bits(a, b), f.name
+    assert ctx_g.exchanges == ctx_c.exchanges
+    return ctx_g, st_g
+
+
+def _message_cases():
+    from test_torch_actors import CASES as ACTOR_CASES
+    from test_torch_lossy import PUTS
+    from test_torch_vectored import CASES as VECTORED_CASES
+
+    return ([("vectored", n) for n in VECTORED_CASES]
+            + [("actors", n) for n in ACTOR_CASES]
+            + [("lossy", n) for n in PUTS])
+
+
+@pytest.mark.parametrize("family,name", _message_cases())
+def test_message_layer_cases_on_the_card_match_the_cpu(cuda, family, name):
+    """Every vectored, actor and reliable-put program of
+    tests/test_torch_{vectored,actors,lossy}.py (held there to the JAX
+    package on the CPU; the reliable put here with the port's own hash
+    draws, which give the same bits on both devices) on a CUDA context:
+    the state bit for bit as the port's CPU run, the same exchanges."""
+    import test_torch_actors as ta
+    import test_torch_lossy as tl
+    import test_torch_vectored as tv
+    from repro_torch import runtime
+    from repro_torch.core.address_space import GlobalAddressSpace
+    from repro_torch.core.state import ShoalContext, replace
+
+    def run(device):
+        if family == "lossy":
+            case = tl.PUTS[name]
+            ctx = ShoalContext(8, tl._lossy(runtime, tl._port_model(
+                case, "hash"), case), tl.SEG, device=device)
+            from repro_torch.core import handlers as hd, ops
+            st = ops.put_long(ctx, ctx.make_state(), torch.from_numpy(
+                tl._pay(case)).to(device), list(case.pattern), dst_addr=10,
+                token=1, handler=getattr(hd, case.handler),
+                dedup=case.dedup, asynchronous=not case.acked)
+            return ctx, ops.wait_replies(ctx, st, 1, 1, timeout=True)
+        mod = tv if family == "vectored" else ta
+        case = mod.CASES[name]
+        transport = (tv._transport(runtime, case) if family == "vectored"
+                     else runtime.TCP if case.acked else runtime.UDP)
+        ctx = ShoalContext(8, transport, case.segment_words, device=device)
+        seg0, pay = mod._inputs(name)
+        st = GlobalAddressSpace(ctx).make_global_state(seg0.reshape(-1))
+        dt = getattr(torch, getattr(case, "dtype", "float32"))
+        st = replace(st, segment=st.segment.to(dt))
+        p = torch.from_numpy(pay).to(device=device, dtype=dt)
+        if family == "vectored":
+            from repro_torch.core import handlers as hd, ops
+            return ctx, case.prog(ops, hd, ctx, st, p)
+        return ctx, case.prog(ta._port_lib(), ctx, st, p)
+
+    _card_and_cpu_states(cuda, run)
+
+
+def _phase_programs():
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(17)
+    vec = rng.standard_normal((cs.K, cs.VEC_BLOCKS * cs.VEC_WORDS)).astype(
+        np.float32)
+    rel = rng.standard_normal((cs.K, cs.REL_SEGS * cs.MTU_WORDS)).astype(
+        np.float32)
+    bench = ((np.arange(16, dtype=np.float32) + 1)[None]
+             * (np.arange(cs.K, dtype=np.float32) + 1)[:, None])
+    progs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for asynchronous in (False, True):
+            progs[f"vectored-{dtype}-{asynchronous}"] = cs._vectored_prog(
+                torch, vec, dtype, asynchronous)
+    for name, faults in cs.REL_FAULTS.items():
+        progs[f"reliable-{name}"] = cs._reliable_prog(
+            torch, rel, faults, cs.MTU_WORDS, cs.MSG_SEG_WORDS, seed=7)
+    for pct, drop in (("0", 1e-12), ("1", 0.01), ("5", 0.05)):
+        progs[f"bench_faults-{pct}"] = cs._reliable_prog(
+            torch, bench, dict(drop=drop), 4, 64, seed=7)
+    progs.update({k: p for k, (p, _) in cs._mailbox_progs(
+        torch, rng.standard_normal((cs.K, 4096)).astype(np.float32)).items()})
+    return progs
+
+
+PHASE_PROGRAMS = ["vectored-torch.float32-False", "vectored-torch.float32-True",
+                  "vectored-torch.bfloat16-False",
+                  "vectored-torch.bfloat16-True", "reliable-drop-0pct",
+                  "reliable-drop-1pct", "reliable-drop-5pct",
+                  "reliable-dup-5pct", "reliable-corrupt-2pct",
+                  "bench_faults-0", "bench_faults-1", "bench_faults-5",
+                  "mailbox-1024x4", "multi-mailbox-2x64",
+                  "reply-mailbox-4puts"]
+
+
+@pytest.mark.parametrize("name", PHASE_PROGRAMS)
+def test_message_phase_programs_on_the_card_match_the_cpu(cuda, name):
+    """chip_smoke.py's message-phase programs at their full size (34 x
+    64-word vectored puts, 16 x 2250-word reliable puts over a lossy
+    ring, 1024 mailbox sends) on the card: bit for bit the CPU run."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    prog = _phase_programs()[name]
+    _card_and_cpu_states(cuda, lambda d: prog(torch.device(d)))
+
+
+def _message_shapes():
+    """(op, K, B, W, layout) of the DataMover at the message layer's
+    shapes: scripts/datamover_sweep.py's points at W 4 and 8, ragged
+    rows, gated duplicate rows and the message layer's own shapes."""
+    out = []
+    for K in (1, 8):
+        for B in (1, 3, 40, 1024):
+            for W in (4, 8, 64):
+                out.append(("gather", K, B, W, "ragged"))
+                for layout in ("disjoint", "ragged", "gated-dup"):
+                    out.append(("scatter", K, B, W, layout))
+    return out + [("gather", 8, 1, 2176, "disjoint"),
+                  ("gather", 8, 16, 2250, "ragged"),
+                  ("scatter", 8, 32, 2250, "gated-dup"),
+                  ("scatter", 8, 34, 64, "ragged")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("op,K,B,W,layout", _message_shapes())
+def test_datamover_message_shapes_match_plain_on_both_designs(
+        cuda, dtype, op, K, B, W, layout):
+    """Both designs and the routed kernel at the new shapes, bitwise
+    against the plain version on the same inputs."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import datamover_sweep as sweep
+
+    gen = torch.Generator(device=cuda).manual_seed(B * 7 + W)
+    seg, pay, addr, nwords, hid, active = sweep.case(
+        torch, op, K, B, W, layout, None, dtype, gen, cuda)
+    for kernel in _designs(dtype):
+        if op == "gather":
+            got = dm.datamover_gather_cuda(seg, addr, nwords, W,
+                                           kernel=kernel)
+            want = dm.datamover_gather_ref(seg, addr, nwords, W)
+        else:
+            got = dm.datamover_scatter_cuda(seg.clone(), pay, addr, nwords,
+                                            hid, active, kernel=kernel)
+            want = dm.datamover_scatter_ref(seg.clone(), pay, addr, nwords,
+                                            hid, active)
+        assert _same_bits(got, want), kernel

@@ -45,7 +45,10 @@ HALF = (torch.bfloat16, torch.float16)
 def _measured_route(op, K, B, W, dtype):
     """The routes of scripts/datamover_sweep.py's table in PERF.md,
     written out: where the Hopper design won both turns at every layout
-    measured."""
+    measured.  The sweep extended to W 4 and 8, ragged rows and gated
+    duplicate rows (the message layer's shapes) kept these bounds: no
+    point routed to the Hopper design lost, and the simple design's
+    wins stayed below them."""
     if dtype in HALF:
         return "sm90"
     if op == "gather":
@@ -68,7 +71,7 @@ def test_datamover_kernel_for_routes_by_shape(op, B, dtype):
     scripts/datamover_sweep.py measured it faster; the rest of 32-bit
     words to the simple design; 16-bit words to the Hopper design
     whatever the shape.  A pure function of its arguments."""
-    for W in (1, 64, 1023, 1024, 1535, 1536, 2250):
+    for W in (1, 4, 8, 64, 1023, 1024, 1535, 1536, 2176, 2250):
         for K in (1, 2, 8, 200):
             want = _measured_route(op, K, B, W, dtype)
             assert dm.datamover_kernel_for(op, K, B, W, dtype) == want, \
@@ -87,6 +90,22 @@ def test_datamover_kernel_for_routes_by_shape(op, B, dtype):
 ])
 def test_main_path_shapes_take_the_hopper_design(op, K, B, W):
     assert dm.datamover_kernel_for(op, K, B, W, torch.float32) == "sm90"
+
+
+@pytest.mark.parametrize("op,K,B,W,route", [
+    ("scatter", 8, 1024, 4, "sm90"),     # the 1024-send mailbox flush
+    ("gather", 8, 1, 2176, "sm90"),      # the vectored put's egress row
+    ("scatter", 8, 34, 64, "sm90"),      # its 34 blocks
+    ("gather", 8, 34, 64, "simple"),     # its ragged blocks, received
+    ("gather", 8, 16, 2250, "sm90"),     # the reliable put's egress
+    ("scatter", 8, 32, 2250, "sm90"),    # its stack with duplicates
+    ("gather", 8, 4, 4, "simple"),       # bench_faults' put, egress
+    ("scatter", 8, 8, 4, "sm90"),        # and its stack
+])
+def test_message_layer_shapes_take_the_measured_design(op, K, B, W, route):
+    """The message layer's float32 shapes take the design
+    chip_smoke.py's phase 7 timed faster in the same call."""
+    assert dm.datamover_kernel_for(op, K, B, W, torch.float32) == route
 
 
 def test_routes_refuse_what_no_design_moves():

@@ -7,7 +7,6 @@ import re
 import shutil
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -184,14 +183,19 @@ def test_custom_handlers_refused_off_the_cpu_and_run_on_it():
 
 
 def test_lossy_transport_refused_at_call_time():
-    faults = types.SimpleNamespace(drop=0.1, dup=0.0, corrupt=0.0,
-                                   lossless=False)
+    """Every op without a reliability protocol refuses a lossy
+    transport; put_long runs the reliable put there, and refuses only
+    the ack lanes that presume a lossless reply."""
+    from repro_torch.core.faults import FaultModel
+
+    faults = FaultModel(drop=0.1, seed=1)
     ctx = ShoalContext(2, LossyTransport(faults=faults), 16, device="cpu")
     st = ctx.make_state()
     pat = [(0, 1)]
     pay = torch.ones(2, 4)
     calls = [
-        lambda: ops.put_long(ctx, st, pay, pat, 0),
+        lambda: ops.put_long(ctx, st, pay, pat, 0, defer_ack=True),
+        lambda: ops.put_long_vectored(ctx, st, [pay], pat, [0]),
         lambda: ops.put_short(ctx, st, pat),
         lambda: ops.put_medium(ctx, st, pay, pat),
         lambda: ops.put_long_multi(ctx, st, [(pay, pat, 0)]),
