@@ -42,9 +42,17 @@ at tinyllama-1.1b's and qwen2-1.5b's prefill shapes and two ragged
 lengths, holds one prefill's logits (bfloat16 through the Hopper kernel,
 the same weights in float32 through the simple one) to the same prefill
 with the plain version in the kernel's place, and profiles a prefill and
-a window of decode steps (device busy time, idle share).  Kernel times
-are device times from ``torch.profiler``.  One line per
-phase; any failure raises and the script exits non-zero.
+a window of decode steps (device busy time, idle share).
+Phase 8 serves the same model through the disaggregated tier: 2 prefill
+and 2 decode kernels, 2 lanes each, every finished prefill's KV cache
+moved to a decode lane as ONE vectored put into the decode kernel's
+segment (2 exchanges), driven through ``ServeFrontend`` with a queue of
+2; the landed lanes bitwise the prefill workers', the tokens bitwise
+those of a twin run without the migration; then both DataMover designs
+at the migration's shapes (the packet's egress, its ragged blocks, their
+scatter) against the plain version, timed in turns.  Kernel times are
+device times from ``torch.profiler``.  One line per phase; any failure
+raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card and ``nvcc``;
 without a card it exits non-zero and prints no result.
@@ -302,9 +310,15 @@ def check_gather(torch, dm, src, addr, nwords, W, what, floor=None,
     flat, _ = _lanes(torch, addr, nwords, src.shape[1], W)
     flat_src = src.reshape(-1)
     # every lane inside the segment is read (a lane past nwords is the
-    # word there times 0), so it counts towards the bytes bound
+    # word there times 0); each source word counts once towards the
+    # bytes bound, however many rows read it
+    S = src.shape[1]
     idx = addr[..., None].long() + torch.arange(W, device=addr.device)
-    read = int(((idx >= 0) & (idx < src.shape[1])).sum())
+    base = torch.arange(K, device=addr.device)[:, None, None] * S
+    touched = torch.zeros(K * S, dtype=torch.bool, device=src.device)
+    touched[(base + idx)[(idx >= 0) & (idx < S)]] = True
+    read = int(touched.sum())
+    del idx, base, touched
     elt = src.element_size()
     fns = {r: (lambda r=r: dm.datamover_gather_cuda(src, addr, nwords, W,
                                                     kernel=r))
@@ -1878,12 +1892,322 @@ def phase_serving(torch, device):
                       device=device)
     check_prefill_logits(torch, f32, f32.init(torch.Generator(
         device=device).manual_seed(0)), prompts[0])
+    del f32, engine
     # the wrapper's counter (either kernel) and the Hopper kernel's own
     records["flash_attention"]["launches"] = counts["flash_attention"]
     records["flash_attention"]["simple_kernel_launches"] = (
         counts["flash_attention"] - counts["flash_attention_sm90"])
     records["flash_attention_sm90"]["launches"] = \
         counts["flash_attention_sm90"]
+    return records, model, params
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the disaggregated serving tier (prefill and decode on disjoint
+# kernel sets, one vectored-put KV migration per request)
+# ---------------------------------------------------------------------------
+
+N_PREFILL, N_DECODE = 2, 2  # benchmarks/bench_serving.py:91's split
+LANES_PER_DECODE = LANES // N_DECODE
+FRONT_QUEUE = 2             # tests/serving_checks.py:73's admission bound
+
+
+def disagg_transport(lane_words: int, n_blocks: int):
+    """TCP with a frame that holds one lane's migration: the payload, its
+    in-packet address list and the header (vectored puts do not
+    segment)."""
+    from repro_torch.core import am
+    from repro_torch.runtime import TCP
+
+    return dataclasses.replace(
+        TCP, max_packet_bytes=4 * (lane_words + n_blocks + am.HDR_WORDS))
+
+
+def drive_frontend(fe, prompts, max_new):
+    """``tests/serving_checks.py:72-97``'s sequence: every prompt
+    submitted into the bounded queue, run to idle, then the rejected
+    ones retried with a ``pump`` between attempts.  Returns the admitted
+    jobs in admission order and how many submits were rejected."""
+    from repro_torch.serving import REJECTED
+
+    jobs = [fe.submit(p, max_new) for p in prompts]
+    rejected = [j for j in jobs if j.status == REJECTED]
+    fe.run_until_idle()
+    pending, refused = [(j.request.prompt, max_new) for j in rejected], 0
+    admitted = [j for j in jobs if j.status != REJECTED]
+    while pending:
+        job = fe.submit(*pending[0])
+        if job.status == REJECTED:
+            refused += 1
+            fe.pump()
+            continue
+        pending.pop(0)
+        admitted.append(job)
+    fe.run_until_idle()
+    return admitted, len(rejected) + refused
+
+
+def _lane_equal(torch, got, want) -> bool:
+    """Two (B=1) lane caches bitwise equal, leaf by leaf, dtypes too."""
+    return len(got) == len(want) and all(
+        g[key][name].dtype == w[key][name].dtype
+        and torch.equal(_bits(torch, g[key][name]), _bits(torch, w[key][name]))
+        for g, w in zip(got, want) for key in w for name in w[key])
+
+
+def run_disagg(torch, model, params, prompts, transport, *, twin=False):
+    """One tier (2 prefill + 2 decode kernels, 2 lanes each, 2048 slots)
+    driven through ``ServeFrontend(max_queue=2)``.  Every migration is
+    timed (synchronised, host clock), its exchanges counted and the lane
+    cache ``unpack_lane`` rebuilt from the decode kernel's segment held
+    bitwise to the prefill worker's.  ``twin``: the same tier and trace
+    with ``adopt_lane`` handed the worker's lane cache directly (no
+    migration).  Returns the tier, the front end, the admitted jobs, the
+    rejections, the launch counts of the run and its timings."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import ServingSlices
+    from repro_torch.serving import DisaggServeTier, ServeFrontend
+
+    tier = DisaggServeTier(model, params, ServingSlices(N_PREFILL, N_DECODE),
+                           lanes_per_decode=LANES_PER_DECODE, slots=SLOTS,
+                           transport=transport, device=model.device)
+    log = {"prefill": [], "step": [], "migrate": [], "exchanges": [],
+           "round_trip": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            log[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    for worker in tier.workers.values():
+        worker.prefill = timed(worker.prefill, "prefill")
+    tier.step = timed(tier.step, "step")
+    migrate = timed(tier.migrate, "migrate")
+
+    def migrate_checked(src, dst, lane, lane_cache):
+        before = tier.ctx.exchanges
+        adopted = migrate(src, dst, lane, lane_cache)
+        log["exchanges"].append(tier.ctx.exchanges - before)
+        log["round_trip"].append(_lane_equal(torch, adopted, lane_cache))
+        return adopted
+
+    tier.migrate = (lambda src, dst, lane, lane_cache: lane_cache) if twin \
+        else migrate_checked
+    fe = ServeFrontend(tier, max_queue=FRONT_QUEUE)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    admitted, rejections = drive_frontend(fe, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    log["seconds"] = time.perf_counter() - t0
+    return tier, fe, admitted, rejections, launch_counts(), log
+
+
+def check_migration_shapes(torch, device, kv):
+    """Both DataMover designs at one migration's shapes, bitwise against
+    the plain version and timed in turns: the egress gather of the fused
+    packet (every kernel's row of ``lane_words`` words), the ragged
+    gather that cuts it into the lane's blocks in ``ingress_vectored``,
+    and the scatter that lands the blocks in the decode kernel's
+    segment (one active row, the others NOP).  Inputs are seeded random
+    words on the tier's own layout.  Returns each shape's measurements
+    by (op, case)."""
+    from repro_torch.kernels import am_pack as dm
+
+    K, lw = N_PREFILL + N_DECODE, kv.lane_words
+    seg_words = kv.ctx.segment_words
+    sizes = [leaf.words for leaf in kv.leaves for _ in range(leaf.layers)]
+    offs = np.cumsum([0] + sizes[:-1]).tolist()
+    B, W = len(sizes), max(sizes)
+    gen = torch.Generator(device=device).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    def i32(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=device)
+
+    out, kw = {}, dict(floor=floor_ms(torch, device))
+    payload = randn(K, lw)
+    out["gather", "kv-migration-egress"] = check_gather(
+        torch, dm, payload, i32([[0]] * K), i32([[lw]] * K), lw,
+        f"kv-migration-egress-{K}x1x{lw}", **kw)
+    out["gather", "kv-migration-blocks"] = check_gather(
+        torch, dm, payload, i32([offs] * K), i32([sizes] * K), W,
+        f"kv-migration-ragged-{K}x{B}x{W}", **kw)
+    rows = dm.datamover_gather_ref(payload, i32([offs] * K),
+                                   i32([sizes] * K), W)
+    dst = N_PREFILL                       # the first decode kernel
+    active = [[int(k == dst)] * B for k in range(K)]
+    addrs = kv.block_addrs(LANES_PER_DECODE - 1, kernel=dst)
+    out["scatter", "kv-migration"] = check_scatter(
+        torch, dm, randn(K, seg_words), rows, i32([addrs] * K),
+        i32([sizes] * K), i32([[1] * B] * K), i32(active),
+        f"kv-migration-{K}x{B}x{W}-ragged", plain_reps=2, **kw)
+    for (op, case), m in out.items():
+        faster = min(m["design_ms"], key=m["design_ms"].get)
+        say("disagg", kernel=f"datamover_{op}", case=case,
+            route=m["route"], faster_in_this_call=faster,
+            route_is_faster=faster == m["route"])
+    return out
+
+
+def phase_disagg(torch, model, params):
+    """Phase 8.  The disaggregated tier on tinyllama-1.1b at full width
+    and depth (the phase 6 model): 2 prefill + 2 decode kernels, 2
+    lanes per decode kernel, 2048 slots, phase 6's 8 prompts and 32 new
+    tokens through ``ServeFrontend(max_queue=2)`` (counts reset before
+    the run, read after it).  Every admitted job done, 8 migrations at
+    exactly 2 exchanges each, every landed lane bitwise the worker's,
+    error words 0, the migration credits drained, 176 Hopper flash
+    launches, every DataMover launch on its routed design; the tokens
+    bitwise equal to a twin run without the migration.  Then the solo
+    one-lane engine (recorded), one profiled migration, and both
+    DataMover designs at the migration's shapes.  Returns the
+    migration's DataMover records."""
+    from repro_torch.kernels import am_pack as dm
+    from repro_torch.serving import DONE, Request, ServeEngine
+    from repro_torch.serving.disagg import _lane_words
+    from repro_torch.serving.kv_space import MIGRATE_TOKEN
+
+    cfg = model.cfg
+    device = model.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base_mb = torch.cuda.memory_allocated(device) / 2 ** 20
+    prompts = serve_prompts(cfg.vocab)
+    lane_words = _lane_words(model, SLOTS)
+    n_blocks = 3 * cfg.n_layers
+    transport = disagg_transport(lane_words, n_blocks)
+    K = N_PREFILL + N_DECODE
+    say("disagg", model=cfg.name, layers=cfg.n_layers,
+        kernels=f"{N_PREFILL}+{N_DECODE}", lanes_per_decode=LANES_PER_DECODE,
+        slots=SLOTS, lane_words=lane_words, blocks=n_blocks,
+        lane_mb=f"{lane_words * 4 / 1e6:.1f}",
+        max_packet_bytes=transport.max_packet_bytes,
+        segment_mb=f"{K * LANES_PER_DECODE * lane_words * 4 / 1e6:.1f}",
+        base_allocated_mb=f"{base_mb:.0f}")
+
+    tier, fe, jobs, rejections, counts, log = run_disagg(
+        torch, model, params, prompts, transport)
+    stats = fe.stats()
+    tokens = {j.rid: list(j.tokens) for j in jobs}
+    require(len(jobs) == REQUESTS and all(j.status == DONE for j in jobs)
+            and all(len(t) == MAX_NEW and all(0 <= x < cfg.vocab for x in t)
+                    for t in tokens.values()),
+            f"disagg: {len(jobs)} admitted, statuses "
+            f"{[j.status for j in jobs]}")
+    require(tier.migrations == REQUESTS, f"migrations {tier.migrations}")
+    require(stats["peak_queue_depth"] <= FRONT_QUEUE
+            and stats["busy_lanes"] == 0 and stats["queue_depth"] == 0,
+            f"front end stats {stats}")
+    require(rejections > 0, "no backpressure with a queue of 2")
+    err = tier.state.error.cpu()
+    credits = tier.state.credits[:, MIGRATE_TOKEN].cpu()
+    require(bool((err == 0).all()) and bool((credits == 0).all()),
+            f"error words {err.tolist()}, migration credits "
+            f"{credits.tolist()}")
+    require(log["exchanges"] == [2] * REQUESTS,
+            f"exchanges per migration {log['exchanges']}")
+    require(all(log["round_trip"]) and len(log["round_trip"]) == REQUESTS,
+            f"unpack_lane vs the worker's lane cache: {log['round_trip']}")
+    layers = cfg.n_layers
+    require(counts["flash_attention"] == counts["flash_attention_sm90"]
+            == REQUESTS * layers,
+            f"flash launches {counts['flash_attention']}, sm90 "
+            f"{counts['flash_attention_sm90']}, want {REQUESTS} x {layers}")
+    # one migration: the fused packet's egress gather and the ragged
+    # block gather, then the block scatter, each on its routed design
+    sizes = [leaf.words for leaf in tier.kv.leaves
+             for _ in range(leaf.layers)]
+    want = {name: 0 for name in DM_COUNTERS.values()}
+    for op, B, W in (("gather", 1, lane_words),
+                     ("gather", n_blocks, max(sizes)),
+                     ("scatter", n_blocks, max(sizes))):
+        route = dm.datamover_kernel_for(op, K, B, W, torch.float32)
+        want[DM_COUNTERS[op, route]] += REQUESTS
+    got = {name: counts[name] for name in want}
+    require(got == want, f"migration DataMover launches {got}, want {want}")
+    say("disagg", main_path="ok", requests=REQUESTS, admitted=len(jobs),
+        rejections=rejections, migrations=tier.migrations,
+        exchanges_per_migration=sorted(set(log["exchanges"])),
+        round_trip="bitwise", stats=json.dumps(stats), launches=counts,
+        error_words=err.tolist(), migrate_credits=credits.tolist())
+    new_tokens = sum(len(t) for t in tokens.values())
+    say("disagg", seconds=f"{log['seconds']:.4f}", new_tokens=new_tokens,
+        tokens_per_s=f"{new_tokens / log['seconds']:.2f}",
+        prefill_ms_per_request=[f"{ms:.3f}" for ms in log["prefill"]],
+        prefill_ms_mean=f"{np.mean(log['prefill']):.3f}",
+        migrate_host_ms=[f"{ms:.3f}" for ms in log["migrate"]],
+        migrate_host_ms_median=f"{np.median(log['migrate']):.3f}",
+        decode_ms_per_step=f"{np.mean(log['step']):.4f}",
+        decode_steps=len(log["step"]),
+        decode_ms_min_max=f"{min(log['step']):.4f}/{max(log['step']):.4f}")
+    # one more migration of a finished prefill, profiled: the device time
+    # of moving one lane (every device activity of the call)
+    src, dst = N_PREFILL - 1, N_PREFILL
+    lane_cache = tier.workers[src].cache
+    by_name, window = device_activity(
+        torch, lambda: tier.migrate(src, dst, 0, lane_cache))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    say("profile", disagg="migration", lane_mb=f"{lane_words * 4 / 1e6:.1f}",
+        window_ms=f"{window * 1e3:.3f}", device_ms_per_lane=f"{busy:.4f}",
+        idle_share=f"{1 - busy / (window * 1e3):.4f}",
+        device_activities=sum(c for c, _ in by_name.values()),
+        top=json.dumps({name[:48]: [c, round(us / 1e3, 5)]
+                        for name, (c, us) in top}))
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("disagg", peak_allocated_mb=f"{peak_mb:.0f}",
+        peak_over_base_mb=f"{peak_mb - base_mb:.0f}")
+    kv = tier.kv
+    del tier, fe, lane_cache
+    torch.cuda.empty_cache()
+
+    # the twin: the same tier and trace, the worker's lane adopted as is
+    _, _, twin_jobs, twin_rej, twin_counts, twin_log = run_disagg(
+        torch, model, params, prompts, transport, twin=True)
+    twin_tokens = {j.rid: list(j.tokens) for j in twin_jobs}
+    require(twin_tokens == tokens and twin_rej == rejections,
+            "tokens differ from the twin run without the migration: "
+            f"{sum(twin_tokens.get(r) != t for r, t in tokens.items())} "
+            "requests")
+    say("disagg", twin="tokens bitwise equal", requests=len(twin_tokens),
+        twin_seconds=f"{twin_log['seconds']:.4f}",
+        twin_decode_ms_per_step=f"{np.mean(twin_log['step']):.4f}",
+        twin_launches=twin_counts)
+    torch.cuda.empty_cache()
+
+    # recorded, not required: the solo one-lane engine's tokens (cuBLAS
+    # may pick other kernels for another batch size)
+    solo = ServeEngine(model, params, lanes=1, slots=SLOTS)
+    same = 0
+    for job in jobs:
+        ref = Request(job.rid, job.request.prompt, MAX_NEW)
+        solo.run([ref])
+        same += ref.out == tokens[job.rid]
+    del solo
+    say("disagg", solo_engine_same_tokens=f"{same}/{len(jobs)}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    shapes = check_migration_shapes(torch, device, kv)
+    say("disagg", migration_shapes_seconds=f"{time.perf_counter() - t0:.1f}")
+    records = []
+    for (op, case), m in shapes.items():
+        name = DM_COUNTERS[op, m["route"]]
+        rec = entry(name, DM_SRC[m["route"]], DM_TPU[op], m)
+        rec.update(launches=counts[name], case=m["case"],
+                   main_path_route=m["route"],
+                   sm90_ms=m["design_ms"].get("sm90"),
+                   simple_ms=m["design_ms"].get("simple"),
+                   floor_ms=m["floor"], turns_ms=m["turns_ms"])
+        records.append(rec)
     return records
 
 
@@ -1999,13 +2323,18 @@ def main() -> int:
     rings = phase_collectives(torch, device)
     next(r for r in rings if r["name"] == "ring_cluster_sm90")["ptxas"] = \
         ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
-    kernels.update(phase_serving(torch, device))
+    served, model, params = phase_serving(torch, device)
+    kernels.update(served)
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
+    t0 = time.perf_counter()
+    migration = phase_disagg(torch, model, params)
+    del model, params
+    say("disagg", seconds=f"{time.perf_counter() - t0:.1f}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": dms + list(kernels.values()) + rings}),
-          flush=True)
+    print(json.dumps({"kernels": dms + list(kernels.values()) + rings
+                      + migration}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

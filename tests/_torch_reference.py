@@ -3,7 +3,8 @@ parity tests.
 
 A parity test file runs itself as a script (``python FILE OUT.npz``) in
 one subprocess with ``XLA_FLAGS`` set before JAX is imported, so its
-reference cases see 8 devices while the pytest process keeps one.
+reference cases see 8 devices (or as many as it asks for) while the
+pytest process keeps one.
 """
 
 import os
@@ -16,11 +17,12 @@ N = 8
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_reference(test_file: str, out_path, timeout: int = 900) -> dict:
-    """Run ``test_file`` as a script writing ``out_path``; returns the
-    npz's arrays by key."""
+def run_reference(test_file: str, out_path, timeout: int = 900,
+                  devices: int = N) -> dict:
+    """Run ``test_file`` as a script writing ``out_path``, on ``devices``
+    emulated CPU devices; returns the npz's arrays by key."""
     env = dict(os.environ,
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={N}",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([os.path.join(REPO, "src"),
                                            os.path.join(REPO, "tests")]))

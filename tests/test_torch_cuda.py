@@ -855,3 +855,144 @@ def test_datamover_message_shapes_match_plain_on_both_designs(
             want = dm.datamover_scatter_ref(seg.clone(), pay, addr, nwords,
                                             hid, active)
         assert _same_bits(got, want), kernel
+
+
+# -- the disaggregated serving tier ------------------------------------------
+
+def test_disagg_tier_on_the_card_matches_the_cpu(cuda):
+    """tinyllama-smoke (float32) through the disaggregated tier (2 + 2
+    kernels, 2 lanes each) on the card gives the CPU run's tokens, 6
+    migrations at 2 exchanges each, no error bit, every landed lane
+    bitwise the prefill worker's; every prompt pass takes the flash
+    kernel."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import ServingSlices
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import DisaggServeTier, Request
+    from serving_checks import MAX_NEW, PROMPTS
+
+    cfg = configs.reduced("tinyllama-1.1b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    outs, landed = {}, []
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        tier = DisaggServeTier(model, _to(params, device),
+                               ServingSlices(2, 2), lanes_per_decode=2,
+                               slots=16, device=device)
+        migrate = tier.migrate
+
+        def checked(src, dst, lane, lane_cache, migrate=migrate):
+            adopted = migrate(src, dst, lane, lane_cache)
+            landed.append(all(
+                torch.equal(a[key][n], w[key][n])
+                for a, w in zip(adopted, lane_cache) for key in w
+                for n in w[key]))
+            return adopted
+
+        tier.migrate = checked
+        reset_launch_counts()
+        done = tier.run([Request(i, np.asarray(p, np.int32), m)
+                         for i, (p, m) in enumerate(zip(PROMPTS, MAX_NEW))])
+        outs[str(device)] = {r.rid: r.out for r in done}
+        assert tier.migrations == len(PROMPTS)
+        assert tier.ctx.exchanges == 2 * len(PROMPTS)
+        assert int(tier.state.error.abs().sum()) == 0
+    assert outs["cpu"] == outs[str(cuda)]
+    assert landed == [True] * (2 * len(PROMPTS))
+    assert launch_counts()["flash_attention"] == len(PROMPTS) * cfg.n_layers
+
+
+@pytest.mark.parametrize("pattern,lane", [([(0, 2)], 1), ([(1, 3)], 0),
+                                          ([(0, 0)], 1)])
+def test_kv_migration_on_the_card_matches_the_cpu(cuda, pattern, lane):
+    """One migration of a seeded lane cache (smoke size): every state
+    field bitwise the CPU run's, at the same exchanges."""
+    from repro_torch import configs
+    from repro_torch.core.address_space import GlobalAddressSpace
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.convert import cache_from_numpy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import KvSegmentSpace
+    from test_torch_serving_disagg import _lane_tree
+
+    cfg = configs.reduced("tinyllama-1.1b")
+    seg0 = np.random.default_rng(lane).standard_normal(
+        (4, 2 * 2080)).astype(np.float32)
+
+    def run(device):
+        model = build_model(cfg, device=device)
+        ctx = ShoalContext(4, segment_words=seg0.shape[1], device=device)
+        gas = GlobalAddressSpace(ctx)
+        kv = KvSegmentSpace(gas, model, lanes=2, slots=16)
+        lane_cache = cache_from_numpy(cfg, _lane_tree(cfg, 3), device=device)
+        st = kv.migrate(gas.make_global_state(seg0.reshape(-1)),
+                        kv.pack_lane(lane_cache), pattern, lane)
+        return ctx, st
+
+    ctx, _ = _card_and_cpu_states(cuda, run)
+    assert ctx.exchanges == (0 if pattern == [(0, 0)] else 2)
+
+
+def _migration_shape(cuda):
+    """tinyllama-1.1b's full lane layout (22 layers of k, pos and v at
+    2048 slots) on 4 kernels of 2 lanes: the KV space, seeded words and
+    the three DataMover calls of one migration."""
+    from repro_torch import configs
+    from repro_torch.core import am
+    from repro_torch.core.address_space import GlobalAddressSpace
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import TCP
+    from repro_torch.serving import KvSegmentSpace
+    from repro_torch.serving.disagg import _lane_words
+
+    model = build_model(configs.full("tinyllama-1.1b"), device=cuda)
+    lw = _lane_words(model, 2048)
+    transport = dataclasses.replace(
+        TCP, max_packet_bytes=4 * (lw + 66 + am.HDR_WORDS))
+    ctx = ShoalContext(4, transport, 2 * lw, device=cuda)
+    kv = KvSegmentSpace(GlobalAddressSpace(ctx), model, lanes=2, slots=2048)
+    sizes = [leaf.words for leaf in kv.leaves for _ in range(leaf.layers)]
+    return kv, sizes
+
+
+@pytest.mark.parametrize("call", ["egress", "blocks", "scatter"])
+def test_datamover_at_the_migration_shape_matches_plain(cuda, call):
+    """Both DataMover designs at one full-width migration's shapes
+    (tinyllama-1.1b: 66 ragged blocks of 524,288 and 2048 words), bitwise
+    against the plain version: the packet's egress gather, the ragged
+    block gather of ``ingress_vectored`` and the block scatter into the
+    decode kernel's segment."""
+    kv, sizes = _migration_shape(cuda)
+    assert len(sizes) == 66 and sum(sizes) == kv.lane_words == 23113728
+    K, B, W = 4, len(sizes), max(sizes)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    payload = torch.randn(K, kv.lane_words, generator=gen, device=cuda)
+    offs = np.cumsum([0] + sizes[:-1]).tolist()
+    addr, nwords = _i32([offs] * K, cuda), _i32([sizes] * K, cuda)
+    if call == "egress":
+        args = (payload, _i32([[0]] * K, cuda), _i32([[kv.lane_words]] * K,
+                                                     cuda), kv.lane_words)
+    elif call == "blocks":
+        args = (payload, addr, nwords, W)
+    if call != "scatter":
+        want = dm.datamover_gather_ref(*args)
+        for kernel in ("sm90", "simple"):
+            assert _same_bits(dm.datamover_gather_cuda(*args, kernel=kernel),
+                              want), kernel
+        return
+    rows = dm.datamover_gather_ref(payload, addr, nwords, W)
+    seg = torch.randn(K, kv.ctx.segment_words, generator=gen, device=cuda)
+    dst = 2
+    block_addr = _i32([kv.block_addrs(1, kernel=dst)] * K, cuda)
+    ones = _i32([[1] * B] * K, cuda)
+    active = _i32([[int(k == dst)] * B for k in range(K)], cuda)
+    want = dm.datamover_scatter_ref(seg.clone(), rows, block_addr, nwords,
+                                    ones, active)
+    for kernel in ("sm90", "simple"):
+        got = dm.datamover_scatter_cuda(seg.clone(), rows, block_addr,
+                                        nwords, ones, active, kernel=kernel)
+        assert _same_bits(got, want), kernel
+    assert dm.datamover_kernel_for("scatter", K, B, W, torch.float32) \
+        == "sm90"

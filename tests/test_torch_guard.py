@@ -142,6 +142,69 @@ def test_serving_stack_runs_with_jax_blocked():
     assert "serve-ok" in proc.stdout
 
 
+def test_disagg_tier_defaults_to_the_card():
+    """The disaggregated tier's context resolves ``device=None`` to the
+    card (and must sit on its model's device); without a card it
+    raises instead of falling back to the CPU."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import ServingSlices
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import DisaggServeTier
+
+    cfg = configs.reduced("tinyllama-1.1b")
+    slices = ServingSlices(n_prefill=1, n_decode=1)
+    if torch.cuda.is_available():
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        tier = DisaggServeTier(model, params, slices, lanes_per_decode=1,
+                               slots=8)
+        assert tier.ctx.device.type == "cuda"
+        assert tier.state.segment.device.type == "cuda"
+        return
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DisaggServeTier(model, params, slices, lanes_per_decode=1, slots=8)
+    tier = DisaggServeTier(model, params, slices, lanes_per_decode=1,
+                           slots=8, device="cpu")
+    assert tier.state.segment.device.type == "cpu"
+    with pytest.raises(ValueError, match="model on"):
+        DisaggServeTier(model, params, slices, lanes_per_decode=1, slots=8,
+                        device="meta")
+
+
+def test_disagg_stack_runs_with_jax_blocked():
+    """The KV space, the tier and the front end import and serve with
+    JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np, torch\n"
+        "import repro_torch.launch.mesh, repro_torch.serving.kv_space\n"
+        "import repro_torch.serving.disagg, repro_torch.serving.frontend\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch.mesh import ServingSlices\n"
+        "from repro_torch.models.model import build_model\n"
+        "from repro_torch.serving import DONE, DisaggServeTier, ServeFrontend\n"
+        "cfg = configs.reduced('tinyllama-1.1b')\n"
+        "m = build_model(cfg, device='cpu')\n"
+        "p = m.init(torch.Generator().manual_seed(0))\n"
+        "tier = DisaggServeTier(m, p, ServingSlices(1, 1),\n"
+        "                       lanes_per_decode=1, slots=8, device='cpu')\n"
+        "fe = ServeFrontend(tier, max_queue=2)\n"
+        "jobs = [fe.submit([1, 2, 3], 2), fe.submit([4, 5], 2)]\n"
+        "fe.run_until_idle()\n"
+        "assert all(j.status == DONE for j in jobs), jobs\n"
+        "assert tier.migrations == 2 and tier.ctx.exchanges == 4\n"
+        "print('disagg-ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "disagg-ok" in proc.stdout
+
+
 def test_non_cpu_tensors_never_reach_a_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises: on
     the ``meta`` device every wrapper refuses."""

@@ -226,8 +226,14 @@ def _ref_reliable_put(mesh, mesh1, case):
             mesh, data, st, hdrs, buf, pending, epoch, rnds,
             compiled=data_c)
         cps += c
-        outs = [ingress(jax.tree.map(lambda x, k=k: x[k], st), hdr_r[k],
-                        pay_r[k]) for k in range(N)]
+        # slice each kernel's rows on the host: indexing a kernel-sharded
+        # array (x[k]) runs an 8-device gather ending in an all-reduce,
+        # and hundreds of them dispatched back to back, independent of
+        # each other, can leave XLA's CPU rendezvous one device thread
+        # short on a loaded machine (the process aborts after 40 s)
+        st_h, hdr_h, pay_h = jax.device_get((st, hdr_r, pay_r))
+        outs = [ingress(jax.tree.map(lambda x, k=k: x[k], st_h), hdr_h[k],
+                        pay_h[k]) for k in range(N)]
         st = jax.tree.map(lambda *xs: jnp.stack(xs),
                           *[o[0] for o in outs])
         ack_hdr = jnp.stack([o[1] for o in outs])
