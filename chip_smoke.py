@@ -50,7 +50,16 @@ segment (2 exchanges), driven through ``ServeFrontend`` with a queue of
 2; the landed lanes bitwise the prefill workers', the tokens bitwise
 those of a twin run without the migration; then both DataMover designs
 at the migration's shapes (the packet's egress, its ragged blocks, their
-scatter) against the plain version, timed in turns.  Kernel times are
+scatter) against the plain version, timed in turns.
+Phase 9 trains tinyllama-1.1b at full width and depth (bfloat16, random
+weights from a seed) with the data-parallel trainer's ``shoal`` backend:
+4 members on the kernel axis, ``TokenPipeline``'s first batch of 8 x 512
+tokens, AdamW; every gradient leaf through the ring kernel (12 launches,
+72 exchanges a step, every reduced row bitwise equal); the first batch's
+gradients held to the ``xla`` backend's; 5 steps with falling finite
+losses, each backend timed, one step timed by part and one profiled;
+then at 2 layers one int8-compressed step (int32 ring sums exact) and a
+checkpoint round trip (step 3 bitwise).  Kernel times are
 device times from ``torch.profiler``.  One line per phase; any failure
 raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1448,13 +1457,14 @@ def phase_collectives(torch, device, leaf_words=LEAF_WORDS,
             rec = entry("ring_cluster_sm90", RING_SM90_SRC, RING_TPU,
                         dict(m, ms=mean["sm90"]))
             rec.update(launches=ran.get("ring_cluster_sm90", 0),
-                       path_launches=counts["ring_cluster_sm90"])
+                       path_launches={
+                           "collectives": counts["ring_cluster_sm90"]})
         else:
             rec = entry(wrapper, RING_SRC, RING_TPU,
                         dict(m, ms=mean["simple"]))
             rec.update(launches=ran.get(wrapper, 0)
                        - ran.get("ring_cluster_sm90", 0),
-                       path_launches=counts[wrapper])
+                       path_launches={"collectives": counts[wrapper]})
         rec.update(case=case, main_path_route=routes[call],
                    sm90_ms=mean["sm90"], simple_ms=mean["simple"],
                    turns_ms=turns, plan=plan._asdict(),
@@ -2211,6 +2221,450 @@ def phase_disagg(torch, model, params):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the data-parallel trainer (K members on the kernel axis, every
+# gradient leaf through the ring kernel)
+# ---------------------------------------------------------------------------
+
+TRAIN_K, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 8, 512, 1e-3
+TRAIN_STEPS = 5
+CKPT_LAYERS = 2             # the checkpoint and compressed checks' depth
+# shoal vs xla gradient, relative L2 per leaf: both sum the same four
+# bf16 member gradients in float32 (in different orders) and round once
+# to bf16; the card read 3.4e-7 at the worst leaf
+GRAD_TOL = 1e-5
+LOSS_TOL = 1e-3             # shoal vs xla loss, relative
+INT8_TOL = 5e-2             # tests/md_checks.py:485-490, after one step
+
+
+def _synced(fn):
+    """``fn`` timed on the host clock, synchronised: (wrapper, log)."""
+    import torch
+
+    log = []
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t) * 1e3)
+        return out
+    return run, log
+
+
+def _plain_all_reduce(torch, x):
+    """``coll.ring_all_reduce``'s result from the ring's plain version
+    (``kernels/gascore_dma/ref.py``) on the same padded buffer."""
+    from repro_torch.kernels import gascore_dma as gd
+
+    n = x.shape[0]
+    buf = ring_buffer(torch, x, n)
+    full = gd.ring_collective_ref(buf, gd.ALL_REDUCE).reshape(n, -1)
+    return full[:, :x[0].numel()].reshape(x.shape)
+
+
+def _ring_checked(torch, coll, log):
+    """Wrap ``coll.ring_all_reduce``: every result bitwise the plain
+    ring's on the same input, its K rows bitwise equal, an int32 result
+    equal to the int64 sum of its payloads; ``log`` gets (dtype, words,
+    the input of a one-word-a-row call) per call.  Returns the
+    original."""
+    real = coll.ring_all_reduce
+
+    def checked(ctx, x):
+        out = real(ctx, x)
+        what = f"ring_all_reduce of {tuple(x.shape)} {x.dtype}"
+        require(torch.equal(out, _plain_all_reduce(torch, x)),
+                f"{what}: differs from the plain ring")
+        require(torch.equal(out, out[:1].expand_as(out)), f"{what}: rows "
+                "differ")
+        if x.dtype == torch.int32:
+            require(torch.equal(out[0], x.sum(0, dtype=torch.int64).to(
+                torch.int32)), f"{what}: differs from the int64 sum")
+        words = x[0].numel()
+        log.append((str(x.dtype).split(".")[-1], words,
+                    x.clone() if words == 1 else None))
+        return out
+
+    coll.ring_all_reduce = checked
+    return real
+
+
+def _rel_l2(torch, got, want):
+    return (torch.linalg.vector_norm((got.float() - want.float()).flatten())
+            / torch.linalg.vector_norm(want.float().flatten()).clamp_min(
+                1e-30)).item()
+
+
+def check_train_grads(torch, tr, tx, state, batch):
+    """The first batch's gradients at the initial weights: the shoal
+    members' synced mean (every leaf's ring result bitwise the plain
+    ring's, its K rows bitwise equal) against the xla backend's with 4
+    microbatches (the same row slices)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.tree import tree_paths
+
+    log = []
+    real = _ring_checked(torch, coll, log)
+    try:
+        before = tr.ctx.exchanges
+        reset_launch_counts()
+        loss_s, g_s, _ = tr.grads(state, batch)
+        launches = launch_counts()
+        exchanges = tr.ctx.exchanges - before
+    finally:
+        coll.ring_all_reduce = real
+    loss_x, g_x, _ = tx.grads(state, batch)
+    leaves = len(tree_paths(g_s))
+    require(len(log) == leaves and exchanges == leaves * 2 * (TRAIN_K - 1),
+            f"shoal sync: {len(log)} ring calls, {exchanges} exchanges for "
+            f"{leaves} leaves")
+    rel_loss = abs(loss_s.item() - loss_x.item()) / abs(loss_x.item())
+    require(rel_loss <= LOSS_TOL, f"shoal loss {loss_s.item()} vs xla "
+            f"{loss_x.item()}: relative {rel_loss}")
+    errs = {path: _rel_l2(torch, a, b) for (path, a), (_, b)
+            in zip(tree_paths(g_s), tree_paths(g_x))}
+    worst = max(errs, key=errs.get)
+    require(errs[worst] <= GRAD_TOL, f"shoal vs xla gradient {worst}: "
+            f"relative L2 {errs[worst]}")
+    say("train", check="grads", loss_shoal=f"{loss_s.item():.6f}",
+        loss_xla_mb4=f"{loss_x.item():.6f}", loss_rel=f"{rel_loss:.3e}",
+        grad_rel_l2_max=f"{errs[worst]:.3e}", worst_leaf=worst,
+        rows="bitwise equal", ring_vs_plain="bitwise equal", leaves=leaves,
+        exchanges=exchanges,
+        ring_calls=len(log), launches=launches)
+    return launches
+
+
+def check_train_compressed(torch, model, batch):
+    """One compressed shoal step against one uncompressed, from the same
+    weights: the ring results bitwise the plain ring's and the int32
+    sums exact, 2(K - 1) more exchanges per leaf for the scale; the
+    dequantised synced gradient within the int8 bound of the
+    uncompressed one, and the parameters after the update within the
+    reference's bound.
+
+    The int8 bound, per leaf, from the members' scales ``s_k`` (``q_k s_k
+    = g_k + e_k`` with ``|e_k| <= s_k / 2``, ``|q_k| <= 127``, and the
+    sync dequantises with the mean scale ``s``): ``|sum_k q_k s / K -
+    mean_k g_k| <= mean_k(127 |s - s_k| + s_k / 2)``, plus the bf16
+    rounding of the uncompressed gradient, ``2^-8 |g|``."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_paths
+
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    grads, out, exch = {}, {}, {}
+    for comp in (False, True):
+        tr = Trainer(model, AdamWConfig(lr=TRAIN_LR),
+                     TrainerConfig(comm_backend="shoal",
+                                   grad_compression=comp), kernels=TRAIN_K)
+        st = tr.state_for(params)
+        log = []
+        real = _ring_checked(torch, coll, log)
+        try:
+            loss, grads[comp], res = tr.grads(st, batch)
+        finally:
+            coll.ring_all_reduce = real
+        out[comp], _ = tr.apply_update(st, grads[comp], loss, res)
+        exch[comp] = (tr.ctx.exchanges, log)
+        del tr, st, res
+    leaves = len(tree_paths(params))
+    per_leaf = 2 * (TRAIN_K - 1)
+    require(exch[False][0] == leaves * per_leaf
+            and exch[True][0] == 2 * leaves * per_leaf,
+            f"exchanges {exch[False][0]} / {exch[True][0]} for {leaves} "
+            "leaves")
+    log = exch[True][1]
+    require([d for d, _, _ in log] == ["int32", "float32"] * leaves,
+            f"compressed ring calls {[d for d, _, _ in log]}")
+    ratios = {}
+    for i, ((path, got), (_, want)) in enumerate(zip(
+            tree_paths(grads[True]), tree_paths(grads[False]))):
+        s_k = log[2 * i + 1][2][:, 0].double()
+        s = s_k.mean()
+        limit = ((127 * (s - s_k).abs() + s_k / 2).mean()
+                 + 2.0 ** -8 * want.double().abs())
+        err = (got.double() - want.double()).abs()
+        ratios[path] = (err / limit).max().item()
+        require(ratios[path] <= 1.0, f"compressed gradient {path}: "
+                f"{ratios[path]} of its int8 bound")
+    worst = max(ratios, key=ratios.get)
+    diff = max((a.float() - b.float()).abs().max().item() for (_, a), (_, b)
+               in zip(tree_paths(out[True].params),
+                      tree_paths(out[False].params)))
+    require(diff < INT8_TOL, f"compressed step's params differ by {diff}")
+    say("train", check="int8", layers=model.cfg.n_layers,
+        exchanges=f"{exch[False][0]}->{exch[True][0]}",
+        int32_sums="exact", ring_vs_plain="bitwise equal",
+        rows="bitwise equal", grad_err_over_bound_max=f"{ratios[worst]:.3e}",
+        worst_leaf=worst, param_max_abs_diff=f"{diff:.3e}",
+        param_bound=INT8_TOL)
+
+
+def check_train_checkpoint(torch, model, batch):
+    """Save after step 2, restore into a fresh trainer: step 3's loss
+    and parameters bitwise the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_paths
+
+    def trainer():
+        return Trainer(model, AdamWConfig(lr=TRAIN_LR),
+                       TrainerConfig(comm_backend="shoal"), kernels=TRAIN_K)
+
+    tr = trainer()
+    st = tr.init_state(torch.Generator(device=model.device).manual_seed(0))
+    for _ in range(2):
+        st, _ = tr.step(st, batch)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(2, st, extras={"data_step": 2})
+        save_s = time.perf_counter() - t0
+        want, met = tr.step(st, batch)
+        del st
+        fresh = trainer()
+        t0 = time.perf_counter()
+        back, extras = mgr.restore(fresh.init_state(torch.Generator(
+            device=model.device).manual_seed(1)), verify=True)
+        restore_s = time.perf_counter() - t0
+        got, met2 = fresh.step(back, batch)
+        nbytes = sum(os.path.getsize(os.path.join(d, "step_00000002", f))
+                     for f in os.listdir(os.path.join(d, "step_00000002")))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    require(extras == {"data_step": 2} and int(back.step) == 2,
+            f"restored step {int(back.step)}, extras {extras}")
+    require(torch.equal(met["loss"], met2["loss"]),
+            f"step 3 loss {met['loss'].item()} after restore "
+            f"{met2['loss'].item()}")
+    for (path, a), (_, b) in zip(tree_paths(got.params),
+                                 tree_paths(want.params)):
+        require(torch.equal(a, b), f"step 3 {path} differs after restore")
+    say("train", check="checkpoint", layers=model.cfg.n_layers,
+        step3_loss=f"{met2['loss'].item():.6f}", bitwise="loss and params",
+        checkpoint_mb=f"{nbytes / 1e6:.1f}", save_s=f"{save_s:.2f}",
+        restore_verified_s=f"{restore_s:.2f}", removed=not os.path.exists(d))
+
+
+def time_train_ring(torch, device, words):
+    """The ring all-reduce at the trainer's largest leaf, ``(K, words)``
+    float32 from seed 9, as the shoal sync hands it to the kernel: the
+    routed kernel against the plain version (bitwise), and device ms of
+    the kernel and the library call (``x.sum(0)`` expanded and copied)
+    in turns, of the plain version alone.  Returns (route, measures)."""
+    from repro_torch.kernels import gascore_dma as gd
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(TRAIN_K, words, generator=gen, device=device)
+    buf = ring_buffer(torch, x, TRAIN_K)
+    route = gd.ring_kernel_for(TRAIN_K, buf.shape[-1], buf.dtype,
+                               gd.ALL_REDUCE)
+    kernel = lambda: gd.ring_collective_cuda(buf, gd.ALL_REDUCE,  # noqa: E731
+                                             kernel=route)
+    plain = lambda: gd.ring_collective_ref(buf, gd.ALL_REDUCE)  # noqa: E731
+    lib = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa
+    got, want = kernel(), plain()
+    require(torch.equal(got, want), f"ring kernel ({route}) at the "
+            f"trainer's largest leaf differs from the plain version")
+    err = (got.double() - want.double()).abs().max().item()
+    del got, want
+    sub = "ring_cluster_kernel_sm90" if route == "sm90" else "ring_kernel"
+    turns = {"kernel": [], "library": []}
+    for r in ("kernel", "library", "library", "kernel"):
+        turns[r].append(device_ms(kernel if r == "kernel" else lib,
+                                  kernel=sub if r == "kernel" else None))
+    m = dict(err=err, nbytes=2 * buf.nbytes,
+             ops=(TRAIN_K - 1) * buf[0].numel(),
+             ms=float(np.mean(turns["kernel"])),
+             plain=device_ms(plain, reps=3, warmup=1),
+             lib=float(np.mean(turns["library"])))
+    say("train", kernel="ring_all_reduce", case="largest-leaf",
+        shape=tuple(buf.shape), route=route, bitwise="equal",
+        ms=f"{m['ms']:.5f}", plain_ms=f"{m['plain']:.5f}",
+        library_ms=f"{m['lib']:.5f}",
+        bound_ms=f"{bound(m)[0]:.5f}", bound_by=bound(m)[1],
+        turns_ms=json.dumps({r: [round(t, 5) for t in v]
+                             for r, v in turns.items()}),
+        card=card_line())
+    return route, m
+
+
+def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
+                seq=TRAIN_SEQ, ckpt_layers=CKPT_LAYERS):
+    """Phase 9.  tinyllama-1.1b at full width and depth (bf16, seed 0),
+    ``TokenPipeline(vocab, 8, 512, seed 0)``'s first batch, the shoal
+    backend on K = 4 members, AdamW lr 1e-3.  The first batch's
+    gradients against the xla backend's (4 microbatches); then the main
+    path: 5 shoal steps on that batch (counts reset before them, read
+    after), every step 12 ring launches and 72 exchanges, losses finite
+    and falling; a timed breakdown step and a profiled step; then, at
+    ``ckpt_layers`` layers, one compressed step and a checkpoint round
+    trip; the ring alone at the largest leaf.  Returns the main path's
+    launch counts and the largest leaf's ring record for the JSON line."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    cuda = device.type == "cuda"
+    cfg = configs.full(ARCH) if cfg is None else cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base_mb = torch.cuda.memory_allocated(device) / 2 ** 20
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    batch, _ = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=batch_rows,
+                                        seq=seq, seed=0),
+                             device=device).next_batch(0)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    tr = Trainer(model, opt, TrainerConfig(comm_backend="shoal"),
+                 kernels=TRAIN_K)
+    tx = Trainer(model, opt, TrainerConfig(microbatches=TRAIN_K))
+    state = tr.state_for(params)
+    del params
+    torch.cuda.synchronize()
+    leaves = len(tree_leaves(state.params))
+    words = sum(p.numel() for p in tree_leaves(state.params))
+    tokens = batch_rows * seq
+    say("train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=str(cfg.dtype).split(".")[-1], params=words, leaves=leaves,
+        kernels=TRAIN_K, batch=batch_rows, seq=seq, tokens_per_step=tokens,
+        init_s=f"{time.perf_counter() - t0:.2f}",
+        base_allocated_mb=f"{base_mb:.0f}")
+
+    check_train_grads(torch, tr, tx, state, batch)
+    del tx
+    torch.cuda.empty_cache()
+
+    # the main path
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ex0 = tr.ctx.exchanges
+    losses, step_ms, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = launch_counts()
+        t = time.perf_counter()
+        state, met = tr.step(state, batch)
+        losses.append(met["loss"].item())          # synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(launch_counts()["ring_collective"]
+                        - before["ring_collective"])
+    counts = launch_counts()
+    exchanges = tr.ctx.exchanges - ex0
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"train losses {losses}")
+    require(exchanges == TRAIN_STEPS * leaves * 2 * (TRAIN_K - 1),
+            f"{exchanges} exchanges in {TRAIN_STEPS} steps")
+    if cuda:
+        from repro_torch.kernels import gascore_dma as gd
+
+        sm90 = sum(gd.ring_kernel_for(TRAIN_K, -(-p.numel() // TRAIN_K),
+                                      torch.float32, gd.ALL_REDUCE) == "sm90"
+                   for p in tree_leaves(state.params))
+        require(per_step == [leaves] * TRAIN_STEPS
+                and counts["ring_cluster_sm90"] == TRAIN_STEPS * sm90
+                and counts["flash_attention"] == 0,
+                f"ring launches per step {per_step} (want {leaves}), "
+                f"cluster {counts['ring_cluster_sm90']} (want "
+                f"{TRAIN_STEPS} x {sm90}), flash {counts['flash_attention']}")
+    ms = float(np.median(step_ms[1:]))
+    say("train", main_path="ok", backend="shoal", card=card_line(),
+        losses=[f"{v:.5f}" for v in losses],
+        ms_per_step=[f"{v:.2f}" for v in step_ms],
+        ms_per_step_median_2_5=f"{ms:.2f}",
+        tokens_per_s=f"{tokens / ms * 1e3:.1f}",
+        ring_launches_per_step=per_step, exchanges_per_step=exchanges
+        // TRAIN_STEPS, launches=counts)
+
+    # xla backend (4 microbatches), timed the same way
+    tx = Trainer(model, opt, TrainerConfig(microbatches=TRAIN_K))
+    xs, x_ms = state, []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        xs, xmet = tx.step(xs, batch)
+        xmet["loss"].item()
+        x_ms.append((time.perf_counter() - t) * 1e3)
+    del xs, tx
+    xms = float(np.median(x_ms[1:]))
+    say("train", backend="xla", microbatches=TRAIN_K,
+        ms_per_step=[f"{v:.2f}" for v in x_ms],
+        ms_per_step_median_2_5=f"{xms:.2f}",
+        tokens_per_s=f"{tokens / xms * 1e3:.1f}")
+
+    # one step timed by part (synchronised between parts)
+    tr.member_grads, fb_log = _synced(tr.member_grads)
+    tr.sync, sync_log = _synced(tr.sync)
+    tr.apply_update, opt_log = _synced(tr.apply_update)
+    state, _ = tr.step(state, batch)
+    del tr.member_grads, tr.sync, tr.apply_update
+    # one step profiled: device busy, idle share, ring device ms by route
+    by_name, window = device_activity(
+        torch, lambda: tr.step(state, batch)[1]["loss"].item())
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    ring = {route: [sum(c for n, (c, _) in by_name.items() if sub in n),
+                    sum(us for n, (_, us) in by_name.items() if sub in n)
+                    / 1e3]
+            for route, sub in (("simple", "ring_kernel"),
+                               ("sm90", "ring_cluster_kernel_sm90"))}
+    ring_bytes = sum(2 * TRAIN_K * p.numel() * 4
+                     for p in tree_leaves(state.params))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    say("train", breakdown_ms=json.dumps({
+        "members_fwd_bwd": round(fb_log[0], 3),
+        "sync": round(sync_log[0], 3), "adamw": round(opt_log[0], 3)}),
+        ring_device_ms=json.dumps({r: round(v[1], 5)
+                                   for r, v in ring.items()}),
+        ring_device_launches=json.dumps({r: v[0] for r, v in ring.items()}),
+        ring_bound_ms=f"{ring_bytes / HBM_BPS * 1e3:.4f}",
+        profiled_window_ms=f"{window * 1e3:.2f}",
+        device_busy_ms=f"{busy:.3f}",
+        idle_share=f"{1 - busy / (window * 1e3):.4f}",
+        device_activities=sum(c for c, _ in by_name.values()))
+    say("train", top_device_ms=json.dumps([[name[:110], c, round(us / 1e3, 4)]
+                                           for name, (c, us) in top]))
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("train", peak_allocated_mb=f"{peak_mb:.0f}",
+        peak_over_base_mb=f"{peak_mb - base_mb:.0f}")
+    largest = max(p.numel() for p in tree_leaves(state.params))
+    del state, model
+    torch.cuda.empty_cache()
+    route, m = time_train_ring(torch, device, largest)
+    torch.cuda.empty_cache()
+    if route == "sm90":
+        rec = entry("ring_cluster_sm90", RING_SM90_SRC, RING_TPU, m)
+        rec["launches"] = counts["ring_cluster_sm90"]
+    else:
+        rec = entry("ring_collective", RING_SRC, RING_TPU, m)
+        rec["launches"] = (counts["ring_collective"]
+                           - counts["ring_cluster_sm90"])
+    rec.update(case="all_reduce-train-largest-leaf-f32",
+               main_path_route=route,
+               path_launches={"train": rec["launches"]})
+
+    small = build_model(dataclasses.replace(cfg, n_layers=ckpt_layers),
+                        device=device)
+    check_train_compressed(torch, small, batch)
+    torch.cuda.empty_cache()
+    check_train_checkpoint(torch, small, batch)
+    del small
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -2331,6 +2785,15 @@ def main() -> int:
     migration = phase_disagg(torch, model, params)
     del model, params
     say("disagg", seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    trained, train_ring = phase_train(torch, device)
+    say("train", seconds=f"{time.perf_counter() - t0:.1f}")
+    for rec in rings:           # the trainer's all-reduces, by kernel
+        sm90 = trained["ring_cluster_sm90"]
+        rec["path_launches"]["train"] = (
+            trained[rec["name"]] - sm90 if rec["name"] == "ring_collective"
+            else trained[rec["name"]])
+    rings.append(train_ring)
 
     print(card, flush=True)
     print(json.dumps({"kernels": dms + list(kernels.values()) + rings

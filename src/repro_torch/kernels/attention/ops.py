@@ -18,7 +18,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     JAX package's ``kernels.attention.flash_attention`` (there
     ``(BH, S, dh)`` padded to a block multiple; here the heads stay in
     place, kv heads are shared by ``H // K`` query heads without a copy,
-    and the kernel masks its last block instead of padding)."""
+    and the kernel masks its last block instead of padding).
+
+    Forward only, as the JAX package's kernel is: with grad mode on and
+    an input that requires grad this raises, on every device, since the
+    CUDA kernel's output has no autograd edge and would cut the
+    gradient silently.  A differentiable pass attends through
+    ``Model.loss``'s route, ``models.attention._attend``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward-only (the kernel has no backward) "
+            "and got inputs that require grad; differentiate through "
+            "Model.loss, which attends via models.attention._attend "
+            "(gqa(differentiable=True))")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     return flash_attention_cuda(q, k, v)

@@ -13,7 +13,10 @@ Two routes compute the same attention:
   CUDA kernel on the card;
 * the plain route, :func:`_attend`: masked attention over the ring cache
   by position, exactly as the JAX package computes it (decode, a prompt
-  longer than the ring, a cache that already holds entries).
+  longer than the ring, a cache that already holds entries), and over
+  the prompt itself when the caller asks for a ``differentiable`` pass
+  (``Model.loss``): the kernels have no backward, and neither has the
+  JAX package's flash kernel, whose trainer attends through ``_attend``.
 
 Unlike the JAX package, which returns a new cache, the port writes the
 ring cache in place (the returned cache is the one passed in).
@@ -99,7 +102,7 @@ def _scatter_slots(buf, new, slots):
 
 
 def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
-        fresh=False):
+        fresh=False, differentiable=False):
     """Full causal GQA layer: qkv proj -> rope -> attend -> out proj.
 
     ``positions``: (B, S) absolute positions of x; without a cache they
@@ -108,6 +111,9 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
     cache dict, written in place; returns (out, cache).
     ``fresh``: every slot of ``cache`` is unwritten (pos -1), checked by
     the caller; with S <= W the context is then exactly x as well.
+    ``differentiable``: without a cache, attend through :func:`_attend`
+    (the JAX package's ``gqa(cache=None)`` route), which autograd can
+    differentiate, instead of the forward-only kernel.
     """
     B, S, _ = x.shape
     q = x @ params["wq"].to(x.dtype)
@@ -121,7 +127,10 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
     k = bl.apply_rope(k.reshape(B, S, K, dh), positions, rope_base)
     v = v.reshape(B, S, K, dh)
 
-    if cache is None:
+    if cache is None and differentiable:
+        out = _attend(q.reshape(B, S, K, H // K, dh), k, v, positions,
+                      positions)
+    elif cache is None:
         out = flash_attention(q, k, v)
     else:
         W = cache["k"].shape[1]

@@ -90,3 +90,22 @@ def apply_rope(x, positions, base: float = 10000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None, z_loss: float = 0.0):
+    """Mean next-token cross-entropy, in float32 (``logsumexp`` too).
+    ``mask`` is 1 for counted positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    if mask is None:
+        return torch.mean(loss)
+    mask = mask.float()
+    return torch.sum(loss * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.state import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as bl
+from repro_torch.tree import tree_leaves
 
 # families and options of the JAX package that wait for a later slice
 _NOT_PORTED = "is not ported to repro_torch yet (ROADMAP queue 1 item 11)"
@@ -49,6 +50,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Any = None              # MoE dims: not ported
     mla: Any = None              # MLA dims: not ported
+    aux_loss_weight: float = 0.01
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -62,25 +64,19 @@ class ModelConfig:
         return [(("dense",), self.n_layers)]
 
     def num_params(self, params) -> int:
-        return sum(t.numel() for t in _leaves(params))
+        return sum(t.numel() for t in tree_leaves(params))
 
 
-def _leaves(tree):
+def _layers(tree, n: int) -> list:
+    """Every layer of a layer-stacked tree, as views (no copy) from one
+    ``unbind`` per leaf.  Autograd gives an unbind one backward that
+    stacks the layers' gradients once; indexing each layer instead would
+    give every layer a full-size zero gradient of the stacked leaf to
+    sum."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _layer(tree, i: int):
-    """Layer ``i`` of a layer-stacked tree (views, no copy)."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def cast_params(cfg: ModelConfig, tree, device, *, f32: bool = False):
@@ -144,12 +140,14 @@ def _block_cache(cfg, B: int, slots: int, device, lead=()):
                               device, lead)
 
 
-def _apply_block(cfg, p, x, positions, *, cache=None, fresh=False):
+def _apply_block(cfg, p, x, positions, *, cache=None, fresh=False,
+                 differentiable=False):
     """Returns (x, cache)."""
     h = _norm(cfg, p["ln1"], x)
     a, cache = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
                         K=cfg.n_kv_heads, dh=cfg.dh, rope_base=cfg.rope_base,
-                        cache=cache, fresh=fresh)
+                        cache=cache, fresh=fresh,
+                        differentiable=differentiable)
     x = x + a
     h = _norm(cfg, p["ln2"], x)
     return x + _mlp(cfg, p["mlp"], h), cache
@@ -206,32 +204,44 @@ class Model:
         return x @ params["lm_head"].to(x.dtype)
 
     def _run_segments(self, params, x, positions, *, caches=None,
-                      fresh=False):
+                      fresh=False, differentiable=False):
         """Every layer in order; returns (x, caches)."""
         cfg = self.cfg
         for si, (pat, reps) in enumerate(self.segs):
-            seg_params = params["segments"][si]
-            seg_cache = None if caches is None else caches[si]
+            seg_params = {key: _layers(p, reps)
+                          for key, p in params["segments"][si].items()}
+            seg_cache = None if caches is None else {
+                key: _layers(c, reps) for key, c in caches[si].items()}
             for layer in range(reps):
                 for i, kind in enumerate(pat):
                     key = f"b{i}_{kind}"
-                    c = (None if seg_cache is None
-                         else _layer(seg_cache[key], layer))
-                    x, _ = _apply_block(cfg, _layer(seg_params[key], layer),
-                                        x, positions, cache=c, fresh=fresh)
+                    c = None if seg_cache is None else seg_cache[key][layer]
+                    x, _ = _apply_block(cfg, seg_params[key][layer],
+                                        x, positions, cache=c, fresh=fresh,
+                                        differentiable=differentiable)
         return x, caches
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
 
-    def forward_train(self, params, batch):
-        """batch: {"tokens": (B, S)} -> (logits (B, S, vocab), aux).  The
-        forward pass only; ``aux`` (the MoE loss) is 0 for dense."""
+    def forward_train(self, params, batch, *, differentiable=False):
+        """batch: {"tokens": (B, S)} -> (logits (B, S, vocab), aux);
+        ``aux`` (the MoE loss) is 0 for dense.  Attention goes through
+        the forward-only flash kernel unless ``differentiable`` asks for
+        the plain route that autograd differentiates (``loss``)."""
         x = self._embed_in(params, batch["tokens"])
         B, S = x.shape[:2]
-        x, _ = self._run_segments(params, x, self._positions(B, S))
+        x, _ = self._run_segments(params, x, self._positions(B, S),
+                                  differentiable=differentiable)
         return (self._unembed(params, x),
                 torch.zeros((), dtype=torch.float32, device=self.device))
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of ``batch["labels"]`` plus
+        ``aux_loss_weight * aux``, through the differentiable forward."""
+        logits, aux = self.forward_train(params, batch, differentiable=True)
+        ce = bl.softmax_xent(logits, batch["labels"])
+        return ce + self.cfg.aux_loss_weight * aux
 
     # -- serving -------------------------------------------------------------
 

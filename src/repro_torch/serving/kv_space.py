@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import ops
 from repro_torch.core.address_space import GlobalAddressSpace
 from repro_torch.core.state import PgasState
+from repro_torch.tree import tree_paths
 
 # credit token reserved for KV migrations (separate from app traffic so
 # wait_replies on a migration never drains an application credit)
@@ -56,18 +57,6 @@ class KvLeaf:
         return self.layers * self.words
 
 
-def _flatten(cache) -> list[tuple[tuple, torch.Tensor]]:
-    """``[((segment, block, name), leaf), ...]`` in the JAX package's
-    flatten order: the segment list by index, then sorted dict keys."""
-    return [((i, key, name), seg[key][name])
-            for i, seg in enumerate(cache)
-            for key in sorted(seg) for name in sorted(seg[key])]
-
-
-def _path_str(path) -> str:
-    return "/".join(str(p) for p in path)
-
-
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).split(".")[-1]
 
@@ -86,7 +75,7 @@ class KvSegmentSpace:
         self.ctx = gas.ctx
         self.lanes = int(lanes)
         self.slots = int(slots)
-        flat = _flatten(model.make_cache(1, slots))
+        flat = tree_paths(model.make_cache(1, slots))
         if not flat:
             raise ValueError("model cache has no leaves to place in the "
                              "address space")
@@ -95,16 +84,15 @@ class KvSegmentSpace:
         for path, leaf in flat:
             if leaf.dim() < 2 or leaf.shape[1] != 1:
                 raise ValueError(
-                    f"cache leaf {_path_str(path)} has shape "
+                    f"cache leaf {path} has shape "
                     f"{tuple(leaf.shape)}; expected (layers, lane, ...) "
                     "stacked cache state")
             words = math.prod(leaf.shape[2:]) if leaf.dim() > 2 else 1
             leaves.append(KvLeaf(
-                path=_path_str(path), layers=int(leaf.shape[0]),
+                path=path, layers=int(leaf.shape[0]),
                 shape=tuple(int(d) for d in leaf.shape[2:]),
                 dtype=leaf.dtype, words=int(words), offset=off))
             off += int(leaf.shape[0]) * int(words)
-        self._paths = tuple(path for path, _ in flat)
         self.leaves = tuple(leaves)
         self.lane_words = off
         need = self.lanes * self.lane_words
@@ -151,13 +139,13 @@ class KvSegmentSpace:
     def pack_lane(self, lane_cache) -> list[torch.Tensor]:
         """Flatten a (B=1) lane cache into per-(leaf, layer) segment-word
         blocks, 1-D and ordered to match :meth:`block_addrs`."""
-        flat = _flatten(lane_cache)
-        paths = tuple(path for path, _ in flat)
-        if paths != self._paths:
+        flat = tree_paths(lane_cache)
+        paths = [path for path, _ in flat]
+        want = [leaf.path for leaf in self.leaves]
+        if paths != want:
             raise ValueError(
                 "lane cache structure does not match this KvSegmentSpace "
-                f"layout: {[_path_str(p) for p in paths]} != "
-                f"{[_path_str(p) for p in self._paths]}")
+                f"layout: {paths} != {want}")
         blocks: list[torch.Tensor] = []
         for meta, (_, leaf) in zip(self.leaves, flat):
             rows = leaf.reshape(meta.layers, meta.words).to(self.gas.dtype)
@@ -171,7 +159,9 @@ class KvSegmentSpace:
         segment's dtype is a view of the row)."""
         base = self.lane_base(lane)
         cache: list[dict] = []
-        for (i, key, name), leaf in zip(self._paths, self.leaves):
+        for leaf in self.leaves:
+            i, key, name = leaf.path.split("/")
+            i = int(i)
             start = base + leaf.offset
             flat = segment_row[start:start + leaf.total_words]
             while len(cache) <= i:

@@ -17,7 +17,9 @@ attention float32 2e-3, bfloat16 3e-2 against its plain version (the
 reference's tolerances, tests/test_kernels.py:109), the Hopper flash
 kernel also against the simple one at 3e-2, and bitwise against itself
 where only future keys change; the engine on the
-card serves the CPU run's tokens exactly (float32 tinyllama-smoke).
+card serves the CPU run's tokens exactly (float32 tinyllama-smoke); the
+float32 trainer on the card within 1e-5 of its CPU run (TF32 off), its
+all-reduced rows bitwise equal and its int32 ring sums exact.
 """
 
 import dataclasses
@@ -996,3 +998,201 @@ def test_datamover_at_the_migration_shape_matches_plain(cuda, call):
         assert _same_bits(got, want), kernel
     assert dm.datamover_kernel_for("scatter", K, B, W, torch.float32) \
         == "sm90"
+
+
+# -- the data-parallel trainer ------------------------------------------------
+
+def _moved(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _pipe():
+    from repro_torch.data import DataConfig, TokenPipeline
+
+    return TokenPipeline(DataConfig(vocab=512, batch=8, seq=32, seed=1),
+                         device="cpu")
+
+
+def _batch(host, device):
+    return {k: torch.from_numpy(v).to(device, dtype=torch.int64)
+            for k, v in host.items()}
+
+
+def _train_on(device, backend, comp=False, steps=2, K=4):
+    """tinyllama-smoke (float32) trained ``steps`` steps on ``device``
+    from the same seeded weights and batches: (trainer, state, losses,
+    ring launches per step)."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer, TrainerConfig
+
+    cfg = configs.reduced("tinyllama-1.1b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    trainer = Trainer(build_model(cfg, device=device), AdamWConfig(lr=1e-3),
+                      TrainerConfig(comm_backend=backend,
+                                    grad_compression=comp), kernels=K)
+    st = trainer.state_for(_to(params, device))
+    pipe = _pipe()
+    losses, launches = [], []
+    for s in range(steps):
+        reset_launch_counts()
+        st, met = trainer.step(st, _batch(pipe.batch_at(s), device))
+        losses.append(float(met["loss"]))
+        launches.append(launch_counts())
+    return trainer, st, losses, launches
+
+
+@pytest.mark.parametrize("backend", ["xla", "shoal"])
+def test_reduced_trainer_on_the_card_matches_the_cpu(cuda, backend,
+                                                     monkeypatch):
+    """Two steps of the float32 trainer, each from the CPU run's state on
+    both devices (TF32 off): the loss within 1e-5, every synced gradient
+    leaf within 1e-5 of its largest |gradient|, and the update of the
+    same gradients -- every parameter, moment and the count -- within
+    1e-5.  (Two chained runs are not compared leaf for leaf: Adam
+    divides by sqrt(v), so an element whose gradient is a near-
+    cancelling sum, and so differs in its leading digits between the
+    devices' summation orders, moves by a visible part of lr.)  The
+    shoal step launches the ring kernel once per leaf on
+    ``ring_kernel_for``'s route, 2(K - 1) exchanges a leaf; the xla
+    step launches none; neither launches flash."""
+    from repro_torch.tree import tree_paths
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu_tr, cpu_st, _, _ = _train_on("cpu", backend, steps=0)
+    card_tr, _, _, _ = _train_on(cuda, backend, steps=0)
+    pipe = _pipe()
+    leaves = len(tree_paths(cpu_st.params))
+    routes = [gd.ring_kernel_for(4, -(-leaf.numel() // 4), torch.float32,
+                                 gd.ALL_REDUCE)
+              for _, leaf in tree_paths(cpu_st.params)]
+    for step in range(2):
+        batch = pipe.batch_at(step)
+        loss_c, g_c, _ = cpu_tr.grads(cpu_st, _batch(batch, "cpu"))
+        reset_launch_counts()
+        loss_g, g_g, _ = card_tr.grads(_moved(cpu_st, cuda),
+                                       _batch(batch, cuda))
+        counts = launch_counts()
+        np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-5,
+                                   atol=1e-5)
+        for (path, a), (_, b) in zip(tree_paths(g_g), tree_paths(g_c)):
+            np.testing.assert_allclose(
+                a.cpu().double().numpy(), b.double().numpy(), rtol=0,
+                atol=1e-5 * b.abs().max().item(), err_msg=path)
+        assert counts["ring_collective"] == (
+            leaves if backend == "shoal" else 0)
+        assert counts["ring_cluster_sm90"] == (
+            routes.count("sm90") if backend == "shoal" else 0)
+        assert counts["flash_attention"] == 0
+        new_c, _ = cpu_tr.apply_update(cpu_st, g_c, loss_c)
+        new_g, _ = card_tr.apply_update(_moved(cpu_st, cuda),
+                                        _moved(g_c, cuda), loss_g)
+        for (path, a), (_, b) in zip(tree_paths(new_g), tree_paths(new_c)):
+            np.testing.assert_allclose(a.cpu().double().numpy(),
+                                       b.double().numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=path)
+        cpu_st = new_c
+    if backend == "shoal":
+        assert card_tr.ctx.exchanges == 2 * leaves * 2 * (4 - 1)
+
+
+def test_trainer_sync_on_the_card_rows_equal_and_int32_exact(cuda,
+                                                             monkeypatch):
+    """Every all-reduced leaf bitwise the plain ring's on the same input
+    (on the CPU) and its K rows bitwise equal; compressed, the int32 ring
+    result equals the int64 sum of the payloads exactly and the (K, 1)
+    scale goes through the ring too (two launches a leaf)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.state import ShoalContext
+
+    calls = []
+    real = coll.ring_all_reduce
+
+    def spy(ctx, x):
+        out = real(ctx, x)
+        calls.append((x.clone(), out.clone()))
+        return out
+
+    monkeypatch.setattr(coll, "ring_all_reduce", spy)
+    for comp in (False, True):
+        calls.clear()
+        trainer, _, _, launches = _train_on(cuda, "shoal", comp=comp,
+                                            steps=1)
+        leaves = 12
+        assert launches[0]["ring_collective"] == len(calls) \
+            == leaves * (2 if comp else 1)
+        plain_ctx = ShoalContext(4, device="cpu")
+        for x, out in calls:
+            assert x.device.type == "cuda"
+            assert torch.equal(out.cpu(), real(plain_ctx, x.cpu()))
+            assert torch.equal(out, out[:1].expand_as(out))
+            if x.dtype == torch.int32:
+                assert torch.equal(out[0], x.sum(0, dtype=torch.int64).int())
+
+
+def test_compressed_sync_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One compressed shoal sync from the same float32 state on both
+    devices (TF32 off): the loss within 1e-5 and every synced leaf within
+    one quantization step of the synced sum (the members' mean int8
+    scale over K: a payload that rounds the other way on one device)
+    plus 1e-5 of its largest value; every member's residual within half
+    its own step."""
+    from repro_torch.tree import tree_paths
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu_tr, cpu_st, _, _ = _train_on("cpu", "shoal", comp=True, steps=0)
+    card_tr, _, _, _ = _train_on(cuda, "shoal", comp=True, steps=0)
+    batch = _pipe().batch_at(0)
+    members = [dict(tree_paths(g)) for _, g in
+               cpu_tr.member_grads(cpu_st.params, _batch(batch, "cpu"))]
+    loss_c, g_c, r_c = cpu_tr.grads(cpu_st, _batch(batch, "cpu"))
+    loss_g, g_g, r_g = card_tr.grads(_moved(cpu_st, cuda),
+                                     _batch(batch, cuda))
+    np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-5,
+                               atol=1e-5)
+    residuals = dict(tree_paths(r_g))
+    for (path, a), (_, b) in zip(tree_paths(g_g), tree_paths(g_c)):
+        steps = np.array([max(m[path].abs().max().item(), 1e-12) / 127
+                          for m in members])
+        np.testing.assert_allclose(
+            a.cpu().double().numpy(), b.double().numpy(), rtol=0,
+            atol=steps.mean() / 4 + 1e-5 * b.abs().max().item(),
+            err_msg=path)
+        r = residuals[path].cpu().double()
+        for k in range(4):
+            assert r[k].abs().max().item() <= steps[k] * (0.5 + 1e-4), path
+
+
+def test_flash_guard_refuses_cuda_inputs_that_require_grad(cuda):
+    from repro_torch.kernels.attention import flash_attention
+
+    q = torch.zeros(1, 4, 2, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.zeros(1, 4, 2, 64, device=cuda, dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="Model.loss"):
+        flash_attention(q, kv, kv)
+    assert launch_counts()["flash_attention"] == 0
+
+
+def test_delivery_live_mask_on_the_card_matches_the_cpu(cuda):
+    """The exhausting reliable put of tests/test_torch_pipeline_elastic.py
+    on a CUDA context (its DataMover on the card): the same error words
+    and live mask as on the CPU."""
+    from test_torch_pipeline_elastic import _exhausting_put
+
+    from repro_torch.training.elastic import delivery_live_mask
+
+    for lossy_from in (None, 3):
+        on_card = _exhausting_put(cuda, lossy_from).error
+        on_cpu = _exhausting_put("cpu", lossy_from).error
+        assert torch.equal(on_card.cpu(), on_cpu)
+        assert torch.equal(delivery_live_mask(torch.ones(8, device=cuda),
+                                              on_card).cpu(),
+                           delivery_live_mask(torch.ones(8), on_cpu))

@@ -205,6 +205,96 @@ def test_disagg_stack_runs_with_jax_blocked():
     assert "disagg-ok" in proc.stdout
 
 
+def test_training_stack_runs_with_jax_blocked(tmp_path):
+    """The optimizer, data, checkpoint and training packages and the
+    training launcher import and train with JAX and the JAX package
+    blocked (a failure injected at step 2, resumed)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.training, repro_torch.training.elastic\n"
+        "import repro_torch.training.pipeline, repro_torch.launch.train\n"
+        "from repro_torch.launch import train\n"
+        "assert train.main(['--reduced', '--device', 'cpu', '--steps', '3',\n"
+        "                   '--batch', '4', '--seq', '8', '--backend',\n"
+        "                   'shoal', '--kernels', '2', '--ckpt-every', '1',\n"
+        "                   '--fail-at', '2', '--ckpt-dir', sys.argv[1]]) == 0\n"
+        "print('train-ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "train-ok" in proc.stdout
+    assert "injected failure at step 2" in proc.stdout
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """``Trainer`` (through its model and context), ``TokenPipeline`` and
+    ``launch.train`` pick the card by default and raise without one."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer, TrainerConfig
+
+    cfg = configs.reduced("tinyllama-1.1b")
+    dcfg = DataConfig(vocab=cfg.vocab, batch=4, seq=8)
+    if torch.cuda.is_available():
+        tr = Trainer(build_model(cfg), AdamWConfig(),
+                     TrainerConfig(comm_backend="shoal"), kernels=2)
+        assert tr.ctx.device.type == "cuda"
+        assert TokenPipeline(dcfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TokenPipeline(dcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    tr = Trainer(build_model(cfg, device="cpu"), AdamWConfig(),
+                 TrainerConfig(comm_backend="shoal"), kernels=2)
+    assert tr.ctx.device.type == "cpu"
+    st = tr.init_state(torch.Generator().manual_seed(0))
+    assert {leaf.device.type for leaf in
+            [st.step, st.opt_state["count"], st.opt_state["m"]["embed"]]} \
+        == {"cpu"}
+
+
+def test_flash_attention_refuses_inputs_that_require_grad():
+    """The flash kernel is forward only: inputs that require grad raise
+    on every device (the CPU plain version and the ``meta`` device
+    included), outside ``no_grad``; ``Model.loss`` still
+    differentiates, through ``_attend``."""
+    from repro_torch import configs
+    from repro_torch.kernels.attention import flash_attention
+    from repro_torch.models.model import build_model
+
+    for device in ("cpu", "meta"):
+        q = torch.zeros(1, 4, 2, 8, device=device, requires_grad=True)
+        kv = torch.zeros(1, 4, 2, 8, device=device)
+        with pytest.raises(RuntimeError, match="Model.loss"):
+            flash_attention(q, kv, kv)
+        with pytest.raises(RuntimeError, match="Model.loss"):
+            flash_attention(kv, kv, q)
+    q = torch.randn(1, 4, 2, 8, requires_grad=True)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == (1, 4, 2, 8)
+    cfg = configs.reduced("tinyllama-1.1b")
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    wq = params["segments"][0]["b0_dense"]["attn"]["wq"].requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (2, 6), generator=torch.Generator(
+    ).manual_seed(1))
+    loss = model.loss(params, {"tokens": tokens, "labels": tokens})
+    g, = torch.autograd.grad(loss, wq)
+    assert g.abs().sum() > 0
+    with pytest.raises(RuntimeError, match="forward-only"):
+        model.forward_train(params, {"tokens": tokens})
+
+
 def test_non_cpu_tensors_never_reach_a_plain_version():
     """A tensor that is not on the CPU goes to the kernel or raises: on
     the ``meta`` device every wrapper refuses."""
