@@ -59,8 +59,18 @@ tokens, AdamW; every gradient leaf through the ring kernel (12 launches,
 gradients held to the ``xla`` backend's; 5 steps with falling finite
 losses, each backend timed, one step timed by part and one profiled;
 then at 2 layers one int8-compressed step (int32 ring sums exact) and a
-checkpoint round trip (step 3 bitwise).  Kernel times are
-device times from ``torch.profiler``.  One line per phase; any failure
+checkpoint round trip (step 3 bitwise).
+Phase 10 runs shoal-lint (``repro_torch.analysis``) over the port's main
+paths on the card: every registry entry (Jacobi at 1 and 4 iterations,
+the 1024-send mailbox flush, a KV migration, the reliable put) clean,
+within its ``comm_budgets.toml`` bound, and its events, exchanges and
+result bitwise the CPU run's; the R1-R4 probes giving the CPU's
+findings and landing the CPU's bits (a waived aliasing vectored put on
+the Hopper scatter); the Jacobi footnote-2 run linted over 8
+iterations (2 * 8 + 2 exchanges) and phase 8's full-width migration
+linted (2 exchanges); the recorder's cost per Jacobi iteration, off and
+on in turns, and the aten operations per iteration, off equal to
+phase 4's.  Kernel times are device times from ``torch.profiler``.  One line per phase; any failure
 raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card and ``nvcc``;
@@ -551,15 +561,16 @@ def phase_kernels(torch, device):
 
 
 def dm_records(dmc, paths, shapes=None):
-    """One JSON record for every DataMover kernel the main path launched
-    (``paths``: launches by path and counter), measured at the Jacobi
+    """One JSON record for every DataMover kernel the main paths launched
+    (``paths``: launches by path -- ops, jacobi, messages, lint -- and
+    counter), measured at the Jacobi
     run's shape if Jacobi launched it, else at the ops phase's; with
     the other design's time in the same call and the launch floor."""
     records = []
     for (op, design), name in DM_COUNTERS.items():
         per_path = {p: c.get(name, 0) for p, c in paths.items()}
         launches = per_path["ops"] + per_path["jacobi"] \
-            + per_path["messages"]
+            + per_path["messages"] + per_path.get("lint", 0)
         if not launches:
             continue
         case = "jacobi" if per_path["jacobi"] else "ops"
@@ -744,9 +755,10 @@ def phase_jacobi(torch, device, n=JACOBI_N, kernels=JACOBI_K,
     say("jacobi", grid=f"{n}x{n}", kernels=kernels, iters=iters,
         max_abs_err=err, exchanges=app.ctx.exchanges,
         ms_per_iter=f"{seconds * 1e3 / iters:.4f}", launches=counts)
+    ops_per_iter = None
     if device.type == "cuda":
-        profile_jacobi(torch, device, blocks)
-    return counts
+        ops_per_iter = profile_jacobi(torch, device, blocks)
+    return counts, ops_per_iter
 
 
 def count_ops_mode():
@@ -763,29 +775,47 @@ def count_ops_mode():
     return CountOps
 
 
-def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
-    """Where an iteration of the Jacobi run goes, on its configuration:
-    the aten operations it dispatches (a count over runs of 1 and 3
-    iterations, differenced), and over one profiled window of ``iters``
-    iterations its host-clock ms, the device's busy ms (self device time
-    of every device activity, also by name) and the device's idle share
-    ``1 - busy / window`` -- busy time and window from the same run."""
+def jacobi_ops_per_iter(torch, device, blocks, recording=False):
+    """The aten operations one iteration of the Jacobi run on ``blocks``
+    dispatches: a count over runs of 1 and 3 iterations, differenced
+    (each run on a fresh app), optionally under a lint recorder."""
+    import contextlib
+
+    from repro_torch.analysis import record
     from repro_torch.apps.jacobi import JacobiApp
     from repro_torch.core.address_space import GlobalAddressSpace
 
     kernels, rows, n = blocks.shape
     CountOps = count_ops_mode()
+    dispatched = []
+    for k_iters in (1, 3):
+        app = JacobiApp(n=n, kernels=kernels, iters=k_iters, device=device)
+        st = GlobalAddressSpace(app.ctx).make_global_state()
+        with CountOps() as mode, (record() if recording
+                                  else contextlib.nullcontext()):
+            app.run_blocks(st, blocks)
+        dispatched.append(mode.count)
+    return (dispatched[1] - dispatched[0]) / 2
+
+
+def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
+    """Where an iteration of the Jacobi run goes, on its configuration:
+    the aten operations it dispatches (:func:`jacobi_ops_per_iter`), and
+    over one profiled window of ``iters`` iterations its host-clock ms,
+    the device's busy ms (self device time of every device activity,
+    also by name) and the device's idle share ``1 - busy / window`` --
+    busy time and window from the same run.  Returns the aten operations
+    per iteration."""
+    from repro_torch.apps.jacobi import JacobiApp
+    from repro_torch.core.address_space import GlobalAddressSpace
+
+    kernels, rows, n = blocks.shape
+    ops_per_iter = jacobi_ops_per_iter(torch, device, blocks)
 
     def fresh(k_iters):
         app = JacobiApp(n=n, kernels=kernels, iters=k_iters, device=device)
         return app, GlobalAddressSpace(app.ctx).make_global_state()
 
-    dispatched = []
-    for k_iters in (1, 3):
-        app, st = fresh(k_iters)
-        with CountOps() as mode:
-            app.run_blocks(st, blocks)
-        dispatched.append(mode.count)
     app, st = fresh(iters)
     app.run_blocks(st, blocks)                      # builds the ctx tables
     st = GlobalAddressSpace(app.ctx).make_global_state()
@@ -799,8 +829,7 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
                          for k in op.values())))
     dm = [(c, us) for name, (c, us) in by_name.items()
           if name.startswith(dm_names)]
-    say("profile", iters=iters,
-        aten_ops_per_iter=(dispatched[1] - dispatched[0]) / 2,
+    say("profile", iters=iters, aten_ops_per_iter=ops_per_iter,
         window_ms_per_iter=f"{window * 1e3 / iters:.4f}",
         device_busy_ms_per_iter=f"{busy_us / 1e3 / iters:.5f}",
         idle_share=f"{1 - busy_us / 1e6 / window:.4f}",
@@ -812,6 +841,7 @@ def profile_jacobi(torch, device, blocks, iters=PROFILE_ITERS):
     for name, (count, us) in top:
         say("profile", device_ms_per_iter=f"{us / 1e3 / iters:.5f}",
             per_iter=count / iters, name=name[:70].replace(" ", "_"))
+    return ops_per_iter
 
 
 # ---------------------------------------------------------------------------
@@ -2172,6 +2202,21 @@ def phase_disagg(torch, model, params):
         device_activities=sum(c for c, _ in by_name.values()),
         top=json.dumps({name[:48]: [c, round(us / 1e3, 5)]
                         for name, (c, us) in top}))
+    # phase 10's full-width lint: one more migration under a recorder
+    from repro_torch.analysis.lint import record_run, report_of
+
+    before = tier.ctx.exchanges
+    t0 = time.perf_counter()
+    _, rec = record_run(tier.migrate, src, dst, 0, lane_cache)
+    torch.cuda.synchronize()
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    rep = report_of(rec, "kv-migrate-full")
+    require(rep.ok and tier.ctx.exchanges - before == rec.exchanges == 2,
+            f"full-width migration lint: {tier.ctx.exchanges - before} "
+            f"exchanges ({rec.tags})\n{rep.render()}")
+    say("lint", entry="kv-migrate-full", lane_mb=f"{lane_words * 4 / 1e6:.1f}",
+        clean=True, events=rep.n_events, exchanges=rec.exchanges,
+        tags=json.dumps(rec.tags), run_ms=f"{lint_ms:.3f}")
     peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
     say("disagg", peak_allocated_mb=f"{peak_mb:.0f}",
         peak_over_base_mb=f"{peak_mb - base_mb:.0f}")
@@ -2665,6 +2710,190 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: shoal-lint over the port's main paths
+# ---------------------------------------------------------------------------
+
+LINT_JACOBI_ITERS = 8       # the full-width Jacobi lint's iterations
+LINT_COST_ITERS = 64        # iterations of each timed Jacobi turn
+LINT_TURNS = (False, True, True, False)     # recorder off / on, in turns
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _same_result(torch, a, b, what):
+    """A program's return value (a state, a tensor, or a tuple of them)
+    on the card bitwise equal to the CPU run's."""
+    from repro_torch.core.state import PgasState
+
+    if isinstance(a, PgasState):
+        _same_state(torch, a, b, what)
+    elif isinstance(a, tuple):
+        for x, y in zip(a, b, strict=True):
+            _same_result(torch, x, y, what)
+    else:
+        x, y = a.cpu(), b
+        if x.is_floating_point():
+            x, y = _bits(torch, x), _bits(torch, y)
+        require(torch.equal(x, y), f"{what}: the result differs between "
+                "the card and the CPU")
+
+
+def _findings(rep):
+    return [(f.rule, f.severity, f.events, f.sites, f.waived, f.message)
+            for f in rep.findings]
+
+
+def phase_lint(torch, device, n=JACOBI_N, kernels=JACOBI_K,
+               lint_iters=LINT_JACOBI_ITERS, cost_iters=LINT_COST_ITERS,
+               jacobi_ops=None):
+    """Phase 10.  shoal-lint over the port's main paths on the card.
+
+    Every registry entry (``jacobi``, ``jacobi-steady``,
+    ``actors-mailbox``, ``kv-migrate``, ``lossy-put``) runs on the card
+    under a recorder: no unwaived finding, its ``comm_budgets.toml``
+    bound met, and its event list, exchange count (by op tag too) and
+    result bitwise equal to the same entry's CPU run.  Every probe (the
+    R1-R4 programs and their clean twins, the waived aliasing packets)
+    gives on the card the CPU's findings and the expected rules, and
+    lands the CPU's bits; the 4-block waived vectored put on the Hopper
+    scatter.  The Jacobi footnote-2 configuration (``n``², ``kernels``
+    kernels, 9000-byte frames) linted over ``lint_iters`` iterations:
+    clean, ``2 * lint_iters + 2`` exchanges.  Cost: the wall time of
+    each lint, that Jacobi run's ms per iteration with the recorder off
+    and on (``cost_iters`` iterations a turn, in turns), and its aten
+    operations per iteration off (required equal to phase 4's
+    ``jacobi_ops`` where given) and on.  Returns the phase's kernel
+    launches by counter (counts reset at its start)."""
+    from repro_torch.analysis import budget, registry
+    from repro_torch.analysis.lint import events_json, record_run, report_of
+    from repro_torch.apps.jacobi import JacobiApp
+    from repro_torch.core.address_space import GlobalAddressSpace
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cpu = torch.device("cpu")
+    budgets = budget.load_budgets()
+    reset_launch_counts()
+    for name in registry.names():
+        _sync(torch, device)
+        run = registry.lint_entry(name, budgets, device=device)
+        host = registry.lint_entry(name, budgets, device=cpu)
+        rep = run.report
+        require(rep.ok and host.report.ok,
+                f"lint {name}:\n{rep.render()}\n{host.report.render()}")
+        require(events_json(run.events) == events_json(host.events),
+                f"lint {name}: the events differ between the card and the "
+                "CPU")
+        require(run.exchanges == host.exchanges and run.tags == host.tags,
+                f"lint {name}: exchanges {run.exchanges} {run.tags} on the "
+                f"card, {host.exchanges} {host.tags} on the CPU")
+        _same_result(torch, run.result, host.result, f"lint {name}")
+        say("lint", entry=name, clean=True, events=rep.n_events,
+            exchanges=run.exchanges, budget=json.dumps(rep.budget["budget"]),
+            card_wall_ms=f"{rep.wall_time_s * 1e3:.3f}",
+            cpu_wall_ms=f"{host.report.wall_time_s * 1e3:.3f}",
+            result="bitwise the CPU's")
+
+    for probe in registry.PROBES:
+        if probe.raises is not None:
+            for dev in (device, cpu):
+                try:
+                    registry.run_probe(probe.name, dev)
+                except probe.raises:
+                    continue
+                require(False, f"probe {probe.name}: no "
+                        f"{probe.raises.__name__} on {dev}")
+            say("lint", probe=probe.name, raises=probe.raises.__name__)
+            continue
+        before = launch_counts()
+        run = registry.run_probe(probe.name, device)
+        grew = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+        host = registry.run_probe(probe.name, cpu)
+        got = _findings(run.report)
+        require(got == _findings(host.report),
+                f"probe {probe.name}: findings differ between the card "
+                f"and the CPU:\n{run.report.render()}")
+        rules = tuple(f.rule for f in run.report.findings if not f.waived)
+        waived = tuple(f.rule for f in run.report.waived)
+        require((rules, waived) == (probe.expect, probe.waived),
+                f"probe {probe.name}: {rules} / waived {waived}, expected "
+                f"{probe.expect} / {probe.waived}")
+        _same_result(torch, run.result, host.result, f"probe {probe.name}")
+        if probe.name == "vectored-alias-waived-4" and device.type == "cuda":
+            require(grew.get("datamover_scatter_sm90", 0) > 0,
+                    f"probe {probe.name}: no Hopper scatter ({grew})")
+        say("lint", probe=probe.name, findings=list(rules),
+            waived=list(waived), landed="bitwise the CPU's",
+            launches=json.dumps(grew))
+
+    rng = np.random.default_rng(0)
+    grid = rng.standard_normal((n, n)).astype(np.float32)
+    blocks = torch.from_numpy(grid).reshape(kernels, n // kernels, n).to(
+        device)
+    app = JacobiApp(n=n, kernels=kernels, iters=lint_iters, device=device)
+    st = GlobalAddressSpace(app.ctx).make_global_state()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    (st, _), rec = record_run(app.run_blocks, st, blocks)
+    _sync(torch, device)
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = report_of(rec, "jacobi-footnote2")
+    rules_s = time.perf_counter() - t0
+    want = 2 * lint_iters + 2
+    require(rep.ok, rep.render())
+    require(app.ctx.exchanges == rec.exchanges == want
+            and sum(rec.tags.values()) == want,
+            f"jacobi lint: {app.ctx.exchanges} exchanges ({rec.tags}), "
+            f"expected {want}")
+    require(bool((st.credits == 0).all()) and bool((st.error == 0).all()),
+            "jacobi lint: final credits/error not zero")
+    say("lint", entry="jacobi-footnote2", grid=f"{n}x{n}", kernels=kernels,
+        iters=lint_iters, clean=True, events=rep.n_events, exchanges=want,
+        run_ms=f"{run_s * 1e3:.3f}", rules_ms=f"{rules_s * 1e3:.3f}")
+
+    # the recorder's cost on the same configuration, in turns
+    from repro_torch.analysis import record
+
+    app = JacobiApp(n=n, kernels=kernels, iters=cost_iters, device=device)
+    gas = GlobalAddressSpace(app.ctx)
+    app.run_blocks(gas.make_global_state(), blocks)     # builds the tables
+    turns = {False: [], True: []}
+    for on in LINT_TURNS:
+        st = gas.make_global_state()
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        if on:
+            with record() as rec:
+                app.run_blocks(st, blocks)
+        else:
+            app.run_blocks(st, blocks)
+        _sync(torch, device)
+        turns[on].append((time.perf_counter() - t0) * 1e3 / cost_iters)
+        if on:
+            require(len(rec.events) == 5 * cost_iters + 4,
+                    f"recorded {len(rec.events)} events")
+    ops_off = jacobi_ops_per_iter(torch, device, blocks)
+    ops_on = jacobi_ops_per_iter(torch, device, blocks, recording=True)
+    if jacobi_ops is not None:
+        require(ops_off == jacobi_ops,
+                f"aten operations per Jacobi iteration with the recorder off "
+                f"{ops_off}, phase 4 {jacobi_ops}")
+    say("lint", cost="jacobi", grid=f"{n}x{n}", iters_per_turn=cost_iters,
+        turns="off,on,on,off",
+        ms_per_iter_off=[f"{ms:.4f}" for ms in turns[False]],
+        ms_per_iter_on=[f"{ms:.4f}" for ms in turns[True]],
+        ms_per_iter_off_mean=f"{np.mean(turns[False]):.4f}",
+        ms_per_iter_on_mean=f"{np.mean(turns[True]):.4f}",
+        aten_ops_per_iter_off=ops_off, aten_ops_per_iter_on=ops_on,
+        phase4_aten_ops_per_iter=jacobi_ops)
+    return launch_counts()
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -2754,7 +2983,7 @@ def main() -> int:
             f"ops did not launch both Hopper DataMover kernels: {grew}")
     say("ops", launches=grew)
 
-    counts = phase_jacobi(torch, device)
+    counts, jacobi_ops = phase_jacobi(torch, device)
     kernels["jacobi_sweep"]["launches"] = counts["jacobi_sweep"]
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2768,12 +2997,6 @@ def main() -> int:
     t0 = time.perf_counter()
     shapes = check_message_shapes(torch, device)
     say("kernels", message_shapes_seconds=f"{time.perf_counter() - t0:.1f}")
-    dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
-                           "jacobi": counts, "messages": messages}, shapes)
-    for op in ("gather", "scatter"):       # the routed kernel ran
-        name = DM_COUNTERS[op, dmc[op]["jacobi"]["route"]]
-        require(any(r["name"] == name and r["path_launches"]["jacobi"] > 0
-                    for r in dms), f"{name}: no Jacobi launches")
     rings = phase_collectives(torch, device)
     next(r for r in rings if r["name"] == "ring_cluster_sm90")["ptxas"] = \
         ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
@@ -2794,6 +3017,20 @@ def main() -> int:
             trained[rec["name"]] - sm90 if rec["name"] == "ring_collective"
             else trained[rec["name"]])
     rings.append(train_ring)
+    t0 = time.perf_counter()
+    linted = phase_lint(torch, device, jacobi_ops=jacobi_ops)
+    say("lint", seconds=f"{time.perf_counter() - t0:.1f}",
+        launches={k: v for k, v in linted.items() if v})
+    kernels["jacobi_sweep"]["path_launches"] = {
+        "jacobi": counts["jacobi_sweep"], "lint": linted["jacobi_sweep"]}
+    dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
+                           "jacobi": counts, "messages": messages,
+                           "lint": linted}, shapes)
+    for op in ("gather", "scatter"):       # the routed kernel ran
+        name = DM_COUNTERS[op, dmc[op]["jacobi"]["route"]]
+        require(any(r["name"] == name and r["path_launches"]["jacobi"] > 0
+                    and r["path_launches"]["lint"] > 0 for r in dms),
+                f"{name}: no Jacobi or lint launches")
 
     print(card, flush=True)
     print(json.dumps({"kernels": dms + list(kernels.values()) + rings

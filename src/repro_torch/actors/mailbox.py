@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace as _lint
 from repro_torch.core import am
 from repro_torch.core import gascore as gc
 from repro_torch.core import handlers as hd
@@ -86,6 +87,8 @@ class Mailbox:
         self.reply_via = reply_via
         self._fields: list[dict] = []
         self._payloads: list = []
+        # (class, addr, nwords, handler, token) per message, for the lint
+        self._lint_rows: list[tuple] = []
         self._tx_words = 0
         self.flushes = 0
         self.msgs_sent = 0
@@ -146,9 +149,13 @@ class Mailbox:
                 "(payload to kernel) has no coalesced ingress")
         t = am.make_type(msg_class, asynchronous=True,
                          fifo=msg_class == am.LONG)
+        row_token = self.token if token is None else token
         self._fields.append(dict(
             type=t, nwords=nwords, dst_addr=dst_addr, handler=handler,
-            token=self.token if token is None else token))
+            token=row_token))
+        self._lint_rows.append((msg_class, _lint.known_int(dst_addr),
+                                nwords, _lint.known_int(handler),
+                                _lint.known_int(row_token)))
         self._payloads.append(row)
         self._tx_words += nwords
         self.msgs_sent += 1
@@ -213,9 +220,27 @@ class Mailbox:
                          0).to(torch.int32)
         self._fields.clear()
         self._payloads.clear()
+        self._lint_rows.clear()
         self._tx_words = 0
         self.flushes += 1
         return hdrs, pays, tx
+
+    def _emit_flush(self, mailbox_id: int, **kw) -> str | None:
+        """Record the pending stack's flush as one comm event: its Long
+        rows' write intervals and its Short H_ADD rows' credit grants
+        (a Short row's ``dst_addr`` is its handler argument)."""
+        w_ivs, grants = [], []
+        for cls, addr, nw, h_s, tok in self._lint_rows:
+            if cls == am.LONG and nw:
+                w_ivs.append(_lint.Interval(addr, nw))
+            elif (cls == am.SHORT and h_s == hd.H_ADD
+                  and addr is not None and tok is not None):
+                grants.append((tok, addr))
+        return _lint.emit(
+            "mailbox_flush", self.pattern, writes=tuple(w_ivs),
+            token=self.token, acked=self.ctx.transport.acked,
+            credit_grants=tuple(grants), mailbox_id=mailbox_id,
+            segment_words=self.ctx.segment_words, **kw)
 
     def flush(self, state: PgasState) -> PgasState:
         """Ship the pending stack as one exchange and absorb it.
@@ -228,22 +253,27 @@ class Mailbox:
         n = len(self._fields)
         if n == 0:
             return state
-        additive = self._additive()
-        hdrs, pays, tx = self._stack()
-        state = replace(state, tx_words=state.tx_words + tx)
-        hdr_r, pay_r = ops._exchange(self.ctx, self.pattern, hdrs, pays)
-        state = gc.ingress_stack(self.ctx, state, hdr_r, pay_r,
-                                 self.msg_words, additive=additive)
-        if self.ctx.transport.acked:
-            # the ack is accounted on the mailbox token, not whatever
-            # per-message token the final row happened to carry
-            h_last = dataclasses.replace(
-                am.decode(hdr_r[:, n - 1]),
-                token=torch.full((self.ctx.num_kernels,), self.token,
-                                 dtype=torch.int32, device=self.ctx.device))
-            state = ops._deliver_reply(self.ctx, state, self.pattern, h_last,
-                                       token=self.token,
-                                       reply_via=self.reply_via)
+        tag = self._emit_flush(
+            id(self), deferred_reply=self.reply_via is not None,
+            detail={"rows": n}) if _lint.active() else None
+        with _lint.scope(tag):
+            additive = self._additive()
+            hdrs, pays, tx = self._stack()
+            state = replace(state, tx_words=state.tx_words + tx)
+            hdr_r, pay_r = ops._exchange(self.ctx, self.pattern, hdrs, pays)
+            state = gc.ingress_stack(self.ctx, state, hdr_r, pay_r,
+                                     self.msg_words, additive=additive)
+            if self.ctx.transport.acked:
+                # the ack is accounted on the mailbox token, not whatever
+                # per-message token the final row happened to carry
+                h_last = dataclasses.replace(
+                    am.decode(hdr_r[:, n - 1]),
+                    token=torch.full((self.ctx.num_kernels,), self.token,
+                                     dtype=torch.int32,
+                                     device=self.ctx.device))
+                state = ops._deliver_reply(self.ctx, state, self.pattern,
+                                           h_last, token=self.token,
+                                           reply_via=self.reply_via)
         return state
 
 
@@ -313,27 +343,34 @@ class MultiMailbox:
             boxes = [self._boxes[i] for i in grp if self._boxes[i].pending]
             if not boxes:
                 continue
+            group_tag = None
             hdr_rows, pay_rows, union = [], [], []
             adds = [box._additive() for box in boxes]
             additive = None if None in adds else all(adds)
             for box in boxes:
+                tag = box._emit_flush(
+                    id(self), detail={"rows": box.pending, "multi": True}
+                ) if _lint.active() else None
+                group_tag = group_tag or tag
                 union.extend((s, d) for s, d in box.pattern)
-                hdrs, pays, tx = box._stack()
+                with _lint.scope(tag):
+                    hdrs, pays, tx = box._stack()
                 hdr_rows.append(hdrs)
                 pay_rows.append(pays)
                 state = replace(state, tx_words=state.tx_words + tx)
             union = sorted(set(union))
-            hdr_r, pay_r = ops._exchange(self.ctx, union,
-                                         torch.cat(hdr_rows, dim=1),
-                                         torch.cat(pay_rows, dim=1))
-            state = gc.ingress_stack(self.ctx, state, hdr_r, pay_r,
-                                     self.msg_words, additive=additive)
-            if self.ctx.transport.acked:
-                # the ack lands on the mailbox token regardless of
-                # per-row tokens; any non-async non-NOP row counts
-                state = ops._counted_group_reply(
-                    self.ctx, state, union, hdr_r, token=self.token,
-                    classes=None)
+            with _lint.scope(group_tag):
+                hdr_r, pay_r = ops._exchange(self.ctx, union,
+                                             torch.cat(hdr_rows, dim=1),
+                                             torch.cat(pay_rows, dim=1))
+                state = gc.ingress_stack(self.ctx, state, hdr_r, pay_r,
+                                         self.msg_words, additive=additive)
+                if self.ctx.transport.acked:
+                    # the ack lands on the mailbox token regardless of
+                    # per-row tokens; any non-async non-NOP row counts
+                    state = ops._counted_group_reply(
+                        self.ctx, state, union, hdr_r, token=self.token,
+                        classes=None)
         self.flushes += 1
         return state
 

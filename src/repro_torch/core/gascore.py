@@ -228,8 +228,8 @@ def _ingress_strided_rows(ctx: ShoalContext, state: PgasState, h: am.Header,
 
 
 def ingress_strided(ctx: ShoalContext, state: PgasState, hdr: am.Header,
-                    payload: torch.Tensor, blk_words: int,
-                    nblocks: int) -> PgasState:
+                    payload: torch.Tensor, blk_words: int, nblocks: int,
+                    ordered: bool = False) -> PgasState:
     """Strided Long-put ingress: scatter blocks of ``blk_words`` to
     ``dst_addr + i*stride`` through the handler (THeGASNet's strided
     AMs).  ``nblocks``/``blk_words`` are the packet capacity; the actual
@@ -239,7 +239,9 @@ def ingress_strided(ctx: ShoalContext, state: PgasState, hdr: am.Header,
     (``stride < blk_words``) get last-writer-wins and read-modify-write
     handlers see every earlier block: one path serves what the
     reference splits into this function and its block-sequential
-    :func:`ingress_strided_seq`.
+    :func:`ingress_strided_seq`.  ``ordered`` (the reference's switch
+    between the two) is accepted for its signature and changes nothing:
+    every landing is the ordered one.
     """
     return _ingress_strided_rows(ctx, state, _rows(hdr), payload[:, None],
                                  blk_words, nblocks)
@@ -255,9 +257,11 @@ def ingress_strided_seq(ctx: ShoalContext, state: PgasState, hdr: am.Header,
 
 def ingress_strided_batch(ctx: ShoalContext, state: PgasState,
                           hdr_rows: torch.Tensor, pay_rows: torch.Tensor,
-                          blk_words: int, nblocks: int) -> PgasState:
+                          blk_words: int, nblocks: int,
+                          ordered: bool = False) -> PgasState:
     """:func:`ingress_strided` over a ``(K, nseg, ...)`` segment stack,
-    rows in order (``nblocks`` = per-row block capacity)."""
+    rows in order (``nblocks`` = per-row block capacity; ``ordered``
+    changes nothing, as there)."""
     return _ingress_strided_rows(ctx, state, am.decode(hdr_rows), pay_rows,
                                  blk_words, nblocks)
 

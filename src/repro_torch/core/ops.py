@@ -29,15 +29,21 @@ refuses such a transport.
 Ops take a :class:`~repro_torch.core.state.PgasState` and return a new
 one.  Per-kernel arguments (addresses, tokens, wait counts) are ints or
 ``(K,)`` tensors; payloads are ``(K, ...)``.
+
+shoal-lint hooks: while a recorder of :mod:`repro_torch.analysis.trace`
+is active, every op emits one comm event with its host-known operands
+(a tensor operand is recorded as unknown, never read) and runs inside
+its event's scope, which attributes the op's exchanges to it.  With no
+recorder active the hooks build nothing.
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
+from repro_torch.analysis import trace as _lint
+from repro_torch.analysis.trace import Interval, static_int
 from repro_torch.core import am
 from repro_torch.core import faults as flt
 from repro_torch.core import gascore as gc
@@ -55,41 +61,9 @@ class VectoredAliasError(ValueError):
     other at one destination kernel (two blocks of one packet, or two
     items of one batched call), so the landed value would depend on the
     receiver's scatter order -- duplicate addresses are the degenerate
-    case."""
-
-
-def static_int(x) -> int | None:
-    """``int(x)`` for a Python or one-element value, else ``None``."""
-    if torch.is_tensor(x) and x.numel() != 1:
-        return None
-    try:
-        return int(x)
-    except (TypeError, ValueError):
-        return None
-
-
-@dataclasses.dataclass(frozen=True)
-class Interval:
-    """A destination-segment word range ``[start, start + words)``;
-    ``start=None`` is a per-kernel address that may alias anything."""
-
-    start: int | None
-    words: int
-
-    @property
-    def known(self) -> bool:
-        return self.start is not None
-
-    def overlaps(self, other: "Interval") -> bool:
-        if not (self.known and other.known):
-            return True
-        return (self.start < other.start + other.words
-                and other.start < self.start + self.words)
-
-    def __str__(self) -> str:
-        if not self.known:
-            return f"[?, ?+{self.words})"
-        return f"[{self.start}, {self.start + self.words})"
+    case.  Packets that overlap on purpose are wrapped in
+    ``repro_torch.analysis.waiver(reason)``, which ships them and
+    records the hazard as a waived R4 finding."""
 
 
 # --------------------------------------------------------------------------
@@ -122,6 +96,7 @@ def _permute(ctx: ShoalContext, pattern: Pattern,
     pattern, zeros on kernels that receive nothing."""
     table = ctx.pattern(pattern)
     ctx.exchanges += 1
+    _lint.note_exchange()
     out = torch.zeros_like(x)
     out[table.dsts] = x[table.srcs]
     return out
@@ -445,15 +420,29 @@ def put_short(ctx: ShoalContext, state: PgasState, pattern: Pattern, *,
     (:func:`_deliver_reply`).
     """
     _require_lossless("put_short", ctx)
-    t = am.make_type(am.SHORT, asynchronous=asynchronous)
-    hdr = am.encode(type=t, src=ctx.my_id(), dst=_dst_of(ctx, pattern),
-                    handler=handler, token=token, dst_addr=arg)
-    hdr = _mask_nonparticipants(ctx, pattern, hdr)
-    hdr_r, _ = _exchange(ctx, pattern, hdr, None)
-    h = am.decode(hdr_r)
-    state = gc.ingress_short(ctx, state, h)
-    return _deliver_reply(ctx, state, pattern, h, asynchronous=asynchronous,
-                          token=token, reply_via=reply_via)
+    tag = None
+    if _lint.active():
+        h_s, a_s, t_s = (_lint.known_int(handler), _lint.known_int(arg),
+                         _lint.known_int(token))
+        grants = ((t_s, a_s),) if (h_s == hd.H_ADD and a_s is not None
+                                   and t_s is not None) else ()
+        tag = _lint.emit(
+            "put_short", pattern, token=t_s,
+            acked=ctx.transport.acked and not asynchronous,
+            asynchronous=asynchronous, deferred_reply=reply_via is not None,
+            credit_grants=grants, handler=h_s,
+            segment_words=ctx.segment_words)
+    with _lint.scope(tag):
+        t = am.make_type(am.SHORT, asynchronous=asynchronous)
+        hdr = am.encode(type=t, src=ctx.my_id(), dst=_dst_of(ctx, pattern),
+                        handler=handler, token=token, dst_addr=arg)
+        hdr = _mask_nonparticipants(ctx, pattern, hdr)
+        hdr_r, _ = _exchange(ctx, pattern, hdr, None)
+        h = am.decode(hdr_r)
+        state = gc.ingress_short(ctx, state, h)
+        return _deliver_reply(ctx, state, pattern, h,
+                              asynchronous=asynchronous, token=token,
+                              reply_via=reply_via)
 
 
 # --------------------------------------------------------------------------
@@ -478,23 +467,32 @@ def put_medium(ctx: ShoalContext, state: PgasState,
     nwords = _resolve_nwords(ctx, payload, from_segment_addr, nwords,
                              "put_medium")
     fifo = from_segment_addr is None
-    nseg, W, offs, ws = _plan(ctx, nwords, ctx.transport.max_packet_words)
-    hdrs = am.encode_batch(
-        nseg,
-        type=_seg_types(ctx, am.MEDIUM, nseg, asynchronous=asynchronous,
-                        fifo=fifo),
-        src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)), nwords=ws,
-        handler=_col(handler), token=_col(token),
-        src_addr=0 if fifo else _col(from_segment_addr) + offs, seq=offs)
-    hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
-    buf = gc.egress_batch(ctx, state, hdrs, payload if fifo else None, W)
-    state = _count_tx(ctx, state, pattern, nwords)
-    hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
-    state, delivered = gc.ingress_medium_batch(state, hdr_r, pay_r, W)
-    state = _deliver_reply(ctx, state, pattern, am.decode(hdr_r[:, -1]),
-                           asynchronous=asynchronous, token=token,
-                           reply_via=reply_via)
-    return state, delivered[:, :nwords]
+    tag = _lint.emit(
+        "put_medium", pattern, token=_lint.known_int(token),
+        acked=ctx.transport.acked and not asynchronous,
+        asynchronous=asynchronous, deferred_reply=reply_via is not None,
+        handler=_lint.known_int(handler), segment_words=ctx.segment_words,
+        detail={"nwords": nwords}) if _lint.active() else None
+    with _lint.scope(tag):
+        nseg, W, offs, ws = _plan(ctx, nwords,
+                                  ctx.transport.max_packet_words)
+        hdrs = am.encode_batch(
+            nseg,
+            type=_seg_types(ctx, am.MEDIUM, nseg, asynchronous=asynchronous,
+                            fifo=fifo),
+            src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)),
+            nwords=ws, handler=_col(handler), token=_col(token),
+            src_addr=0 if fifo else _col(from_segment_addr) + offs,
+            seq=offs)
+        hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
+        buf = gc.egress_batch(ctx, state, hdrs, payload if fifo else None, W)
+        state = _count_tx(ctx, state, pattern, nwords)
+        hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
+        state, delivered = gc.ingress_medium_batch(state, hdr_r, pay_r, W)
+        state = _deliver_reply(ctx, state, pattern, am.decode(hdr_r[:, -1]),
+                               asynchronous=asynchronous, token=token,
+                               reply_via=reply_via)
+        return state, delivered[:, :nwords]
 
 
 # --------------------------------------------------------------------------
@@ -547,43 +545,59 @@ def put_long(ctx: ShoalContext, state: PgasState,
             "put_long: deferred/piggybacked acks assume a lossless reply "
             "path and cannot ride a lossy transport (a dropped piggyback "
             "lane would strand the ledger); use plain acked puts")
-    nseg, W, offs, ws = _plan(ctx, nwords, ctx.transport.max_packet_words)
-    if lossy and nseg > 31:
-        raise NotImplementedError(
-            f"put_long: {nseg} segments > 31 — the dedup ledger's arrival "
-            "bitmask is one int32 per token; raise the MTU or split the "
-            "message")
-    hdrs = am.encode_batch(
-        nseg,
-        type=_seg_types(ctx, am.LONG, nseg, asynchronous=asynchronous,
-                        defer_ack=defer_ack, fifo=fifo),
-        src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)), nwords=ws,
-        dst_addr=_col(dst_addr) + offs,
-        src_addr=0 if fifo else _col(from_segment_addr) + offs,
-        handler=_col(handler), token=_col(token), seq=offs)
-    if piggyback_token is not None:
-        state, hdrs = _attach_piggyback(ctx, state, pattern, hdrs,
-                                        piggyback_token)
-    hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
-    buf = gc.egress_batch(ctx, state, hdrs, payload if fifo else None, W)
-    if lossy:
-        if not am.wire_dtype_ok(buf.dtype):
+    acked = ctx.transport.acked and not asynchronous
+    tag = _lint.emit(
+        "put_long", pattern,
+        writes=(Interval(_lint.known_int(dst_addr), nwords),),
+        token=_lint.known_int(token), acked=acked,
+        asynchronous=asynchronous, deferred_reply=reply_via is not None,
+        defer_ack=defer_ack,
+        piggyback_token=(None if piggyback_token is None
+                         else static_int(piggyback_token)),
+        handler=_lint.known_int(handler), segment_words=ctx.segment_words,
+        lossy=lossy,
+        retries=(ctx.transport.max_retries if lossy and acked else 0),
+        dedup=dedup if lossy else True) if _lint.active() else None
+    with _lint.scope(tag):
+        nseg, W, offs, ws = _plan(ctx, nwords,
+                                  ctx.transport.max_packet_words)
+        if lossy and nseg > 31:
             raise NotImplementedError(
-                "put_long: the lossy-transport seal covers the fused int32 "
-                "packet; sub-32-bit payloads use the split fallback and "
-                "have no integrity protection yet")
-        return _put_long_reliable(
-            ctx, state, pattern, hdrs, buf, W, nwords, token,
-            acked=ctx.transport.acked and not asynchronous, dedup=dedup)
-    state = _count_tx(ctx, state, pattern, nwords)
-    hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
-    state = gc.ingress_long_batch(ctx, state, hdr_r, pay_r, W)
-    # the final row is the only non-async one: it carries the ack lanes
-    last = am.decode(hdr_r[:, -1])
-    state = gc.ingress_ack_lanes(state, last)
-    return _deliver_reply(ctx, state, pattern, last,
-                          asynchronous=asynchronous or defer_ack,
-                          token=token, reply_via=reply_via)
+                f"put_long: {nseg} segments > 31 — the dedup ledger's "
+                "arrival bitmask is one int32 per token; raise the MTU or "
+                "split the message")
+        hdrs = am.encode_batch(
+            nseg,
+            type=_seg_types(ctx, am.LONG, nseg, asynchronous=asynchronous,
+                            defer_ack=defer_ack, fifo=fifo),
+            src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)),
+            nwords=ws, dst_addr=_col(dst_addr) + offs,
+            src_addr=0 if fifo else _col(from_segment_addr) + offs,
+            handler=_col(handler), token=_col(token), seq=offs)
+        if piggyback_token is not None:
+            state, hdrs = _attach_piggyback(ctx, state, pattern, hdrs,
+                                            piggyback_token)
+        hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
+        buf = gc.egress_batch(ctx, state, hdrs, payload if fifo else None, W)
+        if lossy:
+            if not am.wire_dtype_ok(buf.dtype):
+                raise NotImplementedError(
+                    "put_long: the lossy-transport seal covers the fused "
+                    "int32 packet; sub-32-bit payloads use the split "
+                    "fallback and have no integrity protection yet")
+            return _put_long_reliable(ctx, state, pattern, hdrs, buf, W,
+                                      nwords, token, acked=acked,
+                                      dedup=dedup)
+        state = _count_tx(ctx, state, pattern, nwords)
+        hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
+        state = gc.ingress_long_batch(ctx, state, hdr_r, pay_r, W)
+        # the final row is the only non-async one: it carries the ack
+        # lanes (defer ledger bump and/or piggybacked ack grant)
+        last = am.decode(hdr_r[:, -1])
+        state = gc.ingress_ack_lanes(state, last)
+        return _deliver_reply(ctx, state, pattern, last,
+                              asynchronous=asynchronous or defer_ack,
+                              token=token, reply_via=reply_via)
 
 
 def group_disjoint_patterns(patterns: list[Pattern]) -> list[list[int]]:
@@ -675,8 +689,11 @@ def put_long_multi(ctx: ShoalContext, state: PgasState, items, *,
     sender's ledgered acks for that token.
 
     Destination intervals that overlap across items sharing a
-    destination kernel raise :class:`VectoredAliasError`: the landed
-    value would depend on stack order.
+    destination kernel raise :class:`VectoredAliasError` -- the landed
+    value would depend on stack order -- unless the call is wrapped in
+    ``repro_torch.analysis.waiver(reason)``.  Items that share a
+    destination kernel never share a group, so a waived call lands them
+    in item order.
     """
     if not items:
         raise ValueError("put_long_multi: empty item list")
@@ -709,54 +726,83 @@ def put_long_multi(ctx: ShoalContext, state: PgasState, items, *,
         pat = [(int(s), int(d)) for s, d in pattern]
         nw = _resolve_nwords(ctx, payload, None, None, "put_long_multi")
         parsed.append((payload, pat, dst_addr, nw))
-    ivs = [Interval(static_int(a), nw) for _, _, a, nw in parsed]
+    ivs = [Interval(_lint.known_int(a), nw) for _, _, a, nw in parsed]
+    alias = None
     for i in range(k):
         for j in range(i + 1, k):
             common = ({d for _, d in parsed[i][1]}
                       & {d for _, d in parsed[j][1]})
-            if common and ivs[i].overlaps(ivs[j]):
-                raise VectoredAliasError(
-                    f"put_long_multi: items {i} ({ivs[i]}) and {j} "
-                    f"({ivs[j]}) overlap at destination kernel(s) "
-                    f"{sorted(common)} within one batched call, so the "
-                    "landed value depends on stack order (silent "
-                    "last-writer-wins). Give the items disjoint intervals.")
+            if common and ivs[i].known and ivs[j].known \
+                    and ivs[i].overlaps(ivs[j]):
+                alias = (i, j, sorted(common))
+                break
+        if alias:
+            break
+    if alias is not None and _lint.current_waiver() is None:
+        i, j, common = alias
+        raise VectoredAliasError(
+            f"put_long_multi: items {i} ({ivs[i]}) and {j} ({ivs[j]}) "
+            f"overlap at destination kernel(s) {common} within one "
+            "batched call, so the landed value depends on stack order "
+            "(silent last-writer-wins). Give the items disjoint "
+            "intervals, or wrap the call in "
+            "repro_torch.analysis.waiver(reason) if the overlap is "
+            "deliberate.")
     groups = group_disjoint_patterns([p for _, p, _, _ in parsed])
     acked = ctx.transport.acked and not asynchronous
     mtu = ctx.transport.max_packet_words
     me = _col(ctx.my_id())
-    for grp in groups:
+    for gi, grp in enumerate(groups):
         # one packet width for the whole group so stacks concatenate
         W = min(mtu, max(parsed[i][3] for i in grp))
+        group_tag = None
         hdr_rows, pay_rows, union = [], [], []
         for i in grp:
             payload, pat, dst_addr, nw = parsed[i]
+            tag = _lint.emit(
+                "put_long_multi", pat, writes=(ivs[i],),
+                token=_lint.known_int(toks[i]), acked=acked,
+                asynchronous=asynchronous,
+                deferred_reply=reply_via is not None, defer_ack=defer_ack,
+                piggyback_token=None if pbs[i] is None else static_int(pbs[i]),
+                handler=_lint.known_int(handler),
+                segment_words=ctx.segment_words,
+                self_overlap=alias is not None and i in alias[:2],
+                detail={"group": gi, "item": i, "n_items": k}
+            ) if _lint.active() else None
+            group_tag = group_tag or tag
             union.extend(pat)
-            nseg, _, offs, ws = _plan(ctx, nw, W)
-            hdrs = am.encode_batch(
-                nseg,
-                type=_seg_types(ctx, am.LONG, nseg, asynchronous=asynchronous,
-                                defer_ack=defer_ack, fifo=True),
-                src=me, dst=_col(_dst_of(ctx, pat)), nwords=ws,
-                dst_addr=_col(dst_addr) + offs, handler=_col(handler),
-                token=_col(toks[i]), seq=offs)
-            if pbs[i] is not None:
-                state, hdrs = _attach_piggyback(ctx, state, pat, hdrs, pbs[i])
-            hdrs = _mask_nonparticipants(ctx, pat, hdrs)
-            pay_rows.append(gc.egress_batch(ctx, state, hdrs, payload, W))
-            hdr_rows.append(hdrs)
-            state = _count_tx(ctx, state, pat, nw)
+            with _lint.scope(tag):
+                nseg, _, offs, ws = _plan(ctx, nw, W)
+                hdrs = am.encode_batch(
+                    nseg,
+                    type=_seg_types(ctx, am.LONG, nseg,
+                                    asynchronous=asynchronous,
+                                    defer_ack=defer_ack, fifo=True),
+                    src=me, dst=_col(_dst_of(ctx, pat)), nwords=ws,
+                    dst_addr=_col(dst_addr) + offs, handler=_col(handler),
+                    token=_col(toks[i]), seq=offs)
+                if pbs[i] is not None:
+                    state, hdrs = _attach_piggyback(ctx, state, pat, hdrs,
+                                                    pbs[i])
+                hdrs = _mask_nonparticipants(ctx, pat, hdrs)
+                pay_rows.append(gc.egress_batch(ctx, state, hdrs, payload,
+                                                W))
+                hdr_rows.append(hdrs)
+                state = _count_tx(ctx, state, pat, nw)
         union = sorted(set(union))
-        hdr_r, pay_r = _exchange(ctx, union, torch.cat(hdr_rows, dim=1),
-                                 torch.cat(pay_rows, dim=1))
-        # Long rows only: every credit update adds
-        state = gc.ingress_stack(ctx, state, hdr_r, pay_r, W, additive=True)
-        if acked and not defer_ack:
-            if reply_via is not None:
-                for i in grp:
-                    reply_via.note(parsed[i][1], toks[i])
-            else:
-                state = _counted_group_reply(ctx, state, union, hdr_r)
+        with _lint.scope(group_tag):
+            hdr_r, pay_r = _exchange(ctx, union, torch.cat(hdr_rows, dim=1),
+                                     torch.cat(pay_rows, dim=1))
+            # Long rows only: every credit update adds
+            state = gc.ingress_stack(ctx, state, hdr_r, pay_r, W,
+                                     additive=True)
+            if acked and not defer_ack:
+                if reply_via is not None:
+                    for i in grp:
+                        reply_via.note(parsed[i][1], toks[i])
+                else:
+                    state = _counted_group_reply(ctx, state, union, hdr_r)
     return state
 
 
@@ -779,16 +825,33 @@ def drain_deferred_acks(ctx: ShoalContext, state: PgasState,
     if not 0 <= t_s < hd.NUM_TOKENS:
         raise ValueError(
             f"drain_deferred_acks: token {t_s} outside [0, {hd.NUM_TOKENS})")
-    hdr = am.encode(type=am.make_type(am.SHORT, asynchronous=True),
-                    src=ctx.my_id(), dst=_dst_of(ctx, pattern),
-                    handler=hd.H_ADD, token=t_s,
-                    dst_addr=state.deferred_acks[:, t_s])
-    hdr = _mask_nonparticipants(ctx, pattern, hdr)
-    ledger = state.deferred_acks.clone()
-    ledger[:, t_s] = torch.where(_is_sender(ctx, pattern), 0, ledger[:, t_s])
-    state = replace(state, deferred_acks=ledger)
-    hdr_r, _ = _exchange(ctx, pattern, hdr, None)
-    return gc.ingress_short(ctx, state, am.decode(hdr_r))
+    tag = _lint.emit("drain_deferred_acks", pattern, token=t_s,
+                     acked=False, asynchronous=True, drains_deferred=True,
+                     handler=hd.H_ADD, segment_words=ctx.segment_words
+                     ) if _lint.active() else None
+    with _lint.scope(tag):
+        hdr = am.encode(type=am.make_type(am.SHORT, asynchronous=True),
+                        src=ctx.my_id(), dst=_dst_of(ctx, pattern),
+                        handler=hd.H_ADD, token=t_s,
+                        dst_addr=state.deferred_acks[:, t_s])
+        hdr = _mask_nonparticipants(ctx, pattern, hdr)
+        ledger = state.deferred_acks.clone()
+        ledger[:, t_s] = torch.where(_is_sender(ctx, pattern), 0,
+                                     ledger[:, t_s])
+        state = replace(state, deferred_acks=ledger)
+        hdr_r, _ = _exchange(ctx, pattern, hdr, None)
+        return gc.ingress_short(ctx, state, am.decode(hdr_r))
+
+
+def _strides_may_overlap(stride, blk_words: int, nblocks: int) -> bool:
+    """Overlap detection for strided puts: True when consecutive blocks
+    can alias (``|stride| < blk_words``).  A per-kernel (tensor) stride
+    is conservatively treated as overlapping -- the caller can override
+    with the ``overlap`` keyword when it knows better."""
+    if nblocks <= 1:
+        return False
+    s = _lint.known_int(stride)
+    return True if s is None else abs(s) < blk_words
 
 
 def put_long_strided(ctx: ShoalContext, state: PgasState,
@@ -796,6 +859,7 @@ def put_long_strided(ctx: ShoalContext, state: PgasState,
                      stride, *, blk_words: int, nblocks: int,
                      handler=hd.H_WRITE, token=0,
                      asynchronous: bool = False,
+                     overlap: bool | None = None,
                      reply_via=None) -> PgasState:
     """Strided Long put: ``nblocks`` blocks of ``blk_words`` land at
     ``dst_addr + i*stride`` (THeGASNet's strided access, carried forward
@@ -805,34 +869,62 @@ def put_long_strided(ctx: ShoalContext, state: PgasState,
 
     The DataMover scatter lands blocks in order, so aliasing strides
     (``|stride| < blk_words``) get last-writer-wins and correct
-    read-modify-write handlers without the reference's ``overlap``
-    switch.
+    read-modify-write handlers whatever ``overlap`` says.  ``overlap``
+    (default: the detection of :func:`_strides_may_overlap`) selects
+    the reference's ingress -- ``True`` its block-sequential one,
+    ``False`` its unordered vectorized one -- and changes only the
+    recorded comm event (``ordered_ingress``, ``self_overlap``: lint rule
+    R1 flags aliasing blocks on the unordered ingress), never the landed
+    bits.
     """
     _require_lossless("put_long_strided", ctx)
+    ordered = (_strides_may_overlap(stride, blk_words, nblocks)
+               if overlap is None else bool(overlap))
     nwords = blk_words * nblocks
-    per = max(1, ctx.transport.max_packet_words // blk_words)
-    nseg = -(-nblocks // per)
-    W = min(per, nblocks) * blk_words
-    segi = torch.arange(nseg, dtype=torch.int32, device=ctx.device)
-    nb = (nblocks - per * segi).clamp(max=per)
-    hdrs = am.encode_batch(
-        nseg,
-        type=_seg_types(ctx, am.LONG, nseg, asynchronous=asynchronous,
-                        fifo=True, strided=True),
-        src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)),
-        nwords=nb * blk_words,
-        dst_addr=_col(dst_addr) + segi * per * _col(stride),
-        handler=_col(handler), token=_col(token), stride=_col(stride),
-        blk_words=blk_words, nblocks=nb, seq=segi * (per * blk_words))
-    hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
-    buf = gc.egress_batch(ctx, state, hdrs, payload, W)
-    state = _count_tx(ctx, state, pattern, nwords)
-    hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
-    state = gc.ingress_strided_batch(ctx, state, hdr_r, pay_r, blk_words,
-                                     min(per, nblocks))
-    return _deliver_reply(ctx, state, pattern, am.decode(hdr_r[:, -1]),
-                          asynchronous=asynchronous, token=token,
-                          reply_via=reply_via)
+    tag = None
+    if _lint.active():
+        base_s, stride_s = _lint.known_int(dst_addr), _lint.known_int(stride)
+        if base_s is not None and stride_s is not None:
+            w_ivs = tuple(Interval(base_s + i * stride_s, blk_words)
+                          for i in range(nblocks))
+        else:
+            w_ivs = (Interval(None, nwords),)
+        may_alias = _strides_may_overlap(stride, blk_words, nblocks)
+        tag = _lint.emit(
+            "put_long_strided", pattern, writes=w_ivs,
+            token=_lint.known_int(token),
+            acked=ctx.transport.acked and not asynchronous,
+            asynchronous=asynchronous, deferred_reply=reply_via is not None,
+            handler=_lint.known_int(handler),
+            segment_words=ctx.segment_words, ordered_ingress=ordered,
+            self_overlap=may_alias and not ordered,
+            detail={"stride": stride_s, "blk_words": blk_words,
+                    "nblocks": nblocks})
+    with _lint.scope(tag):
+        # blocks per packet; >MTU plans segment at block granularity
+        per = max(1, ctx.transport.max_packet_words // blk_words)
+        nseg = -(-nblocks // per)
+        W = min(per, nblocks) * blk_words
+        segi = torch.arange(nseg, dtype=torch.int32, device=ctx.device)
+        nb = (nblocks - per * segi).clamp(max=per)
+        hdrs = am.encode_batch(
+            nseg,
+            type=_seg_types(ctx, am.LONG, nseg, asynchronous=asynchronous,
+                            fifo=True, strided=True),
+            src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)),
+            nwords=nb * blk_words,
+            dst_addr=_col(dst_addr) + segi * per * _col(stride),
+            handler=_col(handler), token=_col(token), stride=_col(stride),
+            blk_words=blk_words, nblocks=nb, seq=segi * (per * blk_words))
+        hdrs = _mask_nonparticipants(ctx, pattern, hdrs)
+        buf = gc.egress_batch(ctx, state, hdrs, payload, W)
+        state = _count_tx(ctx, state, pattern, nwords)
+        hdr_r, pay_r = _exchange(ctx, pattern, hdrs, buf)
+        state = gc.ingress_strided_batch(ctx, state, hdr_r, pay_r, blk_words,
+                                         min(per, nblocks), ordered)
+        return _deliver_reply(ctx, state, pattern, am.decode(hdr_r[:, -1]),
+                              asynchronous=asynchronous, token=token,
+                              reply_via=reply_via)
 
 
 def put_long_vectored(ctx: ShoalContext, state: PgasState,
@@ -848,7 +940,10 @@ def put_long_vectored(ctx: ShoalContext, state: PgasState,
     receiver lands the blocks as the ``B`` rows of one DataMover scatter
     (per-row ``nwords`` and ``dst_addr``), in block order.  Vectored
     puts do not segment.  Blocks whose known destination intervals
-    overlap raise :class:`VectoredAliasError`."""
+    overlap raise :class:`VectoredAliasError`, unless the call is
+    wrapped in ``repro_torch.analysis.waiver(reason)``: then the packet
+    ships, lands in block order (the later block wins where they meet),
+    and the hazard is recorded as a waived lint finding (R4)."""
     _require_lossless("put_long_vectored", ctx)
     K = ctx.num_kernels
     if torch.is_tensor(dst_addrs):
@@ -856,10 +951,10 @@ def put_long_vectored(ctx: ShoalContext, state: PgasState,
         if addrs.dim() == 1:
             addrs = addrs.expand(K, -1)
         n_addrs = addrs.shape[-1]
-        statics = [None] * n_addrs
+        host_addrs = [None] * n_addrs
     else:
         n_addrs = len(dst_addrs)
-        statics = [static_int(a) for a in dst_addrs]
+        host_addrs = dst_addrs
     if n_addrs != len(blocks):
         raise ValueError(
             f"put_long_vectored: {len(blocks)} blocks but {n_addrs} "
@@ -873,34 +968,52 @@ def put_long_vectored(ctx: ShoalContext, state: PgasState,
             f"in-packet addresses exceed the transport MTU "
             f"({ctx.transport.max_packet_words} words); vectored puts do "
             "not segment — split the block list across messages")
-    ivs = [Interval(a, w) for a, w in zip(statics, sizes)]
-    for i in range(len(ivs)):
-        for j in range(i + 1, len(ivs)):
-            if ivs[i].known and ivs[j].known and ivs[i].overlaps(ivs[j]):
-                raise VectoredAliasError(
-                    f"put_long_vectored: destination blocks {i} ({ivs[i]}) "
-                    f"and {j} ({ivs[j]}) overlap inside one packet, so the "
-                    "landed value depends on the receiver's scatter order "
-                    "(duplicate addresses are the degenerate case). Give "
-                    "each block a disjoint interval.")
-    if not torch.is_tensor(dst_addrs):
-        addrs = torch.stack([torch.as_tensor(a, dtype=torch.int32,
-                                             device=ctx.device).expand(K)
-                             for a in dst_addrs], dim=1)
-    payload = torch.cat([b.reshape(K, -1) for b in blocks], dim=1)
-    t = am.make_type(am.LONG, asynchronous=asynchronous, fifo=True,
-                     vectored=True)
-    hdr = am.encode(type=t, src=ctx.my_id(), dst=_dst_of(ctx, pattern),
-                    nwords=nwords, handler=handler, token=token,
-                    nblocks=len(blocks))
-    hdr = _mask_nonparticipants(ctx, pattern, hdr)
-    buf = gc.egress(ctx, state, am.decode(hdr), payload, nwords)
-    state = _count_tx(ctx, state, pattern, nwords)
-    hdr_r, addrs_r, pay_r = _exchange(ctx, pattern, hdr, buf, extra=addrs)
-    h = am.decode(hdr_r)
-    state = gc.ingress_vectored(ctx, state, h, addrs_r, pay_r, sizes)
-    return _deliver_reply(ctx, state, pattern, h, asynchronous=asynchronous,
-                          token=token, reply_via=reply_via)
+    ivs = _lint.intervals_for_blocks(host_addrs, sizes)
+    alias = next(((i, j) for i in range(len(ivs))
+                  for j in range(i + 1, len(ivs))
+                  if ivs[i].known and ivs[j].known
+                  and ivs[i].overlaps(ivs[j])), None)
+    if alias is not None and _lint.current_waiver() is None:
+        i, j = alias
+        raise VectoredAliasError(
+            f"put_long_vectored: destination blocks {i} ({ivs[i]}) and "
+            f"{j} ({ivs[j]}) overlap inside one packet, so the landed "
+            "value depends on the receiver's scatter order (duplicate "
+            "addresses are the degenerate case). Give each block a "
+            "disjoint interval, or wrap the call in "
+            "repro_torch.analysis.waiver(reason) if the overlap is "
+            "deliberate.")
+    tag = _lint.emit(
+        "put_long_vectored", pattern, writes=ivs,
+        token=_lint.known_int(token),
+        acked=ctx.transport.acked and not asynchronous,
+        asynchronous=asynchronous, deferred_reply=reply_via is not None,
+        handler=_lint.known_int(handler), segment_words=ctx.segment_words,
+        self_overlap=alias is not None,
+        detail={} if alias is None else
+        {"alias": f"blocks {alias[0]} and {alias[1]} overlap"}
+    ) if _lint.active() else None
+    with _lint.scope(tag):
+        if not torch.is_tensor(dst_addrs):
+            addrs = torch.stack([torch.as_tensor(a, dtype=torch.int32,
+                                                 device=ctx.device).expand(K)
+                                 for a in dst_addrs], dim=1)
+        payload = torch.cat([b.reshape(K, -1) for b in blocks], dim=1)
+        t = am.make_type(am.LONG, asynchronous=asynchronous, fifo=True,
+                         vectored=True)
+        hdr = am.encode(type=t, src=ctx.my_id(), dst=_dst_of(ctx, pattern),
+                        nwords=nwords, handler=handler, token=token,
+                        nblocks=len(blocks))
+        hdr = _mask_nonparticipants(ctx, pattern, hdr)
+        buf = gc.egress(ctx, state, am.decode(hdr), payload, nwords)
+        state = _count_tx(ctx, state, pattern, nwords)
+        hdr_r, addrs_r, pay_r = _exchange(ctx, pattern, hdr, buf,
+                                          extra=addrs)
+        h = am.decode(hdr_r)
+        state = gc.ingress_vectored(ctx, state, h, addrs_r, pay_r, sizes)
+        return _deliver_reply(ctx, state, pattern, h,
+                              asynchronous=asynchronous, token=token,
+                              reply_via=reply_via)
 
 
 # --------------------------------------------------------------------------
@@ -927,15 +1040,23 @@ def get_medium(ctx: ShoalContext, state: PgasState, pattern: Pattern,
     batch all request headers into one exchange and the whole response
     into a second: 2 link traversals regardless of segment count."""
     _require_lossless("get_medium", ctx)
-    nseg, W, offs, ws = _plan(ctx, nwords, ctx.transport.max_packet_words)
-    hdrs = am.encode_batch(
-        nseg, type=am.make_type(am.MEDIUM, get=True),
-        src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)), nwords=ws,
-        src_addr=_col(src_addr) + offs, token=_col(token), seq=offs)
-    state, back_hdr, back_data = _get_round_trip(ctx, state, pattern, hdrs,
-                                                 W)
-    state, data = gc.ingress_medium_batch(state, back_hdr, back_data, W)
-    return state, data[:, :nwords]
+    tag = _lint.emit(
+        "get_medium", pattern,
+        reads=(Interval(_lint.known_int(src_addr), int(nwords)),),
+        token=_lint.known_int(token), acked=True,
+        segment_words=ctx.segment_words) if _lint.active() else None
+    with _lint.scope(tag):
+        nseg, W, offs, ws = _plan(ctx, nwords,
+                                  ctx.transport.max_packet_words)
+        hdrs = am.encode_batch(
+            nseg, type=am.make_type(am.MEDIUM, get=True),
+            src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)),
+            nwords=ws, src_addr=_col(src_addr) + offs, token=_col(token),
+            seq=offs)
+        state, back_hdr, back_data = _get_round_trip(ctx, state, pattern,
+                                                     hdrs, W)
+        state, data = gc.ingress_medium_batch(state, back_hdr, back_data, W)
+        return state, data[:, :nwords]
 
 
 def get_long(ctx: ShoalContext, state: PgasState, pattern: Pattern,
@@ -945,19 +1066,29 @@ def get_long(ctx: ShoalContext, state: PgasState, pattern: Pattern,
     ``dst_addr`` (one-sided read).  Same 2-traversal wire plan as
     :func:`get_medium`; one credit per message."""
     _require_lossless("get_long", ctx)
-    nseg, W, offs, ws = _plan(ctx, nwords, ctx.transport.max_packet_words)
-    hdrs = am.encode_batch(
-        nseg, type=am.make_type(am.LONG, get=True),
-        src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)), nwords=ws,
-        src_addr=_col(src_addr) + offs, dst_addr=_col(dst_addr) + offs,
-        token=_col(token), handler=_col(handler), seq=offs)
-    state, back_hdr, back_data = _get_round_trip(ctx, state, pattern, hdrs,
-                                                 W)
-    # land in the local segment through the handler (class LONG)
-    land = back_hdr.clone()
-    land[..., _I_TYPE] = torch.where(
-        (back_hdr[..., _I_TYPE] & am.FLAG_REPLY) != 0, am.LONG, am.NOP)
-    return gc.ingress_long_batch(ctx, state, land, back_data, W)
+    tag = _lint.emit(
+        "get_long", pattern,
+        reads=(Interval(_lint.known_int(src_addr), int(nwords)),),
+        token=_lint.known_int(token), acked=True,
+        handler=_lint.known_int(handler), segment_words=ctx.segment_words,
+        detail={"local_dst_addr": _lint.known_int(dst_addr)}
+    ) if _lint.active() else None
+    with _lint.scope(tag):
+        nseg, W, offs, ws = _plan(ctx, nwords,
+                                  ctx.transport.max_packet_words)
+        hdrs = am.encode_batch(
+            nseg, type=am.make_type(am.LONG, get=True),
+            src=_col(ctx.my_id()), dst=_col(_dst_of(ctx, pattern)),
+            nwords=ws, src_addr=_col(src_addr) + offs,
+            dst_addr=_col(dst_addr) + offs, token=_col(token),
+            handler=_col(handler), seq=offs)
+        state, back_hdr, back_data = _get_round_trip(ctx, state, pattern,
+                                                     hdrs, W)
+        # land in the local segment through the handler (class LONG)
+        land = back_hdr.clone()
+        land[..., _I_TYPE] = torch.where(
+            (back_hdr[..., _I_TYPE] & am.FLAG_REPLY) != 0, am.LONG, am.NOP)
+        return gc.ingress_long_batch(ctx, state, land, back_data, W)
 
 
 # --------------------------------------------------------------------------
@@ -970,6 +1101,8 @@ def barrier(ctx: ShoalContext, state: PgasState) -> PgasState:
     kernel axis, so all kernels have arrived when it runs; the barrier
     epoch counts completions.  It is no link traversal (the reference's
     barrier is a reduction, not a permute) and bumps no exchange."""
+    if _lint.active():
+        _lint.emit("barrier", [])
     return replace(state, barrier_epoch=state.barrier_epoch + 1)
 
 
@@ -985,6 +1118,9 @@ def wait_replies(ctx: ShoalContext, state: PgasState, token, n, *,
     ``timeout=True`` drains ``min(have, n)`` and latches nothing.
     ``token`` and ``n`` are ints or ``(K,)`` tensors.
     """
+    if _lint.active():
+        _lint.emit("wait_replies", [], token=_lint.known_int(token),
+                   wait_n=_lint.known_int(n), timeout=timeout)
     if torch.is_tensor(token):
         token = token.clamp(0, hd.NUM_TOKENS - 1)
         have = state.credits[torch.arange(ctx.num_kernels,

@@ -138,7 +138,9 @@ class WaitUnderflowError(ShoalError):
         super().__init__(
             f"ERR_WAIT_UNDERFLOW{at}: wait_replies consumed more credits "
             f"than were issued on {tok}{ker} — the threaded original "
-            "would hang here", kernels)
+            "would hang here; shoal-lint rule R3 names this schedule "
+            "from a recorded run (repro_torch.analysis.lint, "
+            "scripts/torch_comm_lint.py)", kernels)
 
 
 class CrcError(ShoalError):

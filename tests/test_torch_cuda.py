@@ -1196,3 +1196,40 @@ def test_delivery_live_mask_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(delivery_live_mask(torch.ones(8, device=cuda),
                                               on_card).cpu(),
                            delivery_live_mask(torch.ones(8), on_cpu))
+
+
+def _lint_names():
+    from repro_torch.analysis import registry
+
+    return ([("entry", n) for n in registry.names()]
+            + [("probe", p.name) for p in registry.PROBES
+               if p.raises is None])
+
+
+@pytest.mark.parametrize("kind,name", _lint_names())
+def test_lint_on_the_card_matches_the_cpu(cuda, kind, name):
+    """Every lint entry and probe on the card: the CPU run's findings,
+    events, exchanges and result, bitwise."""
+    from repro_torch.analysis import registry
+    from repro_torch.analysis.lint import events_json
+    from repro_torch.core.state import state_to_numpy
+
+    def run(device):
+        if kind == "entry":
+            return registry.lint_entry(name, device=device)
+        return registry.run_probe(name, device=device)
+
+    card, host = run(cuda), run("cpu")
+    assert [f.render() for f in card.report.findings] \
+        == [f.render() for f in host.report.findings]
+    assert events_json(card.events) == events_json(host.events)
+    assert (card.exchanges, card.tags) == (host.exchanges, host.tags)
+    got, want = card.result, host.result
+    if isinstance(got, tuple):
+        assert torch.equal(got[1].cpu(), want[1])
+        got, want = got[0], want[0]
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    for f in a:
+        assert np.array_equal(a[f].view(np.int32) if a[f].dtype == np.float32
+                              else a[f], b[f].view(np.int32)
+                              if b[f].dtype == np.float32 else b[f]), f

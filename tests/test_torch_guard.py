@@ -31,8 +31,9 @@ FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|"
 
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_comm_lint.py"]
     assert len(files) > 15
+    assert REPO / "src" / "repro_torch" / "analysis" / "rules.py" in files
     bad = [f"{f}: {m.group(0).strip()}" for f in files
            for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -203,6 +204,52 @@ def test_disagg_stack_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "disagg-ok" in proc.stdout
+
+
+def test_analysis_and_lint_cli_run_with_jax_blocked(tmp_path):
+    """The lint package, its registry and the lint CLI import and lint
+    every entry with JAX and the JAX package blocked."""
+    code = (
+        "import json, runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.analysis import budget, registry, rules, trace\n"
+        "out = sys.argv[2]\n"
+        "sys.argv = [sys.argv[1], '--device', 'cpu', '--json', out]\n"
+        "try:\n"
+        "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "doc = json.load(open(out))\n"
+        "assert len(doc['entries']) == 5\n"
+        "assert all(r['ok'] for r in doc['entries'].values())\n"
+        "print('lint-ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(REPO / "scripts" / "torch_comm_lint.py"),
+                           str(tmp_path / "lint.json")], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "lint-ok" in proc.stdout
+
+
+def test_lint_entry_points_default_to_the_card():
+    """``run_entry`` and the lint CLI run on the card unless asked for
+    the CPU; without a card they raise instead of falling back."""
+    from repro_torch.analysis import registry
+
+    if torch.cuda.is_available():
+        run = registry.lint_entry("jacobi")
+        assert run.result[0].segment.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.run_entry("jacobi")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "torch_comm_lint.py"),
+         "--entry", "jacobi"], capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert proc.returncode != 0 and "CUDA" in proc.stderr
+    assert registry.run_entry("jacobi", device="cpu").ok
 
 
 def test_training_stack_runs_with_jax_blocked(tmp_path):
