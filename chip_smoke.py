@@ -70,8 +70,21 @@ the Hopper scatter); the Jacobi footnote-2 run linted over 8
 iterations (2 * 8 + 2 exchanges) and phase 8's full-width migration
 linted (2 exchanges); the recorder's cost per Jacobi iteration, off and
 on in turns, and the aten operations per iteration, off equal to
-phase 4's.  Kernel times are device times from ``torch.profiler``.  One line per phase; any failure
-raises and the script exits non-zero.
+phase 4's.
+Phase 11 runs the dense and audio families at full width (bfloat16,
+random weights from a seed): qwen2-1.5b (qkv bias, tied embeddings,
+dh 128) and deepseek-7b (MHA, dh 128, ~13.8 GB) served through
+``ServeEngine`` as phase 6 serves tinyllama-1.1b, every prompt pass of
+every layer on the Hopper flash kernel (8 x 28 and 8 x 30 launches
+required) and one prefill's logits held to the plain version;
+musicgen-medium fed 4 x 1024 seeded frame embeddings through
+``Model.prefill`` and 32 decode steps of frames (48 launches); then the
+shoal trainer of qwen2-1.5b and musicgen-medium at full depth and of
+deepseek-7b at 4 of its 30 layers, each held to the xla backend on the
+first batch, every ring result bitwise the plain ring's, the exchanges
+the JAX package's compiled count, the losses finite and falling.
+Kernel times are device times from ``torch.profiler``.  One line per
+phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card and ``nvcc``;
 without a card it exits non-zero and prints no result.
@@ -1602,13 +1615,16 @@ def check_flash(torch, device):
     """Both flash kernels against the plain version on the card, on the
     same inputs: the Hopper kernel (``flash_sm90.cu``, which the wrapper
     picks for every bfloat16 input here) and the simple kernel
-    (``flash.cu``, forced), at tinyllama-1.1b's prefill (B 1, S 1024,
-    H 32, K 4, dh 64), qwen2-1.5b's (B 1, S 1024, H 12, K 2, dh 128), a
-    ragged S = 1000 and a served prompt's S = 903; the simple kernel
-    alone in float32 (tinyllama's shape and a reference shape at
-    dh 128).  At the two prefill shapes, device times of each kernel,
-    the plain version and ``scaled_dot_product_attention`` (the library
-    yardstick, used nowhere in the port).  Returns the records of the
+    (``flash.cu``, forced), at the prefill shapes of the served models
+    (B 1, S 1024): tinyllama-1.1b's (H 32, K 4, dh 64), qwen2-1.5b's
+    (H 12, K 2, dh 128), deepseek-7b's (H 32, K 32, dh 128: group size
+    1) and musicgen-medium's (H 24, K 24, dh 64), a ragged S = 1000 and
+    a served prompt's S = 903; the simple kernel alone in float32
+    (tinyllama's shape and a reference shape at dh 128).  At the
+    prefill shapes, device times of each kernel, the plain version and
+    ``scaled_dot_product_attention`` (the library yardstick, used
+    nowhere in the port), the routed kernel and the library in turns
+    (kernel, library, library, kernel).  Returns the records of the
     simple kernel (bfloat16, tinyllama) and of the Hopper kernel."""
     import torch.nn.functional as F
 
@@ -1618,6 +1634,9 @@ def check_flash(torch, device):
     cases = [("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.bfloat16),
              ("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.float32),
              ("qwen2-1.5b-prefill", (1, 1024, 12, 2, 128), torch.bfloat16),
+             ("deepseek-7b-prefill", (1, 1024, 32, 32, 128), torch.bfloat16),
+             ("musicgen-medium-prefill", (1, 1024, 24, 24, 64),
+              torch.bfloat16),
              ("ragged-1000", (1, 1000, 32, 4, 64), torch.bfloat16),
              ("served-903", (1, 903, 32, 4, 64), torch.bfloat16),
              ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
@@ -1642,21 +1661,33 @@ def check_flash(torch, device):
                     **{f"{r}_max_abs_err": e for r, e in errs.items()})
         if case.endswith("-prefill"):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+            def lib_ms():
+                return device_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+
+            def kernel_ms(r):
+                return device_ms(
+                    lambda: fa.flash_attention_cuda(q, k, v, kernel=r),
+                    kernel=("flash_attention_kernel_sm90" if r == "sm90"
+                            else "flash_attention_kernel"))
+
+            turns = {route: [], "library": []}
+            for r in (route, "library", "library", route):
+                turns[r].append(lib_ms() if r == "library"
+                                else kernel_ms(r))
             base = dict(
                 plain=device_ms(lambda: fa.flash_attention_ref(q, k, v),
                                 reps=5),
-                lib=device_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                lib=float(np.mean(turns["library"])),
                 # q, k, v read once, o written once; 2 S^2 dh operations
                 # per head for the causal QK^T and PV
                 nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
                 ops=2 * B * H * S * S * dh,
                 rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
             for r, err in errs.items():
-                ms = device_ms(
-                    lambda: fa.flash_attention_cuda(q, k, v, kernel=r),
-                    kernel=("flash_attention_kernel_sm90" if r == "sm90"
-                            else "flash_attention_kernel"))
+                ms = (float(np.mean(turns[r])) if r in turns
+                      else kernel_ms(r))
                 timed[case, name, r] = dict(base, err=err, ms=ms)
             bound_ms, bound_by = bound(base)
             line.update({f"{r}_ms": f"{m['ms']:.5f}"
@@ -1665,6 +1696,8 @@ def check_flash(torch, device):
                         plain_ms=f"{base['plain']:.5f}",
                         library_ms=f"{base['lib']:.5f}",
                         bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+            line["turns_ms"] = json.dumps(
+                {r: [round(t, 5) for t in v] for r, v in turns.items()})
         say("serving", kernel="flash_attention", **line)
         del q, k, v, want
     tiny = ("tinyllama-prefill", "bfloat16")
@@ -1673,47 +1706,57 @@ def check_flash(torch, device):
     sm90 = entry("flash_attention_sm90", FLASH_SM90_SRC, FLASH_TPU,
                  timed[(*tiny, "sm90")])
     sm90["simple_ms"] = timed[(*tiny, "simple")]["ms"]
-    qwen = timed["qwen2-1.5b-prefill", "bfloat16", "sm90"]
-    sm90["qwen2_dh128"] = {
-        "shape": "B1xS1024xH12xK2xdh128", "ms": qwen["ms"],
-        "simple_ms": timed["qwen2-1.5b-prefill", "bfloat16", "simple"]["ms"],
-        "plain_ms": qwen["plain"], "library_ms": qwen["lib"],
-        "bound_ms": bound(qwen)[0], "max_abs_err": qwen["err"]}
+    for key, case, shape in (
+            ("qwen2_dh128", "qwen2-1.5b-prefill", "B1xS1024xH12xK2xdh128"),
+            ("deepseek_7b_dh128", "deepseek-7b-prefill",
+             "B1xS1024xH32xK32xdh128"),
+            ("musicgen_medium_dh64", "musicgen-medium-prefill",
+             "B1xS1024xH24xK24xdh64")):
+        m = timed[case, "bfloat16", "sm90"]
+        sm90[key] = {
+            "shape": shape, "ms": m["ms"],
+            "simple_ms": timed[case, "bfloat16", "simple"]["ms"],
+            "plain_ms": m["plain"], "library_ms": m["lib"],
+            "bound_ms": bound(m)[0], "max_abs_err": m["err"]}
     records["flash_attention_sm90"] = sm90
     return records
 
 
-def check_prefill_logits(torch, model, params, prompt):
+def prompt_batch(torch, model, prompt):
+    """A one-request prefill batch of token ids on the model's device."""
+    return {"tokens": torch.as_tensor(prompt.astype(np.int64),
+                                      device=model.device)[None]}
+
+
+def check_prefill_logits(torch, model, params, batch, tag="serving"):
     """One full-width prefill's last-token logits through the flash
-    kernel (fresh lane) against the same prefill with the kernel's plain
+    kernel (fresh lanes) against the same prefill with the kernel's plain
     version in its place (checked), and against the same prefill through
     the plain route ``_attend`` (reported: in bfloat16 that route rounds
     its scores where the kernel keeps them in float32).  The plain route
     is taken by a cache that is not fresh: one slot holds a position past
     the prompt, which the causal mask excludes, so the function is the
-    same."""
+    same.  ``batch``: token ids or frame embeddings, ``(B, S, ...)``."""
     from repro_torch.kernels import attention as fa, launch_counts
     from repro_torch.models import attention as attn
 
-    tokens = torch.as_tensor(prompt.astype(np.int64),
-                             device=model.device)[None]
-
+    B, S = next(iter(batch.values())).shape[:2]
     names = ("flash_attention", "flash_attention_sm90")
 
     def prefill(cache):
         before = launch_counts()
-        logits, _ = model.prefill(params, {"tokens": tokens}, cache)
+        logits, _ = model.prefill(params, batch, cache)
         torch.cuda.synchronize()
         after = launch_counts()
         return logits.float(), tuple(after[n] - before[n] for n in names)
 
-    kernel, n_kernel = prefill(model.make_cache(1, SLOTS))
+    kernel, n_kernel = prefill(model.make_cache(B, SLOTS))
     attn.flash_attention = fa.flash_attention_ref
     try:
-        plain, n_plain = prefill(model.make_cache(1, SLOTS))
+        plain, n_plain = prefill(model.make_cache(B, SLOTS))
     finally:
         attn.flash_attention = fa.flash_attention
-    cache = model.make_cache(1, SLOTS)
+    cache = model.make_cache(B, SLOTS)
     for seg in cache:
         for blk in seg.values():
             blk["pos"][:, :, -1] = 2 ** 30
@@ -1725,7 +1768,7 @@ def check_prefill_logits(torch, model, params, prompt):
             f"logit check: (flash, sm90) launches "
             f"{(n_kernel, n_plain, n_route)}")
     require(bool(torch.isfinite(kernel).all())
-            and kernel.shape == (1, model.cfg.vocab), "prefill logits")
+            and kernel.shape == (B, model.cfg.vocab), "prefill logits")
     dtype = str(model.cfg.dtype).split(".")[-1]
     tol = LOGIT_TOL[dtype]
     top = plain.abs().max().item()
@@ -1733,8 +1776,8 @@ def check_prefill_logits(torch, model, params, prompt):
     require(err <= tol * top, f"prefill logits ({dtype}), kernel vs its "
             f"plain version: max|err| {err} > {tol} * {top}")
     route_err = (kernel - route).abs().max().item()
-    say("serving", check="prefill-logits", dtype=dtype,
-        prompt_tokens=len(prompt), kernel="sm90" if sm90 else "simple",
+    say(tag, check="prefill-logits", model=model.cfg.name, dtype=dtype,
+        prompts=B, prompt_tokens=S, kernel="sm90" if sm90 else "simple",
         max_abs_logit=top,
         kernel_vs_plain_err=err, limit=f"{tol}*max|logit|",
         kernel_vs_attend_route_err=route_err,
@@ -1844,29 +1887,19 @@ def ab_prefill(torch, model, params, prompt, rounds=2):
         attn.flash_attention = fa.flash_attention
 
 
-def phase_serving(torch, device):
-    """Phase 6.  The kernel against its plain version, then the main
-    path: ``ServeEngine.run`` on tinyllama-1.1b at full width and depth
-    (counts reset before it, read after it), every request and slot
-    event checked; then one prefill's logits, kernel vs plain attention.
-    Returns the records of the two flash kernels."""
-    from repro_torch import configs
+def serve_requests(torch, model, params, prompts, tag="serving"):
+    """The served main path: ``ServeEngine.run`` of ``prompts``, MAX_NEW
+    new tokens each, greedy, on LANES lanes of SLOTS slots (after a
+    warm-up on an engine of its own), the launch counts reset before the
+    run and read after it; every request and slot event checked, and
+    every prompt pass of every layer a launch of the Hopper flash kernel
+    (bfloat16 at dh 64 / 128).  Prints the run's lines under ``tag``
+    (tokens/s, prefill ms per request, decode ms per 4-lane step) and
+    returns the run's launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.model import build_model
     from repro_torch.serving import Request, ServeEngine
 
-    records = check_flash(torch, device)
-    cfg = configs.full(ARCH)
-    model = build_model(cfg, device=device)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=device).manual_seed(0))
-    torch.cuda.synchronize()
-    say("serving", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
-        dtype=str(cfg.dtype).split(".")[-1], params=cfg.num_params(params),
-        init_s=f"{time.perf_counter() - t0:.2f}")
-    prompts = serve_prompts(cfg.vocab)
-
+    cfg = model.cfg
     # warm-up (cuBLAS, the kernel library) on an engine of its own
     ServeEngine(model, params, lanes=1, slots=SLOTS).run(
         [Request(-1, prompts[1][:PROMPT_MIN], 2)])
@@ -1889,6 +1922,7 @@ def phase_serving(torch, device):
     engine.submit = timed(engine.submit, prefill_ms, keep=bool)
     engine.step = timed(engine.step, step_ms)
     reqs = [Request(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+    n = len(reqs)
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1896,49 +1930,76 @@ def phase_serving(torch, device):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
-    require(len(done) == REQUESTS
+    require(len(done) == n
             and all(len(r.out) == MAX_NEW and r.done for r in reqs)
             and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-            f"serving: {len(done)} of {REQUESTS} requests finished, "
+            f"{cfg.name} served: {len(done)} of {n} requests finished, "
             f"tokens {[len(r.out) for r in reqs]}")
-    # every prompt is bfloat16 at dh 64, so every prompt pass of every
-    # layer takes the Hopper kernel
+    # every prompt is bfloat16 at dh 64 / 128 on TMA's grid, so every
+    # prompt pass of every layer takes the Hopper kernel
     require(counts["flash_attention"] == counts["flash_attention_sm90"]
-            == REQUESTS * cfg.n_layers,
-            f"flash launches {counts['flash_attention']}, sm90 "
-            f"{counts['flash_attention_sm90']}, want {REQUESTS} x "
-            f"{cfg.n_layers}")
+            == n * cfg.n_layers,
+            f"{cfg.name}: flash launches {counts['flash_attention']}, sm90 "
+            f"{counts['flash_attention_sm90']}, want {n} x {cfg.n_layers}")
     events = [e for b in batches for e in b]
     for kind in ("acquire", "release"):
         require(sorted(e.rid for e in events if e.kind == kind)
-                == list(range(REQUESTS)), f"slot events {kind}: {events}")
+                == list(range(n)), f"slot events {kind}: {events}")
     require(engine.events.pending == 0, "slot events left undelivered")
     tokens = sum(len(r.out) for r in reqs)
-    say("serving", main_path="ok", requests=REQUESTS, lanes=LANES,
+    say(tag, main_path="ok", model=cfg.name, requests=n, lanes=LANES,
         slots=SLOTS, prompt_tokens=[len(p) for p in prompts],
         new_tokens=tokens, launches=counts,
         events=len(events), seconds=f"{seconds:.4f}",
         tokens_per_s=f"{tokens / seconds:.2f}")
-    say("serving", prefill_ms_per_request=[f"{ms:.3f}" for ms in prefill_ms],
+    say(tag, model=cfg.name,
+        prefill_ms_per_request=[f"{ms:.3f}" for ms in prefill_ms],
         prefill_ms_mean=f"{np.mean(prefill_ms):.3f}",
         decode_ms_per_step=f"{np.mean(step_ms):.4f}",
         decode_steps=len(step_ms),
         decode_ms_min_max=f"{min(step_ms):.4f}/{max(step_ms):.4f}")
-    check_prefill_logits(torch, model, params, prompts[0])
+    return counts
+
+
+def phase_serving(torch, device):
+    """Phase 6.  The kernel against its plain version, then the main
+    path: ``ServeEngine.run`` on tinyllama-1.1b at full width and depth
+    (counts reset before it, read after it), every request and slot
+    event checked; then one prefill's logits, kernel vs plain attention.
+    Returns the records of the two flash kernels."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    records = check_flash(torch, device)
+    cfg = configs.full(ARCH)
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    say("serving", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        dtype=str(cfg.dtype).split(".")[-1], params=cfg.num_params(params),
+        init_s=f"{time.perf_counter() - t0:.2f}")
+    prompts = serve_prompts(cfg.vocab)
+    counts = serve_requests(torch, model, params, prompts)
+    check_prefill_logits(torch, model, params,
+                         prompt_batch(torch, model, prompts[0]))
     profile_serving(torch, model, params, prompts[0])
     ab_prefill(torch, model, params, prompts[0])
     # the same weights in float32: only the kernel's own rounding is left
     f32 = build_model(dataclasses.replace(cfg, dtype=torch.float32),
                       device=device)
     check_prefill_logits(torch, f32, f32.init(torch.Generator(
-        device=device).manual_seed(0)), prompts[0])
-    del f32, engine
+        device=device).manual_seed(0)), prompt_batch(torch, f32, prompts[0]))
+    del f32
     # the wrapper's counter (either kernel) and the Hopper kernel's own
     records["flash_attention"]["launches"] = counts["flash_attention"]
     records["flash_attention"]["simple_kernel_launches"] = (
         counts["flash_attention"] - counts["flash_attention_sm90"])
     records["flash_attention_sm90"]["launches"] = \
         counts["flash_attention_sm90"]
+    for name in ("flash_attention", "flash_attention_sm90"):
+        records[name]["path_launches"] = {"serving": counts[name]}
     return records, model, params
 
 
@@ -2342,7 +2403,7 @@ def _rel_l2(torch, got, want):
                 1e-30)).item()
 
 
-def check_train_grads(torch, tr, tx, state, batch):
+def check_train_grads(torch, tr, tx, state, batch, tag="train"):
     """The first batch's gradients at the initial weights: the shoal
     members' synced mean (every leaf's ring result bitwise the plain
     ring's, its K rows bitwise equal) against the xla backend's with 4
@@ -2374,7 +2435,7 @@ def check_train_grads(torch, tr, tx, state, batch):
     worst = max(errs, key=errs.get)
     require(errs[worst] <= GRAD_TOL, f"shoal vs xla gradient {worst}: "
             f"relative L2 {errs[worst]}")
-    say("train", check="grads", loss_shoal=f"{loss_s.item():.6f}",
+    say(tag, check="grads", loss_shoal=f"{loss_s.item():.6f}",
         loss_xla_mb4=f"{loss_x.item():.6f}", loss_rel=f"{rel_loss:.3e}",
         grad_rel_l2_max=f"{errs[worst]:.3e}", worst_leaf=worst,
         rows="bitwise equal", ring_vs_plain="bitwise equal", leaves=leaves,
@@ -2545,17 +2606,24 @@ def time_train_ring(torch, device, words):
 
 
 def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
-                seq=TRAIN_SEQ, ckpt_layers=CKPT_LAYERS):
+                seq=TRAIN_SEQ, ckpt_layers=CKPT_LAYERS, tag="train",
+                steps=TRAIN_STEPS, exchanges_per_step=None, extras=True,
+                lr=TRAIN_LR):
     """Phase 9.  tinyllama-1.1b at full width and depth (bf16, seed 0),
     ``TokenPipeline(vocab, 8, 512, seed 0)``'s first batch, the shoal
     backend on K = 4 members, AdamW lr 1e-3.  The first batch's
     gradients against the xla backend's (4 microbatches); then the main
     path: 5 shoal steps on that batch (counts reset before them, read
     after), every step 12 ring launches and 72 exchanges, losses finite
-    and falling; a timed breakdown step and a profiled step; then, at
-    ``ckpt_layers`` layers, one compressed step and a checkpoint round
-    trip; the ring alone at the largest leaf.  Returns the main path's
-    launch counts and the largest leaf's ring record for the JSON line."""
+    and falling; a timed breakdown step and a profiled step; then, with
+    ``extras``, the xla backend's steps timed, at ``ckpt_layers``
+    layers one compressed step and a checkpoint round trip, and the
+    ring alone at the largest leaf.  Phase 11 trains its models through
+    the same function (``cfg``, ``tag``, ``steps``, the JAX package's
+    ``exchanges_per_step``, ``lr``: a float or a schedule; frame
+    embeddings for the audio family).
+    Returns the main path's launch counts and, with ``extras``, the
+    largest leaf's ring record for the JSON line."""
     from repro_torch import configs
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2572,10 +2640,12 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     model = build_model(cfg, device=device)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(0))
+    kind = "embeddings" if cfg.frontend == "embeddings" else "tokens"
     batch, _ = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=batch_rows,
-                                        seq=seq, seed=0),
+                                        seq=seq, seed=0, kind=kind,
+                                        d_model=cfg.d_model),
                              device=device).next_batch(0)
-    opt = AdamWConfig(lr=TRAIN_LR)
+    opt = AdamWConfig(lr=lr)
     tr = Trainer(model, opt, TrainerConfig(comm_backend="shoal"),
                  kernels=TRAIN_K)
     tx = Trainer(model, opt, TrainerConfig(microbatches=TRAIN_K))
@@ -2585,13 +2655,18 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     leaves = len(tree_leaves(state.params))
     words = sum(p.numel() for p in tree_leaves(state.params))
     tokens = batch_rows * seq
-    say("train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    say(tag, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         dtype=str(cfg.dtype).split(".")[-1], params=words, leaves=leaves,
-        kernels=TRAIN_K, batch=batch_rows, seq=seq, tokens_per_step=tokens,
-        init_s=f"{time.perf_counter() - t0:.2f}",
+        kernels=TRAIN_K, batch=batch_rows, seq=seq, frontend=kind,
+        tokens_per_step=tokens, init_s=f"{time.perf_counter() - t0:.2f}",
         base_allocated_mb=f"{base_mb:.0f}")
+    per_leaf = 2 * (TRAIN_K - 1)
+    if exchanges_per_step is not None:
+        require(exchanges_per_step == leaves * per_leaf,
+                f"{cfg.name}: {leaves} leaves x {per_leaf} exchanges, the "
+                f"JAX step's {exchanges_per_step}")
 
-    check_train_grads(torch, tr, tx, state, batch)
+    check_train_grads(torch, tr, tx, state, batch, tag)
     del tx
     torch.cuda.empty_cache()
 
@@ -2600,7 +2675,7 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     reset_launch_counts()
     ex0 = tr.ctx.exchanges
     losses, step_ms, per_step = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         before = launch_counts()
         t = time.perf_counter()
         state, met = tr.step(state, batch)
@@ -2612,43 +2687,44 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     exchanges = tr.ctx.exchanges - ex0
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"train losses {losses}")
-    require(exchanges == TRAIN_STEPS * leaves * 2 * (TRAIN_K - 1),
-            f"{exchanges} exchanges in {TRAIN_STEPS} steps")
+    require(exchanges == steps * leaves * per_leaf,
+            f"{exchanges} exchanges in {steps} steps")
     if cuda:
         from repro_torch.kernels import gascore_dma as gd
 
         sm90 = sum(gd.ring_kernel_for(TRAIN_K, -(-p.numel() // TRAIN_K),
                                       torch.float32, gd.ALL_REDUCE) == "sm90"
                    for p in tree_leaves(state.params))
-        require(per_step == [leaves] * TRAIN_STEPS
-                and counts["ring_cluster_sm90"] == TRAIN_STEPS * sm90
+        require(per_step == [leaves] * steps
+                and counts["ring_cluster_sm90"] == steps * sm90
                 and counts["flash_attention"] == 0,
                 f"ring launches per step {per_step} (want {leaves}), "
                 f"cluster {counts['ring_cluster_sm90']} (want "
-                f"{TRAIN_STEPS} x {sm90}), flash {counts['flash_attention']}")
+                f"{steps} x {sm90}), flash {counts['flash_attention']}")
     ms = float(np.median(step_ms[1:]))
-    say("train", main_path="ok", backend="shoal", card=card_line(),
-        losses=[f"{v:.5f}" for v in losses],
+    say(tag, main_path="ok", model=cfg.name, backend="shoal",
+        card=card_line(), losses=[f"{v:.5f}" for v in losses],
         ms_per_step=[f"{v:.2f}" for v in step_ms],
-        ms_per_step_median_2_5=f"{ms:.2f}",
+        ms_per_step_median_2_on=f"{ms:.2f}",
         tokens_per_s=f"{tokens / ms * 1e3:.1f}",
         ring_launches_per_step=per_step, exchanges_per_step=exchanges
-        // TRAIN_STEPS, launches=counts)
+        // steps, launches=counts)
 
-    # xla backend (4 microbatches), timed the same way
-    tx = Trainer(model, opt, TrainerConfig(microbatches=TRAIN_K))
-    xs, x_ms = state, []
-    for _ in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        xs, xmet = tx.step(xs, batch)
-        xmet["loss"].item()
-        x_ms.append((time.perf_counter() - t) * 1e3)
-    del xs, tx
-    xms = float(np.median(x_ms[1:]))
-    say("train", backend="xla", microbatches=TRAIN_K,
-        ms_per_step=[f"{v:.2f}" for v in x_ms],
-        ms_per_step_median_2_5=f"{xms:.2f}",
-        tokens_per_s=f"{tokens / xms * 1e3:.1f}")
+    if extras:
+        # xla backend (4 microbatches), timed the same way
+        tx = Trainer(model, opt, TrainerConfig(microbatches=TRAIN_K))
+        xs, x_ms = state, []
+        for _ in range(steps):
+            t = time.perf_counter()
+            xs, xmet = tx.step(xs, batch)
+            xmet["loss"].item()
+            x_ms.append((time.perf_counter() - t) * 1e3)
+        del xs, tx
+        xms = float(np.median(x_ms[1:]))
+        say(tag, backend="xla", microbatches=TRAIN_K,
+            ms_per_step=[f"{v:.2f}" for v in x_ms],
+            ms_per_step_median_2_on=f"{xms:.2f}",
+            tokens_per_s=f"{tokens / xms * 1e3:.1f}")
 
     # one step timed by part (synchronised between parts)
     tr.member_grads, fb_log = _synced(tr.member_grads)
@@ -2668,7 +2744,7 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     ring_bytes = sum(2 * TRAIN_K * p.numel() * 4
                      for p in tree_leaves(state.params))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    say("train", breakdown_ms=json.dumps({
+    say(tag, model=cfg.name, breakdown_ms=json.dumps({
         "members_fwd_bwd": round(fb_log[0], 3),
         "sync": round(sync_log[0], 3), "adamw": round(opt_log[0], 3)}),
         ring_device_ms=json.dumps({r: round(v[1], 5)
@@ -2679,14 +2755,16 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
         device_busy_ms=f"{busy:.3f}",
         idle_share=f"{1 - busy / (window * 1e3):.4f}",
         device_activities=sum(c for c, _ in by_name.values()))
-    say("train", top_device_ms=json.dumps([[name[:110], c, round(us / 1e3, 4)]
-                                           for name, (c, us) in top]))
+    say(tag, top_device_ms=json.dumps([[name[:110], c, round(us / 1e3, 4)]
+                                       for name, (c, us) in top]))
     peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
-    say("train", peak_allocated_mb=f"{peak_mb:.0f}",
+    say(tag, model=cfg.name, peak_allocated_mb=f"{peak_mb:.0f}",
         peak_over_base_mb=f"{peak_mb - base_mb:.0f}")
     largest = max(p.numel() for p in tree_leaves(state.params))
-    del state, model
+    del state, model, tr
     torch.cuda.empty_cache()
+    if not extras:
+        return counts, None
     route, m = time_train_ring(torch, device, largest)
     torch.cuda.empty_cache()
     if route == "sm90":
@@ -2708,6 +2786,193 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     del small
     torch.cuda.empty_cache()
     return counts, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense and audio families (qwen2-1.5b and deepseek-7b served
+# and trained, musicgen-medium's frame-embedding frontend)
+# ---------------------------------------------------------------------------
+
+FAMILY_SERVED = ("qwen2-1.5b", "deepseek-7b")
+MUSIC = "musicgen-medium"
+MUSIC_B, MUSIC_S, MUSIC_DECODE = 4, 1024, 32
+# shoal exchanges a step at K = 4: the JAX package's compiled step on the
+# reduced configs (tests/test_torch_models.py), one ring of 2(K - 1)
+# collective-permutes a parameter leaf (qwen2's tied embedding is one
+# leaf; musicgen's unread token embedding is all-reduced as zeros)
+JAX_SHOAL_EXCHANGES = {"qwen2-1.5b": 84, "deepseek-7b": 72,
+                       "musicgen-medium": 96}
+# deepseek-7b is trained at full width but not full depth: its embedding
+# and head alone are 0.84 B parameters, and at phase 9's ~37 bytes per
+# trained parameter 4 of its 30 layers fit the card beside them
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_STEPS = 4, 2
+# phase 11's trainers take launch/train.py's default schedule (--lr 3e-4
+# --warmup 10 --steps 100): at these widths a constant 1e-3 (phase 9's)
+# overshoots from the first Adam step -- qwen2-1.5b's loss went 11.78,
+# 11.10, 11.96, 11.08, 17.24 on the card -- and the JAX package's
+# trainer oscillates there as well
+FAMILY_LR = (3e-4, 10, 100)
+
+
+def _free(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _init(torch, device, cfg, tag):
+    """The model of ``cfg`` on the card and its random weights (seed 0)."""
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    say(tag, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_ff=cfg.d_ff,
+        vocab=cfg.vocab, dtype=str(cfg.dtype).split(".")[-1],
+        params=cfg.num_params(params),
+        init_s=f"{time.perf_counter() - t0:.2f}",
+        allocated_mb=f"{torch.cuda.memory_allocated(device) / 2 ** 20:.0f}")
+    return model, params
+
+
+def serve_family(torch, device, arch):
+    """``arch`` at full width and depth (bf16, seed 0) served as phase 6
+    serves tinyllama-1.1b: 8 requests of 128-1024 prompt tokens, 32 new
+    tokens each, 4 lanes of 2048 slots, every prompt pass of every layer
+    on the Hopper flash kernel (requests x layers launches); one
+    prefill's logits, kernel vs plain version (qwen2-1.5b also in
+    float32 through the simple kernel).  Returns the run's counts."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    cfg = configs.full(arch)
+    model, params = _init(torch, device, cfg, "dense")
+    prompts = serve_prompts(cfg.vocab)
+    counts = serve_requests(torch, model, params, prompts, "dense")
+    check_prefill_logits(torch, model, params,
+                         prompt_batch(torch, model, prompts[0]), "dense")
+    del params
+    _free(torch)
+    if arch == "qwen2-1.5b":
+        f32 = build_model(dataclasses.replace(cfg, dtype=torch.float32),
+                          device=device)
+        check_prefill_logits(torch, f32, f32.init(torch.Generator(
+            device=device).manual_seed(0)),
+            prompt_batch(torch, f32, prompts[0]), "dense")
+        del f32
+        _free(torch)
+    return counts
+
+
+def serve_frames(torch, device):
+    """musicgen-medium at full width and depth (bf16, seed 0) through
+    ``Model.prefill`` / ``decode_step`` with seeded frame embeddings:
+    one prefill of 4 x 1024 frames (one Hopper flash launch per layer),
+    then 32 decode steps of 4 lanes fed (4, 1, d) frames (no flash);
+    host ms of each, synchronised; then the prefill's logits, kernel vs
+    plain version.  Returns the run's counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = configs.full(MUSIC)
+    model, params = _init(torch, device, cfg, "audio")
+    gen = torch.Generator(device=device).manual_seed(13)
+    d = cfg.d_model
+    frames = torch.randn(MUSIC_B, MUSIC_S, d, generator=gen,
+                         device=device) * 0.02
+    steps = torch.randn(MUSIC_DECODE, MUSIC_B, 1, d, generator=gen,
+                        device=device) * 0.02
+    # warm-up on a short prompt and one step
+    cache = model.make_cache(1, SLOTS)
+    model.prefill(params, {"embeddings": frames[:1, :PROMPT_MIN]}, cache)
+    model.decode_step(params, cache, steps[0, :1],
+                      torch.full((1,), PROMPT_MIN, device=device))
+    cache = model.make_cache(MUSIC_B, SLOTS)
+    _free(torch)
+    reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = model.prefill(params, {"embeddings": frames}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    after_prefill = launch_counts()["flash_attention_sm90"]
+    pos = torch.full((MUSIC_B,), MUSIC_S, device=device)
+    step_ms, outs = [], [logits]
+    for i in range(MUSIC_DECODE):
+        t = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, steps[i], pos + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(logits)
+    counts = launch_counts()
+    out = torch.stack(outs)
+    require(counts["flash_attention"] == counts["flash_attention_sm90"]
+            == after_prefill == cfg.n_layers,
+            f"{cfg.name}: flash launches {counts['flash_attention']}, sm90 "
+            f"{counts['flash_attention_sm90']} ({after_prefill} after the "
+            f"prefill), want {cfg.n_layers} for the one prompt pass")
+    require(out.shape == (MUSIC_DECODE + 1, MUSIC_B, cfg.vocab)
+            and bool(torch.isfinite(out).all()),
+            f"{cfg.name}: logits {tuple(out.shape)}, finite "
+            f"{bool(torch.isfinite(out).all())}")
+    frames_out = MUSIC_B * MUSIC_DECODE
+    say("audio", main_path="ok", model=cfg.name, prompts=MUSIC_B,
+        prompt_frames=MUSIC_S, decode_steps=MUSIC_DECODE, slots=SLOTS,
+        launches=counts, prefill_ms=f"{prefill_ms:.3f}",
+        decode_ms_per_step=f"{np.mean(step_ms):.4f}",
+        decode_ms_min_max=f"{min(step_ms):.4f}/{max(step_ms):.4f}",
+        frames_per_s=f"{frames_out / sum(step_ms) * 1e3:.2f}",
+        logits=tuple(out.shape), finite=True)
+    del cache, out, outs, logits
+    _free(torch)
+    check_prefill_logits(torch, model, params, {"embeddings": frames},
+                         "audio")
+    del params, model
+    _free(torch)
+    return counts
+
+
+def phase_family(torch, device):
+    """Phase 11.  qwen2-1.5b and deepseek-7b served at full width and
+    depth; musicgen-medium's prefill and decode at full width and depth;
+    then the shoal trainer (K = 4, bf16, ``TokenPipeline``'s first batch
+    of 8 x 512, ``warmup_cosine(3e-4, 10, 100)``) of qwen2-1.5b and
+    musicgen-medium at full width and depth, 5 steps, and of deepseek-7b
+    at full width and 4 layers, 2 steps; every trainer held to the xla
+    backend on the first batch,
+    every ring result bitwise the plain ring's, the exchanges the JAX
+    step's.  Returns ``{run: launch counts}`` of each main path."""
+    from repro_torch import configs
+    from repro_torch.optim.schedule import warmup_cosine
+
+    runs = {}
+    for arch in FAMILY_SERVED:
+        t0 = time.perf_counter()
+        runs[f"serve-{arch}"] = serve_family(torch, device, arch)
+        say("dense", model=arch,
+            serve_seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    runs[f"serve-{MUSIC}"] = serve_frames(torch, device)
+    say("audio", model=MUSIC,
+        serve_seconds=f"{time.perf_counter() - t0:.1f}")
+    for arch, layers, steps, tag in (
+            ("qwen2-1.5b", None, TRAIN_STEPS, "dense"),
+            ("deepseek-7b", DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_STEPS,
+             "dense"),
+            (MUSIC, None, TRAIN_STEPS, "audio")):
+        cfg = configs.full(arch)
+        if layers is not None:
+            say(tag, model=arch, cut=f"trained at {layers} of "
+                f"{cfg.n_layers} layers (full width)")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t0 = time.perf_counter()
+        runs[f"train-{arch}"], _ = phase_train(
+            torch, device, cfg=cfg, tag=tag, steps=steps,
+            exchanges_per_step=JAX_SHOAL_EXCHANGES[arch], extras=False,
+            lr=warmup_cosine(*FAMILY_LR))
+        say(tag, model=arch, train_seconds=f"{time.perf_counter() - t0:.1f}")
+        _free(torch)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2915,6 +3180,14 @@ def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
             "spill_bytes_max": max(spills)}
 
 
+def ring_launches(counts, name) -> int:
+    """A ring record's launches in ``counts``: the cluster kernel's own
+    counter, or the wrapper's less the cluster kernel's."""
+    if name == "ring_collective":
+        return counts[name] - counts["ring_cluster_sm90"]
+    return counts[name]
+
+
 def ptxas_summary(log: str) -> dict:
     """``{"dh64": "110 registers, 0 bytes spill stores, ...", ...}`` from
     the Hopper flash kernel's ``ptxas -v`` log (one entry per head-dim
@@ -3012,10 +3285,7 @@ def main() -> int:
     trained, train_ring = phase_train(torch, device)
     say("train", seconds=f"{time.perf_counter() - t0:.1f}")
     for rec in rings:           # the trainer's all-reduces, by kernel
-        sm90 = trained["ring_cluster_sm90"]
-        rec["path_launches"]["train"] = (
-            trained[rec["name"]] - sm90 if rec["name"] == "ring_collective"
-            else trained[rec["name"]])
+        rec["path_launches"]["train"] = ring_launches(trained, rec["name"])
     rings.append(train_ring)
     t0 = time.perf_counter()
     linted = phase_lint(torch, device, jacobi_ops=jacobi_ops)
@@ -3023,6 +3293,15 @@ def main() -> int:
         launches={k: v for k, v in linted.items() if v})
     kernels["jacobi_sweep"]["path_launches"] = {
         "jacobi": counts["jacobi_sweep"], "lint": linted["jacobi_sweep"]}
+    t0 = time.perf_counter()
+    family = phase_family(torch, device)
+    say("family", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=card_line())
+    for run, ran in family.items():     # each model's main path, by kernel
+        for rec in rings:
+            rec["path_launches"][run] = ring_launches(ran, rec["name"])
+        for name in ("flash_attention", "flash_attention_sm90"):
+            kernels[name]["path_launches"][run] = ran[name]
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
                            "jacobi": counts, "messages": messages,
                            "lint": linted}, shapes)

@@ -18,10 +18,13 @@ save never leaves a partial checkpoint that ``all_steps`` lists;
 tensors to the host at once (training may go on and overwrite nothing
 of it) and writes on a background thread.
 
-numpy has no bfloat16 (the JAX package writes one through
-``ml_dtypes``, which the port does not use): a bfloat16 leaf is stored
-as its raw 16 bits, a ``uint16`` array, under ``"dtype": "bfloat16"``
-in the manifest, and restored bit for bit.
+numpy has no bfloat16.  The JAX package saves one through ``ml_dtypes``,
+whose ``.npy`` header names it ``'<V2'`` (two opaque bytes); the port,
+which does not use ``ml_dtypes``, writes that header by hand and then the
+leaf's raw 16 bits, so its file and the manifest's sha256 are the JAX
+package's byte for byte, under ``"dtype": "bfloat16"``.  Restore reads
+the bits back from a ``<V2`` file or from an older ``<u2`` (uint16) one,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ def _read_verified(d: str, entry: dict, name: str) -> np.ndarray:
 
 
 def _to_host(x):
-    """A leaf as the numpy array its file holds (bfloat16: the bits)."""
+    """A leaf as a numpy array and its manifest dtype (bfloat16: its bits
+    as uint16, which ``_save_leaf`` writes under a ``<V2`` header)."""
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
@@ -84,8 +88,22 @@ def _to_host(x):
     return x, str(x.dtype)
 
 
+def _save_leaf(path: str, leaf: np.ndarray, dtype: str) -> None:
+    """One leaf file: ``np.save``'s, except that a bfloat16 leaf gets the
+    header ``np.save`` gives an ``ml_dtypes`` bfloat16 array (version
+    1.0, ``'<V2'``) before its bits."""
+    if dtype != BF16:
+        np.save(path, leaf)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False,
+                "shape": tuple(leaf.shape)})
+        np.ascontiguousarray(leaf).tofile(f)
+
+
 def _from_host(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
-    if dtype == BF16:
+    if dtype == BF16:                  # a |V2 or a uint16 array: the bits
         arr = arr.view(np.int16)
     t = torch.from_numpy(arr)
     if dtype == BF16:
@@ -132,7 +150,7 @@ class CheckpointManager:
         manifest = {"step": step, "extras": extras, "leaves": []}
         for i, (name, leaf, dtype) in enumerate(host):
             fname = f"leaf_{i:05d}.npy"
-            np.save(os.path.join(tmp, fname), leaf)
+            _save_leaf(os.path.join(tmp, fname), leaf, dtype)
             with open(os.path.join(tmp, fname), "rb") as f:
                 digest = hashlib.sha256(f.read()).hexdigest()
             manifest["leaves"].append({

@@ -2,16 +2,28 @@
 ``repro.configs``: ``get(name)`` returns the module, each module exposes
 ``full()`` and ``reduced()`` -> :class:`~repro_torch.models.model.ModelConfig`.
 
-Only tinyllama-1.1b is ported (ROADMAP queue 1 item 11, dense GQA); the
-other architectures of the JAX package raise until their slice lands.
+Ported: the dense family (tinyllama-1.1b, qwen2-1.5b, deepseek-7b,
+qwen2-72b) and the audio family (musicgen-medium).  The other
+architectures of the JAX package raise until their slice lands (ROADMAP
+queue 1, modules to port).
 """
 
 import importlib
 
-ARCH_IDS = ["tinyllama_1_1b"]
+ARCH_IDS = [
+    "qwen2_1_5b",
+    "tinyllama_1_1b",
+    "deepseek_7b",
+    "qwen2_72b",
+    "musicgen_medium",
+]
 
 # CLI ids (hyphenated, as assigned) -> module names
-CLI_IDS = {"tinyllama-1.1b": "tinyllama_1_1b"}
+CLI_IDS = {i.replace("_", "-"): i for i in ARCH_IDS}
+CLI_IDS.update({
+    "qwen2-1.5b": "qwen2_1_5b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+})
 
 
 def get(name: str):
@@ -19,7 +31,8 @@ def get(name: str):
     if mod not in ARCH_IDS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP queue 1 item 11); ported: {sorted(CLI_IDS)}")
+            f"(ROADMAP queue 1, modules to port); ported: "
+            f"{sorted(CLI_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -1,11 +1,13 @@
 """Serving launcher: batched requests through the port's ServeEngine, on
 the CUDA card unless ``--device cpu``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Weights are random, from ``--seed``.  The prompt pass of every request
-runs the flash-attention kernel on the card.
+runs the flash-attention kernel on the card.  Token-frontend archs only,
+as in the JAX package's launcher (musicgen-medium is fed frame
+embeddings: drive its ``Model.prefill`` / ``decode_step`` directly).
 """
 
 import argparse
@@ -22,7 +24,7 @@ from repro_torch.serving.engine import Request, ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run on the CPU")
@@ -35,6 +37,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = (configs.reduced if args.reduced else configs.full)(args.arch)
+    if cfg.frontend != "tokens":
+        raise SystemExit("serving demo supports token-frontend archs")
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     engine = ServeEngine(model, params, lanes=args.lanes, slots=args.slots)

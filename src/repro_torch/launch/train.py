@@ -4,6 +4,8 @@ CUDA card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --backend shoal --kernels 4 --steps 100 --batch 8 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \\
+        --reduced --device cpu --backend shoal --steps 4
 
 The same flags and loop as the JAX package's launcher: the data
 pipeline's step inside the checkpoint, asynchronous checkpoints off the
@@ -42,9 +44,11 @@ def make_parts(args):
                       TrainerConfig(comm_backend=args.backend,
                                     microbatches=args.microbatches),
                       kernels=args.kernels)
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=args.batch,
-                                    seq=args.seq, seed=args.seed),
-                         device=device)
+    dcfg = DataConfig(
+        vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=args.seed,
+        kind="embeddings" if cfg.frontend == "embeddings" else "tokens",
+        d_model=cfg.d_model)
+    pipe = TokenPipeline(dcfg, device=device)
     return cfg, model, trainer, pipe
 
 

@@ -4,7 +4,9 @@ decode (the port of ``repro.models.model``).
 Layers are grouped into homogeneous *segments* (a superblock pattern x a
 repeat count) with layer-stacked parameter and cache leaves, as in the
 JAX package; a Python loop over the stacked layers takes the place of
-``lax.scan``.  Only the dense family is ported: ``[("dense",)] x L``.
+``lax.scan``.  Two families are ported, both ``[("dense",)] x L``: dense
+and audio (LayerNorm / GELU blocks fed frame embeddings, the
+``frontend="embeddings"`` stub, in place of tokens).
 
 Parameters are a dict tree like the JAX package's.  Matrices, embeddings
 and biases are held in ``cfg.dtype`` (the JAX package casts its float32
@@ -27,14 +29,15 @@ from repro_torch.models import blocks as bl
 from repro_torch.tree import tree_leaves
 
 # families and options of the JAX package that wait for a later slice
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP queue 1 item 11)"
+_NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue 1, modules "
+               "to port)")
 NORM_KEYS = ("ln1", "ln2", "final_norm")     # float32 subtrees
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense (moe | vlm | hybrid | ssm | audio
+    family: str                  # dense | audio (moe | vlm | hybrid | ssm
                                  # raise until ported)
     n_layers: int
     d_model: int
@@ -51,6 +54,8 @@ class ModelConfig:
     moe: Any = None              # MoE dims: not ported
     mla: Any = None              # MLA dims: not ported
     aux_loss_weight: float = 0.01
+    # frontend: tokens | embeddings (audio frames, a stubbed modality)
+    frontend: str = "tokens"
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -58,7 +63,7 @@ class ModelConfig:
         return self.d_head or self.d_model // self.n_heads
 
     def segments(self) -> list[tuple[tuple[str, ...], int]]:
-        if self.family != "dense":
+        if self.family not in ("dense", "audio"):
             raise NotImplementedError(f"model family {self.family!r} "
                                       f"{_NOT_PORTED}")
         return [(("dense",), self.n_layers)]
@@ -193,8 +198,12 @@ class Model:
 
     # -- forward -------------------------------------------------------------
 
-    def _embed_in(self, params, tokens):
-        x = params["embed"].to(self.cfg.dtype)[tokens]
+    def _embed_in(self, params, batch):
+        """The first activations: frame embeddings cast to ``cfg.dtype``
+        as they are, or token embeddings scaled by sqrt(d_model)."""
+        if self.cfg.frontend == "embeddings":
+            return batch["embeddings"].to(self.cfg.dtype)
+        x = params["embed"].to(self.cfg.dtype)[batch["tokens"]]
         return x * self._embed_scale
 
     def _unembed(self, params, x):
@@ -225,11 +234,12 @@ class Model:
         return torch.arange(S, device=self.device).expand(B, S)
 
     def forward_train(self, params, batch, *, differentiable=False):
-        """batch: {"tokens": (B, S)} -> (logits (B, S, vocab), aux);
+        """batch: {"tokens": (B, S)} or {"embeddings": (B, S, d)} ->
+        (logits (B, S, vocab), aux);
         ``aux`` (the MoE loss) is 0 for dense.  Attention goes through
         the forward-only flash kernel unless ``differentiable`` asks for
         the plain route that autograd differentiates (``loss``)."""
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         B, S = x.shape[:2]
         x, _ = self._run_segments(params, x, self._positions(B, S),
                                   differentiable=differentiable)
@@ -263,7 +273,7 @@ class Model:
 
         Returns (logits_last (B, vocab), cache).  On a fresh cache a
         prompt of at most W tokens attends through the flash kernel."""
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         B, S = x.shape[:2]
         x, cache = self._run_segments(params, x, self._positions(B, S),
                                       caches=cache,
@@ -272,9 +282,10 @@ class Model:
         return logits[:, 0], cache
 
     def decode_step(self, params, cache, token, pos):
-        """One decode step. token: (B, 1) ids; pos: (B,) absolute
-        positions.  Returns (logits (B, vocab), cache)."""
-        x = self._embed_in(params, token)
+        """One decode step. token: (B, 1) ids (or (B, 1, d) embeddings);
+        pos: (B,) absolute positions.  Returns (logits (B, vocab), cache)."""
+        key = "embeddings" if self.cfg.frontend == "embeddings" else "tokens"
+        x = self._embed_in(params, {key: token})
         positions = pos[:, None]
         x, cache = self._run_segments(params, x, positions, caches=cache)
         logits = self._unembed(params, x)

@@ -42,6 +42,15 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 BACKENDS = ("xla", "shoal")
 
 
+def _grad(loss, leaves) -> list:
+    """d loss / d leaf for every leaf; a leaf the loss does not read (the
+    audio family's untied token embedding) gets zeros, as
+    ``jax.grad`` gives it."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, leaves)]
+
+
 @dataclasses.dataclass
 class TrainState:
     params: Any
@@ -111,7 +120,7 @@ class Trainer:
         n = self.tcfg.microbatches
         if n == 1:
             loss = self.model.loss(live, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = _grad(loss, leaves)
             return loss.detach(), tree_unflatten(params, grads)
         B = next(iter(batch.values())).shape[0]
         if B % n:
@@ -122,7 +131,7 @@ class Trainer:
         for i in range(n):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss = self.model.loss(live, part)
-            grads = torch.autograd.grad(loss / n, leaves)
+            grads = _grad(loss / n, leaves)
             total = loss.detach() if total is None else total + loss.detach()
             acc = ([g.float() for g in grads] if acc is None
                    else [a + g.float() for a, g in zip(acc, grads)])

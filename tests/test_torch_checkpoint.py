@@ -2,10 +2,14 @@
 (the ports of ``tests/test_checkpoint_training.py``), plus the JAX
 package's on-disk format read back.
 
-* Save and restore bitwise, a bfloat16 leaf included (stored as its
-  uint16 bits, ``"dtype": "bfloat16"``); a corrupted leaf raises
+* Save and restore bitwise, a bfloat16 leaf included (its bits under a
+  ``'<V2'`` header, ``"dtype": "bfloat16"``); a corrupted leaf raises
   ``ChecksumError``; async saves and garbage collection; no partial
   checkpoint listed.
+* A tree of bfloat16 and float32 leaves saved by the port and by the JAX
+  package gives the same step directory, file for file (leaf bytes and
+  manifest, sha256 included); the port restores its own bfloat16 file
+  and an older ``<u2`` one bit for bit.
 * A trainer that fails at step 4 and restores from its last checkpoint
   ends with the uninterrupted run's losses and parameters (1e-6), in the
   loop and through ``launch.train --fail-at 4``.
@@ -50,7 +54,7 @@ def test_save_restore_bitwise_with_a_bfloat16_leaf(tmp_path):
     assert list(entries) == ["a", "b/c", "b/h", "n/0"]
     assert entries["b/h"]["dtype"] == "bfloat16"
     assert np.load(tmp_path / "step_00000005" / entries["b/h"]["file"]
-                   ).dtype == np.uint16
+                   ).dtype == np.dtype("V2")
     like = {"a": torch.zeros(3, 4), "b": {"c": torch.zeros(3, dtype=torch.int32),
                                            "h": torch.zeros(5, 7,
                                                             dtype=torch.bfloat16)},
@@ -62,6 +66,83 @@ def test_save_restore_bitwise_with_a_bfloat16_leaf(tmp_path):
         assert torch.equal(_bits(a), _bits(b)), pa
     with pytest.raises(ValueError, match="shape"):
         mgr.restore({"a": torch.zeros(4, 3)})
+
+
+def _mixed_tree():
+    """bfloat16 leaves (2-D, 0-D, empty) beside float32 and int32 ones,
+    from a seed."""
+    gen = torch.Generator().manual_seed(11)
+    return {"w": torch.randn(3, 5, generator=gen).to(torch.bfloat16),
+            "s": torch.tensor(1.5, dtype=torch.bfloat16),
+            "e": torch.zeros(0, 4, dtype=torch.bfloat16),
+            "f": torch.randn(4, 2, generator=gen),
+            "n": {"i": torch.arange(6, dtype=torch.int32).reshape(2, 3),
+                  "m": torch.randn(7, generator=gen).to(torch.bfloat16)}}
+
+
+def test_bfloat16_step_directory_is_the_jax_packages(tmp_path):
+    import jax.numpy as jnp
+
+    from repro.checkpoint import CheckpointManager as JManager
+
+    tree = _mixed_tree()
+    jtree = {"w": None, "s": None, "e": None, "f": None, "n": {}}
+    for path, leaf in tree_paths(tree):
+        host = leaf.float().numpy() if leaf.dtype == torch.bfloat16 \
+            else leaf.numpy()
+        value = jnp.asarray(host, jnp.bfloat16 if leaf.dtype ==
+                            torch.bfloat16 else host.dtype)
+        if "/" in path:
+            jtree["n"][path.split("/")[1]] = value
+        else:
+            jtree[path] = value
+    CheckpointManager(str(tmp_path / "port")).save(
+        3, tree, extras={"data_step": 3})
+    JManager(str(tmp_path / "jax")).save(3, jtree, extras={"data_step": 3})
+    port, ref = (tmp_path / d / "step_00000003" for d in ("port", "jax"))
+    names = sorted(os.listdir(ref))
+    assert sorted(os.listdir(port)) == names and "manifest.json" in names
+    assert len(names) == 1 + len(tree_paths(tree))
+    for name in names:
+        assert (port / name).read_bytes() == (ref / name).read_bytes(), name
+    with open(port / "manifest.json") as f:
+        dtypes = {e["path"]: e["dtype"] for e in json.load(f)["leaves"]}
+    assert dtypes == {"e": "bfloat16", "f": "float32", "n/i": "int32",
+                      "n/m": "bfloat16", "s": "bfloat16", "w": "bfloat16"}
+
+
+def test_restores_its_own_and_older_uint16_bfloat16_leaves_bitwise(tmp_path):
+    """A ``<V2`` leaf as the port writes it now and a ``<u2`` one as it
+    wrote it before: both restore to the saved bits."""
+    import hashlib
+
+    tree = _mixed_tree()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree)
+    d = tmp_path / "step_00000001"
+    with open(d / "manifest.json") as f:
+        manifest = json.load(f)
+    for e in manifest["leaves"]:          # rewrite every bf16 leaf as <u2
+        if e["dtype"] == "bfloat16":
+            bits = np.load(d / e["file"]).view(np.uint16)
+            np.save(d / e["file"], bits)
+            e["sha256"] = hashlib.sha256(
+                (d / e["file"]).read_bytes()).hexdigest()
+            assert np.load(d / e["file"]).dtype == np.uint16
+    mgr.save(2, tree)
+    with open(d / "manifest.json", "w") as f:
+        json.dump(manifest, f)
+    like = {"w": torch.zeros(3, 5, dtype=torch.bfloat16),
+            "s": torch.tensor(0.0, dtype=torch.bfloat16),
+            "e": torch.zeros(0, 4, dtype=torch.bfloat16),
+            "f": torch.zeros(4, 2),
+            "n": {"i": torch.zeros(2, 3, dtype=torch.int32),
+                  "m": torch.zeros(7, dtype=torch.bfloat16)}}
+    for step in (1, 2):
+        out, _ = mgr.restore(like, step=step, verify=True)
+        for (pa, a), (pb, b) in zip(tree_paths(out), tree_paths(tree)):
+            assert pa == pb and a.dtype == b.dtype, pa
+            assert torch.equal(_bits(a), _bits(b)), (step, pa)
 
 
 def test_corrupt_leaf_raises_checksum_error(tmp_path):

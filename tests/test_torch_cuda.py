@@ -686,6 +686,97 @@ def test_engine_on_the_card_serves_the_cpu_tokens(cuda):
     assert flash == len(prompts) * cfg.n_layers
 
 
+@pytest.mark.parametrize("B,S,H,K,dh", [
+    (1, 1024, 12, 2, 128),          # qwen2-1.5b's prefill
+    (1, 1024, 32, 32, 128),         # deepseek-7b's (MHA: group size 1)
+    (1, 1024, 24, 24, 64),          # musicgen-medium's
+])
+def test_flash_sm90_at_the_served_model_shapes(cuda, B, S, H, K, dh):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _qkv(B, S, H, K, dh, torch.bfloat16, H + dh, cuda)
+    assert fa.flash_kernel_for(q, k, v) == "sm90"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v)
+    assert launch_counts()["flash_attention_sm90"] == 1
+    _flash_close(got, fa.flash_attention_ref(q, k, v), torch.bfloat16)
+
+
+def test_qwen2_at_full_width_serves_through_the_sm90_kernel(cuda):
+    """qwen2-1.5b at its published width, cut to 2 layers (bfloat16, qkv
+    bias, tied embeddings): every prompt pass of every layer takes the
+    Hopper kernel (the bias must not move q/k/v off its TMA grid), and
+    one prefill's logits agree with the same prefill through the plain
+    version within 3e-2 of the largest |logit|."""
+    from repro_torch import configs
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(configs.full("qwen2-1.5b"), n_layers=2)
+    model = build_model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (300, 129, 64)]
+    reset_launch_counts()
+    done = ServeEngine(model, params, lanes=2, slots=512).run(
+        [Request(i, p, 4) for i, p in enumerate(prompts)])
+    counts = launch_counts()
+    assert sorted(len(r.out) for r in done) == [4, 4, 4]
+    assert counts["flash_attention"] == counts["flash_attention_sm90"] \
+        == len(prompts) * cfg.n_layers
+    tokens = torch.as_tensor(prompts[0].astype(np.int64), device=cuda)[None]
+    got, _ = model.prefill(params, {"tokens": tokens},
+                           model.make_cache(1, 512))
+    real = attn.flash_attention
+    attn.flash_attention = fa.flash_attention_ref
+    try:
+        want, _ = model.prefill(params, {"tokens": tokens},
+                                model.make_cache(1, 512))
+    finally:
+        attn.flash_attention = real
+    top = want.float().abs().max().item()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2 * top
+
+
+def test_musicgen_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """musicgen-smoke (float32, frame embeddings): a prefill through the
+    flash kernel and two decode steps on the card within 1e-5 of the CPU
+    run (TF32 off)."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.reduced("musicgen-medium")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, 40, cfg.d_model, generator=gen) * 0.02
+    steps = torch.randn(2, 2, 1, cfg.d_model, generator=gen) * 0.02
+    logits = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        p = _to(params, device)
+        cache = model.make_cache(2, 64)
+        reset_launch_counts()
+        out, cache = model.prefill(p, {"embeddings": frames.to(device)},
+                                   cache)
+        got = [out.cpu()]
+        pos = torch.tensor([40, 40], device=device)
+        for i in range(2):
+            out, cache = model.decode_step(p, cache, steps[i].to(device),
+                                           pos + i)
+            got.append(out.cpu())
+        logits[str(device)] = torch.stack(got)
+        flash = launch_counts()["flash_attention"]
+    assert flash == cfg.n_layers
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

@@ -32,8 +32,12 @@ FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\b|"
 def test_port_sources_import_no_jax_and_no_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_comm_lint.py"]
+    files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 15
     assert REPO / "src" / "repro_torch" / "analysis" / "rules.py" in files
+    for name in ("torch_serve_lm.py", "torch_train_lm.py",
+                 "torch_serve_disagg.py"):
+        assert REPO / "examples" / name in files
     bad = [f"{f}: {m.group(0).strip()}" for f in files
            for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
