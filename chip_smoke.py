@@ -83,6 +83,16 @@ shoal trainer of qwen2-1.5b and musicgen-medium at full depth and of
 deepseek-7b at 4 of its 30 layers, each held to the xla backend on the
 first batch, every ring result bitwise the plain ring's, the exchanges
 the JAX package's compiled count, the losses finite and falling.
+Phase 12 runs the MoE family: dbrx-132b at full width (d 6144, 48 / 8
+heads, 16 experts top-4) and 4 of its 40 layers (bf16, random weights
+from a seed, 28.5 GB) served through ``ServeEngine`` as phase 6 serves
+tinyllama-1.1b, its MoE on one device, every prompt pass of every layer
+on the Hopper flash kernel (8 x 4 launches required) and one prefill's
+logits held to the plain version; then one full-width MoE layer as the
+expert-parallel island over 4 kernels (the psum, rs and a2a dispatches
+on the ring kernel and the vectored all-to-all) against ``moe_ffn`` on
+the card, at each dispatch's exchange, collective-call and ring-launch
+counts, and the ring at the island's shapes against the library call.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1618,7 +1628,8 @@ def check_flash(torch, device):
     (``flash.cu``, forced), at the prefill shapes of the served models
     (B 1, S 1024): tinyllama-1.1b's (H 32, K 4, dh 64), qwen2-1.5b's
     (H 12, K 2, dh 128), deepseek-7b's (H 32, K 32, dh 128: group size
-    1) and musicgen-medium's (H 24, K 24, dh 64), a ragged S = 1000 and
+    1), musicgen-medium's (H 24, K 24, dh 64) and dbrx-132b's (H 48, K
+    8, dh 128), a ragged S = 1000 and
     a served prompt's S = 903; the simple kernel alone in float32
     (tinyllama's shape and a reference shape at dh 128).  At the
     prefill shapes, device times of each kernel, the plain version and
@@ -1637,6 +1648,7 @@ def check_flash(torch, device):
              ("deepseek-7b-prefill", (1, 1024, 32, 32, 128), torch.bfloat16),
              ("musicgen-medium-prefill", (1, 1024, 24, 24, 64),
               torch.bfloat16),
+             ("dbrx-132b-prefill", (1, 1024, 48, 8, 128), torch.bfloat16),
              ("ragged-1000", (1, 1000, 32, 4, 64), torch.bfloat16),
              ("served-903", (1, 903, 32, 4, 64), torch.bfloat16),
              ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
@@ -1711,7 +1723,9 @@ def check_flash(torch, device):
             ("deepseek_7b_dh128", "deepseek-7b-prefill",
              "B1xS1024xH32xK32xdh128"),
             ("musicgen_medium_dh64", "musicgen-medium-prefill",
-             "B1xS1024xH24xK24xdh64")):
+             "B1xS1024xH24xK24xdh64"),
+            ("dbrx_132b_dh128", "dbrx-132b-prefill",
+             "B1xS1024xH48xK8xdh128")):
         m = timed[case, "bfloat16", "sm90"]
         sm90[key] = {
             "shape": shape, "ms": m["ms"],
@@ -2562,43 +2576,77 @@ def check_train_checkpoint(torch, model, batch):
         restore_verified_s=f"{restore_s:.2f}", removed=not os.path.exists(d))
 
 
-def time_train_ring(torch, device, words):
+def time_train_ring(torch, device, words, tag="train", case="largest-leaf"):
     """The ring all-reduce at the trainer's largest leaf, ``(K, words)``
-    float32 from seed 9, as the shoal sync hands it to the kernel: the
-    routed kernel against the plain version (bitwise), and device ms of
-    the kernel and the library call (``x.sum(0)`` expanded and copied)
-    in turns, of the plain version alone.  Returns (route, measures)."""
+    float32 from seed 9, as the shoal sync hands it to the kernel (see
+    :func:`time_ring`), timed by CUDA events: at these leaves the
+    profiler lost launches of the ring kernel (8 of 20 seen in each of 6
+    windows at musicgen-medium's 453 M-word leaf, 0 of 5 at
+    tinyllama-1.1b's), and each call is 2.7 ms or more of device work
+    against tens of microseconds of host work.  Returns (route,
+    measures)."""
     from repro_torch.kernels import gascore_dma as gd
 
     gen = torch.Generator(device=device).manual_seed(9)
     x = torch.randn(TRAIN_K, words, generator=gen, device=device)
-    buf = ring_buffer(torch, x, TRAIN_K)
-    route = gd.ring_kernel_for(TRAIN_K, buf.shape[-1], buf.dtype,
-                               gd.ALL_REDUCE)
-    kernel = lambda: gd.ring_collective_cuda(buf, gd.ALL_REDUCE,  # noqa: E731
+    return time_ring(torch, x, gd.ALL_REDUCE, tag, case, events=True)
+
+
+def time_ring(torch, x, schedule, tag, case, events=False):
+    """The ring kernel on ``x (K, ...)`` as ``core.collectives`` hands
+    it the ``schedule``: the routed kernel against the plain version
+    (bitwise), device ms of the kernel and the library call in turns
+    (kernel, library, library, kernel), of the plain version alone: by
+    ``torch.profiler``, or with ``events`` by CUDA events around
+    back-to-back calls (:func:`call_ms`; device time where the calls
+    are device-bound).  The library call: the sum over the kernels
+    expanded and copied (all-reduce), the sum of every kernel's chunks
+    (reduce-scatter), the rows joined and copied to every kernel
+    (all-gather).  Returns (route, measures)."""
+    from repro_torch.kernels import gascore_dma as gd
+
+    n = x.shape[0]
+    if schedule == gd.ALL_GATHER:
+        buf = x.reshape(n, -1).contiguous()
+        lib = lambda: buf.reshape(1, -1).expand(n, -1).contiguous()  # noqa
+        nbytes, ops = (1 + n) * buf.nbytes, 0
+    else:
+        buf = ring_buffer(torch, x, n)
+        ops = (n - 1) * buf[0].numel()
+        if schedule == gd.ALL_REDUCE:
+            lib = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa
+            nbytes = 2 * buf.nbytes
+        else:
+            lib = lambda: buf.sum(0)  # noqa: E731
+            nbytes = buf.nbytes + buf.nbytes // n
+    route = gd.ring_kernel_for(n, buf.shape[-1], buf.dtype, schedule)
+    kernel = lambda: gd.ring_collective_cuda(buf, schedule,  # noqa: E731
                                              kernel=route)
-    plain = lambda: gd.ring_collective_ref(buf, gd.ALL_REDUCE)  # noqa: E731
-    lib = lambda: x.sum(0, keepdim=True).expand_as(x).contiguous()  # noqa
+    plain = lambda: gd.ring_collective_ref(buf, schedule)  # noqa: E731
     got, want = kernel(), plain()
-    require(torch.equal(got, want), f"ring kernel ({route}) at the "
-            f"trainer's largest leaf differs from the plain version")
+    require(torch.equal(got, want), f"ring kernel ({route}) {schedule} at "
+            f"{case} differs from the plain version")
     err = (got.double() - want.double()).abs().max().item()
     del got, want
     sub = "ring_cluster_kernel_sm90" if route == "sm90" else "ring_kernel"
     turns = {"kernel": [], "library": []}
     for r in ("kernel", "library", "library", "kernel"):
-        turns[r].append(device_ms(kernel if r == "kernel" else lib,
-                                  kernel=sub if r == "kernel" else None))
-    m = dict(err=err, nbytes=2 * buf.nbytes,
-             ops=(TRAIN_K - 1) * buf[0].numel(),
+        fn = kernel if r == "kernel" else lib
+        turns[r].append(call_ms(fn, reps=10, warmup=2) if events else
+                        device_ms(fn, kernel=sub if r == "kernel" else None))
+    m = dict(err=err, nbytes=nbytes, ops=ops,
              ms=float(np.mean(turns["kernel"])),
-             plain=device_ms(plain, reps=3, warmup=1),
+             plain=(call_ms(plain, reps=3, warmup=1) if events
+                    else device_ms(plain, reps=3, warmup=1)),
              lib=float(np.mean(turns["library"])))
-    say("train", kernel="ring_all_reduce", case="largest-leaf",
-        shape=tuple(buf.shape), route=route, bitwise="equal",
+    name = {gd.ALL_REDUCE: "ring_all_reduce", gd.ALL_GATHER: "ring_all_gather",
+            gd.REDUCE_SCATTER: "ring_reduce_scatter"}[schedule]
+    say(tag, kernel=name, case=case, shape=tuple(buf.shape),
+        dtype=str(buf.dtype).split(".")[-1], route=route, bitwise="equal",
         ms=f"{m['ms']:.5f}", plain_ms=f"{m['plain']:.5f}",
         library_ms=f"{m['lib']:.5f}",
         bound_ms=f"{bound(m)[0]:.5f}", bound_by=bound(m)[1],
+        timer="cuda-events" if events else "profiler",
         turns_ms=json.dumps({r: [round(t, 5) for t in v]
                              for r, v in turns.items()}),
         card=card_line())
@@ -2763,9 +2811,8 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     largest = max(p.numel() for p in tree_leaves(state.params))
     del state, model, tr
     torch.cuda.empty_cache()
-    if not extras:
-        return counts, None
-    route, m = time_train_ring(torch, device, largest)
+    route, m = time_train_ring(torch, device, largest, tag,
+                               f"{cfg.name}-largest-leaf")
     torch.cuda.empty_cache()
     if route == "sm90":
         rec = entry("ring_cluster_sm90", RING_SM90_SRC, RING_TPU, m)
@@ -2774,9 +2821,11 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
         rec = entry("ring_collective", RING_SRC, RING_TPU, m)
         rec["launches"] = (counts["ring_collective"]
                            - counts["ring_cluster_sm90"])
-    rec.update(case="all_reduce-train-largest-leaf-f32",
+    rec.update(case=f"all_reduce-{tag}-{cfg.name}-largest-leaf-f32",
                main_path_route=route,
-               path_launches={"train": rec["launches"]})
+               path_launches={tag: rec["launches"]})
+    if not extras:
+        return counts, rec
 
     small = build_model(dataclasses.replace(cfg, n_layers=ckpt_layers),
                         device=device)
@@ -2941,11 +2990,13 @@ def phase_family(torch, device):
     at full width and 4 layers, 2 steps; every trainer held to the xla
     backend on the first batch,
     every ring result bitwise the plain ring's, the exchanges the JAX
-    step's.  Returns ``{run: launch counts}`` of each main path."""
+    step's, and the ring at each trainer's largest leaf timed beside the
+    plain version and the library call.  Returns ``({run: launch
+    counts}, ring records)`` of each main path."""
     from repro_torch import configs
     from repro_torch.optim.schedule import warmup_cosine
 
-    runs = {}
+    runs, rings = {}, []
     for arch in FAMILY_SERVED:
         t0 = time.perf_counter()
         runs[f"serve-{arch}"] = serve_family(torch, device, arch)
@@ -2966,13 +3017,14 @@ def phase_family(torch, device):
                 f"{cfg.n_layers} layers (full width)")
             cfg = dataclasses.replace(cfg, n_layers=layers)
         t0 = time.perf_counter()
-        runs[f"train-{arch}"], _ = phase_train(
+        runs[f"train-{arch}"], rec = phase_train(
             torch, device, cfg=cfg, tag=tag, steps=steps,
             exchanges_per_step=JAX_SHOAL_EXCHANGES[arch], extras=False,
             lr=warmup_cosine(*FAMILY_LR))
+        rings.append(rec)
         say(tag, model=arch, train_seconds=f"{time.perf_counter() - t0:.1f}")
         _free(torch)
-    return runs
+    return runs, rings
 
 
 # ---------------------------------------------------------------------------
@@ -3018,10 +3070,12 @@ def phase_lint(torch, device, n=JACOBI_N, kernels=JACOBI_K,
     """Phase 10.  shoal-lint over the port's main paths on the card.
 
     Every registry entry (``jacobi``, ``jacobi-steady``,
-    ``actors-mailbox``, ``kv-migrate``, ``lossy-put``) runs on the card
-    under a recorder: no unwaived finding, its ``comm_budgets.toml``
-    bound met, and its event list, exchange count (by op tag too) and
-    result bitwise equal to the same entry's CPU run.  Every probe (the
+    ``actors-mailbox``, ``kv-migrate``, ``lossy-put``, ``moe-dispatch``)
+    runs on the card under a recorder: no unwaived finding, its
+    ``comm_budgets.toml`` bound met, and its event list, exchange count
+    (by op tag too), collective calls, budget row and result bitwise
+    equal to the same entry's CPU run (``moe-dispatch``'s float32 loss
+    within 1e-5 relative).  Every probe (the
     R1-R4 programs and their clean twins, the waived aliasing packets)
     gives on the card the CPU's findings and the expected rules, and
     lands the CPU's bits; the 4-block waived vectored put on the Hopper
@@ -3052,15 +3106,28 @@ def phase_lint(torch, device, n=JACOBI_N, kernels=JACOBI_K,
         require(events_json(run.events) == events_json(host.events),
                 f"lint {name}: the events differ between the card and the "
                 "CPU")
-        require(run.exchanges == host.exchanges and run.tags == host.tags,
-                f"lint {name}: exchanges {run.exchanges} {run.tags} on the "
-                f"card, {host.exchanges} {host.tags} on the CPU")
-        _same_result(torch, run.result, host.result, f"lint {name}")
+        require((run.exchanges, run.tags, run.collectives, rep.budget)
+                == (host.exchanges, host.tags, host.collectives,
+                    host.report.budget),
+                f"lint {name}: exchanges {run.exchanges} {run.tags}, "
+                f"collectives {run.collectives} on the card, "
+                f"{host.exchanges} {host.tags} {host.collectives} on the CPU")
+        if name == "moe-dispatch":
+            # a float32 model's loss: the card's GEMMs round otherwise
+            # than the CPU's, so the loss is held to 1e-5, not bitwise
+            got, want = float(run.result), float(host.result)
+            require(abs(got - want) <= 1e-5 * abs(want),
+                    f"lint {name}: loss {got} on the card, {want} on the CPU")
+            result = f"loss {got!r}, CPU {want!r}"
+        else:
+            _same_result(torch, run.result, host.result, f"lint {name}")
+            result = "bitwise the CPU's"
         say("lint", entry=name, clean=True, events=rep.n_events,
-            exchanges=run.exchanges, budget=json.dumps(rep.budget["budget"]),
+            exchanges=run.exchanges, ops=json.dumps(rep.budget["ops"]),
+            budget=json.dumps(rep.budget["budget"]),
             card_wall_ms=f"{rep.wall_time_s * 1e3:.3f}",
             cpu_wall_ms=f"{host.report.wall_time_s * 1e3:.3f}",
-            result="bitwise the CPU's")
+            result=result)
 
     for probe in registry.PROBES:
         if probe.raises is not None:
@@ -3159,6 +3226,187 @@ def phase_lint(torch, device, n=JACOBI_N, kernels=JACOBI_K,
     return launch_counts()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE family (dbrx-132b served at full width; the
+# expert-parallel island over the kernel axis)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "dbrx-132b"
+# 4 of dbrx's 40 layers at full width: 14,269,470,720 parameters, 28.5 GB
+# in bf16 (all 40 would be 131.6 B parameters, 263 GB: more than a card)
+MOE_LAYERS, MOE_PARAMS = 4, 14_269_470_720
+ISLAND_K, ISLAND_S = 4, 1024        # kernels x 4 experts, a 1 x 1024 prompt
+ISLAND_TOL = 3e-2                   # bf16, of the largest |out|
+# each dispatch: (exchanges, collective calls, ring launches) of one
+# island call on K kernels, the aux's all-reduce included
+_AR = 2 * (ISLAND_K - 1)
+ISLAND_CALLS = {
+    "psum": (_AR + _AR, {"all_reduce": 2}, 2),
+    "rs": (2 * (ISLAND_K - 1) + _AR,
+           {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 1}, 3),
+    "a2a": (2 + _AR, {"all_to_all": 2, "all_reduce": 1}, 1)}
+# the dispatches each capacity factor checks: at the default 1.25 the
+# psum and rs shards' capacity is moe_ffn's (same tokens), so are their
+# drops; at 16 nothing drops (tests/md_checks.py:568-595's variant check)
+ISLAND_CASES = ((1.25, ("psum", "rs")), (16.0, ("psum", "rs", "a2a")))
+
+
+def check_island(torch, device, p_moe, dims, d):
+    """One full-width MoE layer's routed experts (``p_moe``, the served
+    model's first MoE layer) over ``ISLAND_K`` kernels, on seeded
+    ``(1, ISLAND_S, d)`` bf16 activations: each dispatch of
+    ``ISLAND_CASES`` against ``moe_ffn`` at the same capacity factor on
+    the card, within ``ISLAND_TOL`` of the largest |out|; its exchanges,
+    ``ctx.collectives`` and ring launches exactly ``ISLAND_CALLS``; host
+    ms (synchronised) and the device busy ms of one profiled call.
+    Returns ``{dispatch: launch counts}`` of the cf-1.25 calls (psum and
+    rs) and the cf-16 a2a call."""
+    from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe as moe_lib
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    h = torch.randn(1, ISLAND_S, d, generator=gen,
+                    device=device).to(torch.bfloat16)
+    runs = {}
+    for cf, dispatches in ISLAND_CASES:
+        dcf = dataclasses.replace(dims, capacity_factor=cf)
+        with torch.no_grad():
+            want, want_aux = moe_lib.moe_ffn(p_moe, h, dcf)
+        torch.cuda.synchronize()
+        top = want.float().abs().max().item()
+        for dispatch in dispatches:
+            dd = dataclasses.replace(dcf, dispatch=dispatch)
+            ctx = ShoalContext(ISLAND_K, device=device)
+            mesh = moe_lib.ExpertMesh(ctx)
+
+            def island():
+                with torch.no_grad():
+                    return moe_lib.moe_routed_island(p_moe, h, dd, mesh,
+                                                     torch.bfloat16)
+
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out, aux = island()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            exchanges, calls, rings = ISLAND_CALLS[dispatch]
+            got_calls = {k: v for k, v in ctx.collectives.items() if v}
+            require(ctx.exchanges == exchanges and got_calls == calls
+                    and counts["ring_collective"] == rings
+                    and set(ctx.collectives) == set(COLLECTIVE_KINDS),
+                    f"island {dispatch} cf {cf}: exchanges {ctx.exchanges}, "
+                    f"collectives {got_calls}, ring launches "
+                    f"{counts['ring_collective']}; want {exchanges}, "
+                    f"{calls}, {rings}")
+            err = (out.float() - want.float()).abs().max().item()
+            require(out.shape == want.shape
+                    and bool(torch.isfinite(out).all())
+                    and err <= ISLAND_TOL * top,
+                    f"island {dispatch} cf {cf}: max|err| {err} vs moe_ffn "
+                    f"> {ISLAND_TOL} * {top}")
+            if cf == ISLAND_CASES[0][0] or dispatch == "a2a":
+                runs[dispatch] = counts
+            del out
+            host = host_ms(torch, island, reps=3, warmup=1)
+            by_name, window = device_activity(torch, island)
+            # late in the script the profiler has returned windows with
+            # no device activity at all: say so rather than report 0
+            busy = (f"{sum(us for _, us in by_name.values()) / 1e3:.4f}"
+                    if by_name else "not measured")
+            say("moe", check="island", dispatch=dispatch,
+                capacity_factor=cf, kernels=ISLAND_K,
+                experts_per_kernel=dims.n_experts // ISLAND_K,
+                tokens=ISLAND_S, max_abs_out=top, max_abs_err=err,
+                limit=f"{ISLAND_TOL}*max|out|", aux=float(aux),
+                moe_ffn_aux=float(want_aux), exchanges=exchanges,
+                collectives=json.dumps(got_calls),
+                ring_launches=counts["ring_collective"],
+                host_ms=f"{host:.3f}", device_busy_ms=busy,
+                profiled_window_ms=f"{window * 1e3:.3f}")
+        del want
+    return runs
+
+
+def time_island_rings(torch, device, d):
+    """The ring kernel at the island's shapes (seed 9): the psum
+    combine's all-reduce, 4 x
+    ``ISLAND_S * d`` float32 (4 x 25.2 MB), and the rs dispatch's
+    all-gather of 4 x ``ISLAND_S / 4 * d`` bf16 tokens and reduce-scatter
+    of 4 x ``ISLAND_S * d`` float32, each against its library call.
+    Run after phase 5, where the profiler has been reliable (phase 12
+    runs last).  Returns ``{case: (schedule, measures)}``."""
+    from repro_torch.kernels import gascore_dma as gd
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    for case, schedule, shape, dtype in (
+            ("moe-island-psum", gd.ALL_REDUCE, (ISLAND_K, ISLAND_S * d),
+             torch.float32),
+            ("moe-island-rs-gather", gd.ALL_GATHER,
+             (ISLAND_K, ISLAND_S // ISLAND_K * d), torch.bfloat16),
+            ("moe-island-rs-scatter", gd.REDUCE_SCATTER,
+             (ISLAND_K, ISLAND_S * d), torch.float32)):
+        x = torch.randn(*shape, generator=gen, device=device).to(dtype)
+        _, m = time_ring(torch, x, schedule, "moe", case)
+        out[case] = (schedule, m)
+        del x
+    _free(torch)
+    return out
+
+
+def phase_moe(torch, device, island_rings):
+    """Phase 12.  dbrx-132b at full width and ``MOE_LAYERS`` of its 40
+    layers (bf16, seed 0, the expert stacks drawn and cast leaf by leaf)
+    served as phase 6 serves tinyllama-1.1b: 8 requests of 128-1024
+    prompt tokens, 32 new tokens each, 4 lanes of 2048 slots, every
+    prompt pass of every layer on the Hopper flash kernel (H 48, K 8,
+    dh 128: 8 x 4 launches required), the MoE on one device
+    (``moe_ffn``, capacity 1.25: decode's 4 tokens drop pairs); one
+    prefill's logits, kernel vs plain version; the profiled prefill and
+    decode window; peak memory.  Then the expert-parallel island on the
+    first MoE layer (:func:`check_island`); the records of the ring at
+    its shapes (``island_rings``, :func:`time_island_rings`) get the
+    island's launches.  Returns ``({run: launch counts}, ring
+    records)``."""
+    from repro_torch import configs
+    from repro_torch.kernels import gascore_dma as gd
+
+    cfg = dataclasses.replace(configs.full(MOE_ARCH), n_layers=MOE_LAYERS)
+    say("moe", model=MOE_ARCH, cut=f"served at {MOE_LAYERS} of 40 layers "
+        "(full width)")
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "moe")
+    require(cfg.num_params(params) == MOE_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    prompts = serve_prompts(cfg.vocab)
+    runs = {f"serve-{MOE_ARCH}": serve_requests(torch, model, params,
+                                                prompts, "moe")}
+    check_prefill_logits(torch, model, params,
+                         prompt_batch(torch, model, prompts[0]), "moe")
+    profile_serving(torch, model, params, prompts[0])
+    say("moe", model=cfg.name, peak_allocated_mb=f"{torch.cuda.max_memory_allocated(device) / 2 ** 20:.0f}",
+        card=card_line())
+    _free(torch)
+    layer0 = {k: v[0] for k, v in
+              params["segments"][0]["b0_moe"]["moe"].items()}
+    islands = check_island(torch, device, layer0, cfg.moe, cfg.d_model)
+    runs.update({f"island-{k}": v for k, v in islands.items()})
+    del model, params, layer0
+    _free(torch)
+    records = []
+    for case, (schedule, m) in island_rings.items():
+        rec = entry("ring_collective", RING_SRC, RING_TPU, m)
+        dispatch = "psum" if schedule == gd.ALL_REDUCE else "rs"
+        rec.update(case=case, main_path_route="simple",
+                   launches=ring_launches(runs[f"island-{dispatch}"],
+                                          "ring_collective"),
+                   path_launches={run: ring_launches(c, "ring_collective")
+                                  for run, c in runs.items()})
+        records.append(rec)
+    return runs, records
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -3216,6 +3464,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch import configs
     from repro_torch.kernels import (_build, launch_counts,
                                      reset_launch_counts)
 
@@ -3271,6 +3520,8 @@ def main() -> int:
     shapes = check_message_shapes(torch, device)
     say("kernels", message_shapes_seconds=f"{time.perf_counter() - t0:.1f}")
     rings = phase_collectives(torch, device)
+    island_rings = time_island_rings(
+        torch, device, configs.full(MOE_ARCH).d_model)
     next(r for r in rings if r["name"] == "ring_cluster_sm90")["ptxas"] = \
         ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
     served, model, params = phase_serving(torch, device)
@@ -3293,15 +3544,22 @@ def main() -> int:
         launches={k: v for k, v in linted.items() if v})
     kernels["jacobi_sweep"]["path_launches"] = {
         "jacobi": counts["jacobi_sweep"], "lint": linted["jacobi_sweep"]}
+    for rec in rings:           # moe-dispatch's aux all-reduces
+        rec["path_launches"]["lint"] = ring_launches(linted, rec["name"])
     t0 = time.perf_counter()
-    family = phase_family(torch, device)
+    family, family_rings = phase_family(torch, device)
     say("family", seconds=f"{time.perf_counter() - t0:.1f}",
         card=card_line())
+    t0 = time.perf_counter()
+    moe, moe_rings = phase_moe(torch, device, island_rings)
+    say("moe", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
+    family.update(moe)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])
         for name in ("flash_attention", "flash_attention_sm90"):
             kernels[name]["path_launches"][run] = ran[name]
+    rings.extend(family_rings + moe_rings)
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
                            "jacobi": counts, "messages": messages,
                            "lint": linted}, shapes)

@@ -4,14 +4,15 @@ The declared side is the repo's ``comm_budgets.toml``, read-only: one
 ``[section]`` per budgeted program, keys ``<metric>_max`` /
 ``<metric>_exact``.  The measured side is what the port counts: an
 entry's ``collective_permute`` is its run's ``ctx.exchanges`` delta,
-the count of kernel-axis gathers, the port's collective-permutes.  The
-run is eager, so the count is dynamic: a loop's exchanges count once
-per iteration, with no trip-count weighting.
+the count of kernel-axis gathers, the port's collective-permutes; its
+``all_to_all``, ``all_reduce``, ``all_gather`` and ``reduce_scatter``
+are its run's ``ctx.collectives`` deltas, one per collective call, and
+``total_collectives`` their sum.  The run is eager, so the counts are
+dynamic: a loop's calls count once per iteration, with no trip-count
+weighting.
 
-The port counts no other collective kind.  A budget key on
-``all_to_all``, ``all_gather``, ``all_reduce``, ``reduce_scatter``,
-``total_collectives`` or ``wire_bytes`` gets a WARNING finding that
-names it as not measured -- never a silent pass.
+The port models no wire bytes: a budget key on ``wire_bytes`` gets a
+WARNING finding that names it as not measured -- never a silent pass.
 
 Violations become rule-B1 findings in the same report model as the
 rules, naming the op sites whose exchanges the run counted.  A
@@ -28,17 +29,17 @@ from __future__ import annotations
 import os
 
 from repro_torch.analysis.report import ERROR, WARNING, Finding
+from repro_torch.core.state import COLLECTIVE_KINDS
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
 DEFAULT_BUDGETS_PATH = os.path.join(_REPO_ROOT, "comm_budgets.toml")
 
 # budget-key metrics the port measures
-MEASURED = ("collective_permute",)
-# the rest of comm_budgets.toml's metrics: XLA collective kinds and
-# ring-model bytes the port does not count
-NOT_MEASURED = ("all_to_all", "all_gather", "all_reduce", "reduce_scatter",
-                "total_collectives", "wire_bytes")
+MEASURED = ("collective_permute",) + COLLECTIVE_KINDS + ("total_collectives",)
+# the rest of comm_budgets.toml's metrics: ring-model bytes the port does
+# not count
+NOT_MEASURED = ("wire_bytes",)
 
 
 def parse_budget_toml(text: str) -> dict[str, dict]:
@@ -77,9 +78,14 @@ def load_budgets(path: str | None = None) -> dict[str, dict]:
         return parse_budget_toml(f.read())
 
 
-def measure(exchanges: int) -> dict[str, float]:
-    """The measured metrics of one entry's run."""
-    return {"collective_permute": float(exchanges)}
+def measure(exchanges: int,
+            collectives: dict[str, int] | None = None) -> dict[str, float]:
+    """The measured metrics of one entry's run: its exchanges and its
+    collective calls by kind (none when omitted)."""
+    calls = {kind: float((collectives or {}).get(kind, 0))
+             for kind in COLLECTIVE_KINDS}
+    return {"collective_permute": float(exchanges), **calls,
+            "total_collectives": sum(calls.values())}
 
 
 def _sites(tags: dict[str, int]) -> tuple[str, ...]:
@@ -114,8 +120,8 @@ def check_budget(entry: str, measured: dict[str, float], spec: dict | None,
             out.append(Finding(
                 rule="B1", severity=WARNING,
                 message=(f"{entry}: {key} = {want:g} is not measured — the "
-                         f"port counts exchanges (collective_permute) "
-                         f"only, not {base.replace('_', '-')}")))
+                         f"port counts exchanges and collective calls, "
+                         f"not {base.replace('_', '-')}")))
             continue
         if base not in MEASURED:
             raise ValueError(
@@ -125,11 +131,13 @@ def check_budget(entry: str, measured: dict[str, float], spec: dict | None,
         if bad:
             rel = "!=" if exact else ">"
             by_op = ", ".join(f"{t}: {n}" for t, n in tags.items())
+            what = ("exchange count" if base == "collective_permute"
+                    else "collective calls")
             out.append(Finding(
                 rule="B1", severity=ERROR, sites=_sites(tags),
                 message=(f"{entry}: measured {base.replace('_', '-')} "
                          f"{got:g} {rel} declared budget {want:g} — the "
-                         "program's exchange count drifted from "
+                         f"program's {what} drifted from "
                          f"comm_budgets.toml [{entry}] (exchanges by op: "
                          f"{by_op or 'none attributed'})")))
     return out
@@ -137,10 +145,14 @@ def check_budget(entry: str, measured: dict[str, float], spec: dict | None,
 
 def budget_row(measured: dict[str, float], spec: dict | None,
                tags: dict[str, int] | None = None) -> dict:
-    """JSON-ready table row: measured counts, the exchanges by op tag,
-    and the declared budget."""
+    """JSON-ready table row: measured counts (exchanges, and each
+    collective kind the run called), the exchanges by op tag, and the
+    declared budget."""
+    ops = {"collective-permute": measured["collective_permute"]}
+    ops.update({kind.replace("_", "-"): measured[kind]
+                for kind in COLLECTIVE_KINDS if measured[kind]})
     return {
-        "ops": {"collective-permute": measured["collective_permute"]},
+        "ops": ops,
         "by_tag": dict(tags or {}),
         "budget": dict(spec or {}),
     }

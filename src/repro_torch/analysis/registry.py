@@ -5,8 +5,10 @@ Each entry builds (lazily; the imports are heavy) one representative
 program of a subsystem on a device and returns ``(ctx, fn, args)``:
 the Shoal context whose ``exchanges`` the budget reads, and the
 callable :func:`repro_torch.analysis.lint.record_run` runs once under a
-recorder.  The entries are the JAX package's registry at its sizes;
-``moe-dispatch`` waits for the port's MoE model.  :func:`run_entry` is
+recorder.  The entries are the JAX package's registry at its sizes.
+``moe-dispatch`` runs no Shoal op (0 events): its budget reads the
+context's collective calls, which the MoE island makes on the
+collectives layer.  :func:`run_entry` is
 the one path the CLI (``scripts/torch_comm_lint.py``), the tests and
 ``chip_smoke.py`` share, so "zero findings on shipped entry points"
 means the same thing everywhere.
@@ -49,13 +51,14 @@ class Entry:
 @dataclasses.dataclass
 class EntryRun:
     """One recorded run of an entry: its events, the exchanges by scope
-    tag, the context's exchange delta, what the program returned, and
-    the report (rules, then the budget)."""
+    tag, the context's exchange and collective-call deltas, what the
+    program returned, and the report (rules, then the budget)."""
 
     name: str
     events: list
     tags: dict
     exchanges: int
+    collectives: dict
     result: object
     report: Report
 
@@ -172,6 +175,35 @@ def build_kv_migrate(device, params=None):
     return tier.ctx, migration, (tier.state, blocks)
 
 
+def build_moe_dispatch(device, params=None):
+    """MoE all-to-all expert dispatch: 2 MoE layers (d 64, 4 heads, 8
+    experts top-2, one shared expert, capacity factor 16) whose routed
+    experts run as the a2a island over 4 kernels x 2 data groups (the
+    JAX entry's mesh (2, 4)), ``Model.loss`` forward on (4, 32) seeded
+    tokens: 2 all-to-alls a layer and one all-reduce of its aux.
+    ``params`` default to a seeded init drawn on the CPU (the same
+    weights on every device)."""
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.model import (ModelConfig, build_model,
+                                          cast_params)
+    from repro_torch.models.moe import ExpertMesh, MoEDims
+
+    dims = MoEDims(n_experts=8, top_k=2, d_ff_expert=64, n_shared=1,
+                   capacity_factor=16.0, dispatch="a2a")
+    cfg = ModelConfig(name="lint-moe", family="moe", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
+                      aux_loss_weight=0.0, moe=dims, dtype=torch.float32)
+    ctx = ShoalContext(4, device=device)
+    model = build_model(cfg, device=device, ep=ExpertMesh(ctx, data=2))
+    if params is None:
+        params = cast_params(cfg, build_model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(1)), device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (4, 32))).to(device)
+    batch = {"tokens": toks, "labels": toks}
+    return ctx, model.loss, (params, batch)
+
+
 ENTRIES: tuple[Entry, ...] = (
     Entry("jacobi", "Jacobi halo exchange (64x64, 8 kernels, 16-word MTU)",
           8, _build_jacobi),
@@ -185,6 +217,8 @@ ENTRIES: tuple[Entry, ...] = (
     Entry("lossy-put",
           "reliable 4-seg put over 1%-drop DCN, retransmit + dedup",
           8, _build_lossy_put),
+    Entry("moe-dispatch", "MoE a2a expert dispatch, 2 layers, (2, 4) "
+          "data x kernels, forward loss", 4, build_moe_dispatch),
 )
 
 
@@ -206,28 +240,30 @@ def run_program(name: str, build: Callable, device=None) -> EntryRun:
 
     device = resolve_device(device)
     ctx, fn, args = build(device)
-    before = ctx.exchanges
+    before, calls = ctx.exchanges, dict(ctx.collectives)
     result, rec = record_run(fn, *args)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return EntryRun(name=name, events=rec.events,
                     tags=trace.recover_tags(rec),
-                    exchanges=ctx.exchanges - before, result=result,
-                    report=report_of(rec, name))
+                    exchanges=ctx.exchanges - before,
+                    collectives={k: n - calls[k]
+                                 for k, n in ctx.collectives.items()},
+                    result=result, report=report_of(rec, name))
 
 
 def lint_entry(name: str, budgets: dict | None = None, *,
                include_budget: bool = True, device=None) -> EntryRun:
     """Run one registered entry point: its rules, then (unless
-    ``include_budget`` is false) its exchanges against
-    ``comm_budgets.toml`` (or ``budgets``)."""
+    ``include_budget`` is false) its exchanges and collective calls
+    against ``comm_budgets.toml`` (or ``budgets``)."""
     t0 = time.perf_counter()
     run = run_program(name, get(name).build, device)
     rep = run.report
     if include_budget:
         spec = (_budget.load_budgets() if budgets is None
                 else budgets).get(name)
-        measured = _budget.measure(run.exchanges)
+        measured = _budget.measure(run.exchanges, run.collectives)
         rep.extend(_budget.check_budget(name, measured, spec, run.tags))
         rep.budget = _budget.budget_row(measured, spec, run.tags)
     rep.wall_time_s = time.perf_counter() - t0

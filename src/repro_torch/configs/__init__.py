@@ -3,8 +3,8 @@
 ``full()`` and ``reduced()`` -> :class:`~repro_torch.models.model.ModelConfig`.
 
 Ported: the dense family (tinyllama-1.1b, qwen2-1.5b, deepseek-7b,
-qwen2-72b) and the audio family (musicgen-medium).  The other
-architectures of the JAX package raise until their slice lands (ROADMAP
+qwen2-72b), the audio family (musicgen-medium) and the MoE family
+(dbrx-132b).  The other architectures of the JAX package raise until their slice lands (ROADMAP
 queue 1, modules to port).
 """
 
@@ -16,6 +16,7 @@ ARCH_IDS = [
     "deepseek_7b",
     "qwen2_72b",
     "musicgen_medium",
+    "dbrx_132b",
 ]
 
 # CLI ids (hyphenated, as assigned) -> module names

@@ -19,6 +19,13 @@ every link traversal their schedule makes, as the reference's
 all-gather, ``2(n - 1)`` for an all-reduce.  ``broadcast_from`` and
 ``all_to_all_vectored`` move data with the op layer's gather over the
 kernel axis; ``tree_barrier`` is a reduction and no traversal.
+
+Each call of a ring collective, of ``all_to_all_vectored`` and of
+``tree_barrier`` on more than one kernel also adds one to its kind in
+``ctx.collectives`` (``reduce_scatter``, ``all_gather``, ``all_reduce``,
+``all_to_all``; the barrier is an all-reduce, ``lax.psum`` in the JAX
+package): one op per collective, as a compiled program counts them,
+whatever its traversals.  ``broadcast_from`` is permutes only.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ def ring_reduce_scatter(ctx: ShoalContext, x: torch.Tensor) -> torch.Tensor:
     buf, _ = _pad_to_chunks(x, n)
     out = ring_collective(buf, REDUCE_SCATTER)
     ctx.exchanges += n - 1
+    ctx.collectives["reduce_scatter"] += 1
     return out
 
 
@@ -71,6 +79,7 @@ def ring_all_gather(ctx: ShoalContext, chunk: torch.Tensor) -> torch.Tensor:
         return chunk[:, None]
     out = ring_collective(chunk.contiguous(), ALL_GATHER)
     ctx.exchanges += n - 1
+    ctx.collectives["all_gather"] += 1
     return out
 
 
@@ -84,6 +93,7 @@ def ring_all_reduce(ctx: ShoalContext, x: torch.Tensor) -> torch.Tensor:
     buf, pad = _pad_to_chunks(x, n)
     full = ring_collective(buf, ALL_REDUCE).reshape(x.shape[0], -1)
     ctx.exchanges += 2 * (n - 1)
+    ctx.collectives["all_reduce"] += 1
     return full[:, :full.shape[1] - pad].reshape(x.shape)
 
 
@@ -104,6 +114,7 @@ def all_to_all_vectored(ctx: ShoalContext, x: torch.Tensor, *,
     if n == 1:
         return x
     ctx.exchanges += 1
+    ctx.collectives["all_to_all"] += 1
     blocks = x.reshape(n, n, m // n, *x.shape[2:])
     return blocks.transpose(0, 1).reshape(x.shape)
 
@@ -111,7 +122,9 @@ def all_to_all_vectored(ctx: ShoalContext, x: torch.Tensor, *,
 def tree_barrier(ctx: ShoalContext) -> torch.Tensor:
     """The dataflow barrier: a sum of one unit per kernel, ``(K,)`` int32
     all equal to ``n``.  A reduction, no link traversal (as
-    :func:`repro_torch.core.ops.barrier`)."""
+    :func:`repro_torch.core.ops.barrier`), one all-reduce call."""
+    if ctx.num_kernels > 1:
+        ctx.collectives["all_reduce"] += 1
     return torch.full((ctx.num_kernels,), ctx.num_kernels, dtype=torch.int32,
                       device=ctx.device)
 

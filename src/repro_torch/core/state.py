@@ -11,7 +11,10 @@ take a state and return a new one; the input state is not modified.
 transport (acked/async + packet limit), the handler table, the segment
 size and the device.  It also counts the link traversals the program
 makes (``exchanges``): one per kernel-axis gather, the counterpart of a
-collective-permute in the compiled program of the JAX package.
+collective-permute in the compiled program of the JAX package; and the
+collective calls of :mod:`repro_torch.core.collectives` by kind
+(``collectives``), one per call, as the compiled program counts one
+all-to-all, all-reduce, all-gather or reduce-scatter op per collective.
 """
 
 from __future__ import annotations
@@ -239,6 +242,12 @@ class PatternTable(NamedTuple):
     dsts: torch.Tensor        # (P,) int64 destinations, pattern order
 
 
+# the collective kinds ``ShoalContext.collectives`` counts (the JAX
+# package's HLO op kinds, as ``comm_budgets.toml`` keys them)
+COLLECTIVE_KINDS = ("all_to_all", "all_reduce", "all_gather",
+                    "reduce_scatter")
+
+
 class ShoalContext:
     """Shoal configuration over ``num_kernels`` kernels on one device.
 
@@ -249,6 +258,8 @@ class ShoalContext:
       device: where states and packets live (default: the CUDA card).
       handlers: the handler table.
       exchanges: link traversals made so far (kernel-axis gathers).
+      collectives: collective calls made so far, by kind
+        (:data:`COLLECTIVE_KINDS`).
     """
 
     def __init__(self, num_kernels: int, transport: Transport = TCP,
@@ -262,6 +273,7 @@ class ShoalContext:
         self.device = resolve_device(device)
         self.handlers = hd.DEFAULT_TABLE if handlers is None else handlers
         self.exchanges = 0
+        self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
         self._patterns: dict[tuple, PatternTable] = {}
 
     def my_id(self) -> torch.Tensor:

@@ -19,11 +19,13 @@ import torch.nn.functional as F
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0):
     fan_in = shape[in_axis] if shape else 1
     scale = 1.0 / np.sqrt(max(fan_in, 1))
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+    # scaled in place: the same values as ``randn * scale`` without a
+    # second full-size temporary
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
 
 
 def embed_init(gen: torch.Generator, shape):
-    return torch.randn(shape, generator=gen, device=gen.device) * 0.02
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(0.02)
 
 
 # --------------------------------------------------------------------------

@@ -4,9 +4,13 @@ decode (the port of ``repro.models.model``).
 Layers are grouped into homogeneous *segments* (a superblock pattern x a
 repeat count) with layer-stacked parameter and cache leaves, as in the
 JAX package; a Python loop over the stacked layers takes the place of
-``lax.scan``.  Two families are ported, both ``[("dense",)] x L``: dense
-and audio (LayerNorm / GELU blocks fed frame embeddings, the
-``frontend="embeddings"`` stub, in place of tokens).
+``lax.scan``.  Three families are ported: dense and audio, both
+``[("dense",)] x L`` (audio: LayerNorm / GELU blocks fed frame
+embeddings, the ``frontend="embeddings"`` stub, in place of tokens), and
+moe, ``[("dense",)] x first_k_dense + [("moe",)] x rest`` (the MoE block
+is the dense block with :mod:`repro_torch.models.moe`'s routed experts
+in place of the MLP; ``Model(..., ep=)`` runs them expert-parallel over
+a kernel axis, as the JAX package's mesh does).
 
 Parameters are a dict tree like the JAX package's.  Matrices, embeddings
 and biases are held in ``cfg.dtype`` (the JAX package casts its float32
@@ -26,6 +30,7 @@ import torch
 from repro_torch.core.state import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as bl
+from repro_torch.models import moe as moe_lib
 from repro_torch.tree import tree_leaves
 
 # families and options of the JAX package that wait for a later slice
@@ -37,7 +42,7 @@ NORM_KEYS = ("ln1", "ln2", "final_norm")     # float32 subtrees
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | audio (moe | vlm | hybrid | ssm
+    family: str                  # dense | audio | moe (vlm | hybrid | ssm
                                  # raise until ported)
     n_layers: int
     d_model: int
@@ -51,7 +56,8 @@ class ModelConfig:
     mlp: str = "swiglu"          # swiglu | gelu
     rope_base: float = 10000.0
     tie_embeddings: bool = False
-    moe: Any = None              # MoE dims: not ported
+    moe: Any = None              # moe_lib.MoEDims of the moe family
+    first_k_dense: int = 0       # moe: dense layers before the MoE ones
     mla: Any = None              # MLA dims: not ported
     aux_loss_weight: float = 0.01
     # frontend: tokens | embeddings (audio frames, a stubbed modality)
@@ -63,10 +69,17 @@ class ModelConfig:
         return self.d_head or self.d_model // self.n_heads
 
     def segments(self) -> list[tuple[tuple[str, ...], int]]:
-        if self.family not in ("dense", "audio"):
-            raise NotImplementedError(f"model family {self.family!r} "
-                                      f"{_NOT_PORTED}")
-        return [(("dense",), self.n_layers)]
+        L = self.n_layers
+        if self.family in ("dense", "audio"):
+            return [(("dense",), L)]
+        if self.family == "moe":
+            segs = []
+            if self.first_k_dense:
+                segs.append((("dense",), self.first_k_dense))
+            segs.append((("moe",), L - self.first_k_dense))
+            return segs
+        raise NotImplementedError(f"model family {self.family!r} "
+                                  f"{_NOT_PORTED}")
 
     def num_params(self, params) -> int:
         return sum(t.numel() for t in tree_leaves(params))
@@ -130,14 +143,19 @@ def _mlp(cfg, p, x):
     return bl.swiglu(x, p["wg"], p["wu"], p["wd"])
 
 
-# the dense block: segments() admits no other kind
+# the dense and MoE blocks: segments() admits no other kind
 
-def _init_block(cfg, gen, lead=()):
+def _init_block(cfg, kind, gen, lead=()):
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    return {"ln1": _init_norm(cfg, gen, lead),
-            "attn": attn.init_gqa(gen, d, H, K, dh, cfg.qkv_bias, lead),
-            "ln2": _init_norm(cfg, gen, lead),
-            "mlp": _init_mlp(cfg, gen, lead)}
+    p = {"ln1": _init_norm(cfg, gen, lead),
+         "attn": attn.init_gqa(gen, d, H, K, dh, cfg.qkv_bias, lead),
+         "ln2": _init_norm(cfg, gen, lead)}
+    if kind == "moe":
+        # each expert stack is cast to cfg.dtype as it is drawn
+        p["moe"] = moe_lib.init_moe(gen, d, cfg.moe, lead, cfg.dtype)
+    else:
+        p["mlp"] = _init_mlp(cfg, gen, lead)
+    return p
 
 
 def _block_cache(cfg, B: int, slots: int, device, lead=()):
@@ -145,17 +163,27 @@ def _block_cache(cfg, B: int, slots: int, device, lead=()):
                               device, lead)
 
 
-def _apply_block(cfg, p, x, positions, *, cache=None, fresh=False,
-                 differentiable=False):
-    """Returns (x, cache)."""
+def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
+                 differentiable=False, ep=None):
+    """Returns (x, aux): the MoE block's load-balance loss, None for a
+    dense block.  ``ep``: the expert-parallel island, or None."""
     h = _norm(cfg, p["ln1"], x)
-    a, cache = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
-                        K=cfg.n_kv_heads, dh=cfg.dh, rope_base=cfg.rope_base,
-                        cache=cache, fresh=fresh,
-                        differentiable=differentiable)
+    a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
+                    K=cfg.n_kv_heads, dh=cfg.dh, rope_base=cfg.rope_base,
+                    cache=cache, fresh=fresh, differentiable=differentiable)
     x = x + a
     h = _norm(cfg, p["ln2"], x)
-    return x + _mlp(cfg, p["mlp"], h), cache
+    if kind != "moe":
+        return x + _mlp(cfg, p["mlp"], h), None
+    if ep is None:
+        f, aux = moe_lib.moe_ffn(p["moe"], h, cfg.moe)
+        return x + f, aux
+    f, aux = ep(p["moe"], h)
+    if cfg.moe.n_shared:            # shared experts run outside the island
+        B, S, d = h.shape
+        f = f + bl.swiglu(h.reshape(B * S, d), p["moe"]["ws_g"],
+                          p["moe"]["ws_u"], p["moe"]["ws_d"]).reshape(B, S, d)
+    return x + f, aux
 
 
 # --------------------------------------------------------------------------
@@ -164,14 +192,23 @@ def _apply_block(cfg, p, x, positions, *, cache=None, fresh=False,
 
 class Model:
     """Functional model: explicit params, no framework magic.  Lives on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card).
 
-    def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.moe is not None or cfg.mla is not None:
-            raise NotImplementedError(f"MoE / MLA attention {_NOT_PORTED}")
+    ``ep`` (a :class:`~repro_torch.models.moe.ExpertMesh`) runs the MoE
+    layers' routed experts as the expert-parallel island over its
+    kernels, forward only; without it, or where the experts do not split
+    over the kernels, they run on one device (``moe_ffn``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, ep=None):
+        if cfg.mla is not None:
+            raise NotImplementedError(f"MLA attention {_NOT_PORTED}")
+        if cfg.family == "moe" and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: the moe family needs cfg.moe")
         self.cfg = cfg
         self.segs = cfg.segments()
         self.device = resolve_device(device)
+        self.ep = ep
+        self._island = self._ep_ctx()
         # sqrt(d_model) in cfg.dtype, as the JAX package rounds it
         self._embed_scale = torch.tensor(math.sqrt(cfg.d_model),
                                          dtype=cfg.dtype)
@@ -191,10 +228,25 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = bl.dense_init(gen, (cfg.d_model, cfg.vocab))
         params["segments"] = [
-            {f"b{i}_{kind}": _init_block(cfg, gen, (reps,))
+            {f"b{i}_{kind}": _init_block(cfg, kind, gen, (reps,))
              for i, kind in enumerate(pat)}
             for pat, reps in self.segs]
         return cast_params(cfg, params, self.device)
+
+    def _ep_ctx(self):
+        """The expert-parallel island ``(p_moe, h) -> (out, aux)``, or
+        None: no ``ep``, no MoE, one kernel, or experts that do not split
+        over the kernels (the JAX package's ``_ep_ctx`` conditions)."""
+        cfg, ep = self.cfg, self.ep
+        if ep is None or cfg.moe is None or ep.ctx.num_kernels == 1:
+            return None
+        if cfg.moe.n_experts % ep.ctx.num_kernels:
+            return None
+
+        def run(p_moe, h):
+            return moe_lib.moe_routed_island(p_moe, h, cfg.moe, ep,
+                                             cfg.dtype)
+        return run
 
     # -- forward -------------------------------------------------------------
 
@@ -214,8 +266,10 @@ class Model:
 
     def _run_segments(self, params, x, positions, *, caches=None,
                       fresh=False, differentiable=False):
-        """Every layer in order; returns (x, caches)."""
+        """Every layer in order; returns (x, caches, aux), ``aux`` the
+        sum of the MoE layers' losses (float32 0 without any)."""
         cfg = self.cfg
+        aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for si, (pat, reps) in enumerate(self.segs):
             seg_params = {key: _layers(p, reps)
                           for key, p in params["segments"][si].items()}
@@ -225,10 +279,13 @@ class Model:
                 for i, kind in enumerate(pat):
                     key = f"b{i}_{kind}"
                     c = None if seg_cache is None else seg_cache[key][layer]
-                    x, _ = _apply_block(cfg, seg_params[key][layer],
-                                        x, positions, cache=c, fresh=fresh,
-                                        differentiable=differentiable)
-        return x, caches
+                    x, aux = _apply_block(cfg, kind, seg_params[key][layer],
+                                          x, positions, cache=c, fresh=fresh,
+                                          differentiable=differentiable,
+                                          ep=self._island)
+                    if aux is not None:
+                        aux_total = aux_total + aux
+        return x, caches, aux_total
 
     def _positions(self, B: int, S: int):
         return torch.arange(S, device=self.device).expand(B, S)
@@ -236,15 +293,15 @@ class Model:
     def forward_train(self, params, batch, *, differentiable=False):
         """batch: {"tokens": (B, S)} or {"embeddings": (B, S, d)} ->
         (logits (B, S, vocab), aux);
-        ``aux`` (the MoE loss) is 0 for dense.  Attention goes through
+        ``aux`` (the MoE layers' summed load-balance loss) is 0 without
+        MoE layers.  Attention goes through
         the forward-only flash kernel unless ``differentiable`` asks for
         the plain route that autograd differentiates (``loss``)."""
         x = self._embed_in(params, batch)
         B, S = x.shape[:2]
-        x, _ = self._run_segments(params, x, self._positions(B, S),
-                                  differentiable=differentiable)
-        return (self._unembed(params, x),
-                torch.zeros((), dtype=torch.float32, device=self.device))
+        x, _, aux = self._run_segments(params, x, self._positions(B, S),
+                                       differentiable=differentiable)
+        return self._unembed(params, x), aux
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch["labels"]`` plus
@@ -275,9 +332,9 @@ class Model:
         prompt of at most W tokens attends through the flash kernel."""
         x = self._embed_in(params, batch)
         B, S = x.shape[:2]
-        x, cache = self._run_segments(params, x, self._positions(B, S),
-                                      caches=cache,
-                                      fresh=self.is_fresh(cache))
+        x, cache, _ = self._run_segments(params, x, self._positions(B, S),
+                                         caches=cache,
+                                         fresh=self.is_fresh(cache))
         logits = self._unembed(params, x[:, -1:])
         return logits[:, 0], cache
 
@@ -287,10 +344,11 @@ class Model:
         key = "embeddings" if self.cfg.frontend == "embeddings" else "tokens"
         x = self._embed_in(params, {key: token})
         positions = pos[:, None]
-        x, cache = self._run_segments(params, x, positions, caches=cache)
+        x, cache, _ = self._run_segments(params, x, positions,
+                                         caches=cache)
         logits = self._unembed(params, x)
         return logits[:, 0], cache
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
-    return Model(cfg, device=device)
+def build_model(cfg: ModelConfig, device=None, ep=None) -> Model:
+    return Model(cfg, device=device, ep=ep)

@@ -21,7 +21,11 @@ package's (``repro.analysis``).
   events there are the reference's iteration events repeated ``iters``
   times, then the drains.  The waived packets and the migration also
   run, and land the same words on both sides (tolerance: none).
-* Budgets, ``lossy-put``, the cost of the hooks, the CLI.
+* Budgets (the collective kinds measured from ``ctx.collectives``,
+  ``wire_bytes`` a not-measured warning), ``moe-dispatch`` (the MoE
+  a2a island: no Shoal event, 4 all-to-alls, the JAX entry's count in
+  ``BENCH_comm.json``; a broken budget a B1 error), ``lossy-put``, the
+  cost of the hooks, the CLI.
 """
 
 import dataclasses
@@ -513,18 +517,68 @@ def test_tighter_budget_names_the_op():
 
 
 def test_unmeasured_budget_key_warns():
+    """``wire_bytes`` is the one budget metric the port does not
+    measure: a WARNING, never a pass.  The collective kinds are
+    measured (``moe-dispatch``'s keys meet a run of 4 all-to-alls)."""
     from repro_torch.analysis import WARNING, budget
 
-    spec = budget.load_budgets()["moe-dispatch"]
-    findings = budget.check_budget("moe-dispatch", budget.measure(0), spec)
-    assert [(f.rule, f.severity) for f in findings] \
-        == [("B1", WARNING)] * 2
-    assert "all_to_all_exact" in findings[0].message
-    assert "not measured" in findings[1].message
+    spec = dict(budget.load_budgets()["moe-dispatch"], wire_bytes_max=1e6)
+    measured = budget.measure(0, {"all_to_all": 4, "all_reduce": 2})
+    findings = budget.check_budget("moe-dispatch", measured, spec)
+    assert [(f.rule, f.severity) for f in findings] == [("B1", WARNING)]
+    assert "wire_bytes_max" in findings[0].message
+    assert "not measured" in findings[0].message
+    assert measured["total_collectives"] == 6
     assert budget.check_budget("x", budget.measure(1), None)[0].severity \
         == WARNING
     with pytest.raises(ValueError, match="unknown metric"):
         budget.check_budget("x", budget.measure(1), {"bogus_max": 1})
+
+
+MOE = "moe-dispatch"
+# 2 MoE layers on 4 kernels: 2 all-to-alls (1 exchange each) and the
+# aux's all-reduce (2 (K - 1) = 6 exchanges) a layer
+MOE_EXCHANGES = 2 * (2 + 6)
+MOE_OPS = {"collective-permute": MOE_EXCHANGES, "all-to-all": 4.0,
+           "all-reduce": 2.0}
+
+
+def test_moe_dispatch_report():
+    """The port's entry: clean, no Shoal event, 4 all-to-alls (exactly
+    the budget, and the JAX entry's compiled count in
+    ``BENCH_comm.json``) and 6 collectives (<= 25), no key left
+    unmeasured; the loss finite."""
+    from repro_torch.analysis import registry
+
+    run = registry.lint_entry(MOE, device="cpu")
+    rep = run.report
+    assert rep.ok and not rep.findings, rep.render()
+    assert rep.n_events == 0 and run.events == [] and run.tags == {}
+    assert run.collectives == {"all_to_all": 4, "all_reduce": 2,
+                               "all_gather": 0, "reduce_scatter": 0}
+    assert run.exchanges == MOE_EXCHANGES
+    assert rep.budget["ops"] == MOE_OPS
+    assert sum(run.collectives.values()) <= rep.budget["budget"][
+        "total_collectives_max"]
+    assert bool(torch.isfinite(run.result))
+    with open(os.path.join(REPO, "BENCH_comm.json")) as f:
+        jax_row = json.load(f)["current"]["comm_lint"]["entries"][MOE]
+    assert jax_row["n_events"] == rep.n_events == 0
+    assert jax_row["budget"]["ops"]["all-to-all"] == MOE_OPS["all-to-all"]
+
+
+@pytest.mark.parametrize("key,value", [("all_to_all_exact", 3),
+                                       ("total_collectives_max", 5)])
+def test_moe_dispatch_broken_budget_is_a_b1_error(key, value):
+    from repro_torch.analysis import ERROR, budget, registry
+
+    budgets = budget.load_budgets()
+    budgets[MOE] = dict(budgets[MOE], **{key: value})
+    rep = registry.run_entry(MOE, budgets, device="cpu")
+    assert not rep.ok
+    assert [(f.rule, f.severity) for f in rep.findings] == [("B1", ERROR)]
+    assert "collective calls drifted" in rep.findings[0].message
+    assert key.rsplit("_", 1)[0].replace("_", "-") in rep.findings[0].message
 
 
 def test_lossy_put_report():
@@ -686,11 +740,12 @@ def test_cli_clean_over_the_entries(tmp_path):
     out = tmp_path / "lint.json"
     assert _cli().main(["--device", "cpu", "--json", str(out)]) == 0
     doc = json.loads(out.read_text())
-    assert sorted(doc["entries"]) == sorted(BUDGET_EXCHANGES)
+    assert sorted(doc["entries"]) == sorted([*BUDGET_EXCHANGES, MOE])
     for name, row in doc["entries"].items():
         assert row["ok"] and not row["findings"], name
         assert row["budget"]["ops"]["collective-permute"] \
-            == BUDGET_EXCHANGES[name]
+            == {**BUDGET_EXCHANGES, MOE: MOE_EXCHANGES}[name]
+    assert doc["entries"][MOE]["budget"]["ops"] == MOE_OPS
 
 
 def test_cli_fails_on_a_racy_entry(monkeypatch, capsys):

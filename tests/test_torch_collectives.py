@@ -455,7 +455,34 @@ def test_one_kernel_is_the_identity_with_no_exchange():
         _assert_bits(got, np.asarray(want)[None], "n=1")
     assert coll.tree_barrier(ctx).tolist() == [1]
     assert ctx.exchanges == 0
+    assert not any(ctx.collectives.values())
     _assert_bits(ring_allreduce_dma(t[:, 0]), x[:, 0], "dma n=1")
+
+
+def test_each_collective_call_counts_once_by_kind():
+    """``ctx.collectives`` adds one per call to its kind, whatever the
+    call's traversals (``ctx.exchanges`` keeps counting those): the
+    compiled program's one op per collective.  ``broadcast_from`` is
+    permutes only."""
+    import torch
+
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
+
+    ctx = ShoalContext(N, device="cpu")
+    x = torch.ones(N, N, 3)
+    for fn, kind, exchanges in (
+            (coll.ring_all_reduce, "all_reduce", 2 * (N - 1)),
+            (coll.ring_reduce_scatter, "reduce_scatter", N - 1),
+            (coll.ring_all_gather, "all_gather", N - 1),
+            (coll.all_to_all_vectored, "all_to_all", 1),
+            (lambda c, _: coll.tree_barrier(c), "all_reduce", 0),
+            (coll.broadcast_from, None, 2 * (N - 1))):
+        before, calls = ctx.exchanges, dict(ctx.collectives)
+        fn(ctx, x)
+        assert ctx.exchanges - before == exchanges, kind
+        assert {k: ctx.collectives[k] - calls[k] for k in COLLECTIVE_KINDS} \
+            == {k: int(k == kind) for k in COLLECTIVE_KINDS}, kind
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])

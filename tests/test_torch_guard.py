@@ -225,7 +225,7 @@ def test_analysis_and_lint_cli_run_with_jax_blocked(tmp_path):
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
         "doc = json.load(open(out))\n"
-        "assert len(doc['entries']) == 5\n"
+        "assert len(doc['entries']) == 6\n"
         "assert all(r['ok'] for r in doc['entries'].values())\n"
         "print('lint-ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -404,6 +404,28 @@ def test_serve_lm_example_runs_on_the_cpu():
     assert "[serve] qwen2-smoke: 6 requests, 72 tokens" in out
 
 
+def test_serve_lm_example_serves_the_moe_family_on_the_cpu():
+    out = _run_example("torch_serve_lm.py", "--arch", "dbrx-132b")
+    assert out.count("req ") == 6
+    assert "[serve] dbrx-smoke: 6 requests, 72 tokens" in out
+
+
+def test_launch_train_trains_the_moe_family(tmp_path, capsys):
+    """dbrx-smoke through the launcher's shoal trainer: the loss is
+    cross-entropy plus 0.01 x the MoE layers' aux, finite."""
+    from repro_torch.launch import train as launch_train
+
+    assert launch_train.main([
+        "--arch", "dbrx-132b", "--reduced", "--device", "cpu",
+        "--steps", "2", "--batch", "4", "--seq", "16", "--log-every", "1",
+        "--backend", "shoal", "--kernels", "2", "--ckpt-dir",
+        str(tmp_path)]) == 0
+    losses = [float(line.split()[4]) for line in
+              capsys.readouterr().out.splitlines()
+              if line.startswith("[train]")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
 def test_train_lm_example_recovers_from_its_failure_on_the_cpu():
     out = _run_example("torch_train_lm.py", "--steps", "20")
     assert "attempt 0 failed: injected failure at step 10" in out

@@ -135,16 +135,15 @@ def test_tinyllama_configs_match_the_jax_package():
 
 
 @pytest.mark.parametrize("arch", ["deepseek_v2_236b", "llama_3_2_vision_90b",
-                                  "recurrentgemma_2b", "dbrx_132b",
-                                  "xlstm_350m"])
+                                  "recurrentgemma_2b", "xlstm_350m"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.full(arch)
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "moe"}, {"family": "vlm"}, {"family": "hybrid"},
-    {"family": "ssm"}, {"mla": object()}, {"moe": object()}])
+    {"family": "vlm"}, {"family": "hybrid"}, {"family": "ssm"},
+    {"mla": object()}])
 def test_unported_families_and_options_raise(change):
     cfg = dataclasses.replace(configs.reduced(ARCH), **change)
     with pytest.raises(NotImplementedError,
@@ -390,6 +389,37 @@ def test_lane_helpers_reset_and_adopt(smoke, jax_served):
         assert torch.equal(blk[n][:, 0], t)
 
 
+def test_moe_engine_serves_the_jax_engines_tokens(monkeypatch):
+    """dbrx-smoke on 4 lanes: every decode step routes all 4 lanes'
+    tokens (idle lanes too, fed what the JAX engine feeds them) at a
+    capacity of ``int(4 * 4 * 1.25 / 8) = 2`` pairs an expert, so steps
+    drop pairs; the tokens must be the JAX engine's all the same."""
+    from repro_torch.models import moe as tmoe
+
+    moe = Pair(jconfigs.reduced("dbrx-132b"), configs.reduced("dbrx-132b"))
+    jdone = JEngine(moe.jm, moe.jparams, lanes=4, slots=SLOTS).run(
+        _requests(JRequest))
+    drops = []
+    real = tmoe.moe_ffn
+
+    def counted(p, x, dims):
+        B, S, d = x.shape
+        if S == 1:
+            cap = max(1, int(B * dims.top_k * dims.capacity_factor
+                             / dims.n_experts))
+            _, experts, _ = tmoe._route(p["router"], x.reshape(B, d), dims)
+            per = torch.bincount(experts.reshape(-1),
+                                 minlength=dims.n_experts)
+            drops.append(int((per - cap).clamp(min=0).sum()))
+        return real(p, x, dims)
+
+    monkeypatch.setattr(tmoe, "moe_ffn", counted)
+    done = teng.ServeEngine(moe.tm, moe.tparams, lanes=4, slots=SLOTS).run(
+        _requests(teng.Request))
+    assert [(r.rid, r.out) for r in done] == [(r.rid, r.out) for r in jdone]
+    assert max(drops) > 0, drops
+
+
 def test_launch_serve_on_the_cpu(capsys):
     from repro_torch.launch import serve
 
@@ -398,3 +428,7 @@ def test_launch_serve_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "tokens in" in out and "CPU" in out
     assert "[serve] qwen2-smoke:" in out      # the JAX launcher's default
+    assert serve.main(["--arch", "dbrx-132b", "--reduced", "--device", "cpu",
+                       "--requests", "2", "--max-new", "3",
+                       "--slots", "16"]) == 0
+    assert "[serve] dbrx-smoke: 2 requests" in capsys.readouterr().out
