@@ -93,6 +93,18 @@ expert-parallel island over 4 kernels (the psum, rs and a2a dispatches
 on the ring kernel and the vectored all-to-all) against ``moe_ffn`` on
 the card, at each dispatch's exchange, collective-call and ring-launch
 counts, and the ring at the island's shapes against the library call.
+Phase 13 runs multi-head latent attention (MLA): the simple flash kernel
+alone at deepseek-v2's prefill shape (B 1 x S 1024 x 128 heads, q·k
+head dim 192, v head dim 128, bf16) against its plain version and timed
+beside ``scaled_dot_product_attention`` (right after phase 6); then
+deepseek-v2-236b at full width (d 5120, 128 heads, a 512-word latent KV
+cache, 160 experts top-6 and 2 shared) and 4 of its 60 layers (26.6 GB)
+served through ``ServeEngine`` as phase 6 serves tinyllama-1.1b, every
+prompt pass of every layer on the simple flash kernel (8 x 4 launches
+required, none of the Hopper kernel), every decode step in the absorbed
+form; one prefill's logits held to the plain version, one absorbed
+decode step to the materialized one, and the psum island on its first
+MoE layer (shared experts added outside it) to ``moe_ffn``.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1742,7 +1754,8 @@ def prompt_batch(torch, model, prompt):
                                       device=model.device)[None]}
 
 
-def check_prefill_logits(torch, model, params, batch, tag="serving"):
+def check_prefill_logits(torch, model, params, batch, tag="serving",
+                         flash=None):
     """One full-width prefill's last-token logits through the flash
     kernel (fresh lanes) against the same prefill with the kernel's plain
     version in its place (checked), and against the same prefill through
@@ -1750,7 +1763,10 @@ def check_prefill_logits(torch, model, params, batch, tag="serving"):
     its scores where the kernel keeps them in float32).  The plain route
     is taken by a cache that is not fresh: one slot holds a position past
     the prompt, which the causal mask excludes, so the function is the
-    same.  ``batch``: token ids or frame embeddings, ``(B, S, ...)``."""
+    same.  ``batch``: token ids or frame embeddings, ``(B, S, ...)``.
+    ``flash``: the flash kernel every layer must launch, ``"sm90"`` or
+    ``"simple"``; by default the Hopper one for bfloat16, the simple one
+    for float32."""
     from repro_torch.kernels import attention as fa, launch_counts
     from repro_torch.models import attention as attn
 
@@ -1776,8 +1792,11 @@ def check_prefill_logits(torch, model, params, batch, tag="serving"):
             blk["pos"][:, :, -1] = 2 ** 30
     route, n_route = prefill(cache)
     layers = model.cfg.n_layers
-    # bfloat16 goes through the Hopper kernel, float32 the simple one
-    sm90 = layers if model.cfg.dtype == torch.bfloat16 else 0
+    # bfloat16 goes through the Hopper kernel, float32 the simple one,
+    # unless the caller names the kernel (MLA's 192 / 128: the simple one)
+    if flash is None:
+        flash = "sm90" if model.cfg.dtype == torch.bfloat16 else "simple"
+    sm90 = layers if flash == "sm90" else 0
     require((n_kernel, n_plain, n_route) == ((layers, sm90), (0, 0), (0, 0)),
             f"logit check: (flash, sm90) launches "
             f"{(n_kernel, n_plain, n_route)}")
@@ -1901,15 +1920,17 @@ def ab_prefill(torch, model, params, prompt, rounds=2):
         attn.flash_attention = fa.flash_attention
 
 
-def serve_requests(torch, model, params, prompts, tag="serving"):
+def serve_requests(torch, model, params, prompts, tag="serving",
+                   flash="sm90"):
     """The served main path: ``ServeEngine.run`` of ``prompts``, MAX_NEW
     new tokens each, greedy, on LANES lanes of SLOTS slots (after a
     warm-up on an engine of its own), the launch counts reset before the
     run and read after it; every request and slot event checked, and
-    every prompt pass of every layer a launch of the Hopper flash kernel
-    (bfloat16 at dh 64 / 128).  Prints the run's lines under ``tag``
-    (tokens/s, prefill ms per request, decode ms per 4-lane step) and
-    returns the run's launch counts."""
+    every prompt pass of every layer a launch of the flash kernel named
+    by ``flash``: the Hopper one (bfloat16 at dh 64 / 128), or the
+    simple one (MLA's q·k 192 / v 128).  Prints the run's lines under
+    ``tag`` (tokens/s, prefill ms per request, decode ms per 4-lane
+    step) and returns the run's launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Request, ServeEngine
 
@@ -1949,12 +1970,16 @@ def serve_requests(torch, model, params, prompts, tag="serving"):
             and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
             f"{cfg.name} served: {len(done)} of {n} requests finished, "
             f"tokens {[len(r.out) for r in reqs]}")
-    # every prompt is bfloat16 at dh 64 / 128 on TMA's grid, so every
-    # prompt pass of every layer takes the Hopper kernel
-    require(counts["flash_attention"] == counts["flash_attention_sm90"]
-            == n * cfg.n_layers,
+    # GQA prompts are bfloat16 at dh 64 / 128 on TMA's grid, so every
+    # prompt pass of every layer takes the Hopper kernel; MLA's take the
+    # simple one, and none the Hopper one
+    want = n * cfg.n_layers
+    sm90 = want if flash == "sm90" else 0
+    require(counts["flash_attention"] == want
+            and counts["flash_attention_sm90"] == sm90,
             f"{cfg.name}: flash launches {counts['flash_attention']}, sm90 "
-            f"{counts['flash_attention_sm90']}, want {n} x {cfg.n_layers}")
+            f"{counts['flash_attention_sm90']}, want {n} x {cfg.n_layers} "
+            f"on the {flash} kernel")
     events = [e for b in batches for e in b]
     for kind in ("acquire", "release"):
         require(sorted(e.rid for e in events if e.kind == kind)
@@ -3251,14 +3276,18 @@ ISLAND_CALLS = {
 ISLAND_CASES = ((1.25, ("psum", "rs")), (16.0, ("psum", "rs", "a2a")))
 
 
-def check_island(torch, device, p_moe, dims, d):
+def check_island(torch, device, p_moe, dims, d, cases=ISLAND_CASES,
+                 tag="moe"):
     """One full-width MoE layer's routed experts (``p_moe``, the served
     model's first MoE layer) over ``ISLAND_K`` kernels, on seeded
-    ``(1, ISLAND_S, d)`` bf16 activations: each dispatch of
-    ``ISLAND_CASES`` against ``moe_ffn`` at the same capacity factor on
-    the card, within ``ISLAND_TOL`` of the largest |out|; its exchanges,
+    ``(1, ISLAND_S, d)`` bf16 activations: each dispatch of ``cases``
+    against ``moe_ffn`` at the same capacity factor on the card, within
+    ``ISLAND_TOL`` of the largest |out|, the shared experts (deepseek-v2)
+    added to the island's output as ``models.model._apply_block`` adds
+    them (``moe_ffn`` includes them); its exchanges,
     ``ctx.collectives`` and ring launches exactly ``ISLAND_CALLS``; host
-    ms (synchronised) and the device busy ms of one profiled call.
+    ms (synchronised) and the device busy ms of one profiled call, of the
+    island alone (the shared experts are neither timed nor counted).
     Returns ``{dispatch: launch counts}`` of the cf-1.25 calls (psum and
     rs) and the cf-16 a2a call."""
     from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
@@ -3269,7 +3298,7 @@ def check_island(torch, device, p_moe, dims, d):
     h = torch.randn(1, ISLAND_S, d, generator=gen,
                     device=device).to(torch.bfloat16)
     runs = {}
-    for cf, dispatches in ISLAND_CASES:
+    for cf, dispatches in cases:
         dcf = dataclasses.replace(dims, capacity_factor=cf)
         with torch.no_grad():
             want, want_aux = moe_lib.moe_ffn(p_moe, h, dcf)
@@ -3290,6 +3319,9 @@ def check_island(torch, device, p_moe, dims, d):
             out, aux = island()
             torch.cuda.synchronize()
             counts = launch_counts()
+            if dims.n_shared:       # dense, outside the island
+                with torch.no_grad():
+                    out = out + moe_lib.shared_experts(p_moe, h)
             exchanges, calls, rings = ISLAND_CALLS[dispatch]
             got_calls = {k: v for k, v in ctx.collectives.items() if v}
             require(ctx.exchanges == exchanges and got_calls == calls
@@ -3305,7 +3337,7 @@ def check_island(torch, device, p_moe, dims, d):
                     and err <= ISLAND_TOL * top,
                     f"island {dispatch} cf {cf}: max|err| {err} vs moe_ffn "
                     f"> {ISLAND_TOL} * {top}")
-            if cf == ISLAND_CASES[0][0] or dispatch == "a2a":
+            if cf == cases[0][0] or dispatch == "a2a":
                 runs[dispatch] = counts
             del out
             host = host_ms(torch, island, reps=3, warmup=1)
@@ -3314,7 +3346,7 @@ def check_island(torch, device, p_moe, dims, d):
             # no device activity at all: say so rather than report 0
             busy = (f"{sum(us for _, us in by_name.values()) / 1e3:.4f}"
                     if by_name else "not measured")
-            say("moe", check="island", dispatch=dispatch,
+            say(tag, check="island", dispatch=dispatch,
                 capacity_factor=cf, kernels=ISLAND_K,
                 experts_per_kernel=dims.n_experts // ISLAND_K,
                 tokens=ISLAND_S, max_abs_out=top, max_abs_err=err,
@@ -3405,6 +3437,177 @@ def phase_moe(torch, device, island_rings):
                                   for run, c in runs.items()})
         records.append(rec)
     return runs, records
+
+
+# ---------------------------------------------------------------------------
+# phase 13: MLA (deepseek-v2-236b served at full width: the latent KV
+# cache, absorbed decode, prompt passes on the simple flash kernel at q·k
+# 192 / v 128)
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-236b"
+# 4 of deepseek-v2's 60 layers at full width (1 dense, 3 MoE):
+# 13,302,912,000 parameters, 26.6 GB in bf16 (all 60 would be 235.7 B
+# parameters, 471 GB: more than a card)
+MLA_LAYERS, MLA_PARAMS = 4, 13_302_912_000
+# the prefill's flash call: B, S, H, K, q·k head dim, v head dim
+MLA_FLASH = (1, 1024, 128, 128, 192, 128)
+MLA_ISLAND_CASES = ((1.25, ("psum",)),)     # 40 experts a kernel at K 4
+MLA_PTXAS = "Li96ELi64E"    # the simple kernel's (96, 64) instantiations
+
+
+def check_flash_mla(torch, device):
+    """The simple flash kernel alone at deepseek-v2's prefill shape
+    (``MLA_FLASH``, bfloat16, seed 29): its error against the plain
+    version within the bf16 tolerance; device ms of the kernel and of
+    ``scaled_dot_product_attention(..., is_causal=True)`` (the library
+    yardstick, used nowhere in the port; it takes a v head dim of its
+    own) in turns (kernel, library, library, kernel), and of the plain
+    version; the bound by bytes (q, k, v read once, the output written
+    once) and by operations (S^2 (dqk + dv) a head for the causal QK^T
+    and PV at the bf16 rate), and the kernel's own float32 floor.  Run
+    right after phase 6, where the profiler has been reliable.  Returns
+    the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, Kv, dqk, dv = MLA_FLASH
+    gen = torch.Generator(device=device).manual_seed(29)
+    q, k, v = (torch.randn(*shape, generator=gen, device=device).to(
+        torch.bfloat16) for shape in ((B, S, H, dqk), (B, S, Kv, dqk),
+                                      (B, S, Kv, dv)))
+    route = fa.flash_kernel_for(q, k, v)
+    require(route == "simple", f"flash at MLA's {dqk}/{dv}: routed to {route}")
+    tol = FLASH_TOL["bfloat16"]
+    want = fa.flash_attention_ref(q, k, v)
+    err = _flash_err(torch, fa.flash_attention(q, k, v), want, tol,
+                     f"simple flash kernel at q·k {dqk} / v {dv}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    turns = {"kernel": [], "library": []}
+    for r in ("kernel", "library", "library", "kernel"):
+        turns[r].append(device_ms(
+            lambda: fa.flash_attention_cuda(q, k, v),
+            kernel="flash_attention_kernel") if r == "kernel" else
+            device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)))
+    ops = B * H * S * S * (dqk + dv)
+    m = dict(err=err, ms=float(np.mean(turns["kernel"])),
+             plain=device_ms(lambda: fa.flash_attention_ref(q, k, v),
+                             reps=5),
+             lib=float(np.mean(turns["library"])),
+             nbytes=(q.numel() + k.numel() + v.numel() + want.numel())
+             * q.element_size(), ops=ops, rate=BF16_FLOPS)
+    bound_ms, bound_by = bound(m)
+    rec = {"case": "deepseek-v2-prefill",
+           "shape": f"B{B}xS{S}xH{H}xK{Kv}xdqk{dqk}xdv{dv}",
+           "dtype": "bfloat16", "route": route, "max_abs_err": err,
+           "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "turns_ms": {r: [round(t, 5) for t in ts]
+                        for r, ts in turns.items()}}
+    say("mla", kernel="flash_attention", tol=tol,
+        ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
+        bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
+        ops_bound_ms=f"{ops / BF16_FLOPS * 1e3:.5f}",
+        f32_floor_ms=f"{ops / F32_FLOPS * 1e3:.5f}",
+        **{key: (f"{val:.5f}" if isinstance(val, float) else val)
+           for key, val in rec.items() if key != "turns_ms"},
+        turns_ms=json.dumps(rec["turns_ms"]))
+    del q, k, v, qt, kt, vt, want
+    _free(torch)
+    return rec
+
+
+def check_absorbed_decode(torch, model, params, batch):
+    """One prompt's prefill on a fresh cache, then one decode step through
+    the absorbed route (scores in the latent space of the cache) and the
+    same step on a copy of the cache through the materialized form
+    (``_mla_materialized`` in ``_mla_absorbed``'s place: per-head keys
+    and values over the whole ring): the logits within ``LOGIT_TOL`` of the largest |logit|, the
+    identity the JAX package's absorbed form relies on.  Neither step
+    launches a flash kernel."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import attention as attn
+
+    absorbed_form = attn._mla_absorbed
+    B, S = batch["tokens"].shape
+    cache = model.make_cache(B, SLOTS)
+    logits, _ = model.prefill(params, batch, cache)
+    token = logits.argmax(-1)[:, None]
+    pos = torch.full((B,), S, device=model.device)
+    twin = [{key: {n: t.clone() for n, t in blk.items()}
+             for key, blk in seg.items()} for seg in cache]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    absorbed, _ = model.decode_step(params, cache, token, pos)
+    attn._mla_absorbed = attn._mla_materialized
+    try:
+        materialized, _ = model.decode_step(params, twin, token, pos)
+    finally:
+        attn._mla_absorbed = absorbed_form
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    require(counts["flash_attention"] == 0,
+            f"decode launched flash: {counts['flash_attention']}")
+    absorbed, materialized = absorbed.float(), materialized.float()
+    require(bool(torch.isfinite(absorbed).all())
+            and absorbed.shape == (B, model.cfg.vocab), "decode logits")
+    dtype = str(model.cfg.dtype).split(".")[-1]
+    tol = LOGIT_TOL[dtype]
+    top = materialized.abs().max().item()
+    err = (absorbed - materialized).abs().max().item()
+    require(err <= tol * top, f"absorbed vs materialized decode ({dtype}): "
+            f"max|err| {err} > {tol} * {top}")
+    say("mla", check="absorbed-decode", model=model.cfg.name, dtype=dtype,
+        prompt_tokens=S, slots=SLOTS, max_abs_logit=top,
+        absorbed_vs_materialized_err=err, limit=f"{tol}*max|logit|",
+        argmax_equal=bool(absorbed.argmax() == materialized.argmax()))
+
+
+def phase_mla(torch, device):
+    """Phase 13.  deepseek-v2-236b at full width (d 5120, 128 heads, MLA
+    with a 512-word latent and a 64-word rope key, 160 experts top-6 and
+    2 shared) and ``MLA_LAYERS`` of its 60 layers (bf16, seed 0) served
+    as phase 6 serves tinyllama-1.1b: 8 requests of 128-1024 prompt
+    tokens, 32 new tokens each, 4 lanes of 2048 slots (the latent cache:
+    576 words a token and layer), every prompt pass of every layer on the
+    simple flash kernel at q·k 192 / v 128 (8 x 4 launches required, none
+    of the Hopper kernel), decode in the absorbed form, the MoE on one
+    device (``moe_ffn``); one prefill's logits, kernel vs plain version;
+    the absorbed decode against the materialized one; the profiled
+    prefill and decode window; peak memory.  Then the psum island on the
+    first MoE layer, the shared experts added outside it
+    (:func:`check_island`).  Returns ``{run: launch counts}``."""
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.full(MLA_ARCH), n_layers=MLA_LAYERS)
+    say("mla", model=MLA_ARCH, cut=f"served at {MLA_LAYERS} of 60 layers "
+        f"(full width; {cfg.first_k_dense} dense, "
+        f"{MLA_LAYERS - cfg.first_k_dense} MoE)")
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "mla")
+    require(cfg.num_params(params) == MLA_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    prompts = serve_prompts(cfg.vocab)
+    runs = {f"serve-{MLA_ARCH}": serve_requests(torch, model, params,
+                                                prompts, "mla", "simple")}
+    batch = prompt_batch(torch, model, prompts[0])
+    check_prefill_logits(torch, model, params, batch, "mla", "simple")
+    check_absorbed_decode(torch, model, params, batch)
+    profile_serving(torch, model, params, prompts[0])
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("mla", model=cfg.name, peak_allocated_mb=f"{peak_mb:.0f}",
+        card=card_line())
+    _free(torch)
+    layer0 = {k: v[0] for k, v in
+              params["segments"][1]["b0_moe"]["moe"].items()}
+    islands = check_island(torch, device, layer0, cfg.moe, cfg.d_model,
+                           MLA_ISLAND_CASES, "mla")
+    runs.update({f"island-{MLA_ARCH}-{k}": v for k, v in islands.items()})
+    del model, params, layer0
+    _free(torch)
+    return runs
 
 
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
@@ -3526,6 +3729,9 @@ def main() -> int:
         ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
     served, model, params = phase_serving(torch, device)
     kernels.update(served)
+    mla_flash = check_flash_mla(torch, device)
+    mla_flash["ptxas"] = ring_ptxas_summary(logs.get("flash", ""), MLA_PTXAS)
+    kernels["flash_attention"]["deepseek_v2_mla"] = mla_flash
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
     t0 = time.perf_counter()
@@ -3554,6 +3760,11 @@ def main() -> int:
     moe, moe_rings = phase_moe(torch, device, island_rings)
     say("moe", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
     family.update(moe)
+    t0 = time.perf_counter()
+    mla = phase_mla(torch, device)
+    say("mla", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
+    family.update(mla)
+    mla_flash["launches"] = mla[f"serve-{MLA_ARCH}"]["flash_attention"]
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])

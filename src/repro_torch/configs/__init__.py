@@ -4,7 +4,8 @@
 
 Ported: the dense family (tinyllama-1.1b, qwen2-1.5b, deepseek-7b,
 qwen2-72b), the audio family (musicgen-medium) and the MoE family
-(dbrx-132b).  The other architectures of the JAX package raise until their slice lands (ROADMAP
+(dbrx-132b, and deepseek-v2-236b with MLA attention).  The other
+architectures of the JAX package raise until their slice lands (ROADMAP
 queue 1, modules to port).
 """
 
@@ -17,6 +18,7 @@ ARCH_IDS = [
     "qwen2_72b",
     "musicgen_medium",
     "dbrx_132b",
+    "deepseek_v2_236b",
 ]
 
 # CLI ids (hyphenated, as assigned) -> module names

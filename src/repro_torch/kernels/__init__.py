@@ -20,7 +20,8 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
 * ``attention`` -- causal flash attention over a prompt (GQA layout),
   the LM stack's prefill and forward, replacing ``flash_attention_pallas``:
   a Hopper kernel (TMA tile ring, ``wgmma``) for bfloat16 at head dim 64
-  and 128, and a simple kernel for every other input it holds.
+  and 128, and a simple kernel for every other input it holds (MLA's
+  q·k head dim 192 with v head dim 128 among them).
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).

@@ -7,8 +7,10 @@
 // normaliser l, float32 accumulator; p rounded to v's type before P.V;
 // output acc / max(l, 1e-30)).  It computes the same function, causal by
 // index with scale 1/sqrt(dh), on the port's layout: q (B, S, H, dh),
-// k and v (B, S, K, dh), any element strides.  Query head h reads kv
-// head h / (H / K), so kv heads are shared without a copy.  S need not
+// k (B, S, K, dh), v (B, S, K, dv), any element strides; dv is dh, or
+// 128 at dh 192 (MLA's prompt pass: nope 128 + rope 64 for q.k, 128 for
+// v).  Query head h reads kv head h / (H / K), so kv heads are shared
+// without a copy.  S need not
 // be a multiple of a block: the last block is bound-checked, not padded.
 // Key tiles wholly in the future of a warp's rows are skipped, where the
 // TPU kernel only masks them; the function is the same.
@@ -20,7 +22,9 @@
 // products with one shuffle, so both threads hold every score and run
 // the same online softmax.  K and V tiles of BK = 32 keys are staged in
 // shared memory as float32, each half-row padded by 4 words so the two
-// halves a warp reads fall in different banks.  Every product is a
+// halves a warp reads fall in different banks.  At MLA's 192 / 128 the
+// tiles take 25,600 + 17,408 bytes (under the 48 KB static limit) and a
+// thread holds 96 + 64 + 32 floats of q, the accumulator and the scores.  Every product is a
 // float32 FMA on the CUDA cores; wgmma, TMA and warp specialisation are
 // later work.
 //
@@ -28,7 +32,9 @@
 // PV) against (3 + 1) * S * dh elements moved, so at S = 1024, dh = 64
 // it is bound by operations: tinyllama-1.1b's prefill (B 1, S 1024,
 // H 32, dh 64) needs 4.3 GFLOP, 4.3 us at the bf16 tensor-core rate and
-// 64 us at the float32 rate this kernel uses.
+// 64 us at the float32 rate this kernel uses.  deepseek-v2's (H 128,
+// 192 / 128) needs S^2 (dh + dv) per head, 42.9 GFLOP: 43 us at the bf16
+// rate, 641 us at the float32 rate, against 50 us to move its 168 MB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,17 +75,19 @@ __device__ __forceinline__ float round_p(float p) {
   return to_f32(from_f32<T>(p));
 }
 
-// DH2: half of the padded head dim (8, 16, 32 or 64); d >= dh reads 0.
-template <typename T, int DH2>
+// DQ2: half of the padded q.k head dim (8, 16, 32, 64 or 96), DV2 of
+// the v head dim (DQ2, or 64 at DQ2 96); d >= dh (dv) reads 0.
+template <typename T, int DQ2, int DV2>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int G, int dh, Strides qs, Strides ks,
-                           Strides vs, float scale_log2) {
-  constexpr int DHP = 2 * DH2;
-  constexpr int ROW = DH2 + 4;      // padded half-row in shared memory
-  __shared__ __align__(16) float ksm[BK][2][ROW];
-  __shared__ __align__(16) float vsm[BK][2][ROW];
+                           int H, int G, int dh, int dv, Strides qs,
+                           Strides ks, Strides vs, float scale_log2) {
+  constexpr int DQP = 2 * DQ2, DVP = 2 * DV2;
+  constexpr int QROW = DQ2 + 4;     // padded half-rows in shared memory
+  constexpr int VROW = DV2 + 4;
+  __shared__ __align__(16) float ksm[BK][2][QROW];
+  __shared__ __align__(16) float vsm[BK][2][VROW];
 
   const int qb = gridDim.x - 1 - blockIdx.x;   // longest blocks first
   const int h = blockIdx.y;
@@ -91,15 +99,16 @@ __global__ void __launch_bounds__(THREADS)
   const int row = q0 + (tid >> 1);
   const int warp_last = q0 + (tid >> 5) * ROWS_PER_WARP + ROWS_PER_WARP - 1;
 
-  float qr[DH2], acc[DH2];
+  float qr[DQ2], acc[DV2];
   const bool row_in = row < S;
   const T* qp = q + b * qs.b + h * qs.h;
 #pragma unroll
-  for (int i = 0; i < DH2; ++i) {
-    const int d = half * DH2 + i;
+  for (int i = 0; i < DQ2; ++i) {
+    const int d = half * DQ2 + i;
     qr[i] = (row_in && d < dh) ? to_f32(qp[row * qs.s + d * qs.d]) : 0.f;
-    acc[i] = 0.f;
   }
+#pragma unroll
+  for (int i = 0; i < DV2; ++i) acc[i] = 0.f;
   float m = NEG, l = 0.f;
 
   const T* kp = k + b * ks.b + kvh * ks.h;
@@ -107,12 +116,35 @@ __global__ void __launch_bounds__(THREADS)
   const int k_end = min(q0 + BQ, S);           // keys [0, k_end) matter
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();                           // the last tile is used up
-    for (int e = tid; e < BK * DHP; e += THREADS) {
-      const int j = e / DHP, d = e % DHP;
-      const int key = k0 + j;
-      const bool in = key < S && d < dh;
-      ksm[j][d / DH2][d % DH2] = in ? to_f32(kp[key * ks.s + d * ks.d]) : 0.f;
-      vsm[j][d / DH2][d % DH2] = in ? to_f32(vp[key * vs.s + d * vs.d]) : 0.f;
+    // Equal head dims stage k and v in one pass, unequal ones in a pass
+    // each.  Measured on an H100 (scripts/flash_simple_ab.py): two passes
+    // at equal dims were slower at the GQA shapes, and one pass at (96, 64)
+    // with the v store guarded by d < DVP took 1.37x the time of two.
+    if constexpr (DQ2 == DV2) {
+      for (int e = tid; e < BK * DQP; e += THREADS) {
+        const int j = e / DQP, d = e % DQP;
+        const int key = k0 + j;
+        const bool in = key < S && d < dh;
+        ksm[j][d / DQ2][d % DQ2] =
+            in ? to_f32(kp[key * ks.s + d * ks.d]) : 0.f;
+        vsm[j][d / DV2][d % DV2] =
+            in ? to_f32(vp[key * vs.s + d * vs.d]) : 0.f;
+      }
+    } else {
+      for (int e = tid; e < BK * DQP; e += THREADS) {
+        const int j = e / DQP, d = e % DQP;
+        const int key = k0 + j;
+        const bool in = key < S && d < dh;
+        ksm[j][d / DQ2][d % DQ2] =
+            in ? to_f32(kp[key * ks.s + d * ks.d]) : 0.f;
+      }
+      for (int e = tid; e < BK * DVP; e += THREADS) {
+        const int j = e / DVP, d = e % DVP;
+        const int key = k0 + j;
+        const bool in = key < S && d < dv;
+        vsm[j][d / DV2][d % DV2] =
+            in ? to_f32(vp[key * vs.s + d * vs.d]) : 0.f;
+      }
     }
     __syncthreads();
     if (k0 > warp_last) continue;    // warp-uniform: every key is future
@@ -124,7 +156,7 @@ __global__ void __launch_bounds__(THREADS)
       const float* kr = ksm[j][half];
       float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < DH2; ++i) dot = fmaf(qr[i], kr[i], dot);
+      for (int i = 0; i < DQ2; ++i) dot = fmaf(qr[i], kr[i], dot);
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       s[j] = (k0 + j <= row) ? dot * scale_log2 : NEG;
       tile_max = fmaxf(tile_max, s[j]);
@@ -142,50 +174,58 @@ __global__ void __launch_bounds__(THREADS)
     }
     l = l * alpha + psum;
 #pragma unroll
-    for (int i = 0; i < DH2; ++i) acc[i] *= alpha;
+    for (int i = 0; i < DV2; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float* vr = vsm[j][half];
 #pragma unroll
-      for (int i = 0; i < DH2; ++i) acc[i] = fmaf(s[j], vr[i], acc[i]);
+      for (int i = 0; i < DV2; ++i) acc[i] = fmaf(s[j], vr[i], acc[i]);
     }
     m = m_new;
   }
 
   if (!row_in) return;
   const float denom = fmaxf(l, 1e-30f);
-  T* op = o + (((long long)b * S + row) * H + h) * dh;
+  T* op = o + (((long long)b * S + row) * H + h) * dv;
 #pragma unroll
-  for (int i = 0; i < DH2; ++i) {
-    const int d = half * DH2 + i;
-    if (d < dh) op[d] = from_f32<T>(acc[i] / denom);
+  for (int i = 0; i < DV2; ++i) {
+    const int d = half * DV2 + i;
+    if (d < dv) op[d] = from_f32<T>(acc[i] / denom);
   }
+}
+
+template <typename T, int DQ2, int DV2>
+void launch_one(dim3 grid, cudaStream_t st, const void* q, const void* k,
+                const void* v, void* o, int S, int H, int G, int dh, int dv,
+                Strides qs, Strides ks, Strides vs, float scale_log2) {
+  flash_attention_kernel<T, DQ2, DV2><<<grid, THREADS, 0, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, G, dh, dv, qs, ks,
+      vs, scale_log2);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int K, int dh, Strides qs, Strides ks, Strides vs,
-           cudaStream_t st) {
+           int S, int H, int K, int dh, int dv, Strides qs, Strides ks,
+           Strides vs, cudaStream_t st) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale_log2 =
       (float)(1.0 / sqrt((double)dh) * 1.4426950408889634);
   const int G = H / K;
-  const T* qt = (const T*)q;
-  const T* kt = (const T*)k;
-  const T* vt = (const T*)v;
-  T* ot = (T*)o;
-  if (dh <= 16) {
-    flash_attention_kernel<T, 8><<<grid, THREADS, 0, st>>>(
-        qt, kt, vt, ot, S, H, G, dh, qs, ks, vs, scale_log2);
+  if (dv != dh) {   // MLA: checked to be (192, 128) by the caller
+    launch_one<T, 96, 64>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
+                          scale_log2);
+  } else if (dh <= 16) {
+    launch_one<T, 8, 8>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
+                        scale_log2);
   } else if (dh <= 32) {
-    flash_attention_kernel<T, 16><<<grid, THREADS, 0, st>>>(
-        qt, kt, vt, ot, S, H, G, dh, qs, ks, vs, scale_log2);
+    launch_one<T, 16, 16>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
+                          scale_log2);
   } else if (dh <= 64) {
-    flash_attention_kernel<T, 32><<<grid, THREADS, 0, st>>>(
-        qt, kt, vt, ot, S, H, G, dh, qs, ks, vs, scale_log2);
+    launch_one<T, 32, 32>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
+                          scale_log2);
   } else {
-    flash_attention_kernel<T, 64><<<grid, THREADS, 0, st>>>(
-        qt, kt, vt, ot, S, H, G, dh, qs, ks, vs, scale_log2);
+    launch_one<T, 64, 64>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
+                          scale_log2);
   }
   return (int)cudaGetLastError();
 }
@@ -196,24 +236,28 @@ Strides strides(const long long* s) { return Strides{s[0], s[1], s[2], s[3]}; }
 
 extern "C" {
 
-// q (B, S, H, dh), k and v (B, S, K, dh) with element strides
-// {b, s, h, d}; o a contiguous (B, S, H, dh).  dtype: 0 float32,
-// 1 bfloat16.  Returns a cudaError_t (0 when the launch was accepted).
+// q (B, S, H, dh), k (B, S, K, dh) and v (B, S, K, dv) with element
+// strides {b, s, h, d}; o a contiguous (B, S, H, dv).  dv == dh <= 128,
+// or (dh, dv) == (192, 128).  dtype: 0 float32, 1 bfloat16.  Returns a
+// cudaError_t (0 when the launch was accepted).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int K, int dh,
+                        int B, int S, int H, int K, int dh, int dv,
                         const long long* q_strides,
                         const long long* k_strides,
                         const long long* v_strides, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K != 0 || dh <= 0 ||
-      dh > 128 || H > 65535 || B > 65535)
+  const bool dims_ok =
+      (dv == dh && dh > 0 && dh <= 128) || (dh == 192 && dv == 128);
+  if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K != 0 || !dims_ok ||
+      H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Strides qs = strides(q_strides), ks = strides(k_strides),
                 vs = strides(v_strides);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, S, H, K, dh, qs, ks, vs, st);
+    return launch<float>(q, k, v, o, B, S, H, K, dh, dv, qs, ks, vs, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, S, H, K, dh, qs, ks, vs, st);
+    return launch<__nv_bfloat16>(q, k, v, o, B, S, H, K, dh, dv, qs, ks, vs,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,8 @@
   q, k, v with head dim 64 or 128 laid out on TMA's 16-byte grid.
 * ``csrc/flash.cu`` (``flash_attention_fwd``): the simple kernel --
   float32 FMAs, any strides -- for everything else it holds (float32,
-  other head dims up to 128, views whose head dim is not contiguous).
+  other head dims up to 128, views whose head dim is not contiguous, and
+  MLA's q·k head dim 192 with v head dim 128).
 
 :func:`flash_kernel_for` decides between them from shapes, strides,
 dtype and alignment alone, before the launch; nothing is retried.
@@ -26,6 +27,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 128                # largest head dim the simple kernel holds
+MLA_HEAD_DIMS = (192, 128)  # the one (q·k, v) pair of unequal head dims
 SM90_HEAD_DIMS = (64, 128)  # head dims the Hopper kernel holds
 TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
 MAX_GRID_YZ = 65535         # heads (grid y) and batch (grid z)
@@ -38,8 +40,8 @@ def _lib():
     lib = _build.load("flash")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                            _I, _Strides, _Strides, _Strides,
-                                            _I, _P]
+                                            _I, _I, _Strides, _Strides,
+                                            _Strides, _I, _P]
         lib.flash_attention_fwd.restype = _I
         lib.flash_error_string.argtypes = [_I]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -67,10 +69,10 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
     pointers' alignment: bfloat16 q, k and v with head dim 64 or 128,
     the head dim contiguous, every other stride a positive multiple of
     16 bytes and every pointer 16-byte aligned (what a TMA tensor map
-    takes)."""
+    takes).  Unequal q·k and v head dims (MLA) go to the simple kernel."""
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         return "simple"
-    if q.shape[-1] not in SM90_HEAD_DIMS:
+    if q.shape[-1] not in SM90_HEAD_DIMS or v.shape[-1] != q.shape[-1]:
         return "simple"
     for t in (q, k, v):
         *outer, inner = t.stride()
@@ -79,6 +81,31 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
         if any(s <= 0 or s * t.element_size() % TMA_ALIGN for s in outer):
             return "simple"
     return "sm90"
+
+
+def check_shapes(q_shape, k_shape, v_shape) -> None:
+    """Raise ``ValueError`` unless the kernels take these shapes: ``q (B,
+    S, H, dh)``, ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` with ``H % K
+    == 0``, and either ``dv == dh <= 128`` or ``(dh, dv) == (192, 128)``
+    (MLA).  A pure function of the shapes."""
+    if len(q_shape) != 4 or len(k_shape) != 4 or len(v_shape) != 4 \
+            or tuple(k_shape[:3]) != tuple(v_shape[:3]):
+        raise ValueError(f"q must be (B, S, H, dh), k (B, S, K, dh) and v "
+                         f"(B, S, K, dv), got {tuple(q_shape)}, "
+                         f"{tuple(k_shape)}, {tuple(v_shape)}")
+    B, S, H, dh = q_shape
+    K, dv = k_shape[2], v_shape[3]
+    if (k_shape[0], k_shape[1], k_shape[3]) != (B, S, dh) or K < 1 \
+            or H % K:
+        raise ValueError(f"k {tuple(k_shape)} does not fit q "
+                         f"{tuple(q_shape)}: need (B, S, K, dh) with H % K "
+                         f"== 0")
+    if (dh, dv) != MLA_HEAD_DIMS and not (dh == dv and 1 <= dh <= MAX_DH):
+        raise ValueError(f"head dim {dh} (q·k) / {dv} (v) outside the "
+                         f"kernel's equal dims 1..{MAX_DH} and MLA's "
+                         f"{MLA_HEAD_DIMS}")
+    if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
+        raise ValueError(f"{B} sequences x {H} heads exceed the grid")
 
 
 def _check(q, k, v):
@@ -90,36 +117,25 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32/bfloat16 q, k, v of "
                         f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"q must be (B, S, H, dh) and k, v (B, S, K, dh), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, S, H, dh = q.shape
-    K = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, dh) or K < 1 \
-            or H % K:
-        raise ValueError(f"k, v {tuple(k.shape)} do not fit q "
-                         f"{tuple(q.shape)}: need (B, S, K, dh) with H % K "
-                         f"== 0")
-    if not 1 <= dh <= MAX_DH:
-        raise ValueError(f"head dim {dh} outside the kernel's 1..{MAX_DH}")
-    if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
-        raise ValueError(f"{B} sequences x {H} heads exceed the grid")
+    check_shapes(q.shape, k.shape, v.shape)
 
 
 def _args(q, k, v, out):
+    """The pointers and ``(B, S, H, K, dh)``; the strides."""
     B, S, H, dh = q.shape
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, k.shape[2], dh, _Strides(*q.stride()), _Strides(*k.stride()),
-            _Strides(*v.stride()))
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+             H, k.shape[2], dh),
+            (_Strides(*q.stride()), _Strides(*k.stride()),
+             _Strides(*v.stride())))
 
 
 def launch_flash_sm90(q, k, v, out) -> None:
     """Launch the Hopper kernel on checked inputs it takes; raises if the
     launch fails."""
     lib = _lib_sm90()
+    dims, strides = _args(q, k, v, out)
     status = lib.flash_attention_sm90_fwd(
-        *_args(q, k, v, out), torch.cuda.current_stream(q.device).cuda_stream)
+        *dims, *strides, torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention_sm90_fwd: error {status} "
                            f"({lib.flash_sm90_error_string(status).decode()})")
@@ -130,8 +146,9 @@ def _launch_simple(q, k, v, out) -> None:
     """Launch the simple kernel on checked inputs; raises if the launch
     fails."""
     lib = _lib()
+    dims, strides = _args(q, k, v, out)
     status = lib.flash_attention_fwd(
-        *_args(q, k, v, out), _DTYPES[q.dtype],
+        *dims, v.shape[-1], *strides, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {status} "
@@ -141,8 +158,9 @@ def _launch_simple(q, k, v, out) -> None:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kernel: str | None = None) -> torch.Tensor:
     """Causal attention by index on the card: ``q (B, S, H, dh)``,
-    ``k, v (B, S, K, dh)`` with ``H % K == 0`` and ``dh <= 128``, float32
-    or bfloat16 -> a new contiguous ``(B, S, H, dh)``.  The kernel is
+    ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` with ``H % K == 0`` and
+    ``dv == dh <= 128`` or ``(dh, dv) == (192, 128)``, float32 or
+    bfloat16 -> a new contiguous ``(B, S, H, dv)``.  The kernel is
     :func:`flash_kernel_for`'s choice; ``kernel="simple"`` forces the
     simple one (for comparisons: nothing on the main path sets it), and
     ``kernel="sm90"`` raises on inputs the Hopper kernel does not take."""
@@ -156,7 +174,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("the sm90 kernel does not take these inputs "
                              "(see flash_kernel_for)")
         route = kernel
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
+                      device=q.device)
     if out.numel() == 0:
         return out
     if route == "sm90":

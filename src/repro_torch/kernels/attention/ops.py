@@ -14,7 +14,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal attention of a prompt over itself, by index, with
     ``sm_scale = 1/sqrt(dh)`` and any ``S``: ``q (B, S, H, dh)``,
-    ``k, v (B, S, K, dh)`` -> ``(B, S, H, dh)``.  The counterpart of the
+    ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` -> ``(B, S, H, dv)``, where
+    ``dv`` is ``dh`` or, for MLA's prompt passes, ``(dh, dv) = (192,
+    128)`` (the simple kernel on the card).  The counterpart of the
     JAX package's ``kernels.attention.flash_attention`` (there
     ``(BH, S, dh)`` padded to a block multiple; here the heads stay in
     place, kv heads are shared by ``H // K`` query heads without a copy,

@@ -14,8 +14,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """Causal ``softmax(q kᵀ / sqrt(dh)) v`` by index.
 
-    ``q (B, S, H, dh)``, ``k, v (B, S, K, dh)`` -> ``(B, S, H, dh)``.
-    Query head ``h`` reads kv head ``h // (H // K)`` (the layout of
+    ``q (B, S, H, dh)``, ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` ->
+    ``(B, S, H, dv)``; ``dv`` may differ from ``dh`` (MLA: 192 and 128),
+    and the scale stays ``1/sqrt(dh)``, q's head dim.  Query head ``h``
+    reads kv head ``h // (H // K)`` (the layout of
     ``q.reshape(B, S, K, H // K, dh)``).  Scores and the softmax are
     float32; the probabilities are rounded to ``v.dtype`` before the
     product with ``v``, as the TPU kernel rounds ``p``."""
@@ -28,4 +30,4 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     scores = torch.where(causal, scores, NEG)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
-    return out.reshape(B, S, H, dh)
+    return out.reshape(B, S, H, v.shape[-1])

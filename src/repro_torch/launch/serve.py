@@ -3,6 +3,8 @@ the CUDA card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
+        deepseek-v2-236b --reduced --device cpu
 
 Weights are random, from ``--seed``.  The prompt pass of every request
 runs the flash-attention kernel on the card.  Token-frontend archs only,

@@ -1,5 +1,6 @@
-"""GQA attention (covers MHA when K == H and MQA when K == 1), the port of
-the GQA part of ``repro.models.attention``.
+"""GQA attention (covers MHA when K == H and MQA when K == 1) and
+DeepSeek-V2's multi-head latent attention (MLA), the port of the GQA and
+MLA parts of ``repro.models.attention``.
 
 Shape conventions: activations (B, S, d); heads H, kv heads K, head dim
 ``dh``; ring caches carry absolute slot positions, so a cache of W
@@ -18,12 +19,19 @@ Two routes compute the same attention:
   (``Model.loss``): the kernels have no backward, and neither has the
   JAX package's flash kernel, whose trainer attends through ``_attend``.
 
+MLA (:func:`mla`) takes the same two routes for its prompt passes, with
+a q·k head dim of ``dh_nope + dh_rope`` and a v head dim of ``dh_v``
+(192 and 128 at full width, which the simple flash kernel takes), and a
+third for a decode step: the absorbed form, whose scores are taken in
+the latent space of the cache.
+
 Unlike the JAX package, which returns a new cache, the port writes the
 ring cache in place (the returned cache is the one passed in).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -101,6 +109,9 @@ def _scatter_slots(buf, new, slots):
     buf[rows, slots] = new
 
 
+_scatter2 = _scatter_slots     # the JAX package's name for the MLA caches
+
+
 def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
         fresh=False, differentiable=False):
     """Full causal GQA layer: qkv proj -> rope -> attend -> out proj.
@@ -147,4 +158,171 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
                           cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                           positions, cache["pos"])
     out = out.reshape(B, S, H * dh)
+    return out @ params["wo"].to(x.dtype), cache
+
+
+# --------------------------------------------------------------------------
+# DeepSeek-V2 MLA
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLADims:
+    q_lora: int = 1536
+    kv_lora: int = 512
+    dh_nope: int = 128
+    dh_rope: int = 64
+    dh_v: int = 128
+
+
+def init_mla(gen, d, H, dims: MLADims, lead: tuple = ()):
+    """Float32 weights and the two latent norms' scales (ones); ``lead``
+    as in :func:`init_gqa`."""
+    n = len(lead)
+
+    def dense(shape):
+        return bl.dense_init(gen, lead + shape, n)
+
+    def ones(width):
+        return torch.ones(lead + (width,), device=gen.device)
+
+    return {
+        "wdq": dense((d, dims.q_lora)),
+        "qln": ones(dims.q_lora),
+        "wuq": dense((dims.q_lora, H * (dims.dh_nope + dims.dh_rope))),
+        "wdkv": dense((d, dims.kv_lora)),
+        "kvln": ones(dims.kv_lora),
+        "wkr": dense((d, dims.dh_rope)),
+        "wuk": dense((dims.kv_lora, H * dims.dh_nope)),
+        "wuv": dense((dims.kv_lora, H * dims.dh_v)),
+        "wo": dense((H * dims.dh_v, d)),
+    }
+
+
+def make_mla_cache(B, slots, dims: MLADims, dtype, device, lead: tuple = ()):
+    """MLA caches the *latent* c_kv and the shared rope key: kv_lora +
+    dh_rope words a token (576 at full width) against GQA's 2 K dh."""
+    return {
+        "ckv": torch.zeros(lead + (B, slots, dims.kv_lora), dtype=dtype,
+                           device=device),
+        "kr": torch.zeros(lead + (B, slots, dims.dh_rope), dtype=dtype,
+                          device=device),
+        "pos": torch.full(lead + (B, slots), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def _mla_qkr(params, x, positions, H, dims):
+    """Per-head q (nope and roped halves), the latent c_kv and the shared
+    roped key ``kr (B, S, dh_rope)``.  Rope takes the default base, as in
+    the JAX package, whatever the model's ``rope_base``."""
+    B, S, _ = x.shape
+    cq = bl.rms_norm(x @ params["wdq"].to(x.dtype), params["qln"])
+    q = (cq @ params["wuq"].to(x.dtype)).reshape(
+        B, S, H, dims.dh_nope + dims.dh_rope)
+    q_nope, q_rope = q[..., :dims.dh_nope], q[..., dims.dh_nope:]
+    q_rope = bl.apply_rope(q_rope, positions)
+    kr = bl.apply_rope((x @ params["wkr"].to(x.dtype))[:, :, None, :],
+                       positions)[:, :, 0]
+    ckv = bl.rms_norm(x @ params["wdkv"].to(x.dtype), params["kvln"])
+    return q_nope, q_rope, ckv, kr
+
+
+def _mla_heads(params, ckv, kr, H, dims):
+    """The materialized per-head keys ``(B, T, H, dh_nope + dh_rope)``
+    (the shared rope key broadcast to every head) and values ``(B, T, H,
+    dh_v)`` of latents ``ckv (B, T, kv_lora)``."""
+    B, T, _ = ckv.shape
+    k_nope = (ckv @ params["wuk"].to(ckv.dtype)).reshape(B, T, H,
+                                                          dims.dh_nope)
+    v = (ckv @ params["wuv"].to(ckv.dtype)).reshape(B, T, H, dims.dh_v)
+    k = torch.cat([k_nope, kr[:, :, None].expand(B, T, H, dims.dh_rope)], -1)
+    return k, v
+
+
+def _mla_absorbed(params, q_nope, q_rope, ckv, kr, positions, k_pos, H,
+                  dims):
+    """Attention of one decode step in latent space (the DeepSeek-V2
+    inference trick): ``q_c = q_nope W_uk^T`` per head, scores against
+    the cached latents and rope keys, ``o_c = probs ckv`` lifted by
+    ``W_uv``.  The JAX package's operations, in its order and types."""
+    C = dims.kv_lora
+    dt = q_nope.dtype
+    wuk = params["wuk"].to(dt).reshape(C, H, dims.dh_nope)
+    q_c = torch.einsum("bshn,chn->bshc", q_nope, wuk)
+    s_c = torch.einsum("bshc,btc->bhst", q_c, ckv)
+    s_r = torch.einsum("bshn,btn->bhst", q_rope, kr)
+    scores = (s_c + s_r).float() / math.sqrt(dims.dh_nope + dims.dh_rope)
+    k_pos = k_pos[:, None, :]
+    mask = (k_pos >= 0) & (k_pos <= positions[:, :, None])
+    scores = torch.where(mask[:, None], scores, NEG)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    o_c = torch.einsum("bhst,btc->bshc", probs, ckv)      # latent output
+    wuv = params["wuv"].to(dt).reshape(C, H, dims.dh_v)
+    return torch.einsum("bshc,chv->bshv", o_c, wuv)
+
+
+def _mla_materialized(params, q_nope, q_rope, ckv, kr, positions, k_pos, H,
+                      dims):
+    """Attention over latents ``ckv (B, T, kv_lora)`` in the materialized
+    form: per-head keys and values (:func:`_mla_heads`), masked by
+    position through :func:`_attend`, as the JAX package computes every
+    prompt pass.  Takes :func:`_mla_absorbed`'s arguments and gives its
+    function: ``chip_smoke.py`` puts it in the absorbed form's place to
+    check that identity on the card."""
+    k, v = _mla_heads(params, ckv, kr, H, dims)
+    q = torch.cat([q_nope, q_rope], -1)[:, :, :, None, :]
+    return _attend(q, k, v, positions, k_pos)
+
+
+def mla(params, x, positions, *, H, dims: MLADims, cache=None, fresh=False,
+        differentiable=False):
+    """Full MLA layer: latent projections -> rope -> attend -> out proj.
+
+    ``positions``, ``cache``, ``fresh`` and ``differentiable`` as in
+    :func:`gqa`.  Three routes:
+
+    * the kernel route (no cache and not ``differentiable``, or a fresh
+      cache with S <= W): per-head keys and values from the prompt's own
+      latents, causal attention by index through ``flash_attention`` at
+      q·k dim ``dh_nope + dh_rope`` and v dim ``dh_v``;
+    * the plain route (a cache that holds entries, a prompt longer than
+      the ring, ``differentiable``): :func:`_mla_materialized` over the
+      whole ring, as the JAX package computes every prompt pass;
+    * the absorbed route (one token with a cache that is not fresh): the
+      JAX package's decode form, :func:`_mla_absorbed`.
+    """
+    B, S, _ = x.shape
+    q_nope, q_rope, ckv, kr = _mla_qkr(params, x, positions, H, dims)
+    if cache is not None:
+        W = cache["ckv"].shape[1]
+        if S > W:  # prefill longer than the ring: only the last W matter
+            ckv_w, kr_w, pw = ckv[:, -W:], kr[:, -W:], positions[:, -W:]
+        else:
+            ckv_w, kr_w, pw = ckv, kr, positions
+        ckv_w = ckv_w.to(cache["ckv"].dtype)
+        kr_w = kr_w.to(cache["kr"].dtype)
+        slots = pw.long() % W
+        _scatter2(cache["ckv"], ckv_w, slots)
+        _scatter2(cache["kr"], kr_w, slots)
+        _scatter2(cache["pos"], pw.to(cache["pos"].dtype), slots)
+
+    if cache is None:
+        ckv_c, kr_c, k_pos = ckv, kr, positions
+        kernel = not differentiable
+    elif fresh and S <= W:      # the cache holds exactly this prompt
+        ckv_c, kr_c, k_pos = ckv_w.to(x.dtype), kr_w.to(x.dtype), pw
+        kernel = True
+    else:
+        ckv_c, kr_c = cache["ckv"].to(x.dtype), cache["kr"].to(x.dtype)
+        k_pos, kernel = cache["pos"], False
+    if kernel:
+        k, v = _mla_heads(params, ckv_c, kr_c, H, dims)
+        out = flash_attention(torch.cat([q_nope, q_rope], -1), k, v)
+    elif cache is not None and S == 1:
+        out = _mla_absorbed(params, q_nope, q_rope, ckv_c, kr_c, positions,
+                            k_pos, H, dims)
+    else:
+        out = _mla_materialized(params, q_nope, q_rope, ckv_c, kr_c,
+                                positions, k_pos, H, dims)
+    out = out.reshape(B, S, H * dims.dh_v)
     return out @ params["wo"].to(x.dtype), cache

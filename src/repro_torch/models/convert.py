@@ -35,7 +35,9 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
 
 
 def cache_from_numpy(cfg: ModelConfig, tree, device=None):
-    """The port's cache: ``k``/``v`` in ``cfg.dtype``, ``pos`` int32."""
+    """The port's cache: every leaf but ``pos`` (GQA's ``k`` / ``v``,
+    MLA's latent ``ckv`` and rope key ``kr``) in ``cfg.dtype``, ``pos``
+    int32."""
     device = resolve_device(device)
 
     def convert(blk):

@@ -10,12 +10,15 @@ embeddings, the ``frontend="embeddings"`` stub, in place of tokens), and
 moe, ``[("dense",)] x first_k_dense + [("moe",)] x rest`` (the MoE block
 is the dense block with :mod:`repro_torch.models.moe`'s routed experts
 in place of the MLP; ``Model(..., ep=)`` runs them expert-parallel over
-a kernel axis, as the JAX package's mesh does).
+a kernel axis, as the JAX package's mesh does).  ``cfg.mla`` gives the
+dense and MoE blocks DeepSeek-V2's latent attention (``attention.mla``)
+in place of GQA, with a latent ring cache.
 
 Parameters are a dict tree like the JAX package's.  Matrices, embeddings
 and biases are held in ``cfg.dtype`` (the JAX package casts its float32
 parameters to ``cfg.dtype`` at every use, so casting once gives the same
-values); norm scales and biases stay float32, as the norms read them.
+values); norm scales and biases stay float32, as the norms read them
+(MLA's latent norms ``qln`` and ``kvln`` too).
 Ring caches are written in place (``models.attention``).
 """
 
@@ -36,7 +39,8 @@ from repro_torch.tree import tree_leaves
 # families and options of the JAX package that wait for a later slice
 _NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue 1, modules "
                "to port)")
-NORM_KEYS = ("ln1", "ln2", "final_norm")     # float32 subtrees
+# float32 subtrees: the block norms and MLA's latent norms
+NORM_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +62,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Any = None              # moe_lib.MoEDims of the moe family
     first_k_dense: int = 0       # moe: dense layers before the MoE ones
-    mla: Any = None              # MLA dims: not ported
+    mla: attn.MLADims | None = None  # MLA attention in place of GQA
     aux_loss_weight: float = 0.01
     # frontend: tokens | embeddings (audio frames, a stubbed modality)
     frontend: str = "tokens"
@@ -147,8 +151,9 @@ def _mlp(cfg, p, x):
 
 def _init_block(cfg, kind, gen, lead=()):
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
-    p = {"ln1": _init_norm(cfg, gen, lead),
-         "attn": attn.init_gqa(gen, d, H, K, dh, cfg.qkv_bias, lead),
+    a = (attn.init_mla(gen, d, H, cfg.mla, lead) if cfg.mla
+         else attn.init_gqa(gen, d, H, K, dh, cfg.qkv_bias, lead))
+    p = {"ln1": _init_norm(cfg, gen, lead), "attn": a,
          "ln2": _init_norm(cfg, gen, lead)}
     if kind == "moe":
         # each expert stack is cast to cfg.dtype as it is drawn
@@ -159,6 +164,9 @@ def _init_block(cfg, kind, gen, lead=()):
 
 
 def _block_cache(cfg, B: int, slots: int, device, lead=()):
+    if cfg.mla:
+        return attn.make_mla_cache(B, slots, cfg.mla, cfg.dtype, device,
+                                   lead)
     return attn.make_kv_cache(B, slots, cfg.n_kv_heads, cfg.dh, cfg.dtype,
                               device, lead)
 
@@ -168,9 +176,15 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
     """Returns (x, aux): the MoE block's load-balance loss, None for a
     dense block.  ``ep``: the expert-parallel island, or None."""
     h = _norm(cfg, p["ln1"], x)
-    a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
-                    K=cfg.n_kv_heads, dh=cfg.dh, rope_base=cfg.rope_base,
-                    cache=cache, fresh=fresh, differentiable=differentiable)
+    if cfg.mla:
+        a, _ = attn.mla(p["attn"], h, positions, H=cfg.n_heads, dims=cfg.mla,
+                        cache=cache, fresh=fresh,
+                        differentiable=differentiable)
+    else:
+        a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
+                        K=cfg.n_kv_heads, dh=cfg.dh, rope_base=cfg.rope_base,
+                        cache=cache, fresh=fresh,
+                        differentiable=differentiable)
     x = x + a
     h = _norm(cfg, p["ln2"], x)
     if kind != "moe":
@@ -180,9 +194,7 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
         return x + f, aux
     f, aux = ep(p["moe"], h)
     if cfg.moe.n_shared:            # shared experts run outside the island
-        B, S, d = h.shape
-        f = f + bl.swiglu(h.reshape(B * S, d), p["moe"]["ws_g"],
-                          p["moe"]["ws_u"], p["moe"]["ws_d"]).reshape(B, S, d)
+        f = f + moe_lib.shared_experts(p["moe"], h)
     return x + f, aux
 
 
@@ -200,8 +212,6 @@ class Model:
     over the kernels, they run on one device (``moe_ffn``)."""
 
     def __init__(self, cfg: ModelConfig, device=None, ep=None):
-        if cfg.mla is not None:
-            raise NotImplementedError(f"MLA attention {_NOT_PORTED}")
         if cfg.family == "moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: the moe family needs cfg.moe")
         self.cfg = cfg

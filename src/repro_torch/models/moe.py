@@ -151,6 +151,15 @@ def _combine(contrib, T: int, k: int):
     return out
 
 
+def shared_experts(p, x):
+    """The shared experts (deepseek-v2) of x (..., d): one dense SwiGLU
+    every token passes through, added to the routed experts' output
+    (inside :func:`moe_ffn`, outside the island)."""
+    d = x.shape[-1]
+    return bl.swiglu(x.reshape(-1, d), p["ws_g"], p["ws_u"],
+                     p["ws_d"]).reshape(x.shape)
+
+
 def moe_ffn(p, x, dims: MoEDims):
     """Single-device MoE feed-forward over x (B, S, d), the shared
     experts included: the oracle the island is held to."""
@@ -161,7 +170,7 @@ def moe_ffn(p, x, dims: MoEDims):
     capacity = max(1, int(T * dims.top_k * dims.capacity_factor / E))
     out, aux = _dispatch_local(p, xf, dims, 0, E, capacity)
     if dims.n_shared:
-        out = out + bl.swiglu(xf, p["ws_g"], p["ws_u"], p["ws_d"])
+        out = out + shared_experts(p, xf)
     return out.reshape(B, S, d), aux
 
 

@@ -16,8 +16,10 @@ each); flash
 attention float32 2e-3, bfloat16 3e-2 against its plain version (the
 reference's tolerances, tests/test_kernels.py:109), the Hopper flash
 kernel also against the simple one at 3e-2, and bitwise against itself
-where only future keys change; the engine on the
-card serves the CPU run's tokens exactly (float32 tinyllama-smoke); the
+where only future keys change, the simple kernel also at MLA's q·k 192
+/ v 128; the engines on the
+card serve the CPU run's tokens exactly (float32 tinyllama-smoke and a
+small MLA model at deepseek-v2's head dims); the
 float32 trainer on the card within 1e-5 of its CPU run (TF32 off), its
 all-reduced rows bitwise equal and its int32 ring sums exact.
 """
@@ -656,6 +658,114 @@ def test_flash_launch_counters_show_which_kernel_ran(cuda):
     with pytest.raises(ValueError, match="kernel must be one of"):
         fa.flash_attention_cuda(*bf16, kernel="library")
     assert counts() == (4, 1)
+
+
+# -- the simple flash kernel at MLA's head dims (q·k 192, v 128) ------------
+# deepseek-v2's prompt pass: q = cat(q_nope 128, q_rope 64), k = cat(k_nope,
+# the shared rope key broadcast to every head), v 128; same tolerances.
+
+def _mla_qkv(B, S, H, K, dtype, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, H, 192, generator=gen)
+    k = torch.randn(B, S, K, 192, generator=gen)
+    v = torch.randn(B, S, K, 128, generator=gen)
+    return [t.to(device, dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 1000, 1024])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_mla_head_dims_matches_plain(cuda, S, H, K, dtype):
+    from repro_torch.kernels import attention as fa
+
+    B = 2 if S < 512 else 1
+    q, k, v = _mla_qkv(B, S, H, K, dtype, S + K, cuda)
+    assert fa.flash_kernel_for(q, k, v) == "simple"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
+        == (1, 0)
+    assert got.shape == (B, S, H, 128) and got.dtype == dtype
+    _flash_close(got, fa.flash_attention_ref(q, k, v), dtype)
+
+
+def test_flash_kernel_at_deepseek_v2_prefill_shape(cuda):
+    """B 1 x S 1024 x H 128 (K 128), bfloat16: chip_smoke.py's shape."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _mla_qkv(1, 1024, 128, 128, torch.bfloat16, 5, cuda)
+    _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
+                 torch.bfloat16)
+
+
+def test_flash_kernel_at_mla_head_dims_reads_cat_and_expand_views(cuda):
+    """k built as ``mla`` builds it (a cat of per-head keys and the shared
+    rope key broadcast), k as an ``expand`` of one head (stride 0), q a
+    slice of a wider projection, v a view of a fused k / v row."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H = 2, 77, 4
+    gen = torch.Generator().manual_seed(23)
+    q_wide = torch.randn(B, S, H, 200, generator=gen).to(cuda)
+    q = q_wide[..., 4:196]
+    kv = torch.randn(B, S, H, 128 + 128, generator=gen).to(cuda)
+    kr = torch.randn(B, S, 64, generator=gen).to(cuda)
+    k = torch.cat([kv[..., :128], kr[:, :, None].expand(B, S, H, 64)], -1)
+    v = kv[..., 128:]
+    assert not q.is_contiguous() and not v.is_contiguous()
+    for kk in (k, k[:, :, :1].expand(B, S, H, 192)):
+        _flash_close(fa.flash_attention(q, kk, v),
+                     fa.flash_attention_ref(q, kk, v), torch.float32)
+
+
+def test_flash_at_mla_head_dims_refuses_sm90_and_other_pairs(cuda):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _mla_qkv(1, 70, 4, 4, torch.bfloat16, 3, cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="sm90 kernel does not take"):
+        fa.flash_attention_cuda(q, k, v, kernel="sm90")
+    gen = torch.Generator().manual_seed(4)
+    for dqk, dv in ((256, 128), (128, 192), (192, 64)):
+        qq = torch.randn(1, 8, 2, dqk, generator=gen).to(cuda)
+        kk = torch.randn(1, 8, 2, dqk, generator=gen).to(cuda)
+        vv = torch.randn(1, 8, 2, dv, generator=gen).to(cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(qq, kk, vv)
+    assert launch_counts()["flash_attention"] == 0
+    fa.flash_attention_cuda(q, k, v, kernel="simple")
+    assert launch_counts()["flash_attention"] == 1
+
+
+def test_mla_engine_on_the_card_serves_the_cpu_tokens(cuda):
+    """A small MLA model at deepseek-v2's head dims (nope 128, rope 64,
+    v 128; float32) served on the card gives the CPU run's tokens; every
+    prompt pass of every layer launches the simple kernel, decode (the
+    absorbed form) never."""
+    from repro_torch.models.attention import MLADims
+    from repro_torch.models.model import ModelConfig, build_model
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = ModelConfig(name="mla-card", family="dense", n_layers=2,
+                      d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
+                      vocab=128, mla=MLADims(q_lora=32, kv_lora=16),
+                      dtype=torch.float32)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    prompts = [[3, 14, 15, 9, 2], [7, 8], [30, 2, 9], [11, 12, 13, 5]]
+    outs = {}
+    for device in ("cpu", cuda):
+        engine = ServeEngine(build_model(cfg, device=device),
+                             _to(params, device), lanes=2, slots=16)
+        reset_launch_counts()
+        done = engine.run([Request(i, np.asarray(p, np.int32), 4)
+                           for i, p in enumerate(prompts)])
+        outs[str(device)] = {r.rid: r.out for r in done}
+        counts = launch_counts()
+    assert outs["cpu"] == outs[str(cuda)]
+    assert (counts["flash_attention"], counts["flash_attention_sm90"]) == (
+        len(prompts) * cfg.n_layers, 0)
 
 
 def test_engine_on_the_card_serves_the_cpu_tokens(cuda):

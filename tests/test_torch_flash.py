@@ -7,7 +7,10 @@ Pallas kernel in interpret mode at the shapes of
 ``tests/test_kernels.py:99-102``, with that test's tolerances (float32
 2e-3, bfloat16 3e-2: the two sum in other orders and the Pallas kernel
 rounds p per block), and to the GQA model's own attention ``_attend`` on
-a fresh prompt.  Inputs come from numpy with a fixed seed.
+a fresh prompt.  Inputs come from numpy with a fixed seed.  The shape
+rules of the CUDA wrapper's check (``flash.check_shapes``, a pure
+function) are held here to the cases ``tests/test_torch_cuda.py`` runs
+on the card.
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import torch
 from repro.kernels.attention import flash_attention as jax_flash
 from repro.models import attention as jattn
 from repro_torch.kernels import attention as fa
+from repro_torch.kernels.attention import flash as fl
 from repro_torch.models import attention as tattn
 
 RNG = np.random.default_rng(11)
@@ -118,3 +122,46 @@ def test_flash_wrapper_refuses_non_cpu_tensors_it_cannot_launch_on():
         fa.flash_attention_cuda(torch.zeros(1, 8, 2, 16),
                                 torch.zeros(1, 8, 1, 16),
                                 torch.zeros(1, 8, 1, 16))
+
+
+# (B, S, H, K, dqk, dv) the kernels take: equal head dims up to 128 and
+# MLA's (192, 128), at K = H and H % K == 0
+TAKEN = [(1, 1024, 128, 128, 192, 128), (2, 63, 8, 2, 192, 128),
+         (1, 1, 4, 1, 192, 128), (2, 40, 4, 2, 128, 128),
+         (1, 8, 2, 2, 1, 1), (1, 8, 2, 1, 100, 100)]
+REFUSED = [((1, 8, 2, 2, 256, 128), "head dim"),    # q·k past MLA's 192
+           ((1, 8, 2, 2, 128, 192), "head dim"),    # dv > dqk
+           ((1, 8, 2, 2, 192, 64), "head dim"),
+           ((1, 8, 2, 2, 129, 129), "head dim"),
+           ((1, 8, 2, 2, 64, 32), "head dim"),
+           ((1, 8, 3, 2, 192, 128), "H % K")]
+
+
+def _shapes(B, S, H, K, dqk, dv):
+    return (B, S, H, dqk), (B, S, K, dqk), (B, S, K, dv)
+
+
+@pytest.mark.parametrize("case", TAKEN)
+def test_check_shapes_takes_equal_dims_and_mla(case):
+    fl.check_shapes(*_shapes(*case))
+
+
+@pytest.mark.parametrize("case,match", REFUSED)
+def test_check_shapes_refuses_other_head_dims(case, match):
+    with pytest.raises(ValueError, match=match):
+        fl.check_shapes(*_shapes(*case))
+
+
+def test_check_shapes_refuses_v_that_does_not_fit_k():
+    q, k, _ = _shapes(1, 8, 2, 2, 192, 128)
+    with pytest.raises(ValueError, match="q must be"):
+        fl.check_shapes(q, k, (1, 8, 1, 128))
+    with pytest.raises(ValueError, match="q must be"):
+        fl.check_shapes(q, k, (1, 8, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_shapes_go_to_the_simple_kernel(dtype):
+    q, k, v = (torch.zeros(s, dtype=dtype)
+               for s in _shapes(1, 64, 4, 4, 192, 128))
+    assert fl.flash_kernel_for(q, k, v) == "simple"

@@ -134,7 +134,7 @@ def test_tinyllama_configs_match_the_jax_package():
                                                    32000, torch.bfloat16)
 
 
-@pytest.mark.parametrize("arch", ["deepseek_v2_236b", "llama_3_2_vision_90b",
+@pytest.mark.parametrize("arch", ["llama_3_2_vision_90b",
                                   "recurrentgemma_2b", "xlstm_350m"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -142,8 +142,7 @@ def test_unported_archs_raise(arch):
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "vlm"}, {"family": "hybrid"}, {"family": "ssm"},
-    {"mla": object()}])
+    {"family": "vlm"}, {"family": "hybrid"}, {"family": "ssm"}])
 def test_unported_families_and_options_raise(change):
     cfg = dataclasses.replace(configs.reduced(ARCH), **change)
     with pytest.raises(NotImplementedError,
