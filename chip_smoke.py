@@ -105,6 +105,20 @@ required, none of the Hopper kernel), every decode step in the absorbed
 form; one prefill's logits held to the plain version, one absorbed
 decode step to the materialized one, and the psum island on its first
 MoE layer (shared experts added outside it) to ``moe_ffn``.
+Phase 14 runs cross-attention: both flash kernels with ``causal=False``
+alone at llama-3.2-vision's cross-attention prompt shape (B 4 x S 1024
+text tokens x 64 heads (K 8) over T 1600 image tokens, dh 128, bf16) and
+at ragged key lengths (T 1000, T 129, T 1, S 7, and float32 on the
+simple kernel) against their plain version (within the tolerance, and
+within it of the largest output), timed beside
+``scaled_dot_product_attention`` with the self-attention layers' causal
+shape (right after phase 6); then llama-3.2-vision-90b at full width
+(d 8192, 64 / 8 heads, d_ff 28672) and 10 of its 100 layers (two
+superblocks of 4 dense + 1 cross, 21.3 GB, every gate opened from a
+seed) fed 4 x 1600 seeded image features: one prefill of 4 x 1024
+tokens (10 Hopper flash launches required, 2 of them non-causal) and 32
+decode steps re-attending the features (none); the prefill's logits
+and the first cross layer's output held to the plain version.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1623,14 +1637,76 @@ def _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype):
 
 
 def _flash_err(torch, got, want, tol, what):
-    """max |err| of ``got``; raises beyond atol = rtol = ``tol``."""
+    """max |err| of ``got``; raises beyond atol = rtol = ``tol``, or beyond
+    ``tol`` times the largest |want|: over many keys without causality
+    every output is small (~sqrt(e / T) for unit-normal inputs), and the
+    first limit alone would be as wide as the values."""
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
+    top = want.float().abs().max().item()
     require(bool(torch.isfinite(got).all())
-            and (diff - tol * want.float().abs()).max().item() <= tol,
-            f"{what}: max|err| {err} beyond atol=rtol={tol}")
+            and (diff - tol * want.float().abs()).max().item() <= tol
+            and err <= tol * top,
+            f"{what}: max|err| {err} beyond atol=rtol={tol} or {tol} * "
+            f"max|want| {top}")
     return err
+
+
+def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
+                timed=True):
+    """Flash kernels (``kernels``: ``"sm90"``, ``"simple"``) against their
+    plain version on the same inputs, each within the tolerance of the
+    inputs' type (:func:`_flash_err`).  With ``timed``: device ms in turns
+    (the kernels, the plain version over 5 calls a turn,
+    ``scaled_dot_product_attention`` -- the library yardstick, used
+    nowhere in the port -- then the same in reverse), and the bound by
+    bytes (q, k, v read once, the output written once) and by operations
+    (S^2 (dqk + dv) a head for the causal QK^T and PV, 2 S T (dqk + dv)
+    without causality) at the rate of the inputs' type.  Returns
+    ``{kernel: m}``: ``err``, and with ``timed`` ``ms``, ``plain``,
+    ``lib``, ``nbytes``, ``ops``, ``rate`` and ``turns``."""
+    import torch.nn.functional as F
+
+    B, S, H, dqk = q.shape
+    T, dv = k.shape[1], v.shape[-1]
+    name = str(q.dtype).split(".")[-1]
+    want = fa.flash_attention_ref(q, k, v, causal=causal)
+    out = {r: {"err": _flash_err(torch, fa.flash_attention_cuda(
+        q, k, v, kernel=r, causal=causal), want, FLASH_TOL[name],
+        f"{r} flash kernel, {tag} {name}")} for r in kernels}
+    if not timed:
+        return out
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def run(r):
+        if r == "plain":
+            return device_ms(lambda: fa.flash_attention_ref(
+                q, k, v, causal=causal), reps=5)
+        if r == "library":
+            return device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        return device_ms(
+            lambda: fa.flash_attention_cuda(q, k, v, kernel=r,
+                                            causal=causal),
+            kernel=("flash_attention_kernel_sm90" if r == "sm90"
+                    else "flash_attention_kernel"))
+
+    order = tuple(kernels) + ("plain", "library")
+    turns = {r: [] for r in order}
+    for r in order + order[::-1]:
+        turns[r].append(run(r))
+    base = dict(plain=float(np.mean(turns["plain"])),
+                lib=float(np.mean(turns["library"])),
+                nbytes=(q.numel() + k.numel() + v.numel() + want.numel())
+                * q.element_size(),
+                ops=B * H * (S * S if causal else 2 * S * T) * (dqk + dv),
+                rate=BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS,
+                turns={r: [round(t, 5) for t in ts]
+                       for r, ts in turns.items()})
+    del qt, kt, vt, want
+    return {r: dict(base, err=m["err"], ms=float(np.mean(turns[r])))
+            for r, m in out.items()}
 
 
 def check_flash(torch, device):
@@ -1644,13 +1720,9 @@ def check_flash(torch, device):
     8, dh 128), a ragged S = 1000 and
     a served prompt's S = 903; the simple kernel alone in float32
     (tinyllama's shape and a reference shape at dh 128).  At the
-    prefill shapes, device times of each kernel, the plain version and
-    ``scaled_dot_product_attention`` (the library yardstick, used
-    nowhere in the port), the routed kernel and the library in turns
-    (kernel, library, library, kernel).  Returns the records of the
-    simple kernel (bfloat16, tinyllama) and of the Hopper kernel."""
-    import torch.nn.functional as F
-
+    prefill shapes, timed by :func:`_flash_case`.  Returns the records
+    of the simple kernel (bfloat16, tinyllama) and of the Hopper
+    kernel."""
     from repro_torch.kernels import attention as fa
 
     gen = torch.Generator(device=device).manual_seed(21)
@@ -1668,62 +1740,26 @@ def check_flash(torch, device):
     for case, (B, S, H, Kv, dh), dtype in cases:
         q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
         name = str(dtype).split(".")[-1]
-        tol = FLASH_TOL[name]
-        want = fa.flash_attention_ref(q, k, v)
         route = fa.flash_kernel_for(q, k, v)
         require(route == ("sm90" if dtype == torch.bfloat16 else "simple"),
                 f"flash {case} {name}: dispatched to {route}")
-        errs = {"simple": _flash_err(
-            torch, fa.flash_attention_cuda(q, k, v, kernel="simple"), want,
-            tol, f"simple flash kernel {case} {name}")}
-        if route == "sm90":
-            errs["sm90"] = _flash_err(torch, fa.flash_attention(q, k, v),
-                                      want, tol,
-                                      f"sm90 flash kernel {case} {name}")
+        ms = _flash_case(torch, fa, q, k, v, case,
+                         kernels=tuple(dict.fromkeys((route, "simple"))),
+                         timed=case.endswith("-prefill"))
         line = dict(case=case, shape=f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}",
-                    dtype=name, tol=tol,
-                    **{f"{r}_max_abs_err": e for r, e in errs.items()})
+                    dtype=name, tol=FLASH_TOL[name],
+                    **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
         if case.endswith("-prefill"):
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-
-            def lib_ms():
-                return device_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
-
-            def kernel_ms(r):
-                return device_ms(
-                    lambda: fa.flash_attention_cuda(q, k, v, kernel=r),
-                    kernel=("flash_attention_kernel_sm90" if r == "sm90"
-                            else "flash_attention_kernel"))
-
-            turns = {route: [], "library": []}
-            for r in (route, "library", "library", route):
-                turns[r].append(lib_ms() if r == "library"
-                                else kernel_ms(r))
-            base = dict(
-                plain=device_ms(lambda: fa.flash_attention_ref(q, k, v),
-                                reps=5),
-                lib=float(np.mean(turns["library"])),
-                # q, k, v read once, o written once; 2 S^2 dh operations
-                # per head for the causal QK^T and PV
-                nbytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                ops=2 * B * H * S * S * dh,
-                rate=BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-            for r, err in errs.items():
-                ms = (float(np.mean(turns[r])) if r in turns
-                      else kernel_ms(r))
-                timed[case, name, r] = dict(base, err=err, ms=ms)
-            bound_ms, bound_by = bound(base)
-            line.update({f"{r}_ms": f"{m['ms']:.5f}"
-                         for (c, n, r), m in timed.items()
-                         if (c, n) == (case, name)},
-                        plain_ms=f"{base['plain']:.5f}",
-                        library_ms=f"{base['lib']:.5f}",
-                        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
-            line["turns_ms"] = json.dumps(
-                {r: [round(t, 5) for t in v] for r, v in turns.items()})
+            timed.update({(case, name, r): m for r, m in ms.items()})
+            m = ms[route]
+            bound_ms, bound_by = bound(m)
+            line.update({f"{r}_ms": f"{m['ms']:.5f}" for r, m in ms.items()},
+                        plain_ms=f"{m['plain']:.5f}",
+                        library_ms=f"{m['lib']:.5f}",
+                        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                        turns_ms=json.dumps(m["turns"]))
         say("serving", kernel="flash_attention", **line)
-        del q, k, v, want
+        del q, k, v
     tiny = ("tinyllama-prefill", "bfloat16")
     records["flash_attention"] = entry("flash_attention", FLASH_SRC,
                                        FLASH_TPU, timed[(*tiny, "simple")])
@@ -3458,18 +3494,11 @@ MLA_PTXAS = "Li96ELi64E"    # the simple kernel's (96, 64) instantiations
 
 def check_flash_mla(torch, device):
     """The simple flash kernel alone at deepseek-v2's prefill shape
-    (``MLA_FLASH``, bfloat16, seed 29): its error against the plain
-    version within the bf16 tolerance; device ms of the kernel and of
-    ``scaled_dot_product_attention(..., is_causal=True)`` (the library
-    yardstick, used nowhere in the port; it takes a v head dim of its
-    own) in turns (kernel, library, library, kernel), and of the plain
-    version; the bound by bytes (q, k, v read once, the output written
-    once) and by operations (S^2 (dqk + dv) a head for the causal QK^T
-    and PV at the bf16 rate), and the kernel's own float32 floor.  Run
-    right after phase 6, where the profiler has been reliable.  Returns
-    the record."""
-    import torch.nn.functional as F
-
+    (``MLA_FLASH``, bfloat16, seed 29), held and timed by
+    :func:`_flash_case` (``scaled_dot_product_attention`` takes a v head
+    dim of its own), and the kernel's own float32 floor.  Run right
+    after phase 6, where the profiler has been reliable.  Returns the
+    record."""
     from repro_torch.kernels import attention as fa
 
     B, S, H, Kv, dqk, dv = MLA_FLASH
@@ -3479,42 +3508,24 @@ def check_flash_mla(torch, device):
                                       (B, S, Kv, dv)))
     route = fa.flash_kernel_for(q, k, v)
     require(route == "simple", f"flash at MLA's {dqk}/{dv}: routed to {route}")
-    tol = FLASH_TOL["bfloat16"]
-    want = fa.flash_attention_ref(q, k, v)
-    err = _flash_err(torch, fa.flash_attention(q, k, v), want, tol,
-                     f"simple flash kernel at q·k {dqk} / v {dv}")
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    turns = {"kernel": [], "library": []}
-    for r in ("kernel", "library", "library", "kernel"):
-        turns[r].append(device_ms(
-            lambda: fa.flash_attention_cuda(q, k, v),
-            kernel="flash_attention_kernel") if r == "kernel" else
-            device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)))
-    ops = B * H * S * S * (dqk + dv)
-    m = dict(err=err, ms=float(np.mean(turns["kernel"])),
-             plain=device_ms(lambda: fa.flash_attention_ref(q, k, v),
-                             reps=5),
-             lib=float(np.mean(turns["library"])),
-             nbytes=(q.numel() + k.numel() + v.numel() + want.numel())
-             * q.element_size(), ops=ops, rate=BF16_FLOPS)
+    m = _flash_case(torch, fa, q, k, v, f"q·k {dqk} / v {dv}",
+                    kernels=("simple",))["simple"]
     bound_ms, bound_by = bound(m)
     rec = {"case": "deepseek-v2-prefill",
            "shape": f"B{B}xS{S}xH{H}xK{Kv}xdqk{dqk}xdv{dv}",
-           "dtype": "bfloat16", "route": route, "max_abs_err": err,
+           "dtype": "bfloat16", "route": route, "max_abs_err": m["err"],
            "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "turns_ms": {r: [round(t, 5) for t in ts]
-                        for r, ts in turns.items()}}
-    say("mla", kernel="flash_attention", tol=tol,
+           "turns_ms": m["turns"]}
+    say("mla", kernel="flash_attention", tol=FLASH_TOL["bfloat16"],
         ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
         bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
-        ops_bound_ms=f"{ops / BF16_FLOPS * 1e3:.5f}",
-        f32_floor_ms=f"{ops / F32_FLOPS * 1e3:.5f}",
+        ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
+        f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
         **{key: (f"{val:.5f}" if isinstance(val, float) else val)
            for key, val in rec.items() if key != "turns_ms"},
         turns_ms=json.dumps(rec["turns_ms"]))
-    del q, k, v, qt, kt, vt, want
+    del q, k, v
     _free(torch)
     return rec
 
@@ -3610,6 +3621,329 @@ def phase_mla(torch, device):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 14: cross-attention (llama-3.2-vision-90b served at full width: the
+# flash kernels' causal=False branch at a key length of its own, image
+# features through prefill and decode)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "llama-3.2-vision-90b"
+# 10 of the 100 layers at full width, two superblocks of 4 dense + 1 cross
+# layer: 10,657,899,010 parameters, 21.3 GB in bf16 (all 100 would be
+# 87.67 B parameters, 175 GB: more than a card)
+VLM_LAYERS, VLM_PARAMS = 10, 10_657_899_010
+VLM_B, VLM_S, VLM_DECODE = 4, 1024, 32
+# cross-attention's prompt pass (B, S, H, K, T image tokens, dh) and the
+# self-attention layers' (T = S, causal)
+CROSS_FLASH = (4, 1024, 64, 8, 1600, 128)
+# ragged non-causal shapes held to the plain version (B, S, H, K, T, dh,
+# dtype): T 1000, T 129 and T 1 (the last key tile ragged: BK 128 on the
+# Hopper kernel at dh 128, 32 on the simple one), S 7, and float32 on
+# the simple kernel.  Left unmasked, the zero-filled keys of a last tile
+# would score 0 and take a share of every row's softmax: ~1.5 % at
+# T 1000, under the limit, but 12-37 % at T 129 and nearly all at T 1
+CROSS_RAGGED = ((4, 1024, 64, 8, 1000, 128, "bfloat16"),
+                (4, 1024, 64, 8, 129, 128, "bfloat16"),
+                (4, 1024, 64, 8, 1, 128, "bfloat16"),
+                (4, 7, 64, 8, 1600, 128, "bfloat16"),
+                (1, 256, 64, 8, 1000, 128, "float32"))
+CROSS_TOL = 3e-2            # bf16, of the largest |out| (a cross layer)
+
+
+def _cross_inputs(torch, gen, device, B, S, H, Kv, T, dh, dtype):
+    return [torch.randn(*shape, generator=gen, device=device).to(dtype)
+            for shape in ((B, S, H, dh), (B, T, Kv, dh), (B, T, Kv, dh))]
+
+
+def check_flash_cross(torch, device):
+    """Both flash kernels with ``causal=False`` alone, first at
+    ``CROSS_RAGGED`` and then at llama-3.2-vision's cross-attention
+    prompt shape (``CROSS_FLASH``, bf16, seed 31), each against the plain
+    version (bf16 3e-2, float32 2e-3, :func:`_flash_err`); at the prompt
+    shape, and at the self-attention layers' causal shape (T = S = 1024,
+    64 / 8 heads), timed (:func:`_flash_case`).  Run right after phase 6,
+    where the profiler has been reliable.  Returns ``{(kernel, "cross" |
+    "self"): record}``."""
+    from repro_torch.kernels import attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    for (b, s, h, kv, t, d, name) in CROSS_RAGGED:
+        dtype = getattr(torch, name)
+        q, k, v = _cross_inputs(torch, gen, device, b, s, h, kv, t, d, dtype)
+        ms = _flash_case(torch, fa, q, k, v, f"non-causal B{b}xS{s}xT{t}",
+                         causal=False, timed=False,
+                         kernels=("sm90", "simple") if name == "bfloat16"
+                         else ("simple",))
+        say("vlm", check="flash-noncausal", shape=f"B{b}xS{s}xH{h}xK{kv}"
+            f"xT{t}xdh{d}", dtype=name, tol=FLASH_TOL[name],
+            **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
+        del q, k, v
+    B, S, H, Kv, T, dh = CROSS_FLASH
+    out = {}
+    for key, t, causal, tag in (
+            ("cross", T, False, "llama-vision-cross-prefill"),
+            ("self", S, True, "llama-vision-self-prefill")):
+        q, k, v = _cross_inputs(torch, gen, device, B, S, H, Kv, t, dh,
+                                torch.bfloat16)
+        require(fa.flash_kernel_for(q, k, v) == "sm90",
+                f"{tag}: bf16 at dh {dh} not routed to the Hopper kernel")
+        ms = _flash_case(torch, fa, q, k, v, tag, causal=causal,
+                         kernels=("sm90", "simple"))
+        shape = f"B{B}xS{S}xH{H}xK{Kv}xT{t}xdh{dh}"
+        for r, m in ms.items():
+            bound_ms, bound_by = bound(m)
+            out[r, key] = {
+                "case": tag, "shape": shape, "dtype": "bfloat16",
+                "causal": causal, "max_abs_err": m["err"], "ms": m["ms"],
+                "plain_ms": m["plain"], "library_ms": m["lib"],
+                "bound_ms": bound_ms, "bound_by": bound_by, "launches": 0}
+            say("vlm", kernel=f"flash_attention ({r})", case=tag,
+                shape=shape, causal=causal, tol=FLASH_TOL["bfloat16"],
+                max_abs_err=m["err"], ms=f"{m['ms']:.5f}",
+                plain_ms=f"{m['plain']:.5f}", library_ms=f"{m['lib']:.5f}",
+                bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                bound_share=f"{bound_ms / m['ms']:.4f}",
+                ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
+                bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
+                ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
+                turns_ms=json.dumps(m["turns"]))
+        out["sm90", key]["simple_ms"] = out["simple", key]["ms"]
+        del q, k, v
+    _free(torch)
+    return out
+
+
+def _open_gates(torch, params, device, seed=1):
+    """Every cross layer's gate drawn uniform in [0.5, 1] (seed 1):
+    ``init_cross`` draws 0, and ``tanh(0)`` would zero the layer.
+    Returns the gates."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    gates = []
+    for seg in params["segments"]:
+        for blk in seg.values():
+            if "xattn" in blk:
+                g = blk["xattn"]["gate"]
+                g.copy_(torch.rand(g.shape, generator=gen, device=device)
+                        * 0.5 + 0.5)
+                gates += g.tolist()
+    return gates
+
+
+def check_vlm_prefill_logits(torch, model, params, batch):
+    """The served prefill's last-token logits through the flash kernels
+    against the same prefill with their plain version in their place:
+    within ``LOGIT_TOL`` of the largest |logit|; the flash launches of
+    each (every layer's, 2 of them non-causal; none with the plain
+    version)."""
+    from repro_torch.kernels import attention as fa, launch_counts
+    from repro_torch.models import attention as attn
+
+    names = ("flash_attention", "flash_attention_sm90",
+             "flash_attention_noncausal")
+
+    def prefill():
+        before = launch_counts()
+        logits, _ = model.prefill(params, batch,
+                                  model.make_cache(VLM_B, SLOTS))
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return logits.float(), tuple(after[n] - before[n] for n in names)
+
+    kernel, n_kernel = prefill()
+    attn.flash_attention = fa.flash_attention_ref
+    try:
+        plain, n_plain = prefill()
+    finally:
+        attn.flash_attention = fa.flash_attention
+    layers = model.cfg.n_layers
+    cross = layers // model.cfg.cross_every
+    require((n_kernel, n_plain) == ((layers, layers, cross), (0, 0, 0)),
+            f"vlm logit check: (flash, sm90, non-causal) launches "
+            f"{(n_kernel, n_plain)}")
+    tol = LOGIT_TOL["bfloat16"]
+    top = plain.abs().max().item()
+    err = (kernel - plain).abs().max().item()
+    require(bool(torch.isfinite(kernel).all()) and err <= tol * top,
+            f"vlm prefill logits, kernel vs its plain version: max|err| "
+            f"{err} > {tol} * {top}")
+    say("vlm", check="prefill-logits", model=model.cfg.name,
+        prompts=VLM_B, prompt_tokens=VLM_S, max_abs_logit=top,
+        kernel_vs_plain_err=err, limit=f"{tol}*max|logit|",
+        argmax_equal=bool((kernel.argmax(-1) == plain.argmax(-1)).all()))
+
+
+def check_cross_layer(torch, model, params, feats):
+    """The first cross layer (``attention.cross_attention``, its gate
+    opened: the output before it times one scalar in [0.46, 0.76]) on
+    seeded bf16 activations (B 4 x S 1024, seed 17) over the served
+    image features: the kernel route (the Hopper kernel,
+    ``causal=False``) against the same call with the plain version in
+    the kernel's place, within ``CROSS_TOL`` of the largest |out|; the
+    plain route ``_attend`` (``differentiable``) reported beside it."""
+    from repro_torch.kernels import attention as fa, launch_counts
+    from repro_torch.models import attention as attn
+
+    cfg = model.cfg
+    p = {k: v[0] for k, v in
+         params["segments"][0][f"b{cfg.cross_every - 1}_cross"]["xattn"]
+         .items()}
+    gen = torch.Generator(device=model.device).manual_seed(17)
+    h = torch.randn(VLM_B, VLM_S, cfg.d_model, generator=gen,
+                    device=model.device).to(cfg.dtype)
+    dims = dict(H=cfg.n_heads, K=cfg.n_kv_heads, dh=cfg.dh)
+    before = launch_counts()["flash_attention_noncausal"]
+    kernel = attn.cross_attention(p, h, feats, **dims).float()
+    torch.cuda.synchronize()
+    launched = launch_counts()["flash_attention_noncausal"] - before
+    attn.flash_attention = fa.flash_attention_ref
+    try:
+        plain = attn.cross_attention(p, h, feats, **dims).float()
+    finally:
+        attn.flash_attention = fa.flash_attention
+    route = attn.cross_attention(p, h, feats, differentiable=True,
+                                 **dims).float()
+    top = plain.abs().max().item()
+    err = (kernel - plain).abs().max().item()
+    require(launched == 1 and bool(torch.isfinite(kernel).all())
+            and top > 0 and err <= CROSS_TOL * top,
+            f"cross layer, kernel vs plain: max|err| {err} > {CROSS_TOL} * "
+            f"{top}, {launched} non-causal launches")
+    route_err = (kernel - route).abs().max().item()
+    say("vlm", check="cross-layer", layer=f"b{cfg.cross_every - 1}_cross "
+        f"(layer {cfg.cross_every - 1})", shape=tuple(kernel.shape),
+        image_tokens=feats.shape[1], gate=f"{p['gate'].item():.4f}",
+        max_abs_out=top, kernel_vs_plain_err=err,
+        limit=f"{CROSS_TOL}*max|out|",
+        kernel_vs_attend_route_err=route_err,
+        attend_route_rel=f"{route_err / top:.5f}")
+
+
+def profile_vlm_decode(torch, model, params, cache, token, pos, feats):
+    """One 4-lane decode step re-attending the image features: the aten
+    operations it dispatches, then one profiled step -- host-clock ms,
+    device busy ms, idle share and the four largest device activities."""
+    with count_ops_mode()() as mode:
+        model.decode_step(params, cache, token, pos, image_feats=feats)
+    by_name, window = device_activity(
+        torch, lambda: model.decode_step(params, cache, token, pos + 1,
+                                         image_feats=feats))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    # late in the script the profiler can return an empty window
+    seen = bool(by_name)
+    say("profile", vlm="decode", lanes=VLM_B, aten_ops_per_step=mode.count,
+        window_ms=f"{window * 1e3:.4f}",
+        device_busy_ms=f"{busy:.5f}" if seen else "not measured",
+        idle_share=(f"{1 - busy / (window * 1e3):.4f}" if seen
+                    else "not measured"),
+        device_activities=sum(c for c, _ in by_name.values()))
+    for name, (count, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:4]:
+        say("profile", vlm="decode", device_ms=f"{us / 1e3:.5f}",
+            count=count, name=name[:70].replace(" ", "_"))
+
+
+def phase_vlm(torch, device):
+    """Phase 14.  llama-3.2-vision-90b at full width (d 8192, 64 / 8
+    heads, dh 128, d_ff 28672, vocab 128256) and ``VLM_LAYERS`` of its
+    100 layers (bf16, seed 0, every cross layer's gate opened) fed 4 x
+    1600 seeded image features (x 0.02, as ``TokenPipeline``) and 4 x
+    1024 seeded prompt tokens: one ``Model.prefill`` on 2048 slots (every
+    layer on the Hopper flash kernel: 8 causal, 2 non-causal launches
+    required), then 32 decode steps with the same features (no
+    flash launch); host ms of each, synchronised.  Then the prefill's
+    logits and the first cross layer, kernel vs plain version; one
+    profiled decode step; peak memory.  Returns ``{run: launch
+    counts}``."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = dataclasses.replace(configs.full(VLM_ARCH), n_layers=VLM_LAYERS)
+    say("vlm", model=VLM_ARCH, cut=f"served at {VLM_LAYERS} of 100 layers "
+        f"(full width; {VLM_LAYERS // cfg.cross_every} superblocks of "
+        f"{cfg.cross_every - 1} dense + 1 cross)")
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "vlm")
+    require(cfg.num_params(params) == VLM_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    gates = _open_gates(torch, params, device)
+    gen = torch.Generator(device=device).manual_seed(13)
+    feats = torch.randn(VLM_B, cfg.n_image_tokens, cfg.d_model,
+                        generator=gen, device=device) * 0.02
+    tokens = torch.randint(0, cfg.vocab, (VLM_B, VLM_S), generator=gen,
+                           device=device)
+    batch = {"tokens": tokens, "image_feats": feats}
+    say("vlm", gates=[f"{g:.4f}" for g in gates],
+        image_feats=tuple(feats.shape), prompt=tuple(tokens.shape))
+    # warm-up (cuBLAS, the kernels) on short prompts and two steps of
+    # every lane
+    cache = model.make_cache(VLM_B, SLOTS)
+    logits, _ = model.prefill(params, {"tokens": tokens[:, :PROMPT_MIN],
+                                       "image_feats": feats}, cache)
+    for i in range(2):
+        logits, _ = model.decode_step(
+            params, cache, logits.argmax(-1)[:, None],
+            torch.full((VLM_B,), PROMPT_MIN + i, device=device),
+            image_feats=feats)
+    cache = model.make_cache(VLM_B, SLOTS)
+    _free(torch)
+    names = ("flash_attention", "flash_attention_sm90",
+             "flash_attention_noncausal")
+    reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    after_prefill = launch_counts()
+    cross = cfg.n_layers // cfg.cross_every
+    got = tuple(after_prefill[n] for n in names)
+    require(got == (cfg.n_layers, cfg.n_layers, cross),
+            f"{cfg.name} prefill: (flash, sm90, non-causal) launches {got}, "
+            f"want {(cfg.n_layers, cfg.n_layers, cross)}")
+    pos = torch.full((VLM_B,), VLM_S, device=device)
+    step_ms, outs, new = [], [logits], []
+    for i in range(VLM_DECODE):
+        token = logits.argmax(-1)[:, None]
+        new.append(token)
+        t = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, token, pos + i,
+                                          image_feats=feats)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        outs.append(logits)
+    counts = launch_counts()
+    require(tuple(counts[n] for n in names) == got,
+            f"{cfg.name} decode launched flash: "
+            f"{tuple(counts[n] - after_prefill[n] for n in names)}")
+    out = torch.stack(outs)
+    require(out.shape == (VLM_DECODE + 1, VLM_B, cfg.vocab)
+            and bool(torch.isfinite(out).all()),
+            f"{cfg.name}: logits {tuple(out.shape)}, finite "
+            f"{bool(torch.isfinite(out).all())}")
+    tokens_out = VLM_B * VLM_DECODE
+    say("vlm", main_path="ok", model=cfg.name, prompts=VLM_B,
+        prompt_tokens=VLM_S, image_tokens=cfg.n_image_tokens,
+        decode_steps=VLM_DECODE, slots=SLOTS, launches=counts,
+        prefill_ms=f"{prefill_ms:.3f}",
+        decode_ms_per_step=f"{np.mean(step_ms):.4f}",
+        decode_ms_min_max=f"{min(step_ms):.4f}/{max(step_ms):.4f}",
+        tokens_per_s=f"{tokens_out / sum(step_ms) * 1e3:.2f}",
+        logits=tuple(out.shape), finite=True,
+        first_tokens=torch.cat(new[:4], 1)[0].tolist())
+    del outs, out
+    profile_vlm_decode(torch, model, params, cache, new[-1],
+                       pos + VLM_DECODE, feats)
+    del cache
+    _free(torch)
+    check_vlm_prefill_logits(torch, model, params, batch)
+    check_cross_layer(torch, model, params, feats)
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("vlm", model=cfg.name, peak_allocated_mb=f"{peak_mb:.0f}",
+        card=card_line())
+    del params, model, feats, batch
+    _free(torch)
+    return {f"serve-{VLM_ARCH}": counts}
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -3642,12 +3976,14 @@ def ring_launches(counts, name) -> int:
 def ptxas_summary(log: str) -> dict:
     """``{"dh64": "110 registers, 0 bytes spill stores, ...", ...}`` from
     the Hopper flash kernel's ``ptxas -v`` log (one entry per head-dim
-    instantiation)."""
+    instantiation; ``-noncausal`` marks the ``causal=False`` ones)."""
     out, dh = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             dh = "dh128" if "ILi128E" in line else (
                 "dh64" if "ILi64E" in line else None)
+            if dh and "Lb0E" in line:
+                dh += "-noncausal"
         elif dh and "spill" in line:
             out[dh] = line.strip()
         elif dh and "registers" in line:
@@ -3732,6 +4068,13 @@ def main() -> int:
     mla_flash = check_flash_mla(torch, device)
     mla_flash["ptxas"] = ring_ptxas_summary(logs.get("flash", ""), MLA_PTXAS)
     kernels["flash_attention"]["deepseek_v2_mla"] = mla_flash
+    cross_flash = check_flash_cross(torch, device)
+    kernels["flash_attention"]["llama_vision_cross"] = \
+        cross_flash["simple", "cross"]
+    kernels["flash_attention_sm90"]["llama_vision_cross"] = \
+        cross_flash["sm90", "cross"]
+    kernels["flash_attention_sm90"]["llama_vision_self"] = \
+        cross_flash["sm90", "self"]
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
     t0 = time.perf_counter()
@@ -3765,6 +4108,17 @@ def main() -> int:
     say("mla", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
     family.update(mla)
     mla_flash["launches"] = mla[f"serve-{MLA_ARCH}"]["flash_attention"]
+    t0 = time.perf_counter()
+    vlm = phase_vlm(torch, device)
+    say("vlm", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
+    family.update(vlm)
+    served = vlm[f"serve-{VLM_ARCH}"]
+    cross_flash["sm90", "cross"]["launches"] = \
+        served["flash_attention_noncausal"]
+    cross_flash["sm90", "self"]["launches"] = \
+        served["flash_attention_sm90"] - served["flash_attention_noncausal"]
+    cross_flash["simple", "cross"]["launches"] = \
+        served["flash_attention"] - served["flash_attention_sm90"]
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])

@@ -44,7 +44,7 @@ def build(text: str, tiles) -> ctypes.CDLL:
                     str(src)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     lib.flash_attention_sm90_fwd.argtypes = \
-        [fl._P] * 4 + [fl._I] * 5 + [fl._Strides] * 3 + [fl._P]
+        [fl._P] * 4 + [fl._I] * 6 + [fl._Strides] * 3 + [fl._I, fl._P]
     lib.flash_attention_sm90_fwd.restype = fl._I
     return lib
 
@@ -68,8 +68,9 @@ def main() -> int:
 
     def run(lib, q, k, v):
         out = torch.empty_like(q)
+        dims, strides = fl._args(q, k, v, out)
         status = lib.flash_attention_sm90_fwd(
-            *fl._args(q, k, v, out), torch.cuda.current_stream().cuda_stream)
+            *dims, *strides, 1, torch.cuda.current_stream().cuda_stream)
         if status != 0:
             raise RuntimeError(f"flash_attention_sm90_fwd: error {status}")
         return out

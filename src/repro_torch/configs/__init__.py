@@ -3,8 +3,9 @@
 ``full()`` and ``reduced()`` -> :class:`~repro_torch.models.model.ModelConfig`.
 
 Ported: the dense family (tinyllama-1.1b, qwen2-1.5b, deepseek-7b,
-qwen2-72b), the audio family (musicgen-medium) and the MoE family
-(dbrx-132b, and deepseek-v2-236b with MLA attention).  The other
+qwen2-72b), the audio family (musicgen-medium), the MoE family
+(dbrx-132b, and deepseek-v2-236b with MLA attention) and the vlm family
+(llama-3.2-vision-90b).  The other
 architectures of the JAX package raise until their slice lands (ROADMAP
 queue 1, modules to port).
 """
@@ -19,6 +20,7 @@ ARCH_IDS = [
     "musicgen_medium",
     "dbrx_132b",
     "deepseek_v2_236b",
+    "llama_3_2_vision_90b",
 ]
 
 # CLI ids (hyphenated, as assigned) -> module names
@@ -26,6 +28,7 @@ CLI_IDS = {i.replace("_", "-"): i for i in ARCH_IDS}
 CLI_IDS.update({
     "qwen2-1.5b": "qwen2_1_5b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 })
 
 

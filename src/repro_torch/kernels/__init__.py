@@ -17,11 +17,13 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   ``ring_allreduce_dma_local``: a Hopper kernel (a thread-block cluster,
   one CTA per Shoal kernel, DSMEM puts, mbarrier semaphores) for
   2 <= K <= 8, and a simple kernel for every other K it holds.
-* ``attention`` -- causal flash attention over a prompt (GQA layout),
-  the LM stack's prefill and forward, replacing ``flash_attention_pallas``:
-  a Hopper kernel (TMA tile ring, ``wgmma``) for bfloat16 at head dim 64
-  and 128, and a simple kernel for every other input it holds (MLA's
-  q·k head dim 192 with v head dim 128 among them).
+* ``attention`` -- flash attention (GQA layout), causal over a prompt
+  (the LM stack's prefill and forward) or over every key of a sequence
+  of its own (cross-attention's prompt pass over image tokens),
+  replacing ``flash_attention_pallas``: a Hopper kernel (TMA tile ring,
+  ``wgmma``) for bfloat16 at head dim 64 and 128, and a simple kernel
+  for every other input it holds (MLA's q·k head dim 192 with v head
+  dim 128 among them).
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
@@ -32,7 +34,8 @@ from repro_torch.kernels.am_pack.am_pack import (launch_gather,
                                                  launch_scatter,
                                                  launch_scatter_sm90)
 from repro_torch.kernels.attention.flash import (flash_attention_cuda,
-                                                 launch_flash_sm90)
+                                                 launch_flash_sm90,
+                                                 noncausal_launches)
 from repro_torch.kernels.gascore_dma.gascore_dma import (
     launch_ring_sm90, ring_allreduce_dma_cuda, ring_collective_cuda)
 from repro_torch.kernels.jacobi.jacobi import jacobi_sweep_cuda
@@ -49,6 +52,7 @@ LAUNCH_COUNTERS = {
     "ring_cluster_sm90": launch_ring_sm90,          # the cluster kernel
     "flash_attention": flash_attention_cuda,        # either flash kernel
     "flash_attention_sm90": launch_flash_sm90,      # the Hopper kernel
+    "flash_attention_noncausal": noncausal_launches,  # either, causal off
 }
 
 

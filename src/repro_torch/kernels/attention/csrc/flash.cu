@@ -1,19 +1,22 @@
-// Causal flash attention (forward) on Hopper, GQA layout, float32 and
-// bfloat16.
+// Flash attention (forward) on Hopper, GQA layout, float32 and bfloat16,
+// causal or over every key.
 //
 // Replaces the Pallas TPU kernel of the JAX package
 //   src/repro/kernels/attention/flash.py  flash_attention_pallas
-// (blocked causal attention with an online softmax: running max m,
-// normaliser l, float32 accumulator; p rounded to v's type before P.V;
-// output acc / max(l, 1e-30)).  It computes the same function, causal by
-// index with scale 1/sqrt(dh), on the port's layout: q (B, S, H, dh),
-// k (B, S, K, dh), v (B, S, K, dv), any element strides; dv is dh, or
-// 128 at dh 192 (MLA's prompt pass: nope 128 + rope 64 for q.k, 128 for
-// v).  Query head h reads kv head h / (H / K), so kv heads are shared
-// without a copy.  S need not
-// be a multiple of a block: the last block is bound-checked, not padded.
-// Key tiles wholly in the future of a warp's rows are skipped, where the
-// TPU kernel only masks them; the function is the same.
+// (blocked attention with an online softmax: running max m, normaliser
+// l, float32 accumulator; p rounded to v's type before P.V; output
+// acc / max(l, 1e-30); the `causal` flag masks the diagonal block).  It
+// computes the same function by index with scale 1/sqrt(dh), on the
+// port's layout: q (B, S, H, dh), k (B, T, K, dh), v (B, T, K, dv), any
+// element strides; dv is dh, or 128 at dh 192 (MLA's prompt pass: nope
+// 128 + rope 64 for q.k, 128 for v).  Causal: T == S and query s reads
+// keys t <= s.  Not causal: any T >= 1, every key valid (cross-attention
+// over image tokens, T apart from the S text tokens).  Query head h
+// reads kv head h / (H / K), so kv heads are shared without a copy.
+// Neither S nor T need be a multiple of a block: the last blocks are
+// bound-checked, not padded.  Causal key tiles wholly in the future of a
+// warp's rows are skipped, where the TPU kernel only masks them; the
+// function is the same.
 //
 // Design (a first, simple kernel): one CTA per (query block of BQ = 64
 // rows, head, sequence), query blocks issued longest first.  Two
@@ -35,6 +38,10 @@
 // 64 us at the float32 rate this kernel uses.  deepseek-v2's (H 128,
 // 192 / 128) needs S^2 (dh + dv) per head, 42.9 GFLOP: 43 us at the bf16
 // rate, 641 us at the float32 rate, against 50 us to move its 168 MB.
+// Without causality a head needs 2 S T (dh + dv) operations:
+// llama-3.2-vision's cross-attention prompt pass (B 4, S 1024, T 1600,
+// H 64, dh 128) 214.7 GFLOP, 217 us at the bf16 rate and 3.2 ms at the
+// float32 rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,8 +88,9 @@ template <typename T, int DQ2, int DV2>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int G, int dh, int dv, Strides qs,
-                           Strides ks, Strides vs, float scale_log2) {
+                           int Tk, int H, int G, int dh, int dv, Strides qs,
+                           Strides ks, Strides vs, float scale_log2,
+                           bool causal) {
   constexpr int DQP = 2 * DQ2, DVP = 2 * DV2;
   constexpr int QROW = DQ2 + 4;     // padded half-rows in shared memory
   constexpr int VROW = DV2 + 4;
@@ -113,7 +121,10 @@ __global__ void __launch_bounds__(THREADS)
 
   const T* kp = k + b * ks.b + kvh * ks.h;
   const T* vp = v + b * vs.b + kvh * vs.h;
-  const int k_end = min(q0 + BQ, S);           // keys [0, k_end) matter
+  // keys [0, k_end) matter; this row reads keys [0, last_key]: one
+  // compare a score, causal or not
+  const int k_end = causal ? min(q0 + BQ, S) : Tk;
+  const int last_key = causal ? row : Tk - 1;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();                           // the last tile is used up
     // Equal head dims stage k and v in one pass, unequal ones in a pass
@@ -124,7 +135,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = tid; e < BK * DQP; e += THREADS) {
         const int j = e / DQP, d = e % DQP;
         const int key = k0 + j;
-        const bool in = key < S && d < dh;
+        const bool in = key < Tk && d < dh;
         ksm[j][d / DQ2][d % DQ2] =
             in ? to_f32(kp[key * ks.s + d * ks.d]) : 0.f;
         vsm[j][d / DV2][d % DV2] =
@@ -134,20 +145,21 @@ __global__ void __launch_bounds__(THREADS)
       for (int e = tid; e < BK * DQP; e += THREADS) {
         const int j = e / DQP, d = e % DQP;
         const int key = k0 + j;
-        const bool in = key < S && d < dh;
+        const bool in = key < Tk && d < dh;
         ksm[j][d / DQ2][d % DQ2] =
             in ? to_f32(kp[key * ks.s + d * ks.d]) : 0.f;
       }
       for (int e = tid; e < BK * DVP; e += THREADS) {
         const int j = e / DVP, d = e % DVP;
         const int key = k0 + j;
-        const bool in = key < S && d < dv;
+        const bool in = key < Tk && d < dv;
         vsm[j][d / DV2][d % DV2] =
             in ? to_f32(vp[key * vs.s + d * vs.d]) : 0.f;
       }
     }
     __syncthreads();
-    if (k0 > warp_last) continue;    // warp-uniform: every key is future
+    // warp-uniform: every key is future
+    if (causal && k0 > warp_last) continue;
 
     float s[BK];
     float tile_max = NEG;
@@ -158,17 +170,17 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < DQ2; ++i) dot = fmaf(qr[i], kr[i], dot);
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      s[j] = (k0 + j <= row) ? dot * scale_log2 : NEG;
+      s[j] = (k0 + j <= last_key) ? dot * scale_log2 : NEG;
       tile_max = fmaxf(tile_max, s[j]);
     }
-    // key 0 is in every row's first tile, so m is a real score from the
-    // first tile on and alpha = 2^(NEG - m) = 0 there, never NaN
+    // key 0 is in every row's first tile (T >= 1), so m is a real score
+    // from the first tile on and alpha = 2^(NEG - m) = 0 there, never NaN
     const float m_new = fmaxf(m, tile_max);
     const float alpha = exp2f(m - m_new);
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float p = (k0 + j <= row) ? exp2f(s[j] - m_new) : 0.f;
+      const float p = (k0 + j <= last_key) ? exp2f(s[j] - m_new) : 0.f;
       psum += p;
       s[j] = round_p<T>(p);
     }
@@ -196,36 +208,37 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int DQ2, int DV2>
 void launch_one(dim3 grid, cudaStream_t st, const void* q, const void* k,
-                const void* v, void* o, int S, int H, int G, int dh, int dv,
-                Strides qs, Strides ks, Strides vs, float scale_log2) {
+                const void* v, void* o, int S, int Tk, int H, int G, int dh,
+                int dv, Strides qs, Strides ks, Strides vs, float scale_log2,
+                bool causal) {
   flash_attention_kernel<T, DQ2, DV2><<<grid, THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, G, dh, dv, qs, ks,
-      vs, scale_log2);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Tk, H, G, dh, dv, qs,
+      ks, vs, scale_log2, causal);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int K, int dh, int dv, Strides qs, Strides ks,
-           Strides vs, cudaStream_t st) {
+           int S, int Tk, int H, int K, int dh, int dv, Strides qs,
+           Strides ks, Strides vs, bool causal, cudaStream_t st) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale_log2 =
       (float)(1.0 / sqrt((double)dh) * 1.4426950408889634);
   const int G = H / K;
   if (dv != dh) {   // MLA: checked to be (192, 128) by the caller
-    launch_one<T, 96, 64>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
-                          scale_log2);
+    launch_one<T, 96, 64>(grid, st, q, k, v, o, S, Tk, H, G, dh, dv, qs, ks,
+                          vs, scale_log2, causal);
   } else if (dh <= 16) {
-    launch_one<T, 8, 8>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
-                        scale_log2);
+    launch_one<T, 8, 8>(grid, st, q, k, v, o, S, Tk, H, G, dh, dv, qs, ks,
+                        vs, scale_log2, causal);
   } else if (dh <= 32) {
-    launch_one<T, 16, 16>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
-                          scale_log2);
+    launch_one<T, 16, 16>(grid, st, q, k, v, o, S, Tk, H, G, dh, dv, qs, ks,
+                          vs, scale_log2, causal);
   } else if (dh <= 64) {
-    launch_one<T, 32, 32>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
-                          scale_log2);
+    launch_one<T, 32, 32>(grid, st, q, k, v, o, S, Tk, H, G, dh, dv, qs, ks,
+                          vs, scale_log2, causal);
   } else {
-    launch_one<T, 64, 64>(grid, st, q, k, v, o, S, H, G, dh, dv, qs, ks, vs,
-                          scale_log2);
+    launch_one<T, 64, 64>(grid, st, q, k, v, o, S, Tk, H, G, dh, dv, qs, ks,
+                          vs, scale_log2, causal);
   }
   return (int)cudaGetLastError();
 }
@@ -236,28 +249,31 @@ Strides strides(const long long* s) { return Strides{s[0], s[1], s[2], s[3]}; }
 
 extern "C" {
 
-// q (B, S, H, dh), k (B, S, K, dh) and v (B, S, K, dv) with element
+// q (B, S, H, dh), k (B, T, K, dh) and v (B, T, K, dv) with element
 // strides {b, s, h, d}; o a contiguous (B, S, H, dv).  dv == dh <= 128,
-// or (dh, dv) == (192, 128).  dtype: 0 float32, 1 bfloat16.  Returns a
+// or (dh, dv) == (192, 128).  causal: 1 (T == S, query s reads keys
+// t <= s) or 0 (every key).  dtype: 0 float32, 1 bfloat16.  Returns a
 // cudaError_t (0 when the launch was accepted).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int K, int dh, int dv,
+                        int B, int S, int T, int H, int K, int dh, int dv,
                         const long long* q_strides,
                         const long long* k_strides,
-                        const long long* v_strides, int dtype, void* stream) {
+                        const long long* v_strides, int causal, int dtype,
+                        void* stream) {
   const bool dims_ok =
       (dv == dh && dh > 0 && dh <= 128) || (dh == 192 && dv == 128);
-  if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K != 0 || !dims_ok ||
-      H > 65535 || B > 65535)
+  if (B <= 0 || S <= 0 || T <= 0 || (causal && T != S) || H <= 0 ||
+      K <= 0 || H % K != 0 || !dims_ok || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const Strides qs = strides(q_strides), ks = strides(k_strides),
                 vs = strides(v_strides);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, S, H, K, dh, dv, qs, ks, vs, st);
+    return launch<float>(q, k, v, o, B, S, T, H, K, dh, dv, qs, ks, vs,
+                         causal != 0, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, S, H, K, dh, dv, qs, ks, vs,
-                                 st);
+    return launch<__nv_bfloat16>(q, k, v, o, B, S, T, H, K, dh, dv, qs, ks,
+                                 vs, causal != 0, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,15 +1,18 @@
-// Causal flash attention (forward) for Hopper's tensor cores: bfloat16,
-// head dim 64 or 128, GQA layout.
+// Flash attention (forward) for Hopper's tensor cores: bfloat16, head dim
+// 64 or 128, GQA layout, causal or over every key.
 //
 // Replaces the Pallas TPU kernel of the JAX package
 //   src/repro/kernels/attention/flash.py  flash_attention_pallas
 // for the inputs the H100 serves most: bf16 q, k, v whose head dim is
 // contiguous.  It computes the same function as csrc/flash.cu and
-// ref.py -- causal by index, scale 1/sqrt(dh), scores and the online
-// softmax in float32, p rounded to bf16 before P.V while l sums the
-// unrounded p, output acc / max(l, 1e-30) rounded to bf16, masked score
-// -1e30 -- on the port's layout: q (B, S, H, dh), k and v (B, S, K, dh),
-// query head h reading kv head h / (H / K) without a copy.
+// ref.py -- by index, scale 1/sqrt(dh), scores and the online softmax in
+// float32, p rounded to bf16 before P.V while l sums the unrounded p,
+// output acc / max(l, 1e-30) rounded to bf16, masked score -1e30 -- on
+// the port's layout: q (B, S, H, dh), k and v (B, T, K, dh), query head
+// h reading kv head h / (H / K) without a copy.  Causal: T == S, query s
+// reads keys t <= s.  Not causal (the TPU kernel's causal=False branch):
+// any T >= 1, every key valid -- cross-attention's prompt pass, S text
+// tokens over T image tokens.
 //
 // Bound on an H100: 2 * S^2 * dh operations per head (causal QK^T and
 // PV) against (3 + 1) * S * dh elements moved.  tinyllama-1.1b's prefill
@@ -18,6 +21,10 @@
 // operations, so the products run on the tensor cores, the loads hide
 // behind them, and the softmax between them -- issue slots and the
 // special-function unit's 2^x -- is what a tile costs beyond them.
+// Without causality a head needs 4 S T dh operations: llama-3.2-vision's
+// cross-attention prompt pass (B 4, S 1024, T 1600, H 64 / K 8, dh 128)
+// 214.7 GFLOP, 0.217 ms at 989 TFLOP/s, against 0.048 ms to move its
+// 160 MB: bound by operations as well.
 //
 // Design.  One CTA per (query block of BQ = 64 rows, head, sequence),
 // 160 threads: one consumer warpgroup (warps 0-3, `wgmma` needs four
@@ -31,13 +38,16 @@
 //   swizzle.  Each stage has a "full" mbarrier for K, one for V (the
 //   TMA completes their transaction bytes) and an "empty" one that the
 //   128 consumer threads arrive on when the stage's products are done.
-//   Tiles wholly in the future of the block are never loaded.  Rows
-//   past S come in as zeros (TMA fills out of bounds) and are never
-//   stored.
+//   Tiles wholly in the future of the block are never loaded (causal);
+//   without causality the ceil(T / BK) tiles of every key are.  Rows
+//   past S or T come in as zeros (TMA fills out of bounds); query rows
+//   past S are never stored.
 // * The consumers compute S = Q K^T with wgmma.m64n{BK}k16 (both
 //   operands K-major in shared memory, descriptors with the TMA's
-//   128-byte swizzle), mask only the last tile (the one holding the
-//   block's first row), run the online softmax on the float32
+//   128-byte swizzle), mask only the last tile (causal: the one holding
+//   the block's first row; otherwise the one holding key T - 1, whose
+//   zero-filled keys past T would score 0, not -1e30), run the online
+//   softmax on the float32
 //   accumulator in registers (each thread holds two rows; a row's max
 //   and sum reduce over the four threads of a quad; the scale folds
 //   into one FMA per score before ex2.approx), round p to bf16 in
@@ -325,14 +335,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Grid: one CTA per (query block, head, sequence), flattened so that the
-// longest query blocks of every head come first.
-template <int DH>
+// longest query blocks of every head come first.  CAUSAL is a template
+// argument: the causal instantiation is the causal kernel alone, with
+// no branch of the non-causal one in its tile loop.
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
     flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
-                                __nv_bfloat16* __restrict__ o, int S, int H,
-                                int G, int B, int n_qb, float scale_log2) {
+                                __nv_bfloat16* __restrict__ o, int S, int T,
+                                int H, int G, int B, int n_qb,
+                                float scale_log2) {
   using C = Cfg<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -355,8 +368,9 @@ __global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
   const int kvh = h / G;
   const int q0 = qb * BQ;
   constexpr int BK = C::BK;
-  // keys [0, min(q0 + BQ, S)) matter; the last of their tiles holds q0
-  const int n_tiles = (min(q0 + BQ, S) + BK - 1) / BK;
+  // keys [0, k_end) matter; causal, the last of their tiles holds q0
+  const int k_end = CAUSAL ? min(q0 + BQ, S) : T;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -433,15 +447,16 @@ __global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
     fence_regs(sc);
 
     // online softmax; m in log2 units, the scale folded into one FMA per
-    // score; only the last tile (it holds q0) is masked
+    // score; only the last tile is masked: causal, the keys past each
+    // row (the tile holds q0); otherwise the keys past T
     if (t == n_tiles - 1) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = t * BK + 8 * j + col0 + e;
-          if (key > row0) sc[4 * j + e] = NEG;
-          if (key > row0 + 8) sc[4 * j + 2 + e] = NEG;
+          if (CAUSAL ? key > row0 : key >= T) sc[4 * j + e] = NEG;
+          if (CAUSAL ? key > row0 + 8 : key >= T) sc[4 * j + 2 + e] = NEG;
         }
       }
     }
@@ -451,8 +466,8 @@ __global__ void __launch_bounds__(THREADS, Cfg<DH>::MIN_BLOCKS)
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
-    // key 0 lies in every row's first tile, so m is a real score from
-    // the first tile on and alpha = 2^(NEG - m) = 0 there, never NaN
+    // key 0 lies in every row's first tile (T >= 1), so m is a real score
+    // from the first tile on and alpha = 2^(NEG - m) = 0 there, never NaN
     const float n0 = fmaxf(m0, quad_max(mx0) * scale_log2);
     const float n1 = fmaxf(m1, quad_max(mx1) * scale_log2);
     const float alpha0 = ex2(m0 - n0), alpha1 = ex2(m1 - n1);
@@ -557,14 +572,14 @@ constexpr int ERR_NO_ENCODE = -1;     // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = -2;        // the driver refused a tensor map
 constexpr int ERR_SHAPE = -3;         // an input this kernel does not take
 
-// a (B, S, heads, dh) bf16 tensor with element strides {b, s, h, 1} as a
-// 4-d map (dh, S, heads, B) of 64 x 64 boxes, 128-byte swizzle; rows
-// past S read as zeros
-int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int dh,
-           const long long* st, int box_rows) {
+// a (B, rows, heads, dh) bf16 tensor with element strides {b, s, h, 1}
+// as a 4-d map (dh, rows, heads, B) of 64-column boxes of box_rows rows,
+// 128-byte swizzle; rows past `rows` read as zeros
+int encode(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+           int dh, const long long* st, int box_rows) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S,
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)rows,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[2] * 2,
@@ -586,10 +601,10 @@ bool on_grid(const void* p, const long long* st) {
          st[1] > 0 && st[2] > 0;
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int B, int S, int H, int K, cudaStream_t st) {
-  auto kernel = flash_attention_kernel_sm90<DH>;
+           void* o, int B, int S, int T, int H, int K, cudaStream_t st) {
+  auto kernel = flash_attention_kernel_sm90<DH, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<DH>::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -597,7 +612,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   const float scale_log2 =
       (float)(1.0 / sqrt((double)DH) * 1.4426950408889634);
   kernel<<<n_qb * H * B, THREADS, Cfg<DH>::SMEM, st>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, S, H, H / K, B, n_qb, scale_log2);
+      tq, tk, tv, (__nv_bfloat16*)o, S, T, H, H / K, B, n_qb, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -605,17 +620,20 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 
 extern "C" {
 
-// q (B, S, H, dh), k and v (B, S, K, dh), bfloat16, element strides
+// q (B, S, H, dh), k and v (B, T, K, dh), bfloat16, element strides
 // {b, s, h, d} with d == 1, the others multiples of 8 (16 bytes), and
 // 16-byte aligned pointers; o a contiguous (B, S, H, dh).  dh is 64 or
-// 128.  Returns 0 when the launch was accepted, a cudaError_t, or one of
-// this file's negative codes (flash_sm90_error_string).
+// 128.  causal: 1 (T == S, query s reads keys t <= s) or 0 (every key).
+// Returns 0 when the launch was accepted, a cudaError_t, or one of this
+// file's negative codes (flash_sm90_error_string).
 int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
-                             void* o, int B, int S, int H, int K, int dh,
-                             const long long* q_strides,
+                             void* o, int B, int S, int T, int H, int K,
+                             int dh, const long long* q_strides,
                              const long long* k_strides,
-                             const long long* v_strides, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
+                             const long long* v_strides, int causal,
+                             void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || (causal && T != S) || H <= 0 ||
+      K <= 0 || H % K != 0 ||
       (dh != 64 && dh != 128) || (long long)((S + BQ - 1) / BQ) * H * B >
                                      0x7fffffffLL ||
       !on_grid(q, q_strides) || !on_grid(k, k_strides) ||
@@ -624,12 +642,15 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   CUtensorMap tq, tk, tv;
   const int bk = dh == 64 ? Cfg<64>::BK : Cfg<128>::BK;
   int r = encode(&tq, q, B, S, H, dh, q_strides, BQ);
-  if (r == 0) r = encode(&tk, k, B, S, K, dh, k_strides, bk);
-  if (r == 0) r = encode(&tv, v, B, S, K, dh, v_strides, bk);
+  if (r == 0) r = encode(&tk, k, B, T, K, dh, k_strides, bk);
+  if (r == 0) r = encode(&tv, v, B, T, K, dh, v_strides, bk);
   if (r != 0) return r;
   cudaStream_t st = (cudaStream_t)stream;
-  return dh == 64 ? launch<64>(tq, tk, tv, o, B, S, H, K, st)
-                  : launch<128>(tq, tk, tv, o, B, S, H, K, st);
+  if (causal)
+    return dh == 64 ? launch<64, true>(tq, tk, tv, o, B, S, T, H, K, st)
+                    : launch<128, true>(tq, tk, tv, o, B, S, T, H, K, st);
+  return dh == 64 ? launch<64, false>(tq, tk, tv, o, B, S, T, H, K, st)
+                  : launch<128, false>(tq, tk, tv, o, B, S, T, H, K, st);
 }
 
 const char* flash_sm90_error_string(int code) {

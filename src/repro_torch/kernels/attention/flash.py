@@ -1,4 +1,4 @@
-"""ctypes bindings of the two causal flash-attention kernels.
+"""ctypes bindings of the two flash-attention kernels, causal or not.
 
 * ``csrc/flash_sm90.cu`` (``flash_attention_sm90_fwd``): the Hopper
   kernel -- TMA tile ring, ``wgmma`` on the tensor cores -- for bfloat16
@@ -12,14 +12,18 @@
 dtype and alignment alone, before the launch; nothing is retried.
 :func:`flash_attention_cuda` takes CUDA tensors only, checks them,
 allocates the output, launches the chosen kernel on PyTorch's current
-stream and raises if the launch fails.  Launches are counted on
-``flash_attention_cuda.launches`` (either kernel) and on
-``launch_flash_sm90.launches`` (the Hopper kernel alone).
+stream and raises if the launch fails.  Both kernels take ``causal`` and
+a key length ``T`` of its own (``T == S`` when causal; any ``T >= 1``
+without: cross-attention's prompt pass over the image tokens).
+Launches are counted on ``flash_attention_cuda.launches`` (either
+kernel), on ``launch_flash_sm90.launches`` (the Hopper kernel alone) and
+on ``noncausal_launches.launches`` (either kernel with ``causal`` off).
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -40,8 +44,8 @@ def _lib():
     lib = _build.load("flash")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                            _I, _I, _Strides, _Strides,
-                                            _Strides, _I, _P]
+                                            _I, _I, _I, _Strides, _Strides,
+                                            _Strides, _I, _I, _P]
         lib.flash_attention_fwd.restype = _I
         lib.flash_error_string.argtypes = [_I]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -53,8 +57,8 @@ def _lib_sm90():
     lib = _build.load("flash_sm90")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_sm90_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                                 _I, _I, _Strides, _Strides,
-                                                 _Strides, _P]
+                                                 _I, _I, _I, _Strides,
+                                                 _Strides, _Strides, _I, _P]
         lib.flash_attention_sm90_fwd.restype = _I
         lib.flash_sm90_error_string.argtypes = [_I]
         lib.flash_sm90_error_string.restype = ctypes.c_char_p
@@ -69,7 +73,8 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
     pointers' alignment: bfloat16 q, k and v with head dim 64 or 128,
     the head dim contiguous, every other stride a positive multiple of
     16 bytes and every pointer 16-byte aligned (what a TMA tensor map
-    takes).  Unequal q·k and v head dims (MLA) go to the simple kernel."""
+    takes).  Unequal q·k and v head dims (MLA) go to the simple kernel.
+    Causal or not, and the key length, do not enter the choice."""
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         return "simple"
     if q.shape[-1] not in SM90_HEAD_DIMS or v.shape[-1] != q.shape[-1]:
@@ -83,23 +88,28 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
     return "sm90"
 
 
-def check_shapes(q_shape, k_shape, v_shape) -> None:
+def check_shapes(q_shape, k_shape, v_shape, causal: bool = True) -> None:
     """Raise ``ValueError`` unless the kernels take these shapes: ``q (B,
-    S, H, dh)``, ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` with ``H % K
-    == 0``, and either ``dv == dh <= 128`` or ``(dh, dv) == (192, 128)``
-    (MLA).  A pure function of the shapes."""
+    S, H, dh)``, ``k (B, T, K, dh)``, ``v (B, T, K, dv)`` with ``H % K
+    == 0``, ``T == S`` when ``causal`` and ``T >= 1`` when not, and
+    either ``dv == dh <= 128`` or ``(dh, dv) == (192, 128)`` (MLA).  A
+    pure function of the shapes."""
     if len(q_shape) != 4 or len(k_shape) != 4 or len(v_shape) != 4 \
             or tuple(k_shape[:3]) != tuple(v_shape[:3]):
-        raise ValueError(f"q must be (B, S, H, dh), k (B, S, K, dh) and v "
-                         f"(B, S, K, dv), got {tuple(q_shape)}, "
+        raise ValueError(f"q must be (B, S, H, dh), k (B, T, K, dh) and v "
+                         f"(B, T, K, dv), got {tuple(q_shape)}, "
                          f"{tuple(k_shape)}, {tuple(v_shape)}")
     B, S, H, dh = q_shape
-    K, dv = k_shape[2], v_shape[3]
-    if (k_shape[0], k_shape[1], k_shape[3]) != (B, S, dh) or K < 1 \
-            or H % K:
+    T, K, dv = k_shape[1], k_shape[2], v_shape[3]
+    if (k_shape[0], k_shape[3]) != (B, dh) or K < 1 or H % K:
         raise ValueError(f"k {tuple(k_shape)} does not fit q "
-                         f"{tuple(q_shape)}: need (B, S, K, dh) with H % K "
+                         f"{tuple(q_shape)}: need (B, T, K, dh) with H % K "
                          f"== 0")
+    if causal and T != S:
+        raise ValueError(f"causal attention needs k and v of q's length "
+                         f"S = {S}, got T = {T} (causal=False takes any T)")
+    if not causal and T < 1:
+        raise ValueError("attention over no key: T must be >= 1")
     if (dh, dv) != MLA_HEAD_DIMS and not (dh == dv and 1 <= dh <= MAX_DH):
         raise ValueError(f"head dim {dh} (q·k) / {dv} (v) outside the "
                          f"kernel's equal dims 1..{MAX_DH} and MLA's "
@@ -108,7 +118,7 @@ def check_shapes(q_shape, k_shape, v_shape) -> None:
         raise ValueError(f"{B} sequences x {H} heads exceed the grid")
 
 
-def _check(q, k, v):
+def _check(q, k, v, causal):
     for t in (q, k, v):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention_cuda takes CUDA tensors on "
@@ -117,38 +127,39 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes float32/bfloat16 q, k, v of "
                         f"one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    check_shapes(q.shape, k.shape, v.shape)
+    check_shapes(q.shape, k.shape, v.shape, causal)
 
 
 def _args(q, k, v, out):
-    """The pointers and ``(B, S, H, K, dh)``; the strides."""
+    """The pointers and ``(B, S, T, H, K, dh)``; the strides."""
     B, S, H, dh = q.shape
     return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-             H, k.shape[2], dh),
+             k.shape[1], H, k.shape[2], dh),
             (_Strides(*q.stride()), _Strides(*k.stride()),
              _Strides(*v.stride())))
 
 
-def launch_flash_sm90(q, k, v, out) -> None:
+def launch_flash_sm90(q, k, v, out, causal=True) -> None:
     """Launch the Hopper kernel on checked inputs it takes; raises if the
     launch fails."""
     lib = _lib_sm90()
     dims, strides = _args(q, k, v, out)
     status = lib.flash_attention_sm90_fwd(
-        *dims, *strides, torch.cuda.current_stream(q.device).cuda_stream)
+        *dims, *strides, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention_sm90_fwd: error {status} "
                            f"({lib.flash_sm90_error_string(status).decode()})")
     launch_flash_sm90.launches += 1
 
 
-def _launch_simple(q, k, v, out) -> None:
+def _launch_simple(q, k, v, out, causal=True) -> None:
     """Launch the simple kernel on checked inputs; raises if the launch
     fails."""
     lib = _lib()
     dims, strides = _args(q, k, v, out)
     status = lib.flash_attention_fwd(
-        *dims, v.shape[-1], *strides, _DTYPES[q.dtype],
+        *dims, v.shape[-1], *strides, int(causal), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {status} "
@@ -156,15 +167,17 @@ def _launch_simple(q, k, v, out) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kernel: str | None = None) -> torch.Tensor:
-    """Causal attention by index on the card: ``q (B, S, H, dh)``,
-    ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` with ``H % K == 0`` and
-    ``dv == dh <= 128`` or ``(dh, dv) == (192, 128)``, float32 or
-    bfloat16 -> a new contiguous ``(B, S, H, dv)``.  The kernel is
+                         kernel: str | None = None, *,
+                         causal: bool = True) -> torch.Tensor:
+    """Attention by index on the card: ``q (B, S, H, dh)``, ``k (B, T, K,
+    dh)``, ``v (B, T, K, dv)`` with ``H % K == 0``, ``T == S`` when
+    ``causal`` (else any ``T >= 1``, every key valid), and ``dv == dh <=
+    128`` or ``(dh, dv) == (192, 128)``, float32 or bfloat16 -> a new
+    contiguous ``(B, S, H, dv)``.  The kernel is
     :func:`flash_kernel_for`'s choice; ``kernel="simple"`` forces the
     simple one (for comparisons: nothing on the main path sets it), and
     ``kernel="sm90"`` raises on inputs the Hopper kernel does not take."""
-    _check(q, k, v)
+    _check(q, k, v, causal)
     route = flash_kernel_for(q, k, v)
     if kernel is not None:
         if kernel not in KERNELS:
@@ -179,12 +192,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     if route == "sm90":
-        launch_flash_sm90(q, k, v, out)
+        launch_flash_sm90(q, k, v, out, causal)
     else:
-        _launch_simple(q, k, v, out)
+        _launch_simple(q, k, v, out, causal)
     flash_attention_cuda.launches += 1
+    if not causal:
+        noncausal_launches.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
 launch_flash_sm90.launches = 0
+# launches of either kernel with causal=False
+noncausal_launches = types.SimpleNamespace(launches=0)

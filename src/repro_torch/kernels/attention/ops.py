@@ -10,17 +10,19 @@ from repro_torch.kernels.attention.flash import flash_attention_cuda
 from repro_torch.kernels.attention.ref import flash_attention_ref
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of a prompt over itself, by index, with
-    ``sm_scale = 1/sqrt(dh)`` and any ``S``: ``q (B, S, H, dh)``,
-    ``k (B, S, K, dh)``, ``v (B, S, K, dv)`` -> ``(B, S, H, dv)``, where
-    ``dv`` is ``dh`` or, for MLA's prompt passes, ``(dh, dv) = (192,
-    128)`` (the simple kernel on the card).  The counterpart of the
-    JAX package's ``kernels.attention.flash_attention`` (there
-    ``(BH, S, dh)`` padded to a block multiple; here the heads stay in
-    place, kv heads are shared by ``H // K`` query heads without a copy,
-    and the kernel masks its last block instead of padding).
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention by index with ``sm_scale = 1/sqrt(dh)``: ``q (B, S, H,
+    dh)``, ``k (B, T, K, dh)``, ``v (B, T, K, dv)`` -> ``(B, S, H, dv)``.
+    ``causal``: a prompt over itself (``T == S``, query s reads keys
+    t <= s); without it, ``S`` queries over all ``T >= 1`` keys
+    (cross-attention's prompt pass over the image tokens).  ``dv`` is
+    ``dh`` or, for MLA's prompt passes, ``(dh, dv) = (192, 128)`` (the
+    simple kernel on the card).  The counterpart of the JAX package's
+    ``kernels.attention.flash_attention`` (there ``(BH, S, dh)`` padded
+    to a block multiple, ``T == S``; here the heads stay in place, kv
+    heads are shared by ``H // K`` query heads without a copy, and the
+    kernel masks its last block instead of padding).
 
     Forward only, as the JAX package's kernel is: with grad mode on and
     an input that requires grad this raises, on every device, since the
@@ -34,5 +36,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
             "Model.loss, which attends via models.attention._attend "
             "(gqa(differentiable=True))")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
-    return flash_attention_cuda(q, k, v)
+        return flash_attention_ref(q, k, v, causal=causal)
+    return flash_attention_cuda(q, k, v, causal=causal)

@@ -6,6 +6,8 @@ CUDA card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-medium \\
         --reduced --device cpu --backend shoal --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama-3.2-vision-90b --reduced --device cpu --steps 4
 
 The same flags and loop as the JAX package's launcher: the data
 pipeline's step inside the checkpoint, asynchronous checkpoints off the
@@ -47,7 +49,8 @@ def make_parts(args):
     dcfg = DataConfig(
         vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=args.seed,
         kind="embeddings" if cfg.frontend == "embeddings" else "tokens",
-        d_model=cfg.d_model)
+        d_model=cfg.d_model,
+        image_tokens=cfg.n_image_tokens if cfg.family == "vlm" else 0)
     pipe = TokenPipeline(dcfg, device=device)
     return cfg, model, trainer, pipe
 

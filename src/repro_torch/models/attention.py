@@ -1,6 +1,7 @@
-"""GQA attention (covers MHA when K == H and MQA when K == 1) and
-DeepSeek-V2's multi-head latent attention (MLA), the port of the GQA and
-MLA parts of ``repro.models.attention``.
+"""GQA attention (covers MHA when K == H and MQA when K == 1),
+cross-attention (llama-3.2-vision's image layers) and DeepSeek-V2's
+multi-head latent attention (MLA), the port of the GQA, cross and MLA
+parts of ``repro.models.attention``.
 
 Shape conventions: activations (B, S, d); heads H, kv heads K, head dim
 ``dh``; ring caches carry absolute slot positions, so a cache of W
@@ -25,6 +26,12 @@ a q·k head dim of ``dh_nope + dh_rope`` and a v head dim of ``dh_v``
 third for a decode step: the absorbed form, whose scores are taken in
 the latent space of the cache.
 
+Cross-attention (:func:`cross_attention`) reads its keys and values
+from image features, with no causality and no cache: a prompt pass
+takes the kernel route (``flash_attention(..., causal=False)``, S text
+tokens over the N image tokens), a decode step and a differentiable
+pass the plain route.
+
 Unlike the JAX package, which returns a new cache, the port writes the
 ring cache in place (the returned cache is the one passed in).
 """
@@ -46,18 +53,21 @@ NEG = -1e30
 # masked softmax attention core
 # --------------------------------------------------------------------------
 
-def _attend(q, k, v, q_pos, k_pos):
-    """Causal attention by position.  q: (B,S,K,G,dh) k/v: (B,T,K,dh).
+def _attend(q, k, v, q_pos, k_pos, *, causal=True):
+    """Attention by position.  q: (B,S,K,G,dh) k/v: (B,T,K,dh).
 
     Returns (B,S,K,G,dh).  Slots with k_pos < 0 are invalid (unwritten
-    ring-buffer slots).  The JAX package's window and logit cap have no
-    caller in the dense family and are not ported.
+    ring-buffer slots); ``causal`` also masks the slots past each query's
+    position.  The JAX package's window and logit cap have no caller in
+    the ported families and are not ported.
     """
     dh = q.shape[-1]
     scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
     scores = scores / math.sqrt(dh)
     k_pos = k_pos[:, None, :]
-    mask = (k_pos >= 0) & (k_pos <= q_pos[:, :, None])
+    mask = k_pos >= 0
+    if causal:
+        mask = mask & (k_pos <= q_pos[:, :, None])
     scores = torch.where(mask[:, None, None], scores, NEG)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkh->bskgh", probs, v)
@@ -159,6 +169,55 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
                           positions, cache["pos"])
     out = out.reshape(B, S, H * dh)
     return out @ params["wo"].to(x.dtype), cache
+
+
+# --------------------------------------------------------------------------
+# cross-attention (llama-3.2-vision image layers)
+# --------------------------------------------------------------------------
+
+def init_cross(gen, d, H, K, dh, lead: tuple = ()):
+    """Float32 projections, the q / k norms' scales (ones) and the tanh
+    gate (zero: the layer starts closed); ``lead`` as in
+    :func:`init_gqa`."""
+    n = len(lead)
+    ones = torch.ones(lead + (dh,), device=gen.device)
+    return {
+        "wq": bl.dense_init(gen, lead + (d, H * dh), n),
+        "wk": bl.dense_init(gen, lead + (d, K * dh), n),
+        "wv": bl.dense_init(gen, lead + (d, K * dh), n),
+        "wo": bl.dense_init(gen, lead + (H * dh, d), n),
+        "gate": torch.zeros(lead, device=gen.device),
+        "kln": ones,
+        "qln": ones.clone(),
+    }
+
+
+def cross_attention(params, x, kv_feats, *, H, K, dh, differentiable=False):
+    """Cross-attention, as the JAX package's ``cross_attention``: q from
+    the text stream ``x (B, S, d)``, k and v from image features
+    ``kv_feats (B, N, d)`` (cast to ``x.dtype`` before the projections),
+    q and k RMS-normed over the head dim, no rope, every one of the N
+    image tokens visible, the output projection, then ``tanh(gate)``
+    cast to ``x.dtype`` as a factor.  A prompt pass (S > 1) takes the
+    kernel route, ``flash_attention(..., causal=False)``; a decode step
+    (S == 1) and a ``differentiable`` pass the plain route,
+    :func:`_attend`."""
+    B, S, _ = x.shape
+    N = kv_feats.shape[1]
+    feats = kv_feats.to(x.dtype)
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, K, H // K, dh)
+    k = (feats @ params["wk"].to(x.dtype)).reshape(B, N, K, dh)
+    v = (feats @ params["wv"].to(x.dtype)).reshape(B, N, K, dh)
+    q = bl.rms_norm(q, params["qln"])
+    k = bl.rms_norm(k, params["kln"])
+    if S > 1 and not differentiable:
+        out = flash_attention(q.reshape(B, S, H, dh), k, v, causal=False)
+    else:
+        zeros = torch.zeros((), dtype=torch.int32, device=x.device)
+        out = _attend(q, k, v, zeros.expand(B, S), zeros.expand(B, N),
+                      causal=False)
+    out = out.reshape(B, S, H * dh) @ params["wo"].to(x.dtype)
+    return torch.tanh(params["gate"]).to(x.dtype) * out
 
 
 # --------------------------------------------------------------------------

@@ -10,15 +10,22 @@ embeddings, the ``frontend="embeddings"`` stub, in place of tokens), and
 moe, ``[("dense",)] x first_k_dense + [("moe",)] x rest`` (the MoE block
 is the dense block with :mod:`repro_torch.models.moe`'s routed experts
 in place of the MLP; ``Model(..., ep=)`` runs them expert-parallel over
-a kernel axis, as the JAX package's mesh does).  ``cfg.mla`` gives the
-dense and MoE blocks DeepSeek-V2's latent attention (``attention.mla``)
-in place of GQA, with a latent ring cache.
+a kernel axis, as the JAX package's mesh does), and vlm,
+``[("dense",) * (k - 1) + ("cross",)] x L / k`` with ``k =
+cross_every`` (the cross block attends from the text stream to image
+features, ``attention.cross_attention``; it has no cache, and every
+decode step recomputes the image K/V, as in the JAX package).
+``cfg.mla`` gives the dense and MoE blocks DeepSeek-V2's latent
+attention (``attention.mla``) in place of GQA, with a latent ring
+cache.
 
 Parameters are a dict tree like the JAX package's.  Matrices, embeddings
 and biases are held in ``cfg.dtype`` (the JAX package casts its float32
 parameters to ``cfg.dtype`` at every use, so casting once gives the same
 values); norm scales and biases stay float32, as the norms read them
-(MLA's latent norms ``qln`` and ``kvln`` too).
+(MLA's latent norms ``qln`` and ``kvln`` and cross-attention's ``qln``
+and ``kln`` too), and so does cross-attention's ``gate``, whose tanh
+the JAX package takes in float32.
 Ring caches are written in place (``models.attention``).
 """
 
@@ -39,15 +46,16 @@ from repro_torch.tree import tree_leaves
 # families and options of the JAX package that wait for a later slice
 _NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue 1, modules "
                "to port)")
-# float32 subtrees: the block norms and MLA's latent norms
-NORM_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln")
+# float32 subtrees: the block norms, MLA's latent norms, cross-attention's
+# q / k norms and its gate
+F32_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln", "kln", "gate")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | audio | moe (vlm | hybrid | ssm
-                                 # raise until ported)
+    family: str                  # dense | audio | moe | vlm (hybrid |
+                                 # ssm raise until ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,6 +71,8 @@ class ModelConfig:
     moe: Any = None              # moe_lib.MoEDims of the moe family
     first_k_dense: int = 0       # moe: dense layers before the MoE ones
     mla: attn.MLADims | None = None  # MLA attention in place of GQA
+    cross_every: int = 0         # vlm: every k-th layer is a cross layer
+    n_image_tokens: int = 0      # vlm: image features a sequence
     aux_loss_weight: float = 0.01
     # frontend: tokens | embeddings (audio frames, a stubbed modality)
     frontend: str = "tokens"
@@ -82,6 +92,12 @@ class ModelConfig:
                 segs.append((("dense",), self.first_k_dense))
             segs.append((("moe",), L - self.first_k_dense))
             return segs
+        if self.family == "vlm":
+            k = self.cross_every
+            if k < 1 or L % k:
+                raise ValueError(f"{self.name}: {L} layers do not split into "
+                                 f"superblocks of cross_every = {k}")
+            return [(("dense",) * (k - 1) + ("cross",), L // k)]
         raise NotImplementedError(f"model family {self.family!r} "
                                   f"{_NOT_PORTED}")
 
@@ -103,9 +119,9 @@ def _layers(tree, n: int) -> list:
 
 def cast_params(cfg: ModelConfig, tree, device, *, f32: bool = False):
     """``tree`` with every leaf on ``device`` in ``cfg.dtype``, except
-    the norms' leaves (float32)."""
+    the leaves under ``F32_KEYS`` (float32)."""
     if isinstance(tree, dict):
-        return {k: cast_params(cfg, v, device, f32=f32 or k in NORM_KEYS)
+        return {k: cast_params(cfg, v, device, f32=f32 or k in F32_KEYS)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [cast_params(cfg, v, device, f32=f32) for v in tree]
@@ -147,10 +163,15 @@ def _mlp(cfg, p, x):
     return bl.swiglu(x, p["wg"], p["wu"], p["wd"])
 
 
-# the dense and MoE blocks: segments() admits no other kind
+# the dense, MoE and cross blocks: segments() admits no other kind
 
 def _init_block(cfg, kind, gen, lead=()):
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    if kind == "cross":
+        return {"ln1": _init_norm(cfg, gen, lead),
+                "xattn": attn.init_cross(gen, d, H, K, dh, lead),
+                "ln2": _init_norm(cfg, gen, lead),
+                "mlp": _init_mlp(cfg, gen, lead)}
     a = (attn.init_mla(gen, d, H, cfg.mla, lead) if cfg.mla
          else attn.init_gqa(gen, d, H, K, dh, cfg.qkv_bias, lead))
     p = {"ln1": _init_norm(cfg, gen, lead), "attn": a,
@@ -163,7 +184,9 @@ def _init_block(cfg, kind, gen, lead=()):
     return p
 
 
-def _block_cache(cfg, B: int, slots: int, device, lead=()):
+def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
+    if kind == "cross":
+        return {}   # image kv is recomputed from the (static) image feats
     if cfg.mla:
         return attn.make_mla_cache(B, slots, cfg.mla, cfg.dtype, device,
                                    lead)
@@ -172,10 +195,24 @@ def _block_cache(cfg, B: int, slots: int, device, lead=()):
 
 
 def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
-                 differentiable=False, ep=None):
+                 differentiable=False, ep=None, image_feats=None):
     """Returns (x, aux): the MoE block's load-balance loss, None for a
-    dense block.  ``ep``: the expert-parallel island, or None."""
+    dense or cross block.  ``ep``: the expert-parallel island, or None.
+    ``image_feats``: the cross block's keys and values, ``(B, N,
+    d_model)``."""
     h = _norm(cfg, p["ln1"], x)
+    if kind == "cross":
+        if image_feats is None:
+            raise ValueError(f"{cfg.name}: a cross-attention block needs "
+                             f"image_feats (B, N, d_model), got None; pass "
+                             f"batch['image_feats'] or "
+                             f"decode_step(..., image_feats=)")
+        x = x + attn.cross_attention(p["xattn"], h, image_feats,
+                                     H=cfg.n_heads, K=cfg.n_kv_heads,
+                                     dh=cfg.dh,
+                                     differentiable=differentiable)
+        h = _norm(cfg, p["ln2"], x)
+        return x + _mlp(cfg, p["mlp"], h), None
     if cfg.mla:
         a, _ = attn.mla(p["attn"], h, positions, H=cfg.n_heads, dims=cfg.mla,
                         cache=cache, fresh=fresh,
@@ -227,21 +264,27 @@ class Model:
 
     def init(self, gen: torch.Generator) -> dict:
         """Random weights from ``gen``, a generator on the model's
-        device."""
+        device.  Each part is cast as it is drawn, so no more than one
+        block's float32 draws are held beside the cast weights."""
         if gen.device.type != self.device.type:
             raise ValueError(f"init: generator on {gen.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
+
+        def cast(tree):
+            return cast_params(cfg, tree, self.device)
+
         params: dict[str, Any] = {
-            "embed": bl.embed_init(gen, (cfg.vocab, cfg.d_model)),
+            "embed": cast(bl.embed_init(gen, (cfg.vocab, cfg.d_model))),
             "final_norm": _init_norm(cfg, gen)}
         if not cfg.tie_embeddings:
-            params["lm_head"] = bl.dense_init(gen, (cfg.d_model, cfg.vocab))
+            params["lm_head"] = cast(bl.dense_init(gen, (cfg.d_model,
+                                                         cfg.vocab)))
         params["segments"] = [
-            {f"b{i}_{kind}": _init_block(cfg, kind, gen, (reps,))
+            {f"b{i}_{kind}": cast(_init_block(cfg, kind, gen, (reps,)))
              for i, kind in enumerate(pat)}
             for pat, reps in self.segs]
-        return cast_params(cfg, params, self.device)
+        return cast(params)
 
     def _ep_ctx(self):
         """The expert-parallel island ``(p_moe, h) -> (out, aux)``, or
@@ -275,9 +318,10 @@ class Model:
         return x @ params["lm_head"].to(x.dtype)
 
     def _run_segments(self, params, x, positions, *, caches=None,
-                      fresh=False, differentiable=False):
+                      fresh=False, differentiable=False, image_feats=None):
         """Every layer in order; returns (x, caches, aux), ``aux`` the
-        sum of the MoE layers' losses (float32 0 without any)."""
+        sum of the MoE layers' losses (float32 0 without any).
+        ``image_feats``: what the cross blocks attend to, or None."""
         cfg = self.cfg
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for si, (pat, reps) in enumerate(self.segs):
@@ -292,7 +336,8 @@ class Model:
                     x, aux = _apply_block(cfg, kind, seg_params[key][layer],
                                           x, positions, cache=c, fresh=fresh,
                                           differentiable=differentiable,
-                                          ep=self._island)
+                                          ep=self._island,
+                                          image_feats=image_feats)
                     if aux is not None:
                         aux_total = aux_total + aux
         return x, caches, aux_total
@@ -301,7 +346,8 @@ class Model:
         return torch.arange(S, device=self.device).expand(B, S)
 
     def forward_train(self, params, batch, *, differentiable=False):
-        """batch: {"tokens": (B, S)} or {"embeddings": (B, S, d)} ->
+        """batch: {"tokens": (B, S)} or {"embeddings": (B, S, d)}, and
+        the vlm family's {"image_feats": (B, N, d)} ->
         (logits (B, S, vocab), aux);
         ``aux`` (the MoE layers' summed load-balance loss) is 0 without
         MoE layers.  Attention goes through
@@ -310,7 +356,8 @@ class Model:
         x = self._embed_in(params, batch)
         B, S = x.shape[:2]
         x, _, aux = self._run_segments(params, x, self._positions(B, S),
-                                       differentiable=differentiable)
+                                       differentiable=differentiable,
+                                       image_feats=batch.get("image_feats"))
         return self._unembed(params, x), aux
 
     def loss(self, params, batch):
@@ -323,39 +370,45 @@ class Model:
     # -- serving -------------------------------------------------------------
 
     def make_cache(self, B: int, slots: int):
-        return [{f"b{i}_{kind}": _block_cache(self.cfg, B, slots,
+        return [{f"b{i}_{kind}": _block_cache(self.cfg, kind, B, slots,
                                               self.device, (reps,))
                  for i, kind in enumerate(pat)}
                 for pat, reps in self.segs]
 
     @staticmethod
     def is_fresh(cache) -> bool:
-        """Every slot of every layer unwritten (pos -1): one device sync."""
+        """Every slot of every layer unwritten (pos -1): one device sync.
+        Cross blocks have no cache."""
         fresh = [(blk["pos"] == -1).all() for seg in cache
-                 for blk in seg.values()]
+                 for blk in seg.values() if blk]
         return bool(torch.stack(fresh).all())
 
     def prefill(self, params, batch, cache):
         """Run the prompt through the model, filling the cache in place.
 
         Returns (logits_last (B, vocab), cache).  On a fresh cache a
-        prompt of at most W tokens attends through the flash kernel."""
+        prompt of at most W tokens attends through the flash kernel; the
+        vlm family's cross blocks attend to ``batch["image_feats"]``
+        through it whatever the cache."""
         x = self._embed_in(params, batch)
         B, S = x.shape[:2]
         x, cache, _ = self._run_segments(params, x, self._positions(B, S),
                                          caches=cache,
-                                         fresh=self.is_fresh(cache))
+                                         fresh=self.is_fresh(cache),
+                                         image_feats=batch.get("image_feats"))
         logits = self._unembed(params, x[:, -1:])
         return logits[:, 0], cache
 
-    def decode_step(self, params, cache, token, pos):
+    def decode_step(self, params, cache, token, pos, image_feats=None):
         """One decode step. token: (B, 1) ids (or (B, 1, d) embeddings);
-        pos: (B,) absolute positions.  Returns (logits (B, vocab), cache)."""
+        pos: (B,) absolute positions.  VLM decode re-attends the static
+        ``image_feats``.  Returns (logits (B, vocab), cache)."""
         key = "embeddings" if self.cfg.frontend == "embeddings" else "tokens"
         x = self._embed_in(params, {key: token})
         positions = pos[:, None]
         x, cache, _ = self._run_segments(params, x, positions,
-                                         caches=cache)
+                                         caches=cache,
+                                         image_feats=image_feats)
         logits = self._unembed(params, x)
         return logits[:, 0], cache
 

@@ -17,7 +17,8 @@ attention float32 2e-3, bfloat16 3e-2 against its plain version (the
 reference's tolerances, tests/test_kernels.py:109), the Hopper flash
 kernel also against the simple one at 3e-2, and bitwise against itself
 where only future keys change, the simple kernel also at MLA's q·k 192
-/ v 128; the engines on the
+/ v 128, both kernels also with causal=False at a key length of its
+own (cross-attention's prompt pass); the engines on the
 card serve the CPU run's tokens exactly (float32 tinyllama-smoke and a
 small MLA model at deepseek-v2's head dims); the
 float32 trainer on the card within 1e-5 of its CPU run (TF32 off), its
@@ -510,8 +511,13 @@ def _qkv(B, S, H, K, dh, dtype, seed, device):
 
 
 def _flash_close(got, want, dtype):
+    """Within atol = rtol = tol, and within tol of the largest |want|:
+    without causality, over many keys, every output is small and the
+    first limit alone is as wide as the values."""
     tol = 2e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -883,6 +889,133 @@ def test_musicgen_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
         logits[str(device)] = torch.stack(got)
         flash = launch_counts()["flash_attention"]
     assert flash == cfg.n_layers
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+# -- non-causal flash attention (cross-attention's prompt pass) --------------
+# S text tokens over T image tokens, every key valid; the same tolerances.
+# A ragged T leaves the Hopper kernel's last key tile zero-filled past T:
+# unmasked, those keys would score 0 and take a share of the softmax,
+# past the limit at T 129 (one key into a tile of 32, 64 or 128) and T 1.
+
+def _cross_qkv(B, S, T, H, K, dh, dtype, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, H, dh, generator=gen)
+    k = torch.randn(B, T, K, dh, generator=gen)
+    v = torch.randn(B, T, K, dh, generator=gen)
+    return [t.to(device, dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("T", [1, 129, 1000, 1600])
+@pytest.mark.parametrize("S", [7, 64, 1024])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_noncausal_flash_kernels_match_plain(cuda, T, S, dh, dtype):
+    """The routed kernel (Hopper for bf16, simple for float32) and the
+    simple one forced, both with causal=False, against the plain
+    version; the route and the non-causal counter."""
+    from repro_torch.kernels import attention as fa
+
+    B = 2 if S < 512 else 1
+    q, k, v = _cross_qkv(B, S, T, 8, 2, dh, dtype, S + T + dh, cuda)
+    bf16 = dtype == torch.bfloat16
+    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "simple")
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=False)
+    simple = fa.flash_attention_cuda(q, k, v, kernel="simple", causal=False)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_noncausal"]) == (2, int(bf16), 2)
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    assert got.shape == (B, S, 8, dh)
+    _flash_close(got, want, dtype)
+    _flash_close(simple, want, dtype)
+
+
+def test_noncausal_flash_at_the_cross_attention_prompt_shape(cuda):
+    """llama-3.2-vision-90b's cross-attention prompt pass: B 4 x S 1024
+    x H 64 (K 8) over T 1600 image tokens, dh 128, bf16 (chip_smoke.py's
+    shape), on both kernels."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _cross_qkv(4, 1024, 1600, 64, 8, 128, torch.bfloat16, 41,
+                         cuda)
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    for kernel in ("sm90", "simple"):
+        _flash_close(fa.flash_attention_cuda(q, k, v, kernel=kernel,
+                                             causal=False), want,
+                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_noncausal_flash_sm90_reads_every_key(cuda, dh):
+    """Changing the last key and value (in the ragged last tile) changes
+    the first query's row: no causal mask is left on."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _cross_qkv(1, 130, 1000, 4, 2, dh, torch.bfloat16, 3, cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, -1] = 4 * q[:, 0, :2]
+    v2[:, -1] = 8
+    out = fa.flash_attention(q, k, v, causal=False)
+    out2 = fa.flash_attention(q, k2, v2, causal=False)
+    assert not torch.equal(out[:, 0], out2[:, 0])
+    _flash_close(out2, fa.flash_attention_ref(q, k2, v2, causal=False),
+                 torch.bfloat16)
+
+
+def test_flash_refuses_another_key_length_when_causal(cuda):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _cross_qkv(1, 16, 20, 4, 2, 64, torch.bfloat16, 2, cuda)
+    reset_launch_counts()
+    for kernel in (None, "sm90", "simple"):
+        with pytest.raises(ValueError, match="causal attention needs"):
+            fa.flash_attention_cuda(q, k, v, kernel=kernel)
+    assert launch_counts()["flash_attention"] == 0
+    fa.flash_attention_cuda(q, k, v, causal=False)
+    assert (launch_counts()["flash_attention"],
+            launch_counts()["flash_attention_noncausal"]) == (1, 1)
+
+
+def test_vlm_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """llama-vision-smoke (float32, the cross layer's gate opened): a
+    prefill (4 causal and 1 non-causal flash launch, all on the simple
+    kernel at dh 16) and two decode steps re-attending the image
+    features on the card within 1e-5 of the CPU run (TF32 off)."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.reduced("llama-3.2-vision-90b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params["segments"][0]["b4_cross"]["xattn"]["gate"].fill_(0.75)
+    gen = torch.Generator().manual_seed(1)
+    feats = torch.randn(2, cfg.n_image_tokens, cfg.d_model, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen)
+    logits = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        p = _to(params, device)
+        f = feats.to(device)
+        cache = model.make_cache(2, 64)
+        reset_launch_counts()
+        out, cache = model.prefill(p, {"tokens": toks.to(device),
+                                       "image_feats": f}, cache)
+        counts = launch_counts()
+        got = [out.cpu()]
+        pos = torch.tensor([40, 40], device=device)
+        step = torch.tensor([[3], [400]], device=device)
+        for i in range(2):
+            out, cache = model.decode_step(p, cache, step + i, pos + i,
+                                           image_feats=f)
+            got.append(out.cpu())
+        logits[str(device)] = torch.stack(got)
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_noncausal"]) == (cfg.n_layers, 0, 1)
+    assert launch_counts()["flash_attention"] == cfg.n_layers   # decode: 0
     torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-5,
                                atol=1e-5)
 

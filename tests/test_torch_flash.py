@@ -1,4 +1,4 @@
-"""The port's causal flash attention against the JAX package's.
+"""The port's flash attention against the JAX package's.
 
 On the CPU ``kernels.attention.flash_attention`` runs its plain version
 (the CUDA kernel is held to that version on the card by
@@ -10,7 +10,9 @@ rounds p per block), and to the GQA model's own attention ``_attend`` on
 a fresh prompt.  Inputs come from numpy with a fixed seed.  The shape
 rules of the CUDA wrapper's check (``flash.check_shapes``, a pure
 function) are held here to the cases ``tests/test_torch_cuda.py`` runs
-on the card.
+on the card, a key length of its own (``T != S``) among them: taken
+without causality, refused with it.  The non-causal function is held to
+the JAX package in ``tests/test_torch_vlm.py``.
 """
 
 import jax.numpy as jnp
@@ -165,3 +167,56 @@ def test_mla_shapes_go_to_the_simple_kernel(dtype):
     q, k, v = (torch.zeros(s, dtype=dtype)
                for s in _shapes(1, 64, 4, 4, 192, 128))
     assert fl.flash_kernel_for(q, k, v) == "simple"
+
+
+# (B, S, T, H, K, dh) of non-causal attention: S queries over T != S keys
+NONCAUSAL = [(4, 1024, 1600, 64, 8, 128), (2, 7, 1000, 8, 2, 64),
+             (4, 1024, 129, 64, 8, 128), (1, 33, 1, 4, 4, 16),
+             (1, 1, 9, 2, 1, 192)]
+
+
+def _kv_shapes(B, S, T, H, K, dh):
+    dv = 128 if dh == 192 else dh
+    return (B, S, H, dh), (B, T, K, dh), (B, T, K, dv)
+
+
+@pytest.mark.parametrize("case", NONCAUSAL)
+def test_check_shapes_takes_another_key_length_without_causality(case):
+    fl.check_shapes(*_kv_shapes(*case), causal=False)
+
+
+@pytest.mark.parametrize("case", NONCAUSAL)
+def test_check_shapes_refuses_another_key_length_when_causal(case):
+    with pytest.raises(ValueError, match="causal attention needs"):
+        fl.check_shapes(*_kv_shapes(*case))
+    with pytest.raises(ValueError, match="causal attention needs"):
+        fl.check_shapes(*_kv_shapes(*case), causal=True)
+
+
+def test_check_shapes_refuses_no_keys_and_ragged_k_v():
+    with pytest.raises(ValueError, match="T must be >= 1"):
+        fl.check_shapes(*_kv_shapes(1, 8, 0, 2, 2, 64), causal=False)
+    q, k, _ = _kv_shapes(1, 8, 12, 2, 2, 64)
+    with pytest.raises(ValueError, match="q must be"):
+        fl.check_shapes(q, k, (1, 11, 2, 64), causal=False)
+    with pytest.raises(ValueError, match="H % K"):
+        fl.check_shapes(q, (2, 12, 2, 64), (2, 12, 2, 64), causal=False)
+
+
+@pytest.mark.parametrize("BK", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 129])
+def test_noncausal_limit_sees_an_unmasked_ragged_key_tile(BK, T):
+    """The card's non-causal checks hold a kernel within 3e-2 of the
+    largest |want| at T 1 and T 129, one key into a last tile of BK
+    keys (32 on the simple kernel, 64 / 128 on the Hopper one).  Left
+    unmasked, the tile's zero-filled keys score 0 and take a share of
+    every row's softmax: the output they give is past that limit."""
+    B, S, H, K, dh = 1, 64, 4, 2, 64
+    q, k, v = (_torch(RNG.standard_normal(shape), torch.float32)
+               for shape in ((B, S, H, dh), (B, T, K, dh), (B, T, K, dh)))
+    pad = -T % BK
+    kz, vz = (torch.cat([x, x.new_zeros(B, pad, K, dh)], 1) for x in (k, v))
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    unmasked = fa.flash_attention_ref(q, kz, vz, causal=False)
+    err = (unmasked - want).abs().max().item()
+    assert err > 3e-2 * want.abs().max().item()

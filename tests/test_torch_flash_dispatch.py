@@ -132,3 +132,38 @@ def test_build_registers_the_hopper_source_for_sm90a():
 def test_counters_name_both_flash_kernels():
     assert LAUNCH_COUNTERS["flash_attention"] is fl.flash_attention_cuda
     assert LAUNCH_COUNTERS["flash_attention_sm90"] is fl.launch_flash_sm90
+    assert LAUNCH_COUNTERS["flash_attention_noncausal"] \
+        is fl.noncausal_launches
+
+
+@pytest.mark.parametrize("T", [1, 1000, 1600])
+def test_route_does_not_depend_on_causality_or_key_length(T):
+    """Cross-attention's q (B, S, H, dh) over k / v (B, T, K, dh) at
+    another length goes where the same dtype, head dim and grid send a
+    prompt over itself."""
+    q = torch.zeros(1, 7, 8, 128, dtype=BF16)
+    kv = torch.zeros(1, T, 2, 128, dtype=BF16)
+    assert fl.flash_kernel_for(q, kv, kv) == "sm90"
+    assert fl.flash_kernel_for(q.float(), kv.float(), kv.float()) == "simple"
+
+
+def test_cross_attention_prompt_pass_takes_the_hopper_kernel(monkeypatch):
+    """The q, k, v that a bf16 cross layer's prompt pass hands the flash
+    route (projections, q / k norms, reshape) at dh 64 are inputs the
+    Hopper kernel takes, with ``causal=False``."""
+    H, K, dh, d, S, N = 4, 2, 64, 256, 9, 20
+    gen = torch.Generator().manual_seed(5)
+    params = tattn.init_cross(gen, d, H, K, dh)
+    params = {k: v.to(BF16) if k.startswith("w") else v
+              for k, v in params.items()}
+    x = torch.randn(1, S, d, generator=gen).to(BF16)
+    feats = torch.randn(1, N, d, generator=gen)
+    seen = []
+
+    def spy(q, k, v, causal=True):
+        seen.append((fl.flash_kernel_for(q, k, v), tuple(k.shape), causal))
+        return fa.flash_attention_ref(q, k, v, causal=causal)
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    tattn.cross_attention(params, x, feats, H=H, K=K, dh=dh)
+    assert seen == [("sm90", (1, N, K, dh), False)]

@@ -201,4 +201,5 @@ def test_cpu_tensors_never_launch_a_kernel():
                                "ring_allreduce_dma": 0, "ring_collective": 0,
                                "ring_cluster_sm90": 0,
                                "flash_attention": 0,
-                               "flash_attention_sm90": 0}
+                               "flash_attention_sm90": 0,
+                               "flash_attention_noncausal": 0}

@@ -134,15 +134,14 @@ def test_tinyllama_configs_match_the_jax_package():
                                                    32000, torch.bfloat16)
 
 
-@pytest.mark.parametrize("arch", ["llama_3_2_vision_90b",
-                                  "recurrentgemma_2b", "xlstm_350m"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_350m"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.full(arch)
 
 
-@pytest.mark.parametrize("change", [
-    {"family": "vlm"}, {"family": "hybrid"}, {"family": "ssm"}])
+@pytest.mark.parametrize("change", [{"family": "hybrid"},
+                                    {"family": "ssm"}])
 def test_unported_families_and_options_raise(change):
     cfg = dataclasses.replace(configs.reduced(ARCH), **change)
     with pytest.raises(NotImplementedError,
