@@ -119,6 +119,21 @@ seed) fed 4 x 1600 seeded image features: one prefill of 4 x 1024
 tokens (10 Hopper flash launches required, 2 of them non-causal) and 32
 decode steps re-attending the features (none); the prefill's logits
 and the first cross layer's output held to the plain version.
+Phase 15 runs the hybrid family: the simple flash kernel alone at
+recurrentgemma-2b's local-attention prompt shape (B 1 x S 1024 x 10
+query heads over 1 kv head at head dim 256, four threads a query row,
+bf16 and float32) and at ragged shapes (S 1000, S 7, causal=False over
+T 129) against its plain version, timed beside
+``scaled_dot_product_attention`` (right after phase 14's flash check);
+then recurrentgemma-2b at full width and depth (26 layers: RG-LRU blocks
+and, every third layer, local attention over a 2048-token window; 3.34 B
+parameters, 6.7 GB) served through ``ServeEngine`` as phase 6 serves
+tinyllama-1.1b, every prompt pass of each of the 8 local layers on the
+simple kernel (8 x 8 launches required, none of the Hopper kernel); one
+prefill's logits held to the plain version; a 2040-token prompt decoded
+32 steps through the ring's wrap against the windowed forward pass; a
+profiled prefill and decode window; then the shoal trainer at one
+superblock (3 layers, full width), its losses finite and falling.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1784,6 +1799,13 @@ def check_flash(torch, device):
     return records
 
 
+def attention_layers(cfg) -> int:
+    """The layers whose prompt pass launches a flash kernel: every layer
+    but the hybrid family's RG-LRU blocks."""
+    return sum(reps * sum(kind != "rglru" for kind in pat)
+               for pat, reps in cfg.segments())
+
+
 def prompt_batch(torch, model, prompt):
     """A one-request prefill batch of token ids on the model's device."""
     return {"tokens": torch.as_tensor(prompt.astype(np.int64),
@@ -1825,9 +1847,10 @@ def check_prefill_logits(torch, model, params, batch, tag="serving",
     cache = model.make_cache(B, SLOTS)
     for seg in cache:
         for blk in seg.values():
-            blk["pos"][:, :, -1] = 2 ** 30
+            if "pos" in blk:        # an RG-LRU state has no slots
+                blk["pos"][:, :, -1] = 2 ** 30
     route, n_route = prefill(cache)
-    layers = model.cfg.n_layers
+    layers = attention_layers(model.cfg)
     # bfloat16 goes through the Hopper kernel, float32 the simple one,
     # unless the caller names the kernel (MLA's 192 / 128: the simple one)
     if flash is None:
@@ -1962,9 +1985,10 @@ def serve_requests(torch, model, params, prompts, tag="serving",
     new tokens each, greedy, on LANES lanes of SLOTS slots (after a
     warm-up on an engine of its own), the launch counts reset before the
     run and read after it; every request and slot event checked, and
-    every prompt pass of every layer a launch of the flash kernel named
-    by ``flash``: the Hopper one (bfloat16 at dh 64 / 128), or the
-    simple one (MLA's q·k 192 / v 128).  Prints the run's lines under
+    every prompt pass of every attention layer (:func:`attention_layers`)
+    a launch of the flash kernel named by ``flash``: the Hopper one
+    (bfloat16 at dh 64 / 128), or the simple one (MLA's q·k 192 / v 128,
+    recurrentgemma's dh 256).  Prints the run's lines under
     ``tag`` (tokens/s, prefill ms per request, decode ms per 4-lane
     step) and returns the run's launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2007,14 +2031,16 @@ def serve_requests(torch, model, params, prompts, tag="serving",
             f"{cfg.name} served: {len(done)} of {n} requests finished, "
             f"tokens {[len(r.out) for r in reqs]}")
     # GQA prompts are bfloat16 at dh 64 / 128 on TMA's grid, so every
-    # prompt pass of every layer takes the Hopper kernel; MLA's take the
-    # simple one, and none the Hopper one
-    want = n * cfg.n_layers
+    # prompt pass of every attention layer takes the Hopper kernel; MLA's
+    # (192 / 128) and recurrentgemma's (dh 256) take the simple one, and
+    # none the Hopper one
+    layers = attention_layers(cfg)
+    want = n * layers
     sm90 = want if flash == "sm90" else 0
     require(counts["flash_attention"] == want
             and counts["flash_attention_sm90"] == sm90,
             f"{cfg.name}: flash launches {counts['flash_attention']}, sm90 "
-            f"{counts['flash_attention_sm90']}, want {n} x {cfg.n_layers} "
+            f"{counts['flash_attention_sm90']}, want {n} x {layers} "
             f"on the {flash} kernel")
     events = [e for b in batches for e in b]
     for kind in ("acquire", "release"):
@@ -2687,8 +2713,8 @@ def time_ring(torch, x, schedule, tag, case, events=False):
     got, want = kernel(), plain()
     require(torch.equal(got, want), f"ring kernel ({route}) {schedule} at "
             f"{case} differs from the plain version")
-    err = (got.double() - want.double()).abs().max().item()
-    del got, want
+    err = 0.0       # bitwise equal, as required (no float64 copies: at
+    del got, want   # recurrentgemma's 4 x 655 M-word leaf each is 21 GB)
     sub = "ring_cluster_kernel_sm90" if route == "sm90" else "ring_kernel"
     turns = {"kernel": [], "library": []}
     for r in ("kernel", "library", "library", "kernel"):
@@ -3944,6 +3970,203 @@ def phase_vlm(torch, device):
     return {f"serve-{VLM_ARCH}": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the hybrid family (recurrentgemma-2b served at full width and
+# depth: RG-LRU recurrence, the sliding-window ring cache, MQA prompt passes
+# through the simple flash kernel at head dim 256)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-2b"
+# 26 layers at full width: 8 superblocks of two RG-LRU blocks and one
+# local-attention block, and a remainder of two RG-LRU blocks; 6.7 GB in
+# bf16.  The trainer takes one superblock (3 layers: 1,544,071,680
+# parameters, about 50 GB at ~32.5 bytes a trained parameter)
+HYBRID_PARAMS = 3_337_459_200
+HYBRID_TRAIN_LAYERS = 3
+HYBRID_TRAIN_STEPS = 4
+# the local layers' prompt pass: B, S, H, K, dh (MQA, head dim 256)
+HYBRID_FLASH = (1, 1024, 10, 1, 256)
+# ragged cases held to the plain version (B, S, H, K, T, dtype, causal):
+# S 1000, S 7, and causal=False over T 129 keys (one key into the last
+# 16-key tile)
+HYBRID_RAGGED = ((1, 1000, 10, 1, 1000, "bfloat16", True),
+                 (4, 7, 10, 1, 7, "bfloat16", True),
+                 (1, 1024, 10, 1, 129, "bfloat16", False),
+                 (1, 1000, 10, 1, 1000, "float32", True))
+HYBRID_PTXAS = "Li4ELi64ELi64ELi16E"    # the four-threads-a-row kernel
+# check_window_wrap: a prompt that fills all but 8 of the ring's slots,
+# then decode steps through the wrap
+WRAP_PROMPT, WRAP_STEPS = 2040, 32
+
+
+def check_flash_hybrid(torch, device):
+    """The simple flash kernel alone at recurrentgemma-2b's local-attention
+    prompt shape (``HYBRID_FLASH``: 10 query heads over 1 kv head at head
+    dim 256, seed 37), in bf16 and float32, held to its plain version
+    and timed by :func:`_flash_case` beside
+    ``scaled_dot_product_attention(..., enable_gqa=True)``; first the
+    ragged cases of ``HYBRID_RAGGED``.  Returns ``{dtype: record}``."""
+    from repro_torch.kernels import attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(37)
+    for (b, s, h, kv, t, name, causal) in HYBRID_RAGGED:
+        q, k, v = _cross_inputs(torch, gen, device, b, s, h, kv, t, 256,
+                                getattr(torch, name))
+        ms = _flash_case(torch, fa, q, k, v, f"dh 256 B{b}xS{s}xT{t}",
+                         causal=causal, timed=False, kernels=("simple",))
+        say("hybrid", check="flash-dh256", shape=f"B{b}xS{s}xH{h}xK{kv}"
+            f"xT{t}xdh256", dtype=name, causal=causal, tol=FLASH_TOL[name],
+            max_abs_err=ms["simple"]["err"])
+        del q, k, v
+    B, S, H, Kv, dh = HYBRID_FLASH
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
+        route = fa.flash_kernel_for(q, k, v)
+        require(route == "simple", f"flash at dh {dh} ({name}): routed to "
+                f"{route}")
+        m = _flash_case(torch, fa, q, k, v, f"dh {dh} MQA",
+                        kernels=("simple",))["simple"]
+        bound_ms, bound_by = bound(m)
+        out[name] = {
+            "case": "recurrentgemma-2b-local-prefill",
+            "shape": f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}", "dtype": name,
+            "route": route, "max_abs_err": m["err"], "ms": m["ms"],
+            "plain_ms": m["plain"], "library_ms": m["lib"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "turns_ms": m["turns"], "launches": 0}
+        say("hybrid", kernel="flash_attention", tol=FLASH_TOL[name],
+            ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
+            bound_share=f"{bound_ms / m['ms']:.5f}",
+            bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
+            ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
+            f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
+            **{key: (f"{val:.5f}" if isinstance(val, float) else val)
+               for key, val in out[name].items() if key != "turns_ms"},
+            turns_ms=json.dumps(m["turns"]), card=card_line())
+        del q, k, v
+    _free(torch)
+    return out
+
+
+def check_window_wrap(torch, model, params):
+    """One ``WRAP_PROMPT``-token prompt prefilled on a fresh SLOTS-slot
+    cache (S <= W: the kernel route, one launch a local layer), then
+    ``WRAP_STEPS`` decode steps through positions ``WRAP_PROMPT`` ..
+    ``WRAP_PROMPT + WRAP_STEPS - 1``: the ring wraps and the window
+    masks.  The last step's logits against ``forward_train(...,
+    differentiable=True)`` over the same tokens (windowed ``_attend``, no
+    cache, the scan in one pass), within ``LOGIT_TOL`` of the largest
+    |logit|."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = model.cfg
+    n = WRAP_PROMPT + WRAP_STEPS
+    gen = torch.Generator(device=model.device).manual_seed(41)
+    toks = torch.randint(0, cfg.vocab, (1, n), generator=gen,
+                         device=model.device)
+    cache = model.make_cache(1, SLOTS)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t = time.perf_counter()
+    logits, _ = model.prefill(params, {"tokens": toks[:, :WRAP_PROMPT]},
+                              cache)
+    for i in range(WRAP_PROMPT, n):
+        logits, _ = model.decode_step(params, cache, toks[:, i:i + 1],
+                                      torch.full((1,), i,
+                                                 device=model.device))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = launch_counts()
+    layers = attention_layers(cfg)
+    require(counts["flash_attention"] == layers
+            and counts["flash_attention_sm90"] == 0,
+            f"window wrap: flash launches {counts['flash_attention']} (sm90 "
+            f"{counts['flash_attention_sm90']}), want {layers} on the "
+            f"simple kernel for the one prompt pass")
+    ring = cache[0]["b2_attn_local"]["pos"][0, 0]
+    require(sorted(ring.tolist()) == list(range(n - SLOTS, n)),
+            f"window wrap: the ring holds positions {ring.min().item()}.."
+            f"{ring.max().item()}, want {n - SLOTS}..{n - 1}")
+    with torch.no_grad():
+        fwd, _ = model.forward_train(params, {"tokens": toks},
+                                     differentiable=True)
+    want = fwd[:, -1].float()
+    del fwd
+    got = logits.float()
+    dtype = str(cfg.dtype).split(".")[-1]
+    tol = LOGIT_TOL[dtype]
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    require(bool(torch.isfinite(got).all()) and err <= tol * top,
+            f"window wrap ({dtype}): decode at position {n - 1} vs the "
+            f"windowed forward pass: max|err| {err} > {tol} * {top}")
+    say("hybrid", check="window-wrap", model=cfg.name, dtype=dtype,
+        prompt_tokens=WRAP_PROMPT, decode_steps=WRAP_STEPS, slots=SLOTS,
+        window=cfg.window, ring_positions=f"{n - SLOTS}..{n - 1}",
+        max_abs_logit=top, decode_vs_forward_err=err,
+        limit=f"{tol}*max|logit|", seconds=f"{seconds:.3f}",
+        argmax_equal=bool(got.argmax() == want.argmax()))
+    del cache, want, got
+    _free(torch)
+
+
+def phase_hybrid(torch, device):
+    """Phase 15.  recurrentgemma-2b at full width (d 2560, 10 / 1 heads at
+    dh 256, d_ff 7680, vocab 256000, window 2048, LRU width 2560) and
+    depth (26 layers; bf16, seed 0) served as phase 6 serves
+    tinyllama-1.1b: 8 requests of 128-1024 prompt tokens, 32 new tokens
+    each, 4 lanes of 2048 slots; every prompt pass of each of the 8
+    local-attention layers on the simple flash kernel at dh 256 (8 x 8
+    launches required, none of the Hopper kernel), the RG-LRU blocks on
+    the log-depth scan and, in decode, their carried float32 state.  One
+    prefill's logits, kernel vs plain version; decode through the
+    ring's wrap against the windowed forward pass
+    (:func:`check_window_wrap`); the profiled prefill and decode window;
+    peak memory.  Then the shoal trainer (K = 4, bf16, ``TokenPipeline``'s
+    first batch of 8 x 512, ``warmup_cosine(3e-4, 10, 100)``) at one
+    superblock (3 of 26 layers, full width): held to the xla backend on
+    the first batch, every ring result bitwise the plain ring's, one ring
+    launch and 6 exchanges a leaf, losses finite and falling.  Returns
+    ``({run: launch counts}, the trainer's ring record)``."""
+    from repro_torch import configs
+    from repro_torch.optim.schedule import warmup_cosine
+
+    cfg = configs.full(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "hybrid")
+    require(cfg.num_params(params) == HYBRID_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    say("hybrid", model=cfg.name, segments=str(cfg.segments()),
+        window=cfg.window, lru_width=cfg.dr, dh=cfg.dh,
+        local_layers=attention_layers(cfg))
+    prompts = serve_prompts(cfg.vocab)
+    runs = {f"serve-{HYBRID_ARCH}": serve_requests(
+        torch, model, params, prompts, "hybrid", "simple")}
+    batch = prompt_batch(torch, model, prompts[0])
+    check_prefill_logits(torch, model, params, batch, "hybrid", "simple")
+    check_window_wrap(torch, model, params)
+    profile_serving(torch, model, params, prompts[0])
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("hybrid", model=cfg.name, peak_allocated_mb=f"{peak_mb:.0f}",
+        card=card_line())
+    del model, params
+    _free(torch)
+    train = dataclasses.replace(cfg, n_layers=HYBRID_TRAIN_LAYERS)
+    say("hybrid", model=HYBRID_ARCH, cut=f"trained at "
+        f"{HYBRID_TRAIN_LAYERS} of {cfg.n_layers} layers (one superblock, "
+        f"full width)")
+    t0 = time.perf_counter()
+    runs[f"train-{HYBRID_ARCH}"], rec = phase_train(
+        torch, device, cfg=train, tag="hybrid", steps=HYBRID_TRAIN_STEPS,
+        extras=False, lr=warmup_cosine(*FAMILY_LR))
+    say("hybrid", model=HYBRID_ARCH,
+        train_seconds=f"{time.perf_counter() - t0:.1f}")
+    _free(torch)
+    return runs, rec
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -4077,6 +4300,13 @@ def main() -> int:
         cross_flash["sm90", "self"]
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
+    hybrid_flash = check_flash_hybrid(torch, device)
+    hybrid_flash["bfloat16"]["ptxas"] = ring_ptxas_summary(
+        logs.get("flash", ""), HYBRID_PTXAS)
+    kernels["flash_attention"]["recurrentgemma_dh256"] = \
+        hybrid_flash["bfloat16"]
+    kernels["flash_attention"]["recurrentgemma_dh256_f32"] = \
+        hybrid_flash["float32"]
     t0 = time.perf_counter()
     migration = phase_disagg(torch, model, params)
     del model, params
@@ -4119,6 +4349,14 @@ def main() -> int:
         served["flash_attention_sm90"] - served["flash_attention_noncausal"]
     cross_flash["simple", "cross"]["launches"] = \
         served["flash_attention"] - served["flash_attention_sm90"]
+    t0 = time.perf_counter()
+    hybrid, hybrid_ring = phase_hybrid(torch, device)
+    say("hybrid", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=card_line())
+    family.update(hybrid)
+    hybrid_flash["bfloat16"]["launches"] = \
+        hybrid[f"serve-{HYBRID_ARCH}"]["flash_attention"]
+    family_rings.append(hybrid_ring)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])

@@ -4,10 +4,10 @@
 
 Ported: the dense family (tinyllama-1.1b, qwen2-1.5b, deepseek-7b,
 qwen2-72b), the audio family (musicgen-medium), the MoE family
-(dbrx-132b, and deepseek-v2-236b with MLA attention) and the vlm family
-(llama-3.2-vision-90b).  The other
-architectures of the JAX package raise until their slice lands (ROADMAP
-queue 1, modules to port).
+(dbrx-132b, and deepseek-v2-236b with MLA attention), the vlm family
+(llama-3.2-vision-90b) and the hybrid family (recurrentgemma-2b).  The
+other architectures of the JAX package raise until their slice lands
+(ROADMAP queue 1, modules to port).
 """
 
 import importlib
@@ -21,6 +21,7 @@ ARCH_IDS = [
     "dbrx_132b",
     "deepseek_v2_236b",
     "llama_3_2_vision_90b",
+    "recurrentgemma_2b",
 ]
 
 # CLI ids (hyphenated, as assigned) -> module names

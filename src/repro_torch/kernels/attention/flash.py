@@ -5,8 +5,9 @@
   q, k, v with head dim 64 or 128 laid out on TMA's 16-byte grid.
 * ``csrc/flash.cu`` (``flash_attention_fwd``): the simple kernel --
   float32 FMAs, any strides -- for everything else it holds (float32,
-  other head dims up to 128, views whose head dim is not contiguous, and
-  MLA's q·k head dim 192 with v head dim 128).
+  other head dims up to 256, among them recurrentgemma's 256, views
+  whose head dim is not contiguous, and MLA's q·k head dim 192 with v
+  head dim 128).
 
 :func:`flash_kernel_for` decides between them from shapes, strides,
 dtype and alignment alone, before the launch; nothing is retried.
@@ -30,7 +31,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DH = 128                # largest head dim the simple kernel holds
+MAX_DH = 256                # largest head dim the simple kernel holds
 MLA_HEAD_DIMS = (192, 128)  # the one (q·k, v) pair of unequal head dims
 SM90_HEAD_DIMS = (64, 128)  # head dims the Hopper kernel holds
 TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
@@ -73,7 +74,8 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
     pointers' alignment: bfloat16 q, k and v with head dim 64 or 128,
     the head dim contiguous, every other stride a positive multiple of
     16 bytes and every pointer 16-byte aligned (what a TMA tensor map
-    takes).  Unequal q·k and v head dims (MLA) go to the simple kernel.
+    takes).  Other head dims (256 among them) and unequal q·k and v head
+    dims (MLA) go to the simple kernel.
     Causal or not, and the key length, do not enter the choice."""
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         return "simple"
@@ -92,7 +94,7 @@ def check_shapes(q_shape, k_shape, v_shape, causal: bool = True) -> None:
     """Raise ``ValueError`` unless the kernels take these shapes: ``q (B,
     S, H, dh)``, ``k (B, T, K, dh)``, ``v (B, T, K, dv)`` with ``H % K
     == 0``, ``T == S`` when ``causal`` and ``T >= 1`` when not, and
-    either ``dv == dh <= 128`` or ``(dh, dv) == (192, 128)`` (MLA).  A
+    either ``dv == dh <= 256`` or ``(dh, dv) == (192, 128)`` (MLA).  A
     pure function of the shapes."""
     if len(q_shape) != 4 or len(k_shape) != 4 or len(v_shape) != 4 \
             or tuple(k_shape[:3]) != tuple(v_shape[:3]):
@@ -172,7 +174,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention by index on the card: ``q (B, S, H, dh)``, ``k (B, T, K,
     dh)``, ``v (B, T, K, dv)`` with ``H % K == 0``, ``T == S`` when
     ``causal`` (else any ``T >= 1``, every key valid), and ``dv == dh <=
-    128`` or ``(dh, dv) == (192, 128)``, float32 or bfloat16 -> a new
+    256`` or ``(dh, dv) == (192, 128)``, float32 or bfloat16 -> a new
     contiguous ``(B, S, H, dv)``.  The kernel is
     :func:`flash_kernel_for`'s choice; ``kernel="simple"`` forces the
     simple one (for comparisons: nothing on the main path sets it), and

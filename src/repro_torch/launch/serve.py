@@ -5,9 +5,12 @@ the CUDA card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         deepseek-v2-236b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
+        recurrentgemma-2b --slots 2048
 
 Weights are random, from ``--seed``.  The prompt pass of every request
-runs the flash-attention kernel on the card.  Token-frontend archs only,
+runs the flash-attention kernel on the card (recurrentgemma-2b: in its
+local-attention layers, for prompts up to the 2048-token window).  Token-frontend archs only,
 as in the JAX package's launcher (musicgen-medium is fed frame
 embeddings: drive its ``Model.prefill`` / ``decode_step`` directly).
 """

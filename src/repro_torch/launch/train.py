@@ -8,6 +8,8 @@ CUDA card unless ``--device cpu``.
         --reduced --device cpu --backend shoal --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch llama-3.2-vision-90b --reduced --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma-2b --reduced --device cpu --steps 4
 
 The same flags and loop as the JAX package's launcher: the data
 pipeline's step inside the checkpoint, asynchronous checkpoints off the

@@ -1,24 +1,29 @@
-"""GQA attention (covers MHA when K == H and MQA when K == 1),
-cross-attention (llama-3.2-vision's image layers) and DeepSeek-V2's
-multi-head latent attention (MLA), the port of the GQA, cross and MLA
-parts of ``repro.models.attention``.
+"""GQA attention (covers MHA when K == H and MQA when K == 1; local,
+windowed attention with a ``window``), cross-attention
+(llama-3.2-vision's image layers) and DeepSeek-V2's multi-head latent
+attention (MLA), the port of the GQA, cross and MLA parts of
+``repro.models.attention``.
 
 Shape conventions: activations (B, S, d); heads H, kv heads K, head dim
 ``dh``; ring caches carry absolute slot positions, so a cache of W
-slots serves any sequence length.
+slots serves any sequence length, and sliding-window attention
+(recurrentgemma's local layers) keeps a ring of ``window`` slots.
 
 Two routes compute the same attention:
 
 * the kernel route: when the attention context is exactly the prompt
-  (no cache, or a fresh ring cache with S <= W), causal attention by
-  index through ``kernels.attention.flash_attention`` -- the hand-written
-  CUDA kernel on the card;
+  (no cache, or a fresh ring cache with S <= W) and no key of it is
+  beyond a ``window`` (S <= window), causal attention by index through
+  ``kernels.attention.flash_attention`` -- the hand-written CUDA kernel
+  on the card;
 * the plain route, :func:`_attend`: masked attention over the ring cache
   by position, exactly as the JAX package computes it (decode, a prompt
-  longer than the ring, a cache that already holds entries), and over
-  the prompt itself when the caller asks for a ``differentiable`` pass
-  (``Model.loss``): the kernels have no backward, and neither has the
-  JAX package's flash kernel, whose trainer attends through ``_attend``.
+  longer than the ring, a cache that already holds entries, a prompt
+  longer than the window: the kernels have no window, nor has the TPU
+  kernel), and over the prompt itself when the caller asks for a
+  ``differentiable`` pass (``Model.loss``): the kernels have no
+  backward, and neither has the JAX package's flash kernel, whose
+  trainer attends through ``_attend``.
 
 MLA (:func:`mla`) takes the same two routes for its prompt passes, with
 a q·k head dim of ``dh_nope + dh_rope`` and a v head dim of ``dh_v``
@@ -53,21 +58,31 @@ NEG = -1e30
 # masked softmax attention core
 # --------------------------------------------------------------------------
 
-def _attend(q, k, v, q_pos, k_pos, *, causal=True):
+def _attend(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+            logit_cap=0.0):
     """Attention by position.  q: (B,S,K,G,dh) k/v: (B,T,K,dh).
 
-    Returns (B,S,K,G,dh).  Slots with k_pos < 0 are invalid (unwritten
-    ring-buffer slots); ``causal`` also masks the slots past each query's
-    position.  The JAX package's window and logit cap have no caller in
-    the ported families and are not ported.
+    Returns (B,S,K,G,dh).  In the JAX package's order: the scores scaled
+    by 1/sqrt(dh), capped to ``logit_cap * tanh(s / logit_cap)`` where
+    ``logit_cap`` is set (no model of the JAX package sets it), then
+    masked to -1e30: slots with k_pos < 0 (unwritten ring-buffer slots),
+    with ``causal`` the slots past each query's position, with
+    ``window`` the slots ``window`` or more positions before it.  A row
+    with every slot masked gives the uniform average of the values, as
+    in the JAX package (the fill is finite).
     """
     dh = q.shape[-1]
     scores = torch.einsum("bskgh,btkh->bkgst", q, k).float()
     scores = scores / math.sqrt(dh)
+    if logit_cap:
+        scores = logit_cap * torch.tanh(scores / logit_cap)
     k_pos = k_pos[:, None, :]
+    q_pos = q_pos[:, :, None]
     mask = k_pos >= 0
     if causal:
-        mask = mask & (k_pos <= q_pos[:, :, None])
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
     scores = torch.where(mask[:, None, None], scores, NEG)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkh->bskgh", probs, v)
@@ -122,8 +137,8 @@ def _scatter_slots(buf, new, slots):
 _scatter2 = _scatter_slots     # the JAX package's name for the MLA caches
 
 
-def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
-        fresh=False, differentiable=False):
+def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
+        cache=None, fresh=False, differentiable=False):
     """Full causal GQA layer: qkv proj -> rope -> attend -> out proj.
 
     ``positions``: (B, S) absolute positions of x; without a cache they
@@ -135,6 +150,14 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
     ``differentiable``: without a cache, attend through :func:`_attend`
     (the JAX package's ``gqa(cache=None)`` route), which autograd can
     differentiate, instead of the forward-only kernel.
+    ``window``: sliding-window (local) attention, each query over the
+    ``window`` positions up to its own; 0 for none.  A prompt of S <=
+    window tokens over itself sees no key the window masks, so it takes
+    the kernel route; a longer one without a cache, and a ring of
+    ``window`` slots that holds more than this prompt, take
+    :func:`_attend` with the window.  A prompt longer than the ring
+    keeps only its last W keys there and attends every query to them,
+    as the JAX package does (ROADMAP §3, reference caveats).
     """
     B, S, _ = x.shape
     q = x @ params["wq"].to(x.dtype)
@@ -148,9 +171,9 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
     k = bl.apply_rope(k.reshape(B, S, K, dh), positions, rope_base)
     v = v.reshape(B, S, K, dh)
 
-    if cache is None and differentiable:
+    if cache is None and (differentiable or window and S > window):
         out = _attend(q.reshape(B, S, K, H // K, dh), k, v, positions,
-                      positions)
+                      positions, window=window)
     elif cache is None:
         out = flash_attention(q, k, v)
     else:
@@ -161,12 +184,14 @@ def gqa(params, x, positions, *, H, K, dh, rope_base=10000.0, cache=None,
             kw, vw, pw = k, v, positions
         kw, vw = kw.to(cache["k"].dtype), vw.to(cache["v"].dtype)
         _ring_write(cache, kw, vw, pw)
-        if fresh and S <= W:    # the cache holds exactly this prompt
+        # the cache holds exactly this prompt, and the window masks none
+        # of it (a local layer's ring has W <= window slots)
+        if fresh and S <= W and (not window or S <= window):
             out = flash_attention(q, kw.to(q.dtype), vw.to(q.dtype))
         else:
             out = _attend(q.reshape(B, S, K, H // K, dh),
                           cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                          positions, cache["pos"])
+                          positions, cache["pos"], window=window)
     out = out.reshape(B, S, H * dh)
     return out @ params["wo"].to(x.dtype), cache
 

@@ -26,26 +26,35 @@ def _tensors(tree, leaf):
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):
-    """The port's parameters (``cfg.dtype``, norms float32) on ``device``
-    (default: the CUDA card)."""
+    """The port's parameters (``cfg.dtype``; the leaves under
+    ``model.F32_KEYS`` -- norms, the RG-LRU's ``lam`` -- float32) on
+    ``device`` (default: the CUDA card)."""
     device = resolve_device(device)
     f32 = _tensors(tree, lambda a: torch.from_numpy(
         np.asarray(a, dtype=np.float32).copy()))
     return cast_params(cfg, f32, device)
 
 
+# cache leaves held in float32 whatever cfg.dtype: the RG-LRU state
+_F32_STATE = ("h", "conv")
+
+
 def cache_from_numpy(cfg: ModelConfig, tree, device=None):
-    """The port's cache: every leaf but ``pos`` (GQA's ``k`` / ``v``,
-    MLA's latent ``ckv`` and rope key ``kr``) in ``cfg.dtype``, ``pos``
-    int32."""
+    """The port's cache: ``pos`` int32, the RG-LRU state (``h``,
+    ``conv``) float32, every other leaf (GQA's ``k`` / ``v``, MLA's
+    latent ``ckv`` and rope key ``kr``) in ``cfg.dtype``."""
     device = resolve_device(device)
+
+    def dtype_of(name):
+        if name == "pos":
+            return torch.int32
+        return torch.float32 if name in _F32_STATE else cfg.dtype
 
     def convert(blk):
         return {name: torch.from_numpy(
                     np.asarray(a, dtype=np.int32 if name == "pos"
                                else np.float32).copy()).to(
-                    device=device,
-                    dtype=torch.int32 if name == "pos" else cfg.dtype)
+                    device=device, dtype=dtype_of(name))
                 for name, a in blk.items()}
 
     return [{key: convert(blk) for key, blk in seg.items()} for seg in tree]

@@ -4,17 +4,21 @@ decode (the port of ``repro.models.model``).
 Layers are grouped into homogeneous *segments* (a superblock pattern x a
 repeat count) with layer-stacked parameter and cache leaves, as in the
 JAX package; a Python loop over the stacked layers takes the place of
-``lax.scan``.  Three families are ported: dense and audio, both
+``lax.scan``.  Six families are ported: dense and audio, both
 ``[("dense",)] x L`` (audio: LayerNorm / GELU blocks fed frame
-embeddings, the ``frontend="embeddings"`` stub, in place of tokens), and
+embeddings, the ``frontend="embeddings"`` stub, in place of tokens),
 moe, ``[("dense",)] x first_k_dense + [("moe",)] x rest`` (the MoE block
 is the dense block with :mod:`repro_torch.models.moe`'s routed experts
 in place of the MLP; ``Model(..., ep=)`` runs them expert-parallel over
-a kernel axis, as the JAX package's mesh does), and vlm,
+a kernel axis, as the JAX package's mesh does), vlm,
 ``[("dense",) * (k - 1) + ("cross",)] x L / k`` with ``k =
 cross_every`` (the cross block attends from the text stream to image
 features, ``attention.cross_attention``; it has no cache, and every
-decode step recomputes the image K/V, as in the JAX package).
+decode step recomputes the image K/V, as in the JAX package), and
+hybrid, ``[block_pattern] x (L // len) + [block_pattern[:L % len]]``
+(recurrentgemma: two RG-LRU blocks, :mod:`repro_torch.models.recurrent`,
+to one local-attention block, GQA with a ``window`` and a ring of
+``min(slots, window)`` slots; the RG-LRU state is float32).
 ``cfg.mla`` gives the dense and MoE blocks DeepSeek-V2's latent
 attention (``attention.mla``) in place of GQA, with a latent ring
 cache.
@@ -24,8 +28,10 @@ and biases are held in ``cfg.dtype`` (the JAX package casts its float32
 parameters to ``cfg.dtype`` at every use, so casting once gives the same
 values); norm scales and biases stay float32, as the norms read them
 (MLA's latent norms ``qln`` and ``kvln`` and cross-attention's ``qln``
-and ``kln`` too), and so does cross-attention's ``gate``, whose tanh
-the JAX package takes in float32.
+and ``kln`` too), and so do cross-attention's ``gate``, whose tanh
+the JAX package takes in float32, and the RG-LRU's ``lam``, whose
+softplus it takes in float32 (``a`` near 0.9-0.999 makes ``sqrt(1 -
+a^2)`` sensitive to it).
 Ring caches are written in place (``models.attention``).
 """
 
@@ -41,21 +47,22 @@ from repro_torch.core.state import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as bl
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec
 from repro_torch.tree import tree_leaves
 
 # families and options of the JAX package that wait for a later slice
 _NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue 1, modules "
                "to port)")
 # float32 subtrees: the block norms, MLA's latent norms, cross-attention's
-# q / k norms and its gate
-F32_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln", "kln", "gate")
+# q / k norms and its gate, the RG-LRU's lam
+F32_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln", "kln", "gate", "lam")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | audio | moe | vlm (hybrid |
-                                 # ssm raise until ported)
+    family: str                  # dense | audio | moe | vlm | hybrid
+                                 # (ssm raises until ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -73,14 +80,25 @@ class ModelConfig:
     mla: attn.MLADims | None = None  # MLA attention in place of GQA
     cross_every: int = 0         # vlm: every k-th layer is a cross layer
     n_image_tokens: int = 0      # vlm: image features a sequence
+    # hybrid (recurrentgemma): the superblock, the local layers' window,
+    # the RG-LRU width (0: d_model)
+    block_pattern: tuple[str, ...] = ()
+    window: int = 0
+    lru_width: int = 0
     aux_loss_weight: float = 0.01
     # frontend: tokens | embeddings (audio frames, a stubbed modality)
     frontend: str = "tokens"
     dtype: torch.dtype = torch.bfloat16
+    sub_quadratic: bool = False  # may run long_500k (the JAX package's
+                                 # dry-run shapes; no port caller yet)
 
     @property
     def dh(self) -> int:
         return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def dr(self) -> int:
+        return self.lru_width or self.d_model
 
     def segments(self) -> list[tuple[tuple[str, ...], int]]:
         L = self.n_layers
@@ -98,6 +116,13 @@ class ModelConfig:
                 raise ValueError(f"{self.name}: {L} layers do not split into "
                                  f"superblocks of cross_every = {k}")
             return [(("dense",) * (k - 1) + ("cross",), L // k)]
+        if self.family == "hybrid":
+            pat = self.block_pattern or ("rglru", "rglru", "attn_local")
+            full, rem = divmod(L, len(pat))
+            segs = [(pat, full)]
+            if rem:
+                segs.append((pat[:rem], 1))
+            return segs
         raise NotImplementedError(f"model family {self.family!r} "
                                   f"{_NOT_PORTED}")
 
@@ -163,10 +188,21 @@ def _mlp(cfg, p, x):
     return bl.swiglu(x, p["wg"], p["wu"], p["wd"])
 
 
-# the dense, MoE and cross blocks: segments() admits no other kind
+# the dense, MoE, cross, local-attention and RG-LRU blocks: segments()
+# admits no other kind
 
 def _init_block(cfg, kind, gen, lead=()):
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    if kind == "rglru":     # n_heads gate blocks, as in the JAX package
+        return {"ln1": _init_norm(cfg, gen, lead),
+                "rnn": rec.init_rglru(gen, d, cfg.dr, H, lead=lead),
+                "ln2": _init_norm(cfg, gen, lead),
+                "mlp": _init_mlp(cfg, gen, lead)}
+    if kind == "attn_local":
+        return {"ln1": _init_norm(cfg, gen, lead),
+                "attn": attn.init_gqa(gen, d, H, K, dh, cfg.qkv_bias, lead),
+                "ln2": _init_norm(cfg, gen, lead),
+                "mlp": _init_mlp(cfg, gen, lead)}
     if kind == "cross":
         return {"ln1": _init_norm(cfg, gen, lead),
                 "xattn": attn.init_cross(gen, d, H, K, dh, lead),
@@ -187,6 +223,11 @@ def _init_block(cfg, kind, gen, lead=()):
 def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
     if kind == "cross":
         return {}   # image kv is recomputed from the (static) image feats
+    if kind == "rglru":
+        return rec.make_rglru_state(B, cfg.dr, device, lead=lead)
+    if kind == "attn_local":
+        return attn.make_kv_cache(B, min(slots, cfg.window), cfg.n_kv_heads,
+                                  cfg.dh, cfg.dtype, device, lead)
     if cfg.mla:
         return attn.make_mla_cache(B, slots, cfg.mla, cfg.dtype, device,
                                    lead)
@@ -196,11 +237,17 @@ def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
 
 def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
                  differentiable=False, ep=None, image_feats=None):
-    """Returns (x, aux): the MoE block's load-balance loss, None for a
-    dense or cross block.  ``ep``: the expert-parallel island, or None.
+    """Returns (x, aux): the MoE block's load-balance loss, None for any
+    other block.  ``ep``: the expert-parallel island, or None.
     ``image_feats``: the cross block's keys and values, ``(B, N,
-    d_model)``."""
+    d_model)``.  An RG-LRU block's ``cache`` is its state, written in
+    place."""
     h = _norm(cfg, p["ln1"], x)
+    if kind == "rglru":
+        r, _ = rec.rglru_block(p["rnn"], h, state=cache)
+        x = x + r
+        h = _norm(cfg, p["ln2"], x)
+        return x + _mlp(cfg, p["mlp"], h), None
     if kind == "cross":
         if image_feats is None:
             raise ValueError(f"{cfg.name}: a cross-attention block needs "
@@ -213,14 +260,15 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
                                      differentiable=differentiable)
         h = _norm(cfg, p["ln2"], x)
         return x + _mlp(cfg, p["mlp"], h), None
-    if cfg.mla:
+    if cfg.mla and kind != "attn_local":
         a, _ = attn.mla(p["attn"], h, positions, H=cfg.n_heads, dims=cfg.mla,
                         cache=cache, fresh=fresh,
                         differentiable=differentiable)
     else:
         a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
-                        K=cfg.n_kv_heads, dh=cfg.dh, rope_base=cfg.rope_base,
-                        cache=cache, fresh=fresh,
+                        K=cfg.n_kv_heads, dh=cfg.dh,
+                        window=cfg.window if kind == "attn_local" else 0,
+                        rope_base=cfg.rope_base, cache=cache, fresh=fresh,
                         differentiable=differentiable)
     x = x + a
     h = _norm(cfg, p["ln2"], x)
@@ -377,11 +425,13 @@ class Model:
 
     @staticmethod
     def is_fresh(cache) -> bool:
-        """Every slot of every layer unwritten (pos -1): one device sync.
-        Cross blocks have no cache."""
+        """Every slot of every attention layer unwritten (pos -1): one
+        device sync.  Cross blocks have no cache, and an RG-LRU block's
+        state has no slots: the prefill carries it on whatever it
+        holds."""
         fresh = [(blk["pos"] == -1).all() for seg in cache
-                 for blk in seg.values() if blk]
-        return bool(torch.stack(fresh).all())
+                 for blk in seg.values() if "pos" in blk]
+        return bool(torch.stack(fresh).all()) if fresh else True
 
     def prefill(self, params, batch, cache):
         """Run the prompt through the model, filling the cache in place.

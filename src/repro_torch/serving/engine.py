@@ -8,7 +8,8 @@ together in one step -- ring caches and the position-masked attention
 make this correct (slots whose ``pos`` is -1 never attend).
 
 The lane axis is axis 1 of every stacked cache leaf, ``(L, B, W, K,
-dh)`` (MLA's latent leaves: ``(L, B, W, C)``).  The lane-cache helpers (:func:`lane_slice`, :func:`lane_write`,
+dh)`` (MLA's latent leaves: ``(L, B, W, C)``; the RG-LRU state: ``h``
+``(L, B, dr)`` and ``conv`` ``(L, B, W - 1, dr)``).  The lane-cache helpers (:func:`lane_slice`, :func:`lane_write`,
 :func:`reset_lane`) are module-level, as in the JAX package.  Where the
 JAX package builds new caches, the port works in place: a lane slice is
 a view, a prefill writes its lane through it, a reset clears the lane.
@@ -56,8 +57,9 @@ def lane_write(cache, lane_cache, lane: int):
 
 def reset_lane(cache, lane: int):
     """Clear a lane's cache before reuse, in place: position slots to -1
-    (so the masked attention ignores them), every other leaf (GQA's k / v,
-    MLA's ckv / kr) to 0."""
+    (so the masked attention ignores them), every other leaf to 0 (GQA's
+    k / v, MLA's ckv / kr, and the RG-LRU state h / conv, whose JAX
+    init is zeros)."""
     for seg in cache:
         for blk in seg.values():
             for name, c in blk.items():

@@ -18,7 +18,9 @@ reference's tolerances, tests/test_kernels.py:109), the Hopper flash
 kernel also against the simple one at 3e-2, and bitwise against itself
 where only future keys change, the simple kernel also at MLA's q·k 192
 / v 128, both kernels also with causal=False at a key length of its
-own (cross-attention's prompt pass); the engines on the
+own (cross-attention's prompt pass), the simple kernel also at head
+dim 256 (recurrentgemma's MQA prompt pass, four threads a row); the
+engines on the
 card serve the CPU run's tokens exactly (float32 tinyllama-smoke and a
 small MLA model at deepseek-v2's head dims); the
 float32 trainer on the card within 1e-5 of its CPU run (TF32 off), its
@@ -573,7 +575,7 @@ def test_flash_kernel_counts_launches_and_refuses(cuda):
         fa.flash_attention(q, k, v)
     assert launch_counts()["flash_attention"] == 3
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(*_qkv(1, 8, 2, 2, 129, torch.float32, 2, cuda))
+        fa.flash_attention(*_qkv(1, 8, 2, 2, 257, torch.float32, 2, cuda))
     with pytest.raises(TypeError, match="float32/bfloat16"):
         fa.flash_attention(*_qkv(1, 8, 2, 2, 8, torch.float64, 2, cuda))
     with pytest.raises(ValueError, match="H % K"):
@@ -1017,6 +1019,99 @@ def test_vlm_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
             counts["flash_attention_noncausal"]) == (cfg.n_layers, 0, 1)
     assert launch_counts()["flash_attention"] == cfg.n_layers   # decode: 0
     torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+# -- the simple flash kernel at head dim 256 (recurrentgemma's MQA) ----------
+# Four threads a query row and 16-key tiles; the same tolerances.
+
+@pytest.mark.parametrize("S", [1, 7, 63, 64, 65, 1000, 1024])
+@pytest.mark.parametrize("H,K", [(10, 1), (4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_dh_256_matches_plain(cuda, S, H, K, dtype):
+    from repro_torch.kernels import attention as fa
+
+    B = 2 if S < 512 else 1
+    q, k, v = _qkv(B, S, H, K, 256, dtype, S + H, cuda)
+    assert fa.flash_kernel_for(q, k, v) == "simple"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
+        == (1, 0)
+    assert got.shape == (B, S, H, 256) and got.dtype == dtype
+    _flash_close(got, fa.flash_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dh", [129, 200, 255])
+@pytest.mark.parametrize("T", [1, 129])
+def test_flash_kernel_between_dh_128_and_256_and_noncausal(cuda, dh, T):
+    """Head dims padded to 256 (zeros past dh), causal and with a key
+    length of its own."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _qkv(2, 33, 10, 1, dh, torch.float32, dh + T, cuda)
+    _flash_close(fa.flash_attention(q, k, v),
+                 fa.flash_attention_ref(q, k, v), torch.float32)
+    q, k, v = _cross_qkv(2, 33, T, 10, 1, dh, torch.bfloat16, dh, cuda)
+    _flash_close(fa.flash_attention(q, k, v, causal=False),
+                 fa.flash_attention_ref(q, k, v, causal=False),
+                 torch.bfloat16)
+
+
+def test_flash_kernel_at_dh_256_reads_strided_views(cuda):
+    """q and k / v as views of one fused projection, as ``gqa`` slices
+    them (no copy)."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, K, dh = 2, 77, 10, 1, 256
+    gen = torch.Generator().manual_seed(12)
+    qkv = torch.randn(B, S, (H + 2 * K) * dh, generator=gen).to(cuda)
+    q = qkv[..., :H * dh].view(B, S, H, dh)
+    k = qkv[..., H * dh:(H + K) * dh].view(B, S, K, dh)
+    v = qkv[..., (H + K) * dh:].view(B, S, K, dh)
+    _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
+                 torch.float32)
+
+
+def test_hybrid_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """recurrentgemma-smoke (float32): a prefill of 12 tokens on the
+    window's 16 slots (the local layer on the simple kernel), then decode
+    through the ring's wrap to position 20, on the card within 1e-5 of
+    the CPU run (TF32 off); the RG-LRU state float32 and equal."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.reduced("recurrentgemma-2b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 21),
+                         generator=torch.Generator().manual_seed(1))
+    logits, states = {}, {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        p = _to(params, device)
+        cache = model.make_cache(2, cfg.window)
+        reset_launch_counts()
+        out, cache = model.prefill(p, {"tokens": toks[:, :12].to(device)},
+                                   cache)
+        counts = launch_counts()
+        got = [out.cpu()]
+        for t in range(12, 21):
+            out, cache = model.decode_step(
+                p, cache, toks[:, t:t + 1].to(device),
+                torch.full((2,), t, device=device))
+            got.append(out.cpu())
+        logits[str(device)] = torch.stack(got)
+        states[str(device)] = cache[1]["b0_rglru"]["h"].cpu()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
+        == (1, 0)
+    assert launch_counts()["flash_attention"] == 1      # decode: 0
+    torch.testing.assert_close(logits[str(cuda)], logits["cpu"], rtol=1e-5,
+                               atol=1e-5)
+    assert states[str(cuda)].dtype == torch.float32
+    torch.testing.assert_close(states[str(cuda)], states["cpu"], rtol=1e-5,
                                atol=1e-5)
 
 

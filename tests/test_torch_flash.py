@@ -11,7 +11,9 @@ a fresh prompt.  Inputs come from numpy with a fixed seed.  The shape
 rules of the CUDA wrapper's check (``flash.check_shapes``, a pure
 function) are held here to the cases ``tests/test_torch_cuda.py`` runs
 on the card, a key length of its own (``T != S``) among them: taken
-without causality, refused with it.  The non-causal function is held to
+without causality, refused with it; equal head dims up to 256 are
+taken (recurrentgemma's 256 against the Pallas kernel and the windowed
+``_attend`` too), 257 refused.  The non-causal function is held to
 the JAX package in ``tests/test_torch_vlm.py``.
 """
 
@@ -126,15 +128,17 @@ def test_flash_wrapper_refuses_non_cpu_tensors_it_cannot_launch_on():
                                 torch.zeros(1, 8, 1, 16))
 
 
-# (B, S, H, K, dqk, dv) the kernels take: equal head dims up to 128 and
+# (B, S, H, K, dqk, dv) the kernels take: equal head dims up to 256 and
 # MLA's (192, 128), at K = H and H % K == 0
 TAKEN = [(1, 1024, 128, 128, 192, 128), (2, 63, 8, 2, 192, 128),
          (1, 1, 4, 1, 192, 128), (2, 40, 4, 2, 128, 128),
-         (1, 8, 2, 2, 1, 1), (1, 8, 2, 1, 100, 100)]
+         (1, 8, 2, 2, 1, 1), (1, 8, 2, 1, 100, 100),
+         (1, 1024, 10, 1, 256, 256), (1, 8, 2, 2, 129, 129),
+         (2, 7, 4, 4, 192, 192)]
 REFUSED = [((1, 8, 2, 2, 256, 128), "head dim"),    # q·k past MLA's 192
            ((1, 8, 2, 2, 128, 192), "head dim"),    # dv > dqk
            ((1, 8, 2, 2, 192, 64), "head dim"),
-           ((1, 8, 2, 2, 129, 129), "head dim"),
+           ((1, 8, 2, 2, 257, 257), "head dim"),
            ((1, 8, 2, 2, 64, 32), "head dim"),
            ((1, 8, 3, 2, 192, 128), "H % K")]
 
@@ -160,6 +164,48 @@ def test_check_shapes_refuses_v_that_does_not_fit_k():
         fl.check_shapes(q, k, (1, 8, 1, 128))
     with pytest.raises(ValueError, match="q must be"):
         fl.check_shapes(q, k, (1, 8, 2))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("bh,s,blk", [(2, 128, 64), (1, 256, 128),
+                                      (3, 64, 64)])
+def test_plain_flash_matches_pallas_interpret_at_dh_256(bh, s, blk, dtype):
+    """recurrentgemma's head dim 256: the plain version against the
+    Pallas kernel in interpret mode, with the same tolerances."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(s + bh)
+    q, k, v = (rng.standard_normal((bh, s, 256)).astype(np.float32)
+               for _ in range(3))
+    want = jax_flash(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                     jnp.asarray(v, jdt), block_q=blk, block_k=blk)
+    got = fa.flash_attention(*(_torch(x, tdt)[:, :, None]
+                               for x in (q, k, v)))
+    np.testing.assert_allclose(got[:, :, 0].float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("S", [7, 64])
+def test_mqa_flash_at_dh_256_matches_jax_attend(dtype, S):
+    """recurrentgemma's local-attention prompt pass: 10 query heads over
+    one kv head at head dim 256, against the JAX ``_attend`` with the
+    window (S <= window, so it masks nothing)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    B, H, dh = 1, 10, 256
+    q = RNG.standard_normal((B, S, H, dh)).astype(np.float32)
+    k, v = (RNG.standard_normal((B, S, 1, dh)).astype(np.float32)
+            for _ in range(2))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    want = jattn._attend(jnp.asarray(q, jdt).reshape(B, S, 1, H, dh),
+                         jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                         jnp.asarray(pos), jnp.asarray(pos), window=64)
+    got = fa.flash_attention(_torch(q, tdt), _torch(k, tdt), _torch(v, tdt))
+    assert fl.flash_kernel_for(*(_torch(a, torch.bfloat16)
+                                 for a in (q, k, v))) == "simple"
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32).reshape(
+                                   B, S, H, dh), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

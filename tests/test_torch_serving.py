@@ -134,19 +134,32 @@ def test_tinyllama_configs_match_the_jax_package():
                                                    32000, torch.bfloat16)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_350m"])
+@pytest.mark.parametrize("arch", ["xlstm_350m"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         configs.full(arch)
 
 
-@pytest.mark.parametrize("change", [{"family": "hybrid"},
-                                    {"family": "ssm"}])
+@pytest.mark.parametrize("change", [{"family": "ssm"}])
 def test_unported_families_and_options_raise(change):
     cfg = dataclasses.replace(configs.reduced(ARCH), **change)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue 1, modules to port"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["recurrentgemma_2b", "family-hybrid"])
+def test_hybrid_arch_and_family_now_build(case):
+    """The hybrid family is ported: its arch and the family on another
+    config build, with the JAX package's segments."""
+    if case == "recurrentgemma_2b":
+        cfg, jcfg = configs.full(case), jconfigs.full(case)
+    else:
+        cfg = dataclasses.replace(configs.reduced(ARCH), family="hybrid")
+        jcfg = dataclasses.replace(jconfigs.reduced(ARCH), family="hybrid")
+    model = build_model(cfg, device="cpu")
+    assert model.segs == jcfg.segments()
+    assert model.segs[0][0] == ("rglru", "rglru", "attn_local")
 
 
 # -- blocks ------------------------------------------------------------------
