@@ -93,15 +93,17 @@ expert-parallel island over 4 kernels (the psum, rs and a2a dispatches
 on the ring kernel and the vectored all-to-all) against ``moe_ffn`` on
 the card, at each dispatch's exchange, collective-call and ring-launch
 counts, and the ring at the island's shapes against the library call.
-Phase 13 runs multi-head latent attention (MLA): the simple flash kernel
+Phase 13 runs multi-head latent attention (MLA): both flash kernels
 alone at deepseek-v2's prefill shape (B 1 x S 1024 x 128 heads, q·k
-head dim 192, v head dim 128, bf16) against its plain version and timed
-beside ``scaled_dot_product_attention`` (right after phase 6); then
+head dim 192, v head dim 128, bf16, routed to the Hopper kernel) and at
+ragged shapes (S 1000, S 7, causal=False over T 129) against their plain
+version, timed in turns beside ``scaled_dot_product_attention`` (right
+after phase 6); then
 deepseek-v2-236b at full width (d 5120, 128 heads, a 512-word latent KV
 cache, 160 experts top-6 and 2 shared) and 4 of its 60 layers (26.6 GB)
 served through ``ServeEngine`` as phase 6 serves tinyllama-1.1b, every
-prompt pass of every layer on the simple flash kernel (8 x 4 launches
-required, none of the Hopper kernel), every decode step in the absorbed
+prompt pass of every layer on the Hopper flash kernel (8 x 4 launches
+required, none of the simple kernel), every decode step in the absorbed
 form; one prefill's logits held to the plain version, one absorbed
 decode step to the materialized one, and the psum island on its first
 MoE layer (shared experts added outside it) to ``moe_ffn``.
@@ -119,17 +121,18 @@ seed) fed 4 x 1600 seeded image features: one prefill of 4 x 1024
 tokens (10 Hopper flash launches required, 2 of them non-causal) and 32
 decode steps re-attending the features (none); the prefill's logits
 and the first cross layer's output held to the plain version.
-Phase 15 runs the hybrid family: the simple flash kernel alone at
+Phase 15 runs the hybrid family: both flash kernels alone at
 recurrentgemma-2b's local-attention prompt shape (B 1 x S 1024 x 10
-query heads over 1 kv head at head dim 256, four threads a query row,
-bf16 and float32) and at ragged shapes (S 1000, S 7, causal=False over
-T 129) against its plain version, timed beside
+query heads over 1 kv head at head dim 256; bf16 routed to the Hopper
+kernel, float32 to the simple one, four threads a query row) and at
+ragged shapes (S 1000, S 7, causal=False over T 129) against their
+plain version, timed in turns beside
 ``scaled_dot_product_attention`` (right after phase 14's flash check);
 then recurrentgemma-2b at full width and depth (26 layers: RG-LRU blocks
 and, every third layer, local attention over a 2048-token window; 3.34 B
 parameters, 6.7 GB) served through ``ServeEngine`` as phase 6 serves
 tinyllama-1.1b, every prompt pass of each of the 8 local layers on the
-simple kernel (8 x 8 launches required, none of the Hopper kernel); one
+Hopper kernel (8 x 8 launches required, none of the simple kernel); one
 prefill's logits held to the plain version; a 2040-token prompt decoded
 32 steps through the ring's wrap against the windowed forward pass; a
 profiled prefill and decode window; then the shoal trainer at one
@@ -1852,7 +1855,7 @@ def check_prefill_logits(torch, model, params, batch, tag="serving",
     route, n_route = prefill(cache)
     layers = attention_layers(model.cfg)
     # bfloat16 goes through the Hopper kernel, float32 the simple one,
-    # unless the caller names the kernel (MLA's 192 / 128: the simple one)
+    # unless the caller names the kernel
     if flash is None:
         flash = "sm90" if model.cfg.dtype == torch.bfloat16 else "simple"
     sm90 = layers if flash == "sm90" else 0
@@ -1987,8 +1990,8 @@ def serve_requests(torch, model, params, prompts, tag="serving",
     run and read after it; every request and slot event checked, and
     every prompt pass of every attention layer (:func:`attention_layers`)
     a launch of the flash kernel named by ``flash``: the Hopper one
-    (bfloat16 at dh 64 / 128), or the simple one (MLA's q·k 192 / v 128,
-    recurrentgemma's dh 256).  Prints the run's lines under
+    (bfloat16 at dh 64 / 128 / 256 and MLA's q·k 192 / v 128), or the
+    simple one (float32).  Prints the run's lines under
     ``tag`` (tokens/s, prefill ms per request, decode ms per 4-lane
     step) and returns the run's launch counts."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -2030,10 +2033,9 @@ def serve_requests(torch, model, params, prompts, tag="serving",
             and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
             f"{cfg.name} served: {len(done)} of {n} requests finished, "
             f"tokens {[len(r.out) for r in reqs]}")
-    # GQA prompts are bfloat16 at dh 64 / 128 on TMA's grid, so every
-    # prompt pass of every attention layer takes the Hopper kernel; MLA's
-    # (192 / 128) and recurrentgemma's (dh 256) take the simple one, and
-    # none the Hopper one
+    # bfloat16 prompts at dh 64 / 128 / 256 and MLA's 192 / 128 sit on
+    # TMA's grid, so every prompt pass of every attention layer takes the
+    # Hopper kernel
     layers = attention_layers(cfg)
     want = n * layers
     sm90 = want if flash == "sm90" else 0
@@ -3503,7 +3505,7 @@ def phase_moe(torch, device, island_rings):
 
 # ---------------------------------------------------------------------------
 # phase 13: MLA (deepseek-v2-236b served at full width: the latent KV
-# cache, absorbed decode, prompt passes on the simple flash kernel at q·k
+# cache, absorbed decode, prompt passes on the Hopper flash kernel at q·k
 # 192 / v 128)
 # ---------------------------------------------------------------------------
 
@@ -3514,46 +3516,68 @@ MLA_ARCH = "deepseek-v2-236b"
 MLA_LAYERS, MLA_PARAMS = 4, 13_302_912_000
 # the prefill's flash call: B, S, H, K, q·k head dim, v head dim
 MLA_FLASH = (1, 1024, 128, 128, 192, 128)
+# ragged cases held to the plain version on both kernels (B, S, T,
+# causal, at MLA_FLASH's heads and dims): S 1000, S 7, and causal=False
+# over T 129 keys (one key into the last key tile)
+MLA_RAGGED = ((1, 1000, 1000, True), (4, 7, 7, True), (1, 1024, 129, False))
 MLA_ISLAND_CASES = ((1.25, ("psum",)),)     # 40 experts a kernel at K 4
 MLA_PTXAS = "Li96ELi64E"    # the simple kernel's (96, 64) instantiations
+SM90_MLA_PTXAS = "ILi192ELi128E"    # the Hopper kernel's (192, 128) ones
 
 
 def check_flash_mla(torch, device):
-    """The simple flash kernel alone at deepseek-v2's prefill shape
-    (``MLA_FLASH``, bfloat16, seed 29), held and timed by
-    :func:`_flash_case` (``scaled_dot_product_attention`` takes a v head
-    dim of its own), and the kernel's own float32 floor.  Run right
-    after phase 6, where the profiler has been reliable.  Returns the
-    record."""
+    """Both flash kernels alone at deepseek-v2's prompt shape
+    (``MLA_FLASH``, bfloat16, seed 29): first the ragged cases of
+    ``MLA_RAGGED``, then the prompt shape, which the wrapper must route
+    to the Hopper kernel, held and timed by :func:`_flash_case` in turns
+    (``scaled_dot_product_attention`` takes a v head dim of its own),
+    beside the simple kernel's own float32 floor.  Run right after phase
+    6, where the profiler has been reliable.  Returns ``{kernel:
+    record}``."""
     from repro_torch.kernels import attention as fa
 
     B, S, H, Kv, dqk, dv = MLA_FLASH
     gen = torch.Generator(device=device).manual_seed(29)
-    q, k, v = (torch.randn(*shape, generator=gen, device=device).to(
-        torch.bfloat16) for shape in ((B, S, H, dqk), (B, S, Kv, dqk),
-                                      (B, S, Kv, dv)))
+    for b, s, t, causal in MLA_RAGGED:
+        q, k, v = _cross_inputs(torch, gen, device, b, s, H, Kv, t, dqk,
+                                torch.bfloat16, dv)
+        ms = _flash_case(torch, fa, q, k, v, f"MLA B{b}xS{s}xT{t}",
+                         causal=causal, timed=False,
+                         kernels=("sm90", "simple"))
+        say("mla", check="flash-ragged", shape=f"B{b}xS{s}xH{H}xK{Kv}xT{t}"
+            f"xdqk{dqk}xdv{dv}", causal=causal, tol=FLASH_TOL["bfloat16"],
+            **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
+        del q, k, v
+    q, k, v = _cross_inputs(torch, gen, device, B, S, H, Kv, S, dqk,
+                            torch.bfloat16, dv)
     route = fa.flash_kernel_for(q, k, v)
-    require(route == "simple", f"flash at MLA's {dqk}/{dv}: routed to {route}")
-    m = _flash_case(torch, fa, q, k, v, f"q·k {dqk} / v {dv}",
-                    kernels=("simple",))["simple"]
-    bound_ms, bound_by = bound(m)
-    rec = {"case": "deepseek-v2-prefill",
-           "shape": f"B{B}xS{S}xH{H}xK{Kv}xdqk{dqk}xdv{dv}",
-           "dtype": "bfloat16", "route": route, "max_abs_err": m["err"],
-           "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "turns_ms": m["turns"]}
-    say("mla", kernel="flash_attention", tol=FLASH_TOL["bfloat16"],
-        ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
-        bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
-        ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
-        f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
-        **{key: (f"{val:.5f}" if isinstance(val, float) else val)
-           for key, val in rec.items() if key != "turns_ms"},
-        turns_ms=json.dumps(rec["turns_ms"]))
+    require(route == "sm90", f"flash at MLA's {dqk}/{dv}: routed to {route}")
+    ms = _flash_case(torch, fa, q, k, v, f"q·k {dqk} / v {dv}",
+                     kernels=("sm90", "simple"))
+    out = {}
+    for r, m in ms.items():
+        bound_ms, bound_by = bound(m)
+        out[r] = {"case": "deepseek-v2-prefill",
+                  "shape": f"B{B}xS{S}xH{H}xK{Kv}xdqk{dqk}xdv{dv}",
+                  "dtype": "bfloat16", "route": route,
+                  "max_abs_err": m["err"], "ms": m["ms"],
+                  "plain_ms": m["plain"], "library_ms": m["lib"],
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "turns_ms": m["turns"], "launches": 0}
+        say("mla", kernel=f"flash_attention ({r})",
+            tol=FLASH_TOL["bfloat16"],
+            ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
+            bound_share=f"{bound_ms / m['ms']:.5f}",
+            bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
+            ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
+            f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
+            **{key: (f"{val:.5f}" if isinstance(val, float) else val)
+               for key, val in out[r].items() if key != "turns_ms"},
+            turns_ms=json.dumps(m["turns"]), card=card_line())
+    out["sm90"]["simple_ms"] = out["simple"]["ms"]
     del q, k, v
     _free(torch)
-    return rec
+    return out
 
 
 def check_absorbed_decode(torch, model, params, batch):
@@ -3609,8 +3633,8 @@ def phase_mla(torch, device):
     as phase 6 serves tinyllama-1.1b: 8 requests of 128-1024 prompt
     tokens, 32 new tokens each, 4 lanes of 2048 slots (the latent cache:
     576 words a token and layer), every prompt pass of every layer on the
-    simple flash kernel at q·k 192 / v 128 (8 x 4 launches required, none
-    of the Hopper kernel), decode in the absorbed form, the MoE on one
+    Hopper flash kernel at q·k 192 / v 128 (8 x 4 launches required, none
+    of the simple kernel), decode in the absorbed form, the MoE on one
     device (``moe_ffn``); one prefill's logits, kernel vs plain version;
     the absorbed decode against the materialized one; the profiled
     prefill and decode window; peak memory.  Then the psum island on the
@@ -3628,9 +3652,9 @@ def phase_mla(torch, device):
             f"{cfg.name}: {cfg.num_params(params)} parameters")
     prompts = serve_prompts(cfg.vocab)
     runs = {f"serve-{MLA_ARCH}": serve_requests(torch, model, params,
-                                                prompts, "mla", "simple")}
+                                                prompts, "mla", "sm90")}
     batch = prompt_batch(torch, model, prompts[0])
-    check_prefill_logits(torch, model, params, batch, "mla", "simple")
+    check_prefill_logits(torch, model, params, batch, "mla", "sm90")
     check_absorbed_decode(torch, model, params, batch)
     profile_serving(torch, model, params, prompts[0])
     peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
@@ -3676,9 +3700,11 @@ CROSS_RAGGED = ((4, 1024, 64, 8, 1000, 128, "bfloat16"),
 CROSS_TOL = 3e-2            # bf16, of the largest |out| (a cross layer)
 
 
-def _cross_inputs(torch, gen, device, B, S, H, Kv, T, dh, dtype):
+def _cross_inputs(torch, gen, device, B, S, H, Kv, T, dh, dtype, dv=None):
+    """q (B, S, H, dh), k (B, T, Kv, dh), v (B, T, Kv, dv or dh)."""
     return [torch.randn(*shape, generator=gen, device=device).to(dtype)
-            for shape in ((B, S, H, dh), (B, T, Kv, dh), (B, T, Kv, dh))]
+            for shape in ((B, S, H, dh), (B, T, Kv, dh),
+                          (B, T, Kv, dv or dh))]
 
 
 def check_flash_cross(torch, device):
@@ -3973,7 +3999,7 @@ def phase_vlm(torch, device):
 # ---------------------------------------------------------------------------
 # phase 15: the hybrid family (recurrentgemma-2b served at full width and
 # depth: RG-LRU recurrence, the sliding-window ring cache, MQA prompt passes
-# through the simple flash kernel at head dim 256)
+# through the Hopper flash kernel at head dim 256)
 # ---------------------------------------------------------------------------
 
 HYBRID_ARCH = "recurrentgemma-2b"
@@ -3988,24 +4014,27 @@ HYBRID_TRAIN_STEPS = 4
 HYBRID_FLASH = (1, 1024, 10, 1, 256)
 # ragged cases held to the plain version (B, S, H, K, T, dtype, causal):
 # S 1000, S 7, and causal=False over T 129 keys (one key into the last
-# 16-key tile)
+# key tile); bfloat16 on both kernels, float32 on the simple one
 HYBRID_RAGGED = ((1, 1000, 10, 1, 1000, "bfloat16", True),
                  (4, 7, 10, 1, 7, "bfloat16", True),
                  (1, 1024, 10, 1, 129, "bfloat16", False),
                  (1, 1000, 10, 1, 1000, "float32", True))
 HYBRID_PTXAS = "Li4ELi64ELi64ELi16E"    # the four-threads-a-row kernel
+SM90_DH256_PTXAS = "ILi256ELi256E"      # the Hopper kernel at dh 256
 # check_window_wrap: a prompt that fills all but 8 of the ring's slots,
 # then decode steps through the wrap
 WRAP_PROMPT, WRAP_STEPS = 2040, 32
 
 
 def check_flash_hybrid(torch, device):
-    """The simple flash kernel alone at recurrentgemma-2b's local-attention
+    """Both flash kernels alone at recurrentgemma-2b's local-attention
     prompt shape (``HYBRID_FLASH``: 10 query heads over 1 kv head at head
-    dim 256, seed 37), in bf16 and float32, held to its plain version
-    and timed by :func:`_flash_case` beside
-    ``scaled_dot_product_attention(..., enable_gqa=True)``; first the
-    ragged cases of ``HYBRID_RAGGED``.  Returns ``{dtype: record}``."""
+    dim 256, seed 37): first the ragged cases of ``HYBRID_RAGGED``, then
+    the prompt shape in bf16 -- routed to the Hopper kernel, both kernels
+    timed in turns -- and in float32 (the simple kernel), held to the
+    plain version and timed by :func:`_flash_case` beside
+    ``scaled_dot_product_attention(..., enable_gqa=True)``.  Returns
+    ``{(kernel, dtype): record}``."""
     from repro_torch.kernels import attention as fa
 
     gen = torch.Generator(device=device).manual_seed(37)
@@ -4013,10 +4042,12 @@ def check_flash_hybrid(torch, device):
         q, k, v = _cross_inputs(torch, gen, device, b, s, h, kv, t, 256,
                                 getattr(torch, name))
         ms = _flash_case(torch, fa, q, k, v, f"dh 256 B{b}xS{s}xT{t}",
-                         causal=causal, timed=False, kernels=("simple",))
+                         causal=causal, timed=False,
+                         kernels=("sm90", "simple") if name == "bfloat16"
+                         else ("simple",))
         say("hybrid", check="flash-dh256", shape=f"B{b}xS{s}xH{h}xK{kv}"
             f"xT{t}xdh256", dtype=name, causal=causal, tol=FLASH_TOL[name],
-            max_abs_err=ms["simple"]["err"])
+            **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
         del q, k, v
     B, S, H, Kv, dh = HYBRID_FLASH
     out = {}
@@ -4024,28 +4055,33 @@ def check_flash_hybrid(torch, device):
         name = str(dtype).split(".")[-1]
         q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
         route = fa.flash_kernel_for(q, k, v)
-        require(route == "simple", f"flash at dh {dh} ({name}): routed to "
-                f"{route}")
-        m = _flash_case(torch, fa, q, k, v, f"dh {dh} MQA",
-                        kernels=("simple",))["simple"]
-        bound_ms, bound_by = bound(m)
-        out[name] = {
-            "case": "recurrentgemma-2b-local-prefill",
-            "shape": f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}", "dtype": name,
-            "route": route, "max_abs_err": m["err"], "ms": m["ms"],
-            "plain_ms": m["plain"], "library_ms": m["lib"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "turns_ms": m["turns"], "launches": 0}
-        say("hybrid", kernel="flash_attention", tol=FLASH_TOL[name],
-            ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
-            bound_share=f"{bound_ms / m['ms']:.5f}",
-            bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
-            ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
-            f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
-            **{key: (f"{val:.5f}" if isinstance(val, float) else val)
-               for key, val in out[name].items() if key != "turns_ms"},
-            turns_ms=json.dumps(m["turns"]), card=card_line())
+        want = "sm90" if dtype == torch.bfloat16 else "simple"
+        require(route == want, f"flash at dh {dh} ({name}): routed to "
+                f"{route}, want {want}")
+        ms = _flash_case(torch, fa, q, k, v, f"dh {dh} MQA",
+                         kernels=tuple(dict.fromkeys((route, "simple"))))
+        for r, m in ms.items():
+            bound_ms, bound_by = bound(m)
+            out[r, name] = {
+                "case": "recurrentgemma-2b-local-prefill",
+                "shape": f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}", "dtype": name,
+                "route": route, "max_abs_err": m["err"],
+                "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "turns_ms": m["turns"], "launches": 0}
+            say("hybrid", kernel=f"flash_attention ({r})",
+                tol=FLASH_TOL[name],
+                ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
+                bound_share=f"{bound_ms / m['ms']:.5f}",
+                bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
+                ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
+                f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
+                **{key: (f"{val:.5f}" if isinstance(val, float) else val)
+                   for key, val in out[r, name].items()
+                   if key != "turns_ms"},
+                turns_ms=json.dumps(m["turns"]), card=card_line())
         del q, k, v
+    out["sm90", "bfloat16"]["simple_ms"] = out["simple", "bfloat16"]["ms"]
     _free(torch)
     return out
 
@@ -4081,10 +4117,10 @@ def check_window_wrap(torch, model, params):
     counts = launch_counts()
     layers = attention_layers(cfg)
     require(counts["flash_attention"] == layers
-            and counts["flash_attention_sm90"] == 0,
+            and counts["flash_attention_sm90"] == layers,
             f"window wrap: flash launches {counts['flash_attention']} (sm90 "
             f"{counts['flash_attention_sm90']}), want {layers} on the "
-            f"simple kernel for the one prompt pass")
+            f"Hopper kernel for the one prompt pass")
     ring = cache[0]["b2_attn_local"]["pos"][0, 0]
     require(sorted(ring.tolist()) == list(range(n - SLOTS, n)),
             f"window wrap: the ring holds positions {ring.min().item()}.."
@@ -4118,8 +4154,8 @@ def phase_hybrid(torch, device):
     depth (26 layers; bf16, seed 0) served as phase 6 serves
     tinyllama-1.1b: 8 requests of 128-1024 prompt tokens, 32 new tokens
     each, 4 lanes of 2048 slots; every prompt pass of each of the 8
-    local-attention layers on the simple flash kernel at dh 256 (8 x 8
-    launches required, none of the Hopper kernel), the RG-LRU blocks on
+    local-attention layers on the Hopper flash kernel at dh 256 (8 x 8
+    launches required, none of the simple kernel), the RG-LRU blocks on
     the log-depth scan and, in decode, their carried float32 state.  One
     prefill's logits, kernel vs plain version; decode through the
     ring's wrap against the windowed forward pass
@@ -4143,9 +4179,9 @@ def phase_hybrid(torch, device):
         local_layers=attention_layers(cfg))
     prompts = serve_prompts(cfg.vocab)
     runs = {f"serve-{HYBRID_ARCH}": serve_requests(
-        torch, model, params, prompts, "hybrid", "simple")}
+        torch, model, params, prompts, "hybrid", "sm90")}
     batch = prompt_batch(torch, model, prompts[0])
-    check_prefill_logits(torch, model, params, batch, "hybrid", "simple")
+    check_prefill_logits(torch, model, params, batch, "hybrid", "sm90")
     check_window_wrap(torch, model, params)
     profile_serving(torch, model, params, prompts[0])
     peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
@@ -4198,20 +4234,27 @@ def ring_launches(counts, name) -> int:
 
 def ptxas_summary(log: str) -> dict:
     """``{"dh64": "110 registers, 0 bytes spill stores, ...", ...}`` from
-    the Hopper flash kernel's ``ptxas -v`` log (one entry per head-dim
-    instantiation; ``-noncausal`` marks the ``causal=False`` ones)."""
-    out, dh = {}, None
+    the Hopper flash kernel's ``ptxas -v`` log (one entry per (q·k, v)
+    instantiation: ``dh64``, ``dh128``, ``dqk192-dv128``, ``dh256``;
+    ``-noncausal`` marks the ``causal=False`` ones)."""
+    import re
+
+    out, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            dh = "dh128" if "ILi128E" in line else (
-                "dh64" if "ILi64E" in line else None)
-            if dh and "Lb0E" in line:
-                dh += "-noncausal"
-        elif dh and "spill" in line:
-            out[dh] = line.strip()
-        elif dh and "registers" in line:
-            out[dh] = line.split("Used", 1)[-1].strip() + "; " \
-                + out.get(dh, "")
+            pair = re.search(r"flash_attention_kernel_sm90ILi(\d+)ELi(\d+)E",
+                             line)
+            key = None
+            if pair:
+                dqk, dv = pair.groups()
+                key = f"dh{dqk}" if dqk == dv else f"dqk{dqk}-dv{dv}"
+                if "Lb0E" in line:
+                    key += "-noncausal"
+        elif key and "spill" in line:
+            out[key] = line.strip()
+        elif key and "registers" in line:
+            out[key] = line.split("Used", 1)[-1].strip() + "; " \
+                + out.get(key, "")
     return out
 
 
@@ -4289,8 +4332,12 @@ def main() -> int:
     served, model, params = phase_serving(torch, device)
     kernels.update(served)
     mla_flash = check_flash_mla(torch, device)
-    mla_flash["ptxas"] = ring_ptxas_summary(logs.get("flash", ""), MLA_PTXAS)
-    kernels["flash_attention"]["deepseek_v2_mla"] = mla_flash
+    mla_flash["simple"]["ptxas"] = ring_ptxas_summary(logs.get("flash", ""),
+                                                      MLA_PTXAS)
+    mla_flash["sm90"]["ptxas"] = ring_ptxas_summary(
+        logs.get("flash_sm90", ""), SM90_MLA_PTXAS)
+    kernels["flash_attention"]["deepseek_v2_mla"] = mla_flash["simple"]
+    kernels["flash_attention_sm90"]["deepseek_v2_mla"] = mla_flash["sm90"]
     cross_flash = check_flash_cross(torch, device)
     kernels["flash_attention"]["llama_vision_cross"] = \
         cross_flash["simple", "cross"]
@@ -4301,12 +4348,20 @@ def main() -> int:
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
     hybrid_flash = check_flash_hybrid(torch, device)
-    hybrid_flash["bfloat16"]["ptxas"] = ring_ptxas_summary(
+    hybrid_flash["simple", "bfloat16"]["ptxas"] = ring_ptxas_summary(
         logs.get("flash", ""), HYBRID_PTXAS)
+    dh256 = ring_ptxas_summary(logs.get("flash_sm90", ""), SM90_DH256_PTXAS)
+    hybrid_flash["sm90", "bfloat16"]["ptxas"] = dh256
+    # the O accumulator alone is 128 registers a thread at dh 256: no
+    # spill is taken (an empty log: the library was built before)
+    require(dh256["spill_bytes_max"] == 0,
+            f"the Hopper kernel spills at dh 256: {dh256}")
     kernels["flash_attention"]["recurrentgemma_dh256"] = \
-        hybrid_flash["bfloat16"]
+        hybrid_flash["simple", "bfloat16"]
     kernels["flash_attention"]["recurrentgemma_dh256_f32"] = \
-        hybrid_flash["float32"]
+        hybrid_flash["simple", "float32"]
+    kernels["flash_attention_sm90"]["recurrentgemma_dh256"] = \
+        hybrid_flash["sm90", "bfloat16"]
     t0 = time.perf_counter()
     migration = phase_disagg(torch, model, params)
     del model, params
@@ -4337,7 +4392,10 @@ def main() -> int:
     mla = phase_mla(torch, device)
     say("mla", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
     family.update(mla)
-    mla_flash["launches"] = mla[f"serve-{MLA_ARCH}"]["flash_attention"]
+    served = mla[f"serve-{MLA_ARCH}"]
+    mla_flash["sm90"]["launches"] = served["flash_attention_sm90"]
+    mla_flash["simple"]["launches"] = \
+        served["flash_attention"] - served["flash_attention_sm90"]
     t0 = time.perf_counter()
     vlm = phase_vlm(torch, device)
     say("vlm", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
@@ -4354,8 +4412,11 @@ def main() -> int:
     say("hybrid", seconds=f"{time.perf_counter() - t0:.1f}",
         card=card_line())
     family.update(hybrid)
-    hybrid_flash["bfloat16"]["launches"] = \
-        hybrid[f"serve-{HYBRID_ARCH}"]["flash_attention"]
+    served = hybrid[f"serve-{HYBRID_ARCH}"]
+    hybrid_flash["sm90", "bfloat16"]["launches"] = \
+        served["flash_attention_sm90"]
+    hybrid_flash["simple", "bfloat16"]["launches"] = \
+        served["flash_attention"] - served["flash_attention_sm90"]
     family_rings.append(hybrid_ring)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:

@@ -21,9 +21,9 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   (the LM stack's prefill and forward) or over every key of a sequence
   of its own (cross-attention's prompt pass over image tokens),
   replacing ``flash_attention_pallas``: a Hopper kernel (TMA tile ring,
-  ``wgmma``) for bfloat16 at head dim 64 and 128, and a simple kernel
-  for every other input it holds (MLA's q·k head dim 192 with v head
-  dim 128 among them).
+  ``wgmma``) for bfloat16 at head dims 64, 128 and 256 and at MLA's q·k
+  192 with v 128, and a simple kernel for every other input it holds
+  (float32 among them).
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).

@@ -2,12 +2,12 @@
 
 * ``csrc/flash_sm90.cu`` (``flash_attention_sm90_fwd``): the Hopper
   kernel -- TMA tile ring, ``wgmma`` on the tensor cores -- for bfloat16
-  q, k, v with head dim 64 or 128 laid out on TMA's 16-byte grid.
+  q, k, v laid out on TMA's 16-byte grid at the (q·k, v) head dims of
+  ``SM90_HEAD_DIMS``: 64, 128, MLA's 192 / 128 and recurrentgemma's 256.
 * ``csrc/flash.cu`` (``flash_attention_fwd``): the simple kernel --
   float32 FMAs, any strides -- for everything else it holds (float32,
-  other head dims up to 256, among them recurrentgemma's 256, views
-  whose head dim is not contiguous, and MLA's q·k head dim 192 with v
-  head dim 128).
+  other head dims up to 256, views whose head dim is not contiguous or
+  whose strides or pointers are off TMA's grid).
 
 :func:`flash_kernel_for` decides between them from shapes, strides,
 dtype and alignment alone, before the launch; nothing is retried.
@@ -33,7 +33,8 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256                # largest head dim the simple kernel holds
 MLA_HEAD_DIMS = (192, 128)  # the one (q·k, v) pair of unequal head dims
-SM90_HEAD_DIMS = (64, 128)  # head dims the Hopper kernel holds
+# (q·k, v) head dims the Hopper kernel holds
+SM90_HEAD_DIMS = ((64, 64), (128, 128), MLA_HEAD_DIMS, (256, 256))
 TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
 MAX_GRID_YZ = 65535         # heads (grid y) and batch (grid z)
 KERNELS = ("sm90", "simple")
@@ -58,7 +59,7 @@ def _lib_sm90():
     lib = _build.load("flash_sm90")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_sm90_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I,
-                                                 _I, _I, _I, _Strides,
+                                                 _I, _I, _I, _I, _Strides,
                                                  _Strides, _Strides, _I, _P]
         lib.flash_attention_sm90_fwd.restype = _I
         lib.flash_sm90_error_string.argtypes = [_I]
@@ -71,15 +72,16 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> str:
     """``"sm90"`` when the Hopper kernel takes these inputs, else
     ``"simple"``.  A pure function of dtype, shapes, strides and the
-    pointers' alignment: bfloat16 q, k and v with head dim 64 or 128,
-    the head dim contiguous, every other stride a positive multiple of
-    16 bytes and every pointer 16-byte aligned (what a TMA tensor map
-    takes).  Other head dims (256 among them) and unequal q·k and v head
-    dims (MLA) go to the simple kernel.
+    pointers' alignment: bfloat16 q, k and v whose (q·k, v) head dims
+    are one of ``SM90_HEAD_DIMS`` -- (64, 64), (128, 128), MLA's (192,
+    128), (256, 256) -- the head dim contiguous, every other stride a
+    positive multiple of 16 bytes and every pointer 16-byte aligned (what
+    a TMA tensor map takes).  Float32, other head dims and inputs off
+    that grid go to the simple kernel.
     Causal or not, and the key length, do not enter the choice."""
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         return "simple"
-    if q.shape[-1] not in SM90_HEAD_DIMS or v.shape[-1] != q.shape[-1]:
+    if (q.shape[-1], v.shape[-1]) not in SM90_HEAD_DIMS:
         return "simple"
     for t in (q, k, v):
         *outer, inner = t.stride()
@@ -147,7 +149,7 @@ def launch_flash_sm90(q, k, v, out, causal=True) -> None:
     lib = _lib_sm90()
     dims, strides = _args(q, k, v, out)
     status = lib.flash_attention_sm90_fwd(
-        *dims, *strides, int(causal),
+        *dims, v.shape[-1], *strides, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"flash_attention_sm90_fwd: error {status} "

@@ -27,9 +27,9 @@ Two routes compute the same attention:
 
 MLA (:func:`mla`) takes the same two routes for its prompt passes, with
 a q·k head dim of ``dh_nope + dh_rope`` and a v head dim of ``dh_v``
-(192 and 128 at full width, which the simple flash kernel takes), and a
-third for a decode step: the absorbed form, whose scores are taken in
-the latent space of the cache.
+(192 and 128 at full width, which the Hopper flash kernel takes in
+bfloat16), and a third for a decode step: the absorbed form, whose
+scores are taken in the latent space of the cache.
 
 Cross-attention (:func:`cross_attention`) reads its keys and values
 from image features, with no causality and no cache: a prompt pass

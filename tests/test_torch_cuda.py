@@ -684,16 +684,19 @@ def _mla_qkv(B, S, H, K, dtype, seed, device):
 @pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_mla_head_dims_matches_plain(cuda, S, H, K, dtype):
+    """The routed kernel: the Hopper one in bfloat16, the simple one in
+    float32."""
     from repro_torch.kernels import attention as fa
 
     B = 2 if S < 512 else 1
+    bf16 = dtype == torch.bfloat16
     q, k, v = _mla_qkv(B, S, H, K, dtype, S + K, cuda)
-    assert fa.flash_kernel_for(q, k, v) == "simple"
+    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "simple")
     reset_launch_counts()
     got = fa.flash_attention(q, k, v)
     counts = launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
-        == (1, 0)
+        == (1, int(bf16))
     assert got.shape == (B, S, H, 128) and got.dtype == dtype
     _flash_close(got, fa.flash_attention_ref(q, k, v), dtype)
 
@@ -728,22 +731,30 @@ def test_flash_kernel_at_mla_head_dims_reads_cat_and_expand_views(cuda):
 
 
 def test_flash_at_mla_head_dims_refuses_sm90_and_other_pairs(cuda):
+    """The Hopper kernel takes MLA's (192, 128) in bfloat16, not in
+    float32; every kernel refuses the other unequal pairs."""
     from repro_torch.kernels import attention as fa
 
     q, k, v = _mla_qkv(1, 70, 4, 4, torch.bfloat16, 3, cuda)
     reset_launch_counts()
     with pytest.raises(ValueError, match="sm90 kernel does not take"):
-        fa.flash_attention_cuda(q, k, v, kernel="sm90")
+        fa.flash_attention_cuda(*(t.float() for t in (q, k, v)),
+                                kernel="sm90")
     gen = torch.Generator().manual_seed(4)
     for dqk, dv in ((256, 128), (128, 192), (192, 64)):
-        qq = torch.randn(1, 8, 2, dqk, generator=gen).to(cuda)
-        kk = torch.randn(1, 8, 2, dqk, generator=gen).to(cuda)
-        vv = torch.randn(1, 8, 2, dv, generator=gen).to(cuda)
-        with pytest.raises(ValueError, match="head dim"):
-            fa.flash_attention(qq, kk, vv)
+        qq, kk, vv = (torch.randn(1, 8, 2, n, generator=gen).to(
+            cuda, torch.bfloat16) for n in (dqk, dqk, dv))
+        for kernel in (None, "sm90", "simple"):
+            with pytest.raises(ValueError, match="head dim"):
+                fa.flash_attention_cuda(qq, kk, vv, kernel=kernel)
     assert launch_counts()["flash_attention"] == 0
+    got = fa.flash_attention_cuda(q, k, v, kernel="sm90")
+    assert (launch_counts()["flash_attention"],
+            launch_counts()["flash_attention_sm90"]) == (1, 1)
     fa.flash_attention_cuda(q, k, v, kernel="simple")
-    assert launch_counts()["flash_attention"] == 1
+    assert (launch_counts()["flash_attention"],
+            launch_counts()["flash_attention_sm90"]) == (2, 1)
+    _flash_close(got, fa.flash_attention_ref(q, k, v), torch.bfloat16)
 
 
 def test_mla_engine_on_the_card_serves_the_cpu_tokens(cuda):
@@ -1029,16 +1040,19 @@ def test_vlm_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("H,K", [(10, 1), (4, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_dh_256_matches_plain(cuda, S, H, K, dtype):
+    """The routed kernel: the Hopper one in bfloat16, the simple one in
+    float32."""
     from repro_torch.kernels import attention as fa
 
     B = 2 if S < 512 else 1
+    bf16 = dtype == torch.bfloat16
     q, k, v = _qkv(B, S, H, K, 256, dtype, S + H, cuda)
-    assert fa.flash_kernel_for(q, k, v) == "simple"
+    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "simple")
     reset_launch_counts()
     got = fa.flash_attention(q, k, v)
     counts = launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
-        == (1, 0)
+        == (1, int(bf16))
     assert got.shape == (B, S, H, 256) and got.dtype == dtype
     _flash_close(got, fa.flash_attention_ref(q, k, v), dtype)
 
@@ -1072,6 +1086,128 @@ def test_flash_kernel_at_dh_256_reads_strided_views(cuda):
     v = qkv[..., (H + K) * dh:].view(B, S, K, dh)
     _flash_close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v),
                  torch.float32)
+
+
+# -- the Hopper kernel at MLA's q·k 192 / v 128 and at head dim 256 --------
+# bfloat16 on TMA's grid goes to csrc/flash_sm90.cu at both pairs; held
+# to the plain version and to the simple kernel, the same tolerance.
+
+def _pair_qkv(B, S, T, H, K, dqk, dv, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=gen).to(device, torch.bfloat16)
+            for shape in ((B, S, H, dqk), (B, T, K, dqk), (B, T, K, dv))]
+
+
+PAIRS = [(192, 128, 8, 8), (192, 128, 128, 128), (256, 256, 10, 1),
+         (256, 256, 4, 2)]
+
+
+@pytest.mark.parametrize("S", [7, 1000, 1024])
+@pytest.mark.parametrize("dqk,dv,H,K", PAIRS)
+def test_flash_sm90_at_mla_and_dh_256_matches_plain_and_simple(
+        cuda, S, dqk, dv, H, K):
+    from repro_torch.kernels import attention as fa
+
+    B = 2 if S < 512 else 1
+    q, k, v = _pair_qkv(B, S, S, H, K, dqk, dv, S + dqk + H, cuda)
+    assert fa.flash_kernel_for(q, k, v) == "sm90"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v)
+    simple = fa.flash_attention_cuda(q, k, v, kernel="simple")
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
+        == (2, 1)
+    assert got.shape == (B, S, H, dv) and got.dtype == torch.bfloat16
+    _flash_close(got, fa.flash_attention_ref(q, k, v), torch.bfloat16)
+    _flash_close(got, simple, torch.bfloat16)
+
+
+@pytest.mark.parametrize("T", [1, 129])
+@pytest.mark.parametrize("dqk,dv,H,K", PAIRS)
+def test_noncausal_flash_sm90_at_mla_and_dh_256_ragged_keys(
+        cuda, T, dqk, dv, H, K):
+    """A ragged key length: the last key tile is zero-filled past T, and
+    only its mask keeps those keys out (a zero key scores 0)."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _pair_qkv(2, 65, T, H, K, dqk, dv, T + dqk, cuda)
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=False)
+    simple = fa.flash_attention_cuda(q, k, v, kernel="simple", causal=False)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_noncausal"]) == (2, 1, 2)
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    _flash_close(got, want, torch.bfloat16)
+    _flash_close(simple, want, torch.bfloat16)
+
+
+def test_flash_sm90_at_mla_reads_cat_and_expand_views(cuda):
+    """bfloat16 views as ``mla`` and its neighbours make them: q a slice
+    of a wider projection on the 16-byte grid, k the cat of per-head keys
+    and the shared rope key broadcast, v a view of a fused k / v row --
+    the Hopper kernel; k as an ``expand`` of one head (stride 0) and q 8
+    bytes off the grid -- the simple kernel; every one held to the plain
+    version."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H = 2, 77, 4
+    gen = torch.Generator().manual_seed(23)
+    q_wide = torch.randn(B, S, H, 208, generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    kv = torch.randn(B, S, H, 128 + 128, generator=gen).to(cuda,
+                                                          torch.bfloat16)
+    kr = torch.randn(B, S, 64, generator=gen).to(cuda, torch.bfloat16)
+    k = torch.cat([kv[..., :128], kr[:, :, None].expand(B, S, H, 64)], -1)
+    v = kv[..., 128:]
+    for qq, kk, route in ((q_wide[..., 8:200], k, "sm90"),
+                          (q_wide[..., 8:200], k[:, :, :1].expand(
+                              B, S, H, 192), "simple"),
+                          (q_wide[..., 4:196], k, "simple")):
+        assert not qq.is_contiguous() and not v.is_contiguous()
+        assert fa.flash_kernel_for(qq, kk, v) == route
+        reset_launch_counts()
+        got = fa.flash_attention(qq, kk, v)
+        assert launch_counts()["flash_attention_sm90"] == int(
+            route == "sm90")
+        _flash_close(got, fa.flash_attention_ref(qq, kk, v), torch.bfloat16)
+
+
+def test_flash_sm90_at_dh_256_reads_fused_projection_views(cuda):
+    """q and k / v as views of one fused bfloat16 projection at head dim
+    256, as ``gqa`` slices them: TMA reads them through their strides."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, K, dh = 2, 77, 10, 1, 256
+    gen = torch.Generator().manual_seed(13)
+    qkv = torch.randn(B, S, (H + 2 * K) * dh, generator=gen).to(
+        cuda, torch.bfloat16)
+    q = qkv[..., :H * dh].view(B, S, H, dh)
+    k = qkv[..., H * dh:(H + K) * dh].view(B, S, K, dh)
+    v = qkv[..., (H + K) * dh:].view(B, S, K, dh)
+    assert not q.is_contiguous() and fa.flash_kernel_for(q, k, v) == "sm90"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v)
+    assert launch_counts()["flash_attention_sm90"] == 1
+    _flash_close(got, fa.flash_attention_ref(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+def test_flash_sm90_at_mla_and_dh_256_is_causal(cuda, dqk, dv):
+    """Changing keys and values from position t on leaves every row
+    before t bitwise unchanged (t inside a 64-row block)."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, t = 2, 300, 137
+    q, k, v = _pair_qkv(B, S, S, 4, 2, dqk, dv, 5, cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t:] = 8 * torch.randn_like(k2[:, t:].float()).bfloat16()
+    v2[:, t:] = -v2[:, t:] + 3
+    reset_launch_counts()
+    out, out2 = fa.flash_attention(q, k, v), fa.flash_attention(q, k2, v2)
+    assert launch_counts()["flash_attention_sm90"] == 2
+    assert torch.equal(out[:, :t], out2[:, :t])
+    assert not torch.equal(out[:, t:], out2[:, t:])
 
 
 def test_hybrid_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):

@@ -201,7 +201,11 @@ def test_mqa_flash_at_dh_256_matches_jax_attend(dtype, S):
                          jnp.asarray(k, jdt), jnp.asarray(v, jdt),
                          jnp.asarray(pos), jnp.asarray(pos), window=64)
     got = fa.flash_attention(_torch(q, tdt), _torch(k, tdt), _torch(v, tdt))
+    # on the card bf16 takes the Hopper kernel at dh 256, float32 the
+    # simple one
     assert fl.flash_kernel_for(*(_torch(a, torch.bfloat16)
+                                 for a in (q, k, v))) == "sm90"
+    assert fl.flash_kernel_for(*(_torch(a, torch.float32)
                                  for a in (q, k, v))) == "simple"
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32).reshape(
@@ -210,9 +214,12 @@ def test_mqa_flash_at_dh_256_matches_jax_attend(dtype, S):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mla_shapes_go_to_the_simple_kernel(dtype):
+    """MLA's q·k 192 / v 128: the simple kernel takes them in float32,
+    the Hopper kernel in bfloat16."""
     q, k, v = (torch.zeros(s, dtype=dtype)
                for s in _shapes(1, 64, 4, 4, 192, 128))
-    assert fl.flash_kernel_for(q, k, v) == "simple"
+    assert fl.flash_kernel_for(q, k, v) == (
+        "sm90" if dtype == torch.bfloat16 else "simple")
 
 
 # (B, S, T, H, K, dh) of non-causal attention: S queries over T != S keys

@@ -2,9 +2,10 @@
 
 ``kernels.attention.flash.flash_kernel_for`` is a pure function of
 dtype, shapes, strides and pointer alignment: the Hopper kernel
-(``csrc/flash_sm90.cu``, TMA + ``wgmma``) takes bfloat16 q, k, v with
-head dim 64 or 128 on TMA's 16-byte grid, and the simple kernel
-(``csrc/flash.cu``) everything else the wrapper accepts.  Both kernels
+(``csrc/flash_sm90.cu``, TMA + ``wgmma``) takes bfloat16 q, k, v on
+TMA's 16-byte grid at (q·k, v) head dims (64, 64), (128, 128), MLA's
+(192, 128) and (256, 256), and the simple kernel (``csrc/flash.cu``)
+everything else the wrapper accepts.  Both kernels
 run only on the card (``tests/test_torch_cuda.py``); here the choice,
 the build registry and the counters are checked without one.
 """
@@ -167,3 +168,110 @@ def test_cross_attention_prompt_pass_takes_the_hopper_kernel(monkeypatch):
     monkeypatch.setattr(tattn, "flash_attention", spy)
     tattn.cross_attention(params, x, feats, H=H, K=K, dh=dh)
     assert seen == [("sm90", (1, N, K, dh), False)]
+
+
+# -- MLA's q·k 192 / v 128 and head dim 256 ----------------------------------
+
+def _pair(B=1, S=40, T=None, H=4, K=2, dqk=192, dv=128, dtype=BF16):
+    T = S if T is None else T
+    return (torch.zeros(B, S, H, dqk, dtype=dtype),
+            torch.zeros(B, T, K, dqk, dtype=dtype),
+            torch.zeros(B, T, K, dv, dtype=dtype))
+
+
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+@pytest.mark.parametrize("H,K", [(128, 128), (8, 2), (10, 1)])
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 65), (1, 1024)])
+def test_hopper_kernel_takes_bf16_mla_and_dh_256(dqk, dv, H, K, B, S):
+    assert fl.flash_kernel_for(*_pair(B, S, H=H, K=K, dqk=dqk, dv=dv)) \
+        == "sm90"
+
+
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+@pytest.mark.parametrize("T", [1, 129, 1000])
+def test_route_at_mla_and_dh_256_does_not_depend_on_key_length(dqk, dv, T):
+    """Without causality (T != S) the new pairs go where a prompt over
+    itself goes: bfloat16 to the Hopper kernel, float32 to the simple
+    one."""
+    assert fl.flash_kernel_for(*_pair(1, 7, T, dqk=dqk, dv=dv)) == "sm90"
+    assert fl.flash_kernel_for(*_pair(1, 7, T, dqk=dqk, dv=dv,
+                                      dtype=torch.float32)) == "simple"
+
+
+def _pair_expanded(dqk, dv):
+    q, k, v = _pair(K=1, dqk=dqk, dv=dv)
+    return q, k.expand(1, 40, 4, dqk), v.expand(1, 40, 4, dv)
+
+
+def _pair_off_grid(dqk, dv):
+    """q a view 8 bytes into a wider row: its pointer off the grid."""
+    q, k, v = _pair(dqk=dqk, dv=dv)
+    return torch.zeros(1, 40, 4, dqk + 8, dtype=BF16)[..., 4:4 + dqk], k, v
+
+
+def _pair_head_dim_strided(dqk, dv):
+    q, k, v = _pair(dqk=dqk, dv=dv)
+    return q, k, v.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+@pytest.mark.parametrize("make", [
+    lambda dqk, dv: _pair(dqk=dqk, dv=dv, dtype=torch.float32),
+    _pair_expanded, _pair_off_grid, _pair_head_dim_strided,
+], ids=["float32", "zero-stride", "pointer-off-grid", "head-dim-strided"])
+def test_other_mla_and_dh_256_inputs_go_to_the_simple_kernel(make, dqk, dv):
+    assert fl.flash_kernel_for(*make(dqk, dv)) == "simple"
+
+
+@pytest.mark.parametrize("dqk,dv", [(256, 128), (128, 192), (192, 64)])
+def test_other_unequal_head_dims_are_refused(dqk, dv):
+    """Only MLA's (192, 128) of the unequal pairs is taken, by either
+    kernel; the Hopper kernel's pairs do not widen the check."""
+    with pytest.raises(ValueError, match="head dim"):
+        fl.check_shapes(*(t.shape for t in _pair(dqk=dqk, dv=dv)))
+    assert fl.flash_kernel_for(*_pair(dqk=dqk, dv=dv)) == "simple"
+
+
+def test_mla_prompt_pass_takes_the_hopper_kernel(monkeypatch):
+    """The q, k, v that a bf16 MLA layer's prompt pass hands the flash
+    route at deepseek-v2's head dims (q = cat(q_nope, q_rope), k =
+    cat(k_nope, the shared rope key expanded), v from the latents) are
+    inputs the Hopper kernel takes."""
+    H, d, S = 4, 256, 9
+    dims = tattn.MLADims(q_lora=32, kv_lora=16)
+    gen = torch.Generator().manual_seed(6)
+    params = {k: v.to(BF16) for k, v in
+              tattn.init_mla(gen, d, H, dims).items()}
+    x = torch.randn(1, S, d, generator=gen).to(BF16)
+    seen = []
+
+    def spy(q, k, v):
+        seen.append((fl.flash_kernel_for(q, k, v), q.shape[-1], v.shape[-1],
+                     k.is_contiguous()))
+        return fa.flash_attention_ref(q, k, v)
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    tattn.mla(params, x, torch.arange(S)[None], H=H, dims=dims)
+    assert seen == [("sm90", 192, 128, True)]
+
+
+def test_dh_256_mqa_prompt_pass_takes_the_hopper_kernel(monkeypatch):
+    """recurrentgemma's local layer: the q, k, v of a bf16 ``gqa`` prompt
+    pass with 10 query heads over one kv head at head dim 256 and a
+    window are inputs the Hopper kernel takes."""
+    H, K, dh, d, S = 10, 1, 256, 128, 9
+    gen = torch.Generator().manual_seed(8)
+    params = {name: torch.randn(d, n, generator=gen).to(BF16)
+              for name, n in (("wq", H * dh), ("wk", K * dh),
+                              ("wv", K * dh))}
+    params["wo"] = torch.randn(H * dh, d, generator=gen).to(BF16)
+    x = torch.randn(1, S, d, generator=gen).to(BF16)
+    seen = []
+
+    def spy(q, k, v):
+        seen.append(fl.flash_kernel_for(q, k, v))
+        return fa.flash_attention_ref(q, k, v)
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    tattn.gqa(params, x, torch.arange(S)[None], H=H, K=K, dh=dh, window=16)
+    assert seen == ["sm90"]
