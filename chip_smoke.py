@@ -137,6 +137,16 @@ prefill's logits held to the plain version; a 2040-token prompt decoded
 32 steps through the ring's wrap against the windowed forward pass; a
 profiled prefill and decode window; then the shoal trainer at one
 superblock (3 layers, full width), its losses finite and falling.
+Phase 16 runs the ssm family: xlstm-350m at full width and depth (24
+layers: three superblocks of seven mLSTM blocks and one sLSTM block,
+528,283,648 parameters, 1.06 GB) served through ``ServeEngine`` as
+phase 6 serves tinyllama-1.1b (one prompt of 1000 tokens, a padded
+mLSTM chunk; no flash launch: the family has no softmax attention),
+the engine's tokens against one-lane decode token by token, every
+state leaf finite, one prefill's logits against the same weights in
+float32 and a two-part prefill against one part, a profiled prefill and
+decode window; then the shoal trainer at full depth, its ring launches
+counted, held to the xla backend and its losses finite and falling.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1804,8 +1814,10 @@ def check_flash(torch, device):
 
 def attention_layers(cfg) -> int:
     """The layers whose prompt pass launches a flash kernel: every layer
-    but the hybrid family's RG-LRU blocks."""
-    return sum(reps * sum(kind != "rglru" for kind in pat)
+    but the recurrent blocks (the hybrid family's RG-LRU, the ssm
+    family's mLSTM and sLSTM)."""
+    return sum(reps * sum(kind not in ("rglru", "mlstm", "slstm")
+                          for kind in pat)
                for pat, reps in cfg.segments())
 
 
@@ -1983,7 +1995,7 @@ def ab_prefill(torch, model, params, prompt, rounds=2):
 
 
 def serve_requests(torch, model, params, prompts, tag="serving",
-                   flash="sm90"):
+                   flash="sm90", out=None):
     """The served main path: ``ServeEngine.run`` of ``prompts``, MAX_NEW
     new tokens each, greedy, on LANES lanes of SLOTS slots (after a
     warm-up on an engine of its own), the launch counts reset before the
@@ -1993,7 +2005,8 @@ def serve_requests(torch, model, params, prompts, tag="serving",
     (bfloat16 at dh 64 / 128 / 256 and MLA's q·k 192 / v 128), or the
     simple one (float32).  Prints the run's lines under
     ``tag`` (tokens/s, prefill ms per request, decode ms per 4-lane
-    step) and returns the run's launch counts."""
+    step) and returns the run's launch counts; ``out``, a dict, gets the
+    engine (``"engine"``) and its finished requests (``"requests"``)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import Request, ServeEngine
 
@@ -2049,6 +2062,8 @@ def serve_requests(torch, model, params, prompts, tag="serving",
         require(sorted(e.rid for e in events if e.kind == kind)
                 == list(range(n)), f"slot events {kind}: {events}")
     require(engine.events.pending == 0, "slot events left undelivered")
+    if out is not None:
+        out.update(engine=engine, requests=reqs)
     tokens = sum(len(r.out) for r in reqs)
     say(tag, main_path="ok", model=cfg.name, requests=n, lanes=LANES,
         slots=SLOTS, prompt_tokens=[len(p) for p in prompts],
@@ -2484,8 +2499,11 @@ def _ring_checked(torch, coll, log):
     def checked(ctx, x):
         out = real(ctx, x)
         what = f"ring_all_reduce of {tuple(x.shape)} {x.dtype}"
-        require(torch.equal(out, _plain_all_reduce(torch, x)),
-                f"{what}: differs from the plain ring")
+        if not torch.equal(out, _plain_all_reduce(torch, x)):
+            # a word not finite in the input also fails the comparison
+            require(False, f"{what}: differs from the plain ring; the "
+                    f"input's words are all finite: "
+                    f"{bool(torch.isfinite(x).all())}")
         require(torch.equal(out, out[:1].expand_as(out)), f"{what}: rows "
                 "differ")
         if x.dtype == torch.int32:
@@ -2745,7 +2763,7 @@ def time_ring(torch, x, schedule, tag, case, events=False):
 def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
                 seq=TRAIN_SEQ, ckpt_layers=CKPT_LAYERS, tag="train",
                 steps=TRAIN_STEPS, exchanges_per_step=None, extras=True,
-                lr=TRAIN_LR):
+                lr=TRAIN_LR, profiled=True):
     """Phase 9.  tinyllama-1.1b at full width and depth (bf16, seed 0),
     ``TokenPipeline(vocab, 8, 512, seed 0)``'s first batch, the shoal
     backend on K = 4 members, AdamW lr 1e-3.  The first batch's
@@ -2758,7 +2776,9 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     ring alone at the largest leaf.  Phase 11 trains its models through
     the same function (``cfg``, ``tag``, ``steps``, the JAX package's
     ``exchanges_per_step``, ``lr``: a float or a schedule; frame
-    embeddings for the audio family).
+    embeddings for the audio family).  ``profiled=False`` leaves out the
+    profiled step (the ssm family's: ~240,000 device activities, whose
+    trace took longer to read than the step).
     Returns the main path's launch counts and, with ``extras``, the
     largest leaf's ring record for the JSON line."""
     from repro_torch import configs
@@ -2869,31 +2889,40 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     tr.apply_update, opt_log = _synced(tr.apply_update)
     state, _ = tr.step(state, batch)
     del tr.member_grads, tr.sync, tr.apply_update
-    # one step profiled: device busy, idle share, ring device ms by route
-    by_name, window = device_activity(
-        torch, lambda: tr.step(state, batch)[1]["loss"].item())
-    busy = sum(us for _, us in by_name.values()) / 1e3
-    ring = {route: [sum(c for n, (c, _) in by_name.items() if sub in n),
-                    sum(us for n, (_, us) in by_name.items() if sub in n)
-                    / 1e3]
-            for route, sub in (("simple", "ring_kernel"),
-                               ("sm90", "ring_cluster_kernel_sm90"))}
-    ring_bytes = sum(2 * TRAIN_K * p.numel() * 4
-                     for p in tree_leaves(state.params))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    say(tag, model=cfg.name, breakdown_ms=json.dumps({
-        "members_fwd_bwd": round(fb_log[0], 3),
-        "sync": round(sync_log[0], 3), "adamw": round(opt_log[0], 3)}),
-        ring_device_ms=json.dumps({r: round(v[1], 5)
-                                   for r, v in ring.items()}),
-        ring_device_launches=json.dumps({r: v[0] for r, v in ring.items()}),
-        ring_bound_ms=f"{ring_bytes / HBM_BPS * 1e3:.4f}",
-        profiled_window_ms=f"{window * 1e3:.2f}",
-        device_busy_ms=f"{busy:.3f}",
-        idle_share=f"{1 - busy / (window * 1e3):.4f}",
-        device_activities=sum(c for c, _ in by_name.values()))
-    say(tag, top_device_ms=json.dumps([[name[:110], c, round(us / 1e3, 4)]
-                                       for name, (c, us) in top]))
+    breakdown = json.dumps({"members_fwd_bwd": round(fb_log[0], 3),
+                            "sync": round(sync_log[0], 3),
+                            "adamw": round(opt_log[0], 3)})
+    if not profiled:
+        say(tag, model=cfg.name, breakdown_ms=breakdown,
+            profiled_step="not measured")
+    else:
+        # one step profiled: device busy, idle share, ring device ms by
+        # route
+        by_name, window = device_activity(
+            torch, lambda: tr.step(state, batch)[1]["loss"].item())
+        busy = sum(us for _, us in by_name.values()) / 1e3
+        ring = {route: [sum(c for n, (c, _) in by_name.items()
+                            if sub in n),
+                        sum(us for n, (_, us) in by_name.items()
+                            if sub in n) / 1e3]
+                for route, sub in (("simple", "ring_kernel"),
+                                   ("sm90", "ring_cluster_kernel_sm90"))}
+        ring_bytes = sum(2 * TRAIN_K * p.numel() * 4
+                         for p in tree_leaves(state.params))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        say(tag, model=cfg.name, breakdown_ms=breakdown,
+            ring_device_ms=json.dumps({r: round(v[1], 5)
+                                       for r, v in ring.items()}),
+            ring_device_launches=json.dumps({r: v[0]
+                                             for r, v in ring.items()}),
+            ring_bound_ms=f"{ring_bytes / HBM_BPS * 1e3:.4f}",
+            profiled_window_ms=f"{window * 1e3:.2f}",
+            device_busy_ms=f"{busy:.3f}",
+            idle_share=f"{1 - busy / (window * 1e3):.4f}",
+            device_activities=sum(c for c, _ in by_name.values()))
+        say(tag, top_device_ms=json.dumps([[name[:110], c,
+                                            round(us / 1e3, 4)]
+                                           for name, (c, us) in top]))
     peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
     say(tag, model=cfg.name, peak_allocated_mb=f"{peak_mb:.0f}",
         peak_over_base_mb=f"{peak_mb - base_mb:.0f}")
@@ -4203,6 +4232,292 @@ def phase_hybrid(torch, device):
     return runs, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the ssm family (xlstm-350m served and trained at full width and
+# depth)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-350m"
+# 24 layers at full width: three superblocks of seven mLSTM blocks and one
+# sLSTM block, the untied embedding and head; 1.06 GB in bf16.  At ~32.5
+# bytes a trained parameter (phase 11) the trainer needs ~17 GB: it trains
+# at full depth
+XLSTM_PARAMS = 528_283_648
+XLSTM_TRAIN_STEPS = 3
+# the trainer's sequence, cut from 512: the sLSTM's chaos (below) grows a
+# gradient ~250-fold every 64 tokens back through each sLSTM layer, and
+# at 512 tokens most leaves' gradients are NaN (scripts/xlstm_chaos.py
+# measures both).  256 is one whole mLSTM chunk
+XLSTM_TRAIN_SEQ = 256
+XLSTM_RAGGED = 1000         # a prompt of 3 chunks and a padded fourth
+# At full width the sLSTM recurrence (the JAX package's init: r at 0.25
+# over dh 256, a gain of ~4 a step) is chaotic: a 1e-6 change of its input
+# grows to ~6e-4 by token 64 and to O(1) by token 256 (scripts/
+# xlstm_chaos.py; ROADMAP section 3).
+# Two computations of one prompt that round differently agree at its end
+# only for short prompts, so the end-to-end logit checks take these:
+XLSTM_SHORT, XLSTM_SPLIT, XLSTM_DECODE = 40, 24, 8   # float32: 24 + 16
+# bf16 against the same weights in float32 at the first token (no history
+# for the recurrences to grow a difference from), relative to the largest
+# |logit|: bf16 rounding through 24 residual blocks (an H100 reads 0.044)
+XLSTM_F32_TOL = 1e-1
+
+
+def _ssm_prefill(torch, model, params, prompt, splits=()):
+    """``prompt`` prefilled on a fresh one-lane cache in parts ending at
+    ``splits`` (the state carried from part to part): the last logits in
+    float32 and the cache."""
+    cache = model.make_cache(1, SLOTS)
+    toks = torch.as_tensor(prompt.astype(np.int64), device=model.device)
+    bounds = [0, *splits, len(prompt)]
+    for a, b in zip(bounds, bounds[1:]):
+        logits, _ = model.prefill(params, {"tokens": toks[None, a:b]}, cache)
+    torch.cuda.synchronize()
+    return logits.float(), cache
+
+
+def _state_finite(torch, cache) -> bool:
+    return all(bool(torch.isfinite(t).all()) for seg in cache
+               for blk in seg.values() for t in blk.values())
+
+
+def check_mlstm_chunk_form(torch, model, params, prompt):
+    """The mLSTM's chunk form against its exact stabilized recurrence at
+    full width, on the card: the first mLSTM layer's weights, fed the
+    embedded ``prompt`` (1000 tokens: three chunks of 256 and a padded
+    fourth, so the chunk scan and the padding run) in one pass and one
+    token at a time from the fresh state; float32 within
+    ``LOGIT_TOL["float32"]``, bf16 within ``LOGIT_TOL["bfloat16"]`` of
+    the block's largest |contribution| (no sLSTM: nothing chaotic)."""
+    from repro_torch.models import xlstm as xl
+    from repro_torch.models.model import _layers
+
+    cfg = model.cfg
+    cell = _layers(params["segments"][0]["b0_mlstm"], 1)[0]["cell"]
+    toks = torch.as_tensor(prompt.astype(np.int64), device=model.device)
+    x16 = model._embed_in(params, {"tokens": toks[None]})
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        p = {k: v if k in ("ln", "gn") else v.to(dtype)
+             for k, v in cell.items()}
+        x = x16.to(dtype)
+        t = time.perf_counter()
+        with torch.no_grad():
+            want, _ = xl.mlstm_block(p, x, nh=cfg.n_heads,
+                                     chunk=cfg.mlstm_chunk)
+            torch.cuda.synchronize()
+            chunk_ms = (time.perf_counter() - t) * 1e3
+            state = xl.make_mlstm_state(1, cfg.d_model, cfg.n_heads,
+                                        model.device, cfg.mlstm_pf)
+            got = torch.cat([xl.mlstm_block(p, x[:, i:i + 1],
+                                            nh=cfg.n_heads,
+                                            chunk=cfg.mlstm_chunk,
+                                            state=state)[0]
+                             for i in range(x.shape[1])], dim=1)
+        name = str(dtype).split(".")[-1]
+        top = (want - x).float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        require(bool(torch.isfinite(got).all())
+                and err <= LOGIT_TOL[name] * top,
+                f"{cfg.name} mLSTM layer 0 ({name}), chunk form vs "
+                f"recurrence over {len(prompt)} tokens: max|err| {err} > "
+                f"{LOGIT_TOL[name]} * {top}")
+        out[name] = f"{err:.4g}/{top:.4g}"
+        out[f"{name}_chunk_ms"] = f"{chunk_ms:.3f}"
+    say("ssm", check="mlstm-chunk-vs-recurrence", model=cfg.name,
+        tokens=len(prompt), chunk=cfg.mlstm_chunk,
+        err_over_max_contribution=json.dumps(out),
+        limits=f"{LOGIT_TOL['float32']}/{LOGIT_TOL['bfloat16']}")
+
+
+def check_ssm_prefill(torch, model, params, prompt):
+    """Prefill logits at full depth, on prompts short enough that the
+    sLSTM's chaos (``XLSTM_SHORT``) leaves rounding differences small:
+    in float32 (the same weights cast), ``XLSTM_SPLIT`` + the rest
+    tokens in two parts (the mLSTM's chunk form from its carried ``(C,
+    n, m)``, the sLSTM loop from its carried ``(h, c, n, m)``) and the
+    prompt less ``XLSTM_DECODE`` tokens then that many decode steps (the
+    exact recurrence), each against the one-part prefill within
+    ``LOGIT_TOL["float32"]`` of the largest |logit|.  Then
+    ``forward_train`` of the whole ``prompt`` in bf16 and in float32:
+    the bf16 logits finite, within ``XLSTM_F32_TOL`` of the float32
+    ones at the first token, and their distance by position reported
+    (the chaos's growth)."""
+    from repro_torch.models.model import build_model, cast_params
+
+    cfg = model.cfg
+    short = prompt[:XLSTM_SHORT]
+    f32cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    f32 = build_model(f32cfg, device=model.device)
+    p32 = cast_params(f32cfg, params, model.device)
+    want, _ = _ssm_prefill(torch, f32, p32, short)
+    two, _ = _ssm_prefill(torch, f32, p32, short, (XLSTM_SPLIT,))
+    logits, cache = _ssm_prefill(torch, f32, p32, short[:-XLSTM_DECODE])
+    for i in range(XLSTM_SHORT - XLSTM_DECODE, XLSTM_SHORT):
+        logits, _ = f32.decode_step(
+            p32, cache, torch.full((1, 1), int(short[i]),
+                                   device=model.device),
+            torch.full((1,), i, device=model.device))
+    top = want.abs().max().item()
+    split = (two - want).abs().max().item()
+    stepped = (logits.float() - want).abs().max().item()
+    require(split <= LOGIT_TOL["float32"] * top
+            and stepped <= LOGIT_TOL["float32"] * top,
+            f"{cfg.name} float32 prefill of {XLSTM_SHORT} tokens: two "
+            f"parts {split}, {XLSTM_DECODE} decode steps {stepped} from "
+            f"one part, limit {LOGIT_TOL['float32']} * {top}")
+    toks = torch.as_tensor(prompt.astype(np.int64), device=model.device)
+    with torch.no_grad():
+        a = model.forward_train(params, {"tokens": toks[None]})[0][0]
+        b = f32.forward_train(p32, {"tokens": toks[None]})[0][0]
+    require(bool(torch.isfinite(a).all()) and a.shape == (len(prompt),
+                                                          cfg.vocab),
+            f"{cfg.name} forward of {len(prompt)} tokens: logits "
+            f"{tuple(a.shape)} not finite")
+    rel = ((a.float() - b).abs().amax(dim=1) / b.abs().amax(dim=1)).cpu()
+    require(rel[0].item() <= XLSTM_F32_TOL,
+            f"{cfg.name} forward, bf16 vs float32 weights at the first "
+            f"token: {rel[0].item()} of the largest |logit| > "
+            f"{XLSTM_F32_TOL}")
+    by_pos = {t: f"{rel[t].item():.4f}" for t in (0, 7, 16, 64, 128, 256,
+                                                   len(prompt) - 1)
+              if t < len(prompt)}
+    del p32, f32, a, b
+    _free(torch)
+    say("ssm", check="prefill-logits", model=cfg.name,
+        f32_prompt_tokens=XLSTM_SHORT,
+        f32_two_part=f"{XLSTM_SPLIT}+{XLSTM_SHORT - XLSTM_SPLIT}",
+        f32_two_part_vs_one_err=split,
+        f32_decode_steps=XLSTM_DECODE, f32_stepped_vs_prefill_err=stepped,
+        max_abs_logit_f32=top, limit_f32=f"{LOGIT_TOL['float32']}"
+        f"*max|logit|", forward_tokens=len(prompt),
+        bf16_vs_f32_rel_by_position=json.dumps(by_pos),
+        limit_first_token=XLSTM_F32_TOL, card=card_line())
+
+
+def check_ssm_tokens(torch, model, params, req, lane=1):
+    """The engine's greedy tokens for ``req`` against ``Model.decode_step``
+    token by token, the request alone on ``lane`` of a fresh ``LANES``-lane
+    cache (reset and prefilled through ``lane_slice`` as the engine does;
+    the other lanes fed token 0): every token equal, picked as the
+    engine picks (``np.argmax`` of the lane's float32 logits).  A row of
+    the batch is computed apart from the others, so the lane's logits
+    are the engine's whatever its neighbours held.  Then the same
+    request on a one-lane cache, fed the engine's tokens, reported (its
+    products have other shapes, so its bf16 logits round otherwise): how
+    many of its argmaxes are the engine's token, and how far below its
+    best logit the engine's token is at worst.  Every state leaf finite
+    after both."""
+    from repro_torch.serving import lane_slice, reset_lane
+
+    dev = model.device
+    toks = torch.as_tensor(req.prompt.astype(np.int64), device=dev)[None]
+    n = len(req.prompt)
+    cache = model.make_cache(LANES, SLOTS)
+    for i in range(LANES):
+        reset_lane(cache, i)
+    logits, _ = model.prefill(params, {"tokens": toks},
+                              lane_slice(cache, lane))
+    got = [int(np.argmax(logits[0].float().cpu().numpy()))]
+    step_toks = torch.zeros(LANES, 1, dtype=torch.int64, device=dev)
+    for i in range(len(req.out) - 1):
+        step_toks[lane, 0] = got[-1]
+        logits, _ = model.decode_step(
+            params, cache, step_toks,
+            torch.full((LANES,), n + i, device=dev))
+        got.append(int(np.argmax(logits[lane].float().cpu().numpy())))
+    require(got == req.out and _state_finite(torch, cache),
+            f"{model.cfg.name}: the engine's tokens {req.out} vs decode_step "
+            f"on lane {lane} of {LANES}: {got}, or a state not finite")
+
+    one = model.make_cache(1, SLOTS)
+    reset_lane(one, 0)
+    logits, _ = model.prefill(params, {"tokens": toks}, one)
+    steps = [logits]
+    for i, tok in enumerate(req.out[:-1]):
+        logits, _ = model.decode_step(
+            params, one, torch.full((1, 1), tok, device=dev),
+            torch.full((1,), n + i, device=dev))
+        steps.append(logits)
+    lg = torch.cat(steps).float()                      # (tokens, vocab)
+    out = torch.as_tensor(req.out, device=dev)
+    margin = lg.max(dim=1).values - lg.gather(1, out[:, None])[:, 0]
+    require(_state_finite(torch, one),
+            f"{model.cfg.name}: a one-lane state leaf not finite")
+    say("ssm", check="engine-vs-decode-step", model=model.cfg.name,
+        rid=req.rid, prompt_tokens=n, tokens=len(req.out),
+        same_lane_of_4="equal",
+        one_lane_argmax_equal=f"{int((lg.argmax(dim=1) == out).sum())}/"
+        f"{len(req.out)}",
+        one_lane_worst_margin=margin.max().item(),
+        max_abs_logit=lg.abs().max().item(), state_finite=True)
+
+
+def phase_ssm(torch, device):
+    """Phase 16.  xlstm-350m at full width (d 1024, 4 heads, mLSTM head
+    dim 512 at chunk 256, vocab 50304) and depth (24 layers; bf16, seed
+    0) served as phase 6 serves tinyllama-1.1b: 8 requests of 128-1024
+    prompt tokens (one of 1000, a padded chunk), 32 new tokens each, 4
+    lanes; no flash launch (the family has no softmax attention), the
+    mLSTM prompt pass in the chunk form, the sLSTM's time loop, decode
+    on the carried float32 state.  The engine's tokens against one-lane
+    decode, every state leaf finite; one prefill's logits against the
+    same weights in float32 and a two-part prefill against one part; the
+    profiled prefill and decode window; peak memory.  Then the shoal
+    trainer at full depth (K = 4, bf16, ``TokenPipeline``'s first batch
+    of 8 x 512, ``warmup_cosine(3e-4, 10, 100)``): held to the xla
+    backend on the first batch, every ring result bitwise the plain
+    ring's, one ring launch and 6 exchanges a leaf, losses finite and
+    falling; at full depth, but 8 x ``XLSTM_TRAIN_SEQ`` tokens, where
+    the gradients stay finite.  Returns ``({run: launch counts}, the
+    trainer's ring record)``."""
+    from repro_torch import configs
+    from repro_torch.optim.schedule import warmup_cosine
+
+    cfg = configs.full(XLSTM_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "ssm")
+    require(cfg.num_params(params) == XLSTM_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    lane = sum(t.numel() * t.element_size() for seg in model.make_cache(
+        1, 1) for blk in seg.values() for t in blk.values())
+    say("ssm", model=cfg.name, segments=str(cfg.segments()),
+        mlstm_chunk=cfg.mlstm_chunk, mlstm_head_dim=2 * cfg.d_model
+        // cfg.n_heads, state_mb_per_lane=f"{lane / 2 ** 20:.2f}")
+    prompts = serve_prompts(cfg.vocab)
+    prompts[1] = np.random.default_rng(14).integers(
+        0, cfg.vocab, XLSTM_RAGGED).astype(np.int32)
+    served = {}
+    runs = {f"serve-{XLSTM_ARCH}": serve_requests(
+        torch, model, params, prompts, "ssm", out=served)}
+    require(_state_finite(torch, served["engine"].cache),
+            f"{cfg.name}: a state leaf not finite after decode")
+    check_ssm_tokens(torch, model, params, served["requests"][1])
+    del served
+    _free(torch)
+    check_mlstm_chunk_form(torch, model, params, prompts[1])
+    check_ssm_prefill(torch, model, params, prompts[1])
+    profile_serving(torch, model, params, prompts[0])
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("ssm", model=cfg.name, peak_allocated_mb=f"{peak_mb:.0f}",
+        card=card_line())
+    del model, params
+    _free(torch)
+    say("ssm", model=XLSTM_ARCH, cut=f"trained at full depth on 8 x "
+        f"{XLSTM_TRAIN_SEQ} tokens, not 8 x {TRAIN_SEQ}: the sLSTM's "
+        f"gradients overflow to NaN back through {TRAIN_SEQ} tokens at "
+        f"the JAX package's init (ROADMAP section 3)")
+    t0 = time.perf_counter()
+    runs[f"train-{XLSTM_ARCH}"], rec = phase_train(
+        torch, device, cfg=cfg, seq=XLSTM_TRAIN_SEQ, tag="ssm",
+        steps=XLSTM_TRAIN_STEPS, extras=False, profiled=False,
+        lr=warmup_cosine(*FAMILY_LR))
+    say("ssm", model=XLSTM_ARCH, layers=cfg.n_layers,
+        train_seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
+    _free(torch)
+    return runs, rec
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -4418,6 +4733,11 @@ def main() -> int:
     hybrid_flash["simple", "bfloat16"]["launches"] = \
         served["flash_attention"] - served["flash_attention_sm90"]
     family_rings.append(hybrid_ring)
+    t0 = time.perf_counter()
+    ssm, ssm_ring = phase_ssm(torch, device)
+    say("ssm", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
+    family.update(ssm)
+    family_rings.append(ssm_ring)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])

@@ -2,12 +2,15 @@
 ``repro.configs``: ``get(name)`` returns the module, each module exposes
 ``full()`` and ``reduced()`` -> :class:`~repro_torch.models.model.ModelConfig`.
 
-Ported: the dense family (tinyllama-1.1b, qwen2-1.5b, deepseek-7b,
-qwen2-72b), the audio family (musicgen-medium), the MoE family
-(dbrx-132b, and deepseek-v2-236b with MLA attention), the vlm family
-(llama-3.2-vision-90b) and the hybrid family (recurrentgemma-2b).  The
-other architectures of the JAX package raise until their slice lands
-(ROADMAP queue 1, modules to port).
+Every architecture of the JAX package is ported: the dense family
+(tinyllama-1.1b, qwen2-1.5b, deepseek-7b, qwen2-72b), the audio family
+(musicgen-medium), the MoE family (dbrx-132b, and deepseek-v2-236b with
+MLA attention), the vlm family (llama-3.2-vision-90b), the hybrid family
+(recurrentgemma-2b) and the ssm family (xlstm-350m).  An unknown name
+raises ``KeyError``.
+
+    configs.full("xlstm-350m")    # 24 layers: 3 x (7 mLSTM + 1 sLSTM)
+    configs.reduced("xlstm-350m") # xlstm-smoke: 8 layers, d 64, float32
 """
 
 import importlib
@@ -22,6 +25,7 @@ ARCH_IDS = [
     "deepseek_v2_236b",
     "llama_3_2_vision_90b",
     "recurrentgemma_2b",
+    "xlstm_350m",
 ]
 
 # CLI ids (hyphenated, as assigned) -> module names
@@ -36,10 +40,8 @@ CLI_IDS.update({
 def get(name: str):
     mod = CLI_IDS.get(name, name.replace("-", "_").replace(".", "_"))
     if mod not in ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP queue 1, modules to port); ported: "
-            f"{sorted(CLI_IDS)}")
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{sorted(CLI_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -7,12 +7,16 @@ the CUDA card unless ``--device cpu``.
         deepseek-v2-236b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         recurrentgemma-2b --slots 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m
 
 Weights are random, from ``--seed``.  The prompt pass of every request
 runs the flash-attention kernel on the card (recurrentgemma-2b: in its
-local-attention layers, for prompts up to the 2048-token window).  Token-frontend archs only,
-as in the JAX package's launcher (musicgen-medium is fed frame
-embeddings: drive its ``Model.prefill`` / ``decode_step`` directly).
+local-attention layers, for prompts up to the 2048-token window;
+xlstm-350m has no attention: its mLSTM and sLSTM cells carry a float32
+state a lane, and ``--slots`` sizes nothing of it).  Token-frontend
+archs only, as in the JAX package's launcher (musicgen-medium is fed
+frame embeddings: drive its ``Model.prefill`` / ``decode_step``
+directly).
 """
 
 import argparse

@@ -10,6 +10,8 @@ CUDA card unless ``--device cpu``.
         --arch llama-3.2-vision-90b --reduced --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch recurrentgemma-2b --reduced --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
+        --backend shoal --kernels 4 --batch 8 --seq 512
 
 The same flags and loop as the JAX package's launcher: the data
 pipeline's step inside the checkpoint, asynchronous checkpoints off the

@@ -27,22 +27,25 @@ def _tensors(tree, leaf):
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The port's parameters (``cfg.dtype``; the leaves under
-    ``model.F32_KEYS`` -- norms, the RG-LRU's ``lam`` -- float32) on
-    ``device`` (default: the CUDA card)."""
+    ``model.F32_KEYS`` -- norms, the RG-LRU's ``lam``, the sLSTM's ``r``
+    -- float32) on ``device`` (default: the CUDA card)."""
     device = resolve_device(device)
     f32 = _tensors(tree, lambda a: torch.from_numpy(
         np.asarray(a, dtype=np.float32).copy()))
     return cast_params(cfg, f32, device)
 
 
-# cache leaves held in float32 whatever cfg.dtype: the RG-LRU state
-_F32_STATE = ("h", "conv")
+# cache leaves held in float32 whatever cfg.dtype: the recurrent states
+# (RG-LRU h, conv; mLSTM C, n, m, conv; sLSTM h, c, n, m)
+_F32_STATE = ("h", "conv", "C", "c", "n", "m")
 
 
 def cache_from_numpy(cfg: ModelConfig, tree, device=None):
-    """The port's cache: ``pos`` int32, the RG-LRU state (``h``,
-    ``conv``) float32, every other leaf (GQA's ``k`` / ``v``, MLA's
-    latent ``ckv`` and rope key ``kr``) in ``cfg.dtype``."""
+    """The port's cache: ``pos`` int32, the recurrent states float32
+    (the RG-LRU's ``h``, ``conv``; the mLSTM's ``C``, ``n``, ``m``,
+    ``conv``; the sLSTM's ``h``, ``c``, ``n``, ``m``), every other leaf
+    (GQA's ``k`` / ``v``, MLA's latent ``ckv`` and rope key ``kr``) in
+    ``cfg.dtype``."""
     device = resolve_device(device)
 
     def dtype_of(name):

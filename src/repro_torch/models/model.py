@@ -4,7 +4,7 @@ decode (the port of ``repro.models.model``).
 Layers are grouped into homogeneous *segments* (a superblock pattern x a
 repeat count) with layer-stacked parameter and cache leaves, as in the
 JAX package; a Python loop over the stacked layers takes the place of
-``lax.scan``.  Six families are ported: dense and audio, both
+``lax.scan``.  All six families are ported: dense and audio, both
 ``[("dense",)] x L`` (audio: LayerNorm / GELU blocks fed frame
 embeddings, the ``frontend="embeddings"`` stub, in place of tokens),
 moe, ``[("dense",)] x first_k_dense + [("moe",)] x rest`` (the MoE block
@@ -18,7 +18,11 @@ decode step recomputes the image K/V, as in the JAX package), and
 hybrid, ``[block_pattern] x (L // len) + [block_pattern[:L % len]]``
 (recurrentgemma: two RG-LRU blocks, :mod:`repro_torch.models.recurrent`,
 to one local-attention block, GQA with a ``window`` and a ring of
-``min(slots, window)`` slots; the RG-LRU state is float32).
+``min(slots, window)`` slots; the RG-LRU state is float32), and ssm,
+``[("mlstm",) * (k - 1) + ("slstm",)] x L / k`` with ``k =
+slstm_every`` (xlstm: :mod:`repro_torch.models.xlstm`'s mLSTM and sLSTM
+cells, each a whole block ``{"cell": ...}`` with its own norms and
+residuals; their float32 state is written in place).
 ``cfg.mla`` gives the dense and MoE blocks DeepSeek-V2's latent
 attention (``attention.mla``) in place of GQA, with a latent ring
 cache.
@@ -29,9 +33,10 @@ parameters to ``cfg.dtype`` at every use, so casting once gives the same
 values); norm scales and biases stay float32, as the norms read them
 (MLA's latent norms ``qln`` and ``kvln`` and cross-attention's ``qln``
 and ``kln`` too), and so do cross-attention's ``gate``, whose tanh
-the JAX package takes in float32, and the RG-LRU's ``lam``, whose
+the JAX package takes in float32, the RG-LRU's ``lam``, whose
 softplus it takes in float32 (``a`` near 0.9-0.999 makes ``sqrt(1 -
-a^2)`` sensitive to it).
+a^2)`` sensitive to it), the xLSTM cells' norm scales ``ln`` and ``gn``
+and the sLSTM's recurrent ``r``, which its time loop reads in float32.
 Ring caches are written in place (``models.attention``).
 """
 
@@ -48,21 +53,20 @@ from repro_torch.models import attention as attn
 from repro_torch.models import blocks as bl
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
+from repro_torch.models import xlstm as xl
 from repro_torch.tree import tree_leaves
 
-# families and options of the JAX package that wait for a later slice
-_NOT_PORTED = ("is not ported to repro_torch yet (ROADMAP queue 1, modules "
-               "to port)")
 # float32 subtrees: the block norms, MLA's latent norms, cross-attention's
-# q / k norms and its gate, the RG-LRU's lam
-F32_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln", "kln", "gate", "lam")
+# q / k norms and its gate, the RG-LRU's lam, the xLSTM cells' norms (ln,
+# gn; the sLSTM's ln2 is a block norm) and the sLSTM's recurrent r
+F32_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln", "kln", "gate", "lam",
+            "ln", "gn", "r")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | audio | moe | vlm | hybrid
-                                 # (ssm raises until ported)
+    family: str                  # dense | audio | moe | vlm | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -85,6 +89,11 @@ class ModelConfig:
     block_pattern: tuple[str, ...] = ()
     window: int = 0
     lru_width: int = 0
+    # ssm (xlstm): every k-th block an sLSTM (0: mLSTM only), the mLSTM's
+    # up-projection factor and its chunk length
+    slstm_every: int = 0
+    mlstm_pf: float = 2.0
+    mlstm_chunk: int = 64
     aux_loss_weight: float = 0.01
     # frontend: tokens | embeddings (audio frames, a stubbed modality)
     frontend: str = "tokens"
@@ -123,8 +132,15 @@ class ModelConfig:
             if rem:
                 segs.append((pat[:rem], 1))
             return segs
-        raise NotImplementedError(f"model family {self.family!r} "
-                                  f"{_NOT_PORTED}")
+        if self.family == "ssm":
+            k = self.slstm_every
+            if not k:
+                return [(("mlstm",), L)]
+            if L % k:
+                raise ValueError(f"{self.name}: {L} layers do not split into "
+                                 f"superblocks of slstm_every = {k}")
+            return [(("mlstm",) * (k - 1) + ("slstm",), L // k)]
+        raise ValueError(f"unknown model family {self.family!r}")
 
     def num_params(self, params) -> int:
         return sum(t.numel() for t in tree_leaves(params))
@@ -188,11 +204,15 @@ def _mlp(cfg, p, x):
     return bl.swiglu(x, p["wg"], p["wu"], p["wd"])
 
 
-# the dense, MoE, cross, local-attention and RG-LRU blocks: segments()
-# admits no other kind
+# the dense, MoE, cross, local-attention, RG-LRU, mLSTM and sLSTM blocks:
+# segments() admits no other kind
 
 def _init_block(cfg, kind, gen, lead=()):
     d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    if kind == "mlstm":
+        return {"cell": xl.init_mlstm(gen, d, H, cfg.mlstm_pf, lead=lead)}
+    if kind == "slstm":
+        return {"cell": xl.init_slstm(gen, d, H, lead=lead)}
     if kind == "rglru":     # n_heads gate blocks, as in the JAX package
         return {"ln1": _init_norm(cfg, gen, lead),
                 "rnn": rec.init_rglru(gen, d, cfg.dr, H, lead=lead),
@@ -225,6 +245,11 @@ def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
         return {}   # image kv is recomputed from the (static) image feats
     if kind == "rglru":
         return rec.make_rglru_state(B, cfg.dr, device, lead=lead)
+    if kind == "mlstm":
+        return xl.make_mlstm_state(B, cfg.d_model, cfg.n_heads, device,
+                                   cfg.mlstm_pf, lead=lead)
+    if kind == "slstm":
+        return xl.make_slstm_state(B, cfg.d_model, device, lead=lead)
     if kind == "attn_local":
         return attn.make_kv_cache(B, min(slots, cfg.window), cfg.n_kv_heads,
                                   cfg.dh, cfg.dtype, device, lead)
@@ -240,8 +265,15 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
     """Returns (x, aux): the MoE block's load-balance loss, None for any
     other block.  ``ep``: the expert-parallel island, or None.
     ``image_feats``: the cross block's keys and values, ``(B, N,
-    d_model)``.  An RG-LRU block's ``cache`` is its state, written in
-    place."""
+    d_model)``.  An RG-LRU, mLSTM or sLSTM block's ``cache`` is its
+    state, written in place; the xLSTM cells norm their own input."""
+    if kind == "mlstm":
+        x, _ = xl.mlstm_block(p["cell"], x, nh=cfg.n_heads,
+                              chunk=cfg.mlstm_chunk, state=cache)
+        return x, None
+    if kind == "slstm":
+        x, _ = xl.slstm_block(p["cell"], x, nh=cfg.n_heads, state=cache)
+        return x, None
     h = _norm(cfg, p["ln1"], x)
     if kind == "rglru":
         r, _ = rec.rglru_block(p["rnn"], h, state=cache)
@@ -426,9 +458,9 @@ class Model:
     @staticmethod
     def is_fresh(cache) -> bool:
         """Every slot of every attention layer unwritten (pos -1): one
-        device sync.  Cross blocks have no cache, and an RG-LRU block's
-        state has no slots: the prefill carries it on whatever it
-        holds."""
+        device sync.  Cross blocks have no cache, and a recurrent block's
+        state (RG-LRU, mLSTM, sLSTM) has no slots: the prefill carries it
+        on whatever it holds."""
         fresh = [(blk["pos"] == -1).all() for seg in cache
                  for blk in seg.values() if "pos" in blk]
         return bool(torch.stack(fresh).all()) if fresh else True

@@ -88,38 +88,50 @@ def _combine(left, right):
     return al * ar, br + ar * bl_
 
 
-def _interleave(even, odd):
-    """``even[0], odd[0], even[1], ...`` along axis 1 (``even`` as long as
-    ``odd`` or one longer)."""
+def _take(x, dim: int, start, stop=None, step=None):
+    """``x[start:stop:step]`` along ``dim`` (a view)."""
+    return x[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(even, odd, dim: int):
+    """``even[0], odd[0], even[1], ...`` along ``dim`` (``even`` as long
+    as ``odd`` or one longer)."""
     shape = list(even.shape)
-    shape[1] += odd.shape[1]
+    shape[dim] += odd.shape[dim]
     out = even.new_empty(shape)
-    out[:, 0::2] = even
-    out[:, 1::2] = odd
+    _take(out, dim, 0, None, 2).copy_(even)
+    _take(out, dim, 1, None, 2).copy_(odd)
     return out
 
 
-def _assoc_scan(a, b):
-    """Inclusive scan of the affine maps ``(a_t, b_t)`` along axis 1 by
-    ``jax.lax.associative_scan``'s recursion: combine adjacent pairs,
-    scan the pairs, then fill in the even positions."""
-    n = a.shape[1]
+def associative_scan(fn, elems, dim: int = 0):
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` by
+    ``jax.lax.associative_scan``'s recursion, so ``fn`` (an associative
+    ``(left, right) -> combined`` over tuples) runs on the same pairs in
+    the same order: combine adjacent pairs, scan the pairs, then fill in
+    the even positions.  The RG-LRU's affine pairs (:func:`_lru_scan`)
+    and the mLSTM's chunk memories (``xlstm._chunk_mlstm``) both go
+    through it."""
+    elems = tuple(elems)
+    n = elems[0].shape[dim]
     if n < 2:
-        return a, b
-    ra, rb = _combine((a[:, 0:-1:2], b[:, 0:-1:2]), (a[:, 1::2], b[:, 1::2]))
-    oa, ob = _assoc_scan(ra, rb)
+        return elems
+    reduced = fn(tuple(_take(e, dim, 0, -1, 2) for e in elems),
+                 tuple(_take(e, dim, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    rest = tuple(_take(e, dim, 2, None, 2) for e in elems)
     if n % 2 == 0:
-        ea, eb = _combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+        even = fn(tuple(_take(o, dim, 0, -1) for o in odd), rest)
     else:
-        ea, eb = _combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
-    ea = torch.cat([a[:, :1], ea], dim=1)
-    eb = torch.cat([b[:, :1], eb], dim=1)
-    return _interleave(ea, oa), _interleave(eb, ob)
+        even = fn(odd, rest)
+    even = tuple(torch.cat([_take(e, dim, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
 
 
 def _lru_scan(a, bx):
     """h_t = a_t h_{t-1} + b_t (h_{-1} = 0) by the log-depth scan."""
-    return _assoc_scan(a, bx)[1]
+    return associative_scan(_combine, (a, bx), dim=1)[1]
 
 
 def _lru_scan_sequential(a, bx):

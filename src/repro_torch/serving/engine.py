@@ -9,7 +9,9 @@ make this correct (slots whose ``pos`` is -1 never attend).
 
 The lane axis is axis 1 of every stacked cache leaf, ``(L, B, W, K,
 dh)`` (MLA's latent leaves: ``(L, B, W, C)``; the RG-LRU state: ``h``
-``(L, B, dr)`` and ``conv`` ``(L, B, W - 1, dr)``).  The lane-cache helpers (:func:`lane_slice`, :func:`lane_write`,
+``(L, B, dr)`` and ``conv`` ``(L, B, W - 1, dr)``; the mLSTM's ``C``
+``(L, B, nh, dh, dh)``, the sLSTM's ``h`` ``(L, B, d)``).  The
+lane-cache helpers (:func:`lane_slice`, :func:`lane_write`,
 :func:`reset_lane`) are module-level, as in the JAX package.  Where the
 JAX package builds new caches, the port works in place: a lane slice is
 a view, a prefill writes its lane through it, a reset clears the lane.
@@ -56,14 +58,17 @@ def lane_write(cache, lane_cache, lane: int):
 
 
 def reset_lane(cache, lane: int):
-    """Clear a lane's cache before reuse, in place: position slots to -1
-    (so the masked attention ignores them), every other leaf to 0 (GQA's
-    k / v, MLA's ckv / kr, and the RG-LRU state h / conv, whose JAX
-    init is zeros)."""
+    """Clear a lane's cache before reuse, in place, as the JAX engine
+    does: position slots to -1 (so the masked attention ignores them),
+    every stabilizer ``m`` to -30 (the mLSTM's fresh value; the sLSTM's
+    is -1e30, which the JAX engine's reset also writes as -30), every
+    other leaf to 0 (GQA's k / v, MLA's ckv / kr, the RG-LRU state h /
+    conv and the xLSTM states, whose JAX init is zeros)."""
+    fill = {"pos": -1, "m": -30.0}
     for seg in cache:
         for blk in seg.values():
             for name, c in blk.items():
-                c.narrow(1, lane, 1).fill_(-1 if name == "pos" else 0)
+                c.narrow(1, lane, 1).fill_(fill.get(name, 0))
     return cache
 
 

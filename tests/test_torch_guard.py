@@ -282,6 +282,34 @@ def test_training_stack_runs_with_jax_blocked(tmp_path):
     assert "injected failure at step 2" in proc.stdout
 
 
+@pytest.mark.parametrize("launcher", ["serve", "train"])
+def test_xlstm_launchers_run_with_jax_blocked(launcher, tmp_path):
+    """``launch.serve`` and ``launch.train`` (the shoal backend on 2
+    members) drive xlstm-smoke on the CPU with JAX and the JAX package
+    blocked."""
+    argv = {"serve": "['--arch', 'xlstm-350m', '--reduced', '--device', "
+                     "'cpu', '--requests', '3', '--max-new', '3']",
+            "train": "['--arch', 'xlstm-350m', '--reduced', '--device', "
+                     "'cpu', '--steps', '2', '--batch', '4', '--seq', '20', "
+                     "'--backend', 'shoal', '--kernels', '2', "
+                     "'--ckpt-dir', sys.argv[1]]"}[launcher]
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"from repro_torch.launch import {launcher}\n"
+        f"assert {launcher}.main({argv}) == 0\n"
+        "print('xlstm-ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "xlstm-ok" in proc.stdout
+    assert {"serve": "[serve] xlstm-smoke: 3 requests",
+            "train": "[launch] done at step 2"}[launcher] in proc.stdout
+
+
 def test_training_entry_points_default_to_the_card(tmp_path):
     """``Trainer`` (through its model and context), ``TokenPipeline`` and
     ``launch.train`` pick the card by default and raise without one."""

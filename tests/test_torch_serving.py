@@ -134,17 +134,34 @@ def test_tinyllama_configs_match_the_jax_package():
                                                    32000, torch.bfloat16)
 
 
-@pytest.mark.parametrize("arch", ["xlstm_350m"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.full(arch)
+@pytest.mark.parametrize("case", ["xlstm_350m", "family-ssm"])
+def test_ssm_arch_and_family_now_build(case):
+    """The ssm family is ported: its arch and the family on another
+    config (mLSTM blocks only, or every k-th an sLSTM) build, with the
+    JAX package's segments."""
+    if case == "xlstm_350m":
+        cfg, jcfg = configs.full(case), jconfigs.full(case)
+    else:
+        change = dict(family="ssm", slstm_every=2)
+        cfg = dataclasses.replace(configs.reduced(ARCH), **change)
+        jcfg = dataclasses.replace(jconfigs.reduced(ARCH), **change)
+        for k in (0, 2):
+            assert dataclasses.replace(cfg, slstm_every=k).segments() \
+                == dataclasses.replace(jcfg, slstm_every=k).segments()
+    model = build_model(cfg, device="cpu")
+    assert model.segs == jcfg.segments()
+    assert model.segs[0][0][-1] == "slstm"
 
 
-@pytest.mark.parametrize("change", [{"family": "ssm"}])
-def test_unported_families_and_options_raise(change):
-    cfg = dataclasses.replace(configs.reduced(ARCH), **change)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, modules to port"):
+@pytest.mark.parametrize("name", ["gpt-5", "xlstm-1b"])
+def test_unknown_archs_and_families_raise(name):
+    """Every architecture of the JAX package is ported: an unknown name
+    raises ``KeyError`` naming the known ones, an unknown family
+    ``ValueError``."""
+    with pytest.raises(KeyError, match="xlstm-350m"):
+        configs.full(name)
+    cfg = dataclasses.replace(configs.reduced(ARCH), family=name)
+    with pytest.raises(ValueError, match="unknown model family"):
         build_model(cfg, device="cpu")
 
 
