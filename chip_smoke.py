@@ -147,6 +147,23 @@ state leaf finite, one prefill's logits against the same weights in
 float32 and a two-part prefill against one part, a profiled prefill and
 decode window; then the shoal trainer at full depth, its ring launches
 counted, held to the xla backend and its losses finite and falling.
+Phase 17 runs ring attention: qwen2-1.5b at full width and depth with
+``seq_shard=True, tp=False`` over an 8-kernel ``ExpertMesh``, one prompt
+of 16,384 tokens (2048 a kernel) prefilled with every layer's attention
+sequence-sharded round the ring (K/V blocks rotated by one-sided
+neighbour puts, 28 x 24 exchanges; no flash launch) against the flash
+route's prefill of the same weights on a twin cache (last logits and
+the first of 32 decode steps within bf16 3e-2 of the largest |logit|),
+each timed and its peak memory read; ``ring_attention`` alone against
+``_attend`` (S 4096, float32) and the seq_shard loss and gradients at
+2 layers (float32, 4096 tokens) against the plain model's.  Then the
+MLA (deepseek-v2-236b, 4 of 60 layers), hybrid (recurrentgemma-2b) and
+xLSTM (xlstm-350m) lanes through phase 8's tier at full width: every
+lane migrated in 2 exchanges and landed bitwise, tokens bitwise a twin
+run's without the migration; both examples
+(``examples/torch_quickstart.py``, ``examples/torch_jacobi_stencil.py``)
+on the card with their OK lines; the nine ``[micro.*]`` budgets of
+``comm_budgets.toml`` met on the card with the CPU's counts.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -639,15 +656,17 @@ def phase_kernels(torch, device):
 
 def dm_records(dmc, paths, shapes=None):
     """One JSON record for every DataMover kernel the main paths launched
-    (``paths``: launches by path -- ops, jacobi, messages, lint -- and
-    counter), measured at the Jacobi
+    (``paths``: launches by path -- ops, jacobi, messages, lint, and
+    phase 17's lanes, examples and micro budgets -- and counter),
+    measured at the Jacobi
     run's shape if Jacobi launched it, else at the ops phase's; with
     the other design's time in the same call and the launch floor."""
     records = []
     for (op, design), name in DM_COUNTERS.items():
         per_path = {p: c.get(name, 0) for p, c in paths.items()}
         launches = per_path["ops"] + per_path["jacobi"] \
-            + per_path["messages"] + per_path.get("lint", 0)
+            + per_path["messages"] + sum(per_path.get(p, 0) for p in (
+                "lint", "lanes", "examples", "micro"))
         if not launches:
             continue
         case = "jacobi" if per_path["jacobi"] else "ops"
@@ -2174,9 +2193,11 @@ def _lane_equal(torch, got, want) -> bool:
         for g, w in zip(got, want) for key in w for name in w[key])
 
 
-def run_disagg(torch, model, params, prompts, transport, *, twin=False):
+def run_disagg(torch, model, params, prompts, transport, *, twin=False,
+               max_new=MAX_NEW):
     """One tier (2 prefill + 2 decode kernels, 2 lanes each, 2048 slots)
-    driven through ``ServeFrontend(max_queue=2)``.  Every migration is
+    driven through ``ServeFrontend(max_queue=2)``, ``max_new`` tokens a
+    request.  Every migration is
     timed (synchronised, host clock), its exchanges counted and the lane
     cache ``unpack_lane`` rebuilt from the decode kernel's segment held
     bitwise to the prefill worker's.  ``twin``: the same tier and trace
@@ -2221,10 +2242,29 @@ def run_disagg(torch, model, params, prompts, transport, *, twin=False):
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    admitted, rejections = drive_frontend(fe, prompts, MAX_NEW)
+    admitted, rejections = drive_frontend(fe, prompts, max_new)
     torch.cuda.synchronize()
     log["seconds"] = time.perf_counter() - t0
     return tier, fe, admitted, rejections, launch_counts(), log
+
+
+def migration_launches(torch, kv, migrations: int) -> dict:
+    """The DataMover launches of ``migrations`` lane migrations of
+    ``kv``'s layout, by counter: each migration's fused packet egress
+    gather (one row of ``lane_words``), its ragged block gather, then
+    its block scatter, each on the design ``datamover_kernel_for``
+    routes it to."""
+    from repro_torch.kernels import am_pack as dm
+
+    sizes = [leaf.words for leaf in kv.leaves for _ in range(leaf.layers)]
+    K = kv.ctx.num_kernels
+    want = dict.fromkeys(DM_COUNTERS.values(), 0)
+    for op, B, W in (("gather", 1, kv.lane_words),
+                     ("gather", len(sizes), max(sizes)),
+                     ("scatter", len(sizes), max(sizes))):
+        route = dm.datamover_kernel_for(op, K, B, W, torch.float32)
+        want[DM_COUNTERS[op, route]] += migrations
+    return want
 
 
 def check_migration_shapes(torch, device, kv):
@@ -2289,7 +2329,6 @@ def phase_disagg(torch, model, params):
     one-lane engine (recorded), one profiled migration, and both
     DataMover designs at the migration's shapes.  Returns the
     migration's DataMover records."""
-    from repro_torch.kernels import am_pack as dm
     from repro_torch.serving import DONE, Request, ServeEngine
     from repro_torch.serving.disagg import _lane_words
     from repro_torch.serving.kv_space import MIGRATE_TOKEN
@@ -2340,16 +2379,7 @@ def phase_disagg(torch, model, params):
             == REQUESTS * layers,
             f"flash launches {counts['flash_attention']}, sm90 "
             f"{counts['flash_attention_sm90']}, want {REQUESTS} x {layers}")
-    # one migration: the fused packet's egress gather and the ragged
-    # block gather, then the block scatter, each on its routed design
-    sizes = [leaf.words for leaf in tier.kv.leaves
-             for _ in range(leaf.layers)]
-    want = {name: 0 for name in DM_COUNTERS.values()}
-    for op, B, W in (("gather", 1, lane_words),
-                     ("gather", n_blocks, max(sizes)),
-                     ("scatter", n_blocks, max(sizes))):
-        route = dm.datamover_kernel_for(op, K, B, W, torch.float32)
-        want[DM_COUNTERS[op, route]] += REQUESTS
+    want = migration_launches(torch, tier.kv, REQUESTS)
     got = {name: counts[name] for name in want}
     require(got == want, f"migration DataMover launches {got}, want {want}")
     say("disagg", main_path="ok", requests=REQUESTS, admitted=len(jobs),
@@ -4518,6 +4548,473 @@ def phase_ssm(torch, device):
     return runs, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 17: ring attention (qwen2-1.5b's 16,384-token prompt sequence-
+# sharded over 8 kernels), the MLA, hybrid and xLSTM lanes through the
+# disaggregated tier, the two examples and the micro budgets
+# ---------------------------------------------------------------------------
+
+RING_ARCH = "qwen2-1.5b"
+RING_KERNELS = 8
+RING_S = 16384              # one prompt, 2048 tokens a kernel
+RING_SLOTS = RING_S + 32    # the prompt and the decode steps
+RING_DECODE = 32
+# ring_attention alone against _attend, float32: B, S, K, G, dh (qwen2's
+# heads) and the tolerance of the largest |want| and each element
+RING_ALONE, RING_ALONE_TOL = (1, 4096, 2, 6, 128), 2e-3
+# the seq_shard loss at full width (float32), tests/md_checks.py:544-565:
+# layers, tokens; loss relative, each gradient leaf relative L2
+RING_TRAIN_LAYERS, RING_TRAIN_S, RING_TRAIN_TOL = 2, 4096, 1e-4
+# the tier's lanes: (arch, layers or None for full depth, prompt lengths)
+LANE_CASES = (("deepseek-v2-236b", MLA_LAYERS, (512, 300, 1024, 129)),
+              ("recurrentgemma-2b", None, (512, 300, 1024, 129)),
+              ("xlstm-350m", None, (256, 100, 300, 129)))
+LANE_NEW = 16               # new tokens a lane request
+EXAMPLES = {"torch_quickstart.py": "quickstart OK",
+            "torch_jacobi_stencil.py":
+                "jacobi example OK (same source, four topologies)"}
+
+
+def _ring_hops(kernels: int) -> int:
+    """Exchanges of one ring call: k, v and positions every hop, n hops
+    (the compiled JAX ring's trip-weighted collective-permutes,
+    ``tests/test_torch_ring_attention.py``)."""
+    return 3 * kernels
+
+
+def _ring_model(torch, device, cfg, kernels=RING_KERNELS):
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import ExpertMesh
+
+    ctx = ShoalContext(kernels, device=device)
+    return build_model(dataclasses.replace(cfg, seq_shard=True, tp=False),
+                       device=device, ep=ExpertMesh(ctx)), ctx
+
+
+def check_ring_alone(torch, device):
+    """``ring_attention`` over 8 kernels against ``_attend`` at
+    ``RING_ALONE`` (float32, seed 31), each within ``RING_ALONE_TOL``
+    and that of the largest |want|; 24 exchanges; both timed (CUDA
+    events).  Returns the errors and times."""
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.attention import _attend
+    from repro_torch.models.moe import ExpertMesh
+    from repro_torch.models.ring_attention import ring_attention
+
+    B, S, Kv, G, dh = RING_ALONE
+    gen = torch.Generator(device=device).manual_seed(31)
+    q = torch.randn(B, S, Kv, G, dh, generator=gen, device=device)
+    k, v = (torch.randn(B, S, Kv, dh, generator=gen, device=device)
+            for _ in range(2))
+    pos = torch.arange(S, device=device).expand(B, S)
+    mesh = ExpertMesh(ShoalContext(RING_KERNELS, device=device))
+    with torch.no_grad():
+        got = ring_attention(mesh, q, k, v, pos)
+        require(mesh.ctx.exchanges == _ring_hops(RING_KERNELS),
+                f"ring_attention: {mesh.ctx.exchanges} exchanges")
+        want = _attend(q, k, v, pos, pos)
+        err = _flash_err(torch, got, want, RING_ALONE_TOL,
+                         f"ring_attention vs _attend at {RING_ALONE}")
+        ring_ms = call_ms(lambda: ring_attention(mesh, q, k, v, pos), 5, 1)
+        attend_ms = call_ms(lambda: _attend(q, k, v, pos, pos), 5, 1)
+    say("ring", check="ring_attention-vs-_attend", shape=str(RING_ALONE),
+        dtype="float32", kernels=RING_KERNELS, max_abs_err=f"{err:.3e}",
+        max_abs_want=f"{want.abs().max().item():.4f}",
+        tol=RING_ALONE_TOL, ring_ms=f"{ring_ms:.3f}",
+        attend_ms=f"{attend_ms:.3f}")
+    return {"err": err, "ring_ms": ring_ms, "attend_ms": attend_ms}
+
+
+def profile_ring_layer(torch, device, cfg):
+    """Where one layer's ring call spends the card: ``ring_attention``
+    over 8 kernels at the served prompt's shape (bf16 q, k, v of
+    ``cfg``'s heads, seed 35), one profiled call: device ms, the idle
+    share of the window and the five longest activities."""
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.moe import ExpertMesh
+    from repro_torch.models.ring_attention import ring_attention
+
+    Kv, dh = cfg.n_kv_heads, cfg.dh
+    gen = torch.Generator(device=device).manual_seed(35)
+    q = torch.randn(1, RING_S, Kv, cfg.n_heads // Kv, dh, generator=gen,
+                    device=device).to(cfg.dtype)
+    k, v = (torch.randn(1, RING_S, Kv, dh, generator=gen,
+                        device=device).to(cfg.dtype) for _ in range(2))
+    pos = torch.arange(RING_S, device=device).expand(1, RING_S)
+    mesh = ExpertMesh(ShoalContext(RING_KERNELS, device=device))
+    with torch.no_grad():
+        ring_attention(mesh, q, k, v, pos)           # warm
+        by_name, window = device_activity(
+            torch, lambda: ring_attention(mesh, q, k, v, pos))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    say("profile", ring="one layer's ring_attention", shape=f"1x{RING_S}",
+        kernels=RING_KERNELS, device_ms=f"{busy:.3f}",
+        window_ms=f"{window * 1e3:.3f}",
+        idle_share=f"{1 - busy / (window * 1e3):.4f}",
+        device_activities=sum(c for c, _ in by_name.values()),
+        top=json.dumps({name[:48]: [c, round(us / 1e3, 4)]
+                        for name, (c, us) in top}))
+    del q, k, v
+    _free(torch)
+
+
+def check_ring_loss(torch, device):
+    """``Model.loss`` and its gradients with ``seq_shard`` (the ring over
+    8 kernels) against the plain model (``_attend``) at full width,
+    ``RING_TRAIN_LAYERS`` layers, float32, on 1 x ``RING_TRAIN_S``
+    seeded tokens (``tests/md_checks.py:544-565``): the loss within
+    ``RING_TRAIN_TOL`` relative, every gradient leaf within it in
+    relative L2; the ring's exchanges in the forward."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
+    from repro_torch.tree import tree_paths
+
+    cfg = dataclasses.replace(configs.full(RING_ARCH),
+                              n_layers=RING_TRAIN_LAYERS, dtype=torch.float32)
+    plain = build_model(cfg, device=device)
+    params = plain.init(torch.Generator(device=device).manual_seed(0))
+    ring, ctx = _ring_model(torch, device, cfg)
+    toks = torch.randint(0, cfg.vocab, (1, RING_TRAIN_S), device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             32))
+    batch = {"tokens": toks, "labels": toks}
+    out = {}
+    for name, model in (("ring", ring), ("plain", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = Trainer(model, AdamWConfig()).value_and_grad(params,
+                                                                  batch)
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), dict(tree_paths(grads)),
+                     (time.perf_counter() - t0) * 1e3)
+        del loss, grads
+        _free(torch)
+    require(ctx.exchanges == RING_TRAIN_LAYERS * _ring_hops(RING_KERNELS),
+            f"seq_shard loss: {ctx.exchanges} exchanges")
+    (l_r, g_r, ms_r), (l_p, g_p, ms_p) = out["ring"], out["plain"]
+    rel = abs(l_r - l_p) / abs(l_p)
+    worst = max((_rel_l2(torch, g_r[p], g_p[p]), p) for p in g_p)
+    require(rel <= RING_TRAIN_TOL and worst[0] <= RING_TRAIN_TOL
+            and all(bool(torch.isfinite(g).all()) for g in g_r.values()),
+            f"seq_shard loss {l_r} vs {l_p} (relative {rel}); worst "
+            f"gradient leaf {worst}")
+    say("ring", check="seq_shard-loss-and-gradients", model=cfg.name,
+        layers=RING_TRAIN_LAYERS, tokens=f"1x{RING_TRAIN_S}",
+        dtype="float32", loss_ring=f"{l_r:.7f}", loss_plain=f"{l_p:.7f}",
+        loss_rel=f"{rel:.3e}", worst_grad_rel_l2=f"{worst[0]:.3e}",
+        worst_leaf=worst[1], leaves=len(g_p), exchanges=ctx.exchanges,
+        ring_ms=f"{ms_r:.1f}", plain_ms=f"{ms_p:.1f}")
+    del out, params, plain, ring
+    _free(torch)
+    return rel, worst[0]
+
+
+def phase_ring(torch, device):
+    """Phase 17, ring attention.  qwen2-1.5b at full width and depth (28
+    layers, GQA 12 / 2, dh 128, ``rope_base`` 1e6; bf16, seed 0) with
+    ``seq_shard=True, tp=False`` over an 8-kernel ``ExpertMesh``: one
+    prompt of ``RING_S`` tokens (B 1, 2048 a kernel) through
+    ``Model.prefill`` on a fresh cache of ``RING_SLOTS`` slots, every
+    layer's attention by the ring (no flash launch; 28 x 24 exchanges
+    required), against the flash-route prefill (the plain model, the
+    same weights, a twin cache: 28 Hopper launches required), timed in
+    turns ring, flash, flash, ring (host clock, synchronised) with the
+    peak memory of each; the last logits within bf16 3e-2 of the largest
+    |logit|; then ``RING_DECODE`` decode steps from each cache on the
+    same tokens (the flash cache's greedy ones), the first step's logits
+    within the same bound (the rest recorded).  Then ``ring_attention``
+    alone against ``_attend`` and the seq_shard loss and gradients
+    against the plain model's.  Returns ``{run: launch counts}``."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.engine import reset_lane
+
+    cfg = configs.full(RING_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    plain, params = _init(torch, device, cfg, "ring")
+    model, ctx = _ring_model(torch, device, cfg)
+    toks = torch.randint(0, cfg.vocab, (1, RING_S), device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             33))
+    caches = {"ring": model.make_cache(1, RING_SLOTS),
+              "flash": plain.make_cache(1, RING_SLOTS)}
+    cache_mb = sum(t.numel() * t.element_size() for seg in caches["ring"]
+                   for blk in seg.values() for t in blk.values()) / 2 ** 20
+    base_mb = torch.cuda.memory_allocated(device) / 2 ** 20
+    scores_gb = cfg.n_heads * RING_S ** 2 / RING_KERNELS * 4 / 1e9
+    say("ring", model=cfg.name, layers=cfg.n_layers, kernels=RING_KERNELS,
+        prompt=RING_S, tokens_per_kernel=RING_S // RING_KERNELS,
+        slots=RING_SLOTS, cache_mb_each=f"{cache_mb:.0f}",
+        base_allocated_mb=f"{base_mb:.0f}",
+        scores_gb_a_hop=f"{scores_gb:.2f}")
+    runs, log = {}, {"ring": [], "flash": []}
+    logits = {}
+    for turn in ("ring", "flash", "flash", "ring"):
+        m = model if turn == "ring" else plain
+        reset_lane(caches[turn], 0)
+        before = ctx.exchanges
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, _ = m.prefill(params, {"tokens": toks}, caches[turn])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 20
+        log[turn].append((ms, peak, ctx.exchanges - before))
+        logits[turn] = out.float()
+        if turn == "ring":
+            runs[f"ring-{RING_ARCH}"] = counts
+            require(counts["flash_attention"] == 0
+                    and ctx.exchanges - before
+                    == cfg.n_layers * _ring_hops(RING_KERNELS),
+                    f"ring prefill: {ctx.exchanges - before} exchanges, "
+                    f"{counts['flash_attention']} flash launches")
+        else:
+            require(counts["flash_attention"]
+                    == counts["flash_attention_sm90"] == cfg.n_layers,
+                    f"flash prefill launches {counts}")
+    top = logits["flash"].abs().max().item()
+    err = (logits["ring"] - logits["flash"]).abs().max().item()
+    require(bool(torch.isfinite(logits["ring"]).all())
+            and err <= LOGIT_TOL["bfloat16"] * top,
+            f"ring vs flash prefill: last logits {err} of {top}")
+    peak = {turn: max(p for _, p, _ in log[turn]) for turn in log}
+    say("ring", prefill_ms_ring=[f"{ms:.3f}" for ms, _, _ in log["ring"]],
+        prefill_ms_flash=[f"{ms:.3f}" for ms, _, _ in log["flash"]],
+        peak_mb_ring=f"{peak['ring']:.0f}",
+        peak_mb_flash=f"{peak['flash']:.0f}",
+        peak_over_base_mb_ring=f"{peak['ring'] - base_mb:.0f}",
+        peak_over_base_mb_flash=f"{peak['flash'] - base_mb:.0f}",
+        exchanges_per_prefill=log["ring"][0][2],
+        per_layer=_ring_hops(RING_KERNELS),
+        last_logits_err=f"{err:.4f}", max_abs_logit=f"{top:.4f}",
+        tol=LOGIT_TOL["bfloat16"], card=card_line())
+    # decode from both caches on the same tokens: the flash cache's greedy
+    # continuation (the plain route, _attend over every slot)
+    tok = logits["flash"].argmax(-1)[:, None]
+    errs, same, step_ms = [], 0, {"ring": [], "flash": []}
+    reset_launch_counts()
+    with torch.no_grad():
+        for i in range(RING_DECODE):
+            pos = torch.full((1,), RING_S + i, device=device)
+            outs = {}
+            for name, m in (("ring", model), ("flash", plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, _ = m.decode_step(params, caches[name], tok, pos)
+                torch.cuda.synchronize()
+                step_ms[name].append((time.perf_counter() - t0) * 1e3)
+                outs[name] = out.float()
+            errs.append((outs["ring"] - outs["flash"]).abs().max().item()
+                        / outs["flash"].abs().max().item())
+            same += int(outs["ring"].argmax() == outs["flash"].argmax())
+            tok = outs["flash"].argmax(-1)[:, None]
+    decode = launch_counts()
+    require(errs[0] <= LOGIT_TOL["bfloat16"] and decode["flash_attention"]
+            == 0 and all(np.isfinite(errs)),
+            f"first decode step after the ring prefill: {errs[0]} of the "
+            f"largest |logit|; launches {decode}")
+    say("ring", decode_steps=RING_DECODE, first_step_err=f"{errs[0]:.4f}",
+        max_step_err=f"{max(errs):.4f}", same_argmax=f"{same}/{RING_DECODE}",
+        decode_ms_ring=f"{np.median(step_ms['ring'][1:]):.3f}",
+        decode_ms_flash=f"{np.median(step_ms['flash'][1:]):.3f}",
+        exchanges_in_decode=ctx.exchanges - sum(x for *_, x in log["ring"]))
+    del model, plain, params, caches, logits
+    _free(torch)
+    profile_ring_layer(torch, device, cfg)
+    check_ring_alone(torch, device)
+    check_ring_loss(torch, device)
+    return runs
+
+
+def check_lane_tier(torch, device, arch, layers, lens):
+    """One lane kind through the disaggregated tier at full width (phase
+    8's tier: 2 prefill + 2 decode kernels, 2 lanes each, 2048 slots,
+    ``ServeFrontend(max_queue=2)``; bf16, seed 0), ``lens`` prompts of
+    ``LANE_NEW`` new tokens: every admitted job done, every migration at
+    exactly 2 exchanges with its landed lane bitwise the worker's, error
+    words 0, the DataMover launches of its routed designs, a flash
+    launch per attention layer and prompt; the tokens bitwise those of a
+    twin run without the migration; one migration profiled.  Returns the
+    run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.serving import DONE
+    from repro_torch.serving.disagg import _lane_words
+    from repro_torch.serving.kv_space import MIGRATE_TOKEN
+
+    cfg = configs.full(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "lanes")
+    rng = np.random.default_rng(34)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    lane_words = _lane_words(model, SLOTS)
+    n_blocks = sum(t.shape[0] for seg in model.make_cache(1, 1)
+                   for blk in seg.values() for t in blk.values())
+    transport = disagg_transport(lane_words, n_blocks)
+    tier, fe, jobs, rejections, counts, log = run_disagg(
+        torch, model, params, prompts, transport, max_new=LANE_NEW)
+    kv = tier.kv
+    tokens = {j.rid: list(j.tokens) for j in jobs}
+    require(len(jobs) == len(lens) and all(j.status == DONE for j in jobs)
+            and all(len(t) == LANE_NEW for t in tokens.values()),
+            f"{arch} lanes: {len(jobs)} admitted")
+    err = tier.state.error.cpu()
+    credits = tier.state.credits[:, MIGRATE_TOKEN].cpu()
+    require(tier.migrations == len(lens)
+            and log["exchanges"] == [2] * len(lens)
+            and all(log["round_trip"]) and bool((err == 0).all())
+            and bool((credits == 0).all()),
+            f"{arch} lanes: migrations {tier.migrations}, exchanges "
+            f"{log['exchanges']}, landed bitwise {log['round_trip']}, "
+            f"error {err.tolist()}, credits {credits.tolist()}")
+    want = migration_launches(torch, kv, len(lens))
+    got = {name: counts[name] for name in want}
+    migrate_ms = log["migrate"][:len(lens)]
+    flash = len(lens) * attention_layers(cfg)
+    require(got == want and counts["flash_attention"] == flash
+            == counts["flash_attention_sm90"],
+            f"{arch} lanes: DataMover launches {got}, want {want}; "
+            f"flash {counts['flash_attention']}, want {flash} (sm90)")
+    src, dst = N_PREFILL - 1, N_PREFILL
+    lane_cache = tier.workers[src].cache
+    by_name, window = device_activity(
+        torch, lambda: tier.migrate(src, dst, 0, lane_cache))
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("lanes", model=cfg.name, layers=cfg.n_layers,
+        leaves=",".join(sorted({leaf.path.split("/")[-1]
+                                for leaf in kv.leaves})),
+        lane_words=lane_words, lane_mb=f"{lane_words * 4 / 1e6:.1f}",
+        blocks=n_blocks, max_packet_bytes=transport.max_packet_bytes,
+        requests=len(lens), rejections=rejections,
+        migrations=len(migrate_ms), exchanges_per_migration=2,
+        round_trip="bitwise", launches=json.dumps(
+            {k: v for k, v in counts.items() if v}),
+        migrate_host_ms=[f"{ms:.3f}" for ms in migrate_ms],
+        migrate_host_ms_median=f"{np.median(migrate_ms):.3f}",
+        device_ms_per_lane=f"{busy:.4f}",
+        profiled_window_ms=f"{window * 1e3:.3f}",
+        prefill_ms_mean=f"{np.mean(log['prefill']):.3f}",
+        decode_ms_per_step=f"{np.mean(log['step']):.4f}",
+        seconds=f"{log['seconds']:.3f}",
+        peak_allocated_mb=f"{peak_mb:.0f}")
+    del tier, fe, lane_cache
+    _free(torch)
+    _, _, twin_jobs, twin_rej, _, twin_log = run_disagg(
+        torch, model, params, prompts, transport, twin=True,
+        max_new=LANE_NEW)
+    twin = {j.rid: list(j.tokens) for j in twin_jobs}
+    require(twin == tokens and twin_rej == rejections,
+            f"{arch} lanes: tokens differ from the twin run without "
+            f"the migration in "
+            f"{sum(twin.get(r) != t for r, t in tokens.items())} requests")
+    say("lanes", model=cfg.name, twin="tokens bitwise equal",
+        requests=len(twin), twin_seconds=f"{twin_log['seconds']:.3f}")
+    del model, params
+    _free(torch)
+    return counts
+
+
+def run_examples(torch, device):
+    """Both examples on the card, in process (``main([])``: the card by
+    default), their output printed; each one's OK line required, and
+    the launches of the Jacobi kernel, the DataMover and the ring
+    kernel.  Returns the launch counts of the two runs."""
+    import contextlib
+    import io
+    import runpy
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    for name, ok in EXAMPLES.items():
+        main_fn = runpy.run_path(os.path.join(REPO, "examples", name),
+                                 run_name="chip_smoke_example")["main"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn([])
+        torch.cuda.synchronize()
+        lines = buf.getvalue().rstrip().splitlines()
+        for line in lines:
+            print(f"[examples] {name}: {line}", flush=True)
+        require(rc == 0 and lines and lines[-1] == ok,
+                f"{name}: exit {rc}, last line {lines[-1:]}")
+        say("examples", example=name, ok=True,
+            seconds=f"{time.perf_counter() - t0:.2f}")
+    counts = launch_counts()
+    require(counts["jacobi_sweep"] > 0 and counts["ring_collective"] > 0
+            and counts["datamover_gather"] + counts["datamover_gather_sm90"]
+            > 0 and counts["datamover_scatter"]
+            + counts["datamover_scatter_sm90"] > 0,
+            f"examples: launches {counts}")
+    say("examples", launches=json.dumps({k: v for k, v in counts.items()
+                                         if v}))
+    return counts
+
+
+def check_micro_budgets(torch, device):
+    """The nine ``[micro.*]`` programs (``analysis.registry.MICROS``) on
+    the card and on the CPU: no budget finding on either, the same
+    exchanges and collective calls, the results bitwise equal.  Returns
+    the card runs' launch counts."""
+    from repro_torch.analysis import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    rows = {}
+    for micro in registry.MICROS:
+        run, findings = registry.check_micro(micro.name, device=device)
+        cpu, cpu_findings = registry.check_micro(micro.name, device="cpu")
+        require(not findings and not cpu_findings,
+                f"{micro.name}: {[f.render() for f in findings]} / "
+                f"{[f.render() for f in cpu_findings]}")
+        require(run.exchanges == cpu.exchanges
+                and run.collectives == cpu.collectives,
+                f"{micro.name}: {run.exchanges} exchanges on the card, "
+                f"{cpu.exchanges} on the CPU")
+        _same_result(torch, run.result, cpu.result, micro.name)
+        rows[micro.name] = run.exchanges
+    counts = launch_counts()
+    say("micro", budgets="met", card="= cpu", exchanges=json.dumps(rows),
+        launches=json.dumps({k: v for k, v in counts.items() if v}))
+    return counts
+
+
+def phase_ring_and_lanes(torch, device):
+    """Phase 17: ring attention (:func:`phase_ring`), the three lanes
+    (:func:`check_lane_tier`), the examples and the micro budgets.
+    Returns ``({run: launch counts}, {path: launch counts})``: the runs
+    for the ring and flash records, the paths for the DataMover
+    records."""
+    t0 = time.perf_counter()
+    runs = phase_ring(torch, device)
+    say("ring", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
+    lanes = {}
+    for arch, layers, lens in LANE_CASES:
+        t0 = time.perf_counter()
+        runs[f"lanes-{arch}"] = lanes[arch] = check_lane_tier(
+            torch, device, arch, layers, lens)
+        say("lanes", model=arch, seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    runs["examples"] = run_examples(torch, device)
+    runs["micro"] = check_micro_budgets(torch, device)
+    say("examples", seconds=f"{time.perf_counter() - t0:.1f}")
+    paths = {"lanes": {k: sum(c.get(k, 0) for c in lanes.values())
+                       for k in DM_COUNTERS.values()},
+             "examples": runs["examples"], "micro": runs["micro"]}
+    return runs, paths
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -4738,6 +5235,11 @@ def main() -> int:
     say("ssm", seconds=f"{time.perf_counter() - t0:.1f}", card=card_line())
     family.update(ssm)
     family_rings.append(ssm_ring)
+    t0 = time.perf_counter()
+    late, late_paths = phase_ring_and_lanes(torch, device)
+    say("phase17", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=card_line())
+    family.update(late)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])
@@ -4746,7 +5248,7 @@ def main() -> int:
     rings.extend(family_rings + moe_rings)
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
                            "jacobi": counts, "messages": messages,
-                           "lint": linted}, shapes)
+                           "lint": linted, **late_paths}, shapes)
     for op in ("gather", "scatter"):       # the routed kernel ran
         name = DM_COUNTERS[op, dmc[op]["jacobi"]["route"]]
         require(any(r["name"] == name and r["path_launches"]["jacobi"] > 0

@@ -13,7 +13,9 @@ the one path the CLI (``scripts/torch_comm_lint.py``), the tests and
 ``chip_smoke.py`` share, so "zero findings on shipped entry points"
 means the same thing everywhere.
 
-:data:`PROBES` are small programs with known findings (rules R1-R4,
+:data:`MICROS` are the single-op programs of ``comm_budgets.toml``'s
+nine ``[micro.*]`` sections (:func:`check_micro` holds each to its
+section); :data:`PROBES` are small programs with known findings (rules R1-R4,
 each with its clean counterpart, and the waived aliasing packets), the
 port's copies of the JAX package's lint checks.
 
@@ -192,7 +194,8 @@ def build_moe_dispatch(device, params=None):
                    capacity_factor=16.0, dispatch="a2a")
     cfg = ModelConfig(name="lint-moe", family="moe", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
-                      aux_loss_weight=0.0, moe=dims, dtype=torch.float32)
+                      seq_shard=True, aux_loss_weight=0.0, moe=dims,
+                      dtype=torch.float32)
     ctx = ShoalContext(4, device=device)
     model = build_model(cfg, device=device, ep=ExpertMesh(ctx, data=2))
     if params is None:
@@ -276,6 +279,138 @@ def run_entry(name: str, budgets: dict | None = None, *,
     run on ``device`` (default: the CUDA card)."""
     return lint_entry(name, budgets, include_budget=include_budget,
                       device=device).report
+
+
+# --------------------------------------------------------------------------
+# micro budgets: single ops on a 64-byte MTU
+# --------------------------------------------------------------------------
+
+MICRO_SEGMENT_WORDS = 128
+EVEN = [(i, i + 1) for i in range(0, K, 2)]      # two disjoint rings:
+ODD = [(i, (i + 1) % K) for i in range(1, K, 2)]  # sources AND dests
+
+
+def _micro(prog, acked: bool = True, dtype=torch.float32):
+    """A micro builder from ``prog(ops, ctx, st)`` over 8 kernels, a
+    64-byte (16-word) MTU, TCP (``acked``) or UDP, 128-word segments of
+    ``dtype``."""
+    def build(device):
+        from repro_torch.core import ops
+        from repro_torch.core.address_space import GlobalAddressSpace
+        from repro_torch.core.state import ShoalContext
+        from repro_torch.runtime import TCP, UDP
+
+        transport = dataclasses.replace(TCP if acked else UDP,
+                                        max_packet_bytes=64)
+        ctx = ShoalContext(K, transport, MICRO_SEGMENT_WORDS, device=device)
+        st = GlobalAddressSpace(ctx, dtype=dtype).make_global_state()
+        return ctx, (lambda st: prog(ops, ctx, st)), (st,)
+    return build
+
+
+def _put_4seg(asynchronous):
+    def prog(ops, ctx, st):          # 50 words: 4 packets of <= 16
+        st = ops.put_long(ctx, st, _pay(ctx, 50), RING, dst_addr=8,
+                          token=1, asynchronous=asynchronous)
+        return st if asynchronous else ops.wait_replies(ctx, st, token=1,
+                                                        n=1)
+    return prog
+
+
+def _get_4seg(ops, ctx, st):
+    st, _ = ops.get_medium(ctx, st, RING, src_addr=0, nwords=50, token=2)
+    return ops.wait_replies(ctx, st, token=2, n=1)
+
+
+def _vectored_2(ops, ctx, st):
+    ones = torch.ones(K, 5, device=ctx.device)
+    return ops.put_long_vectored(ctx, st, [ones[:, :2], ones[:, 2:]], RING,
+                                 dst_addrs=[40, 60], token=3)
+
+
+def _multi(defer_ack):
+    def prog(ops, ctx, st):
+        items = [(_pay(ctx, 50), EVEN, 8),
+                 (torch.ones(K, 34, device=ctx.device), ODD, 64)]
+        st = ops.put_long_multi(ctx, st, items, token=4, defer_ack=defer_ack)
+        # deferred: the receivers ledger the acks; a later reverse-link
+        # packet (or a drain) carries them home -- nothing more here
+        return st if defer_ack else ops.wait_replies(ctx, st, token=4, n=1)
+    return prog
+
+
+def _put_bf16(ops, ctx, st):
+    pay = torch.ones(K, 10, dtype=torch.bfloat16, device=ctx.device)
+    st = ops.put_long(ctx, st, pay, RING, dst_addr=8, token=1)
+    return ops.wait_replies(ctx, st, token=1, n=1)
+
+
+def _multi_mailbox(ops, ctx, st):
+    from repro_torch.actors import MultiMailbox
+
+    mmb = MultiMailbox(ctx, [EVEN, ODD], msg_words=4, watermark=1 << 20,
+                       token=6)
+    base = np.arange(4, dtype=np.float32)
+    for i in range(6):
+        st = mmb.send(st, i % 2, base + i, dst_addr=4 * i)
+    st = mmb.flush(st)
+    return ops.wait_replies(ctx, st, token=6, n=1)
+
+
+def _build_jacobi_iter(device):
+    """One Jacobi iteration, n 64 on 8 kernels, 16-word MTU: each 64-word
+    halo row is 4 packets; the two halo messages and the two ack drains
+    are 4 exchanges."""
+    from repro_torch.apps.jacobi import JacobiApp
+    from repro_torch.core.address_space import GlobalAddressSpace
+
+    app = JacobiApp(n=64, kernels=K, iters=1, transport=_tiny_tcp(),
+                    device=device)
+    st = GlobalAddressSpace(app.ctx).make_global_state()
+    blocks = torch.zeros(K, 64 // K, 64, device=device)
+    return app.ctx, app.run_blocks, (st, blocks)
+
+
+# the nine [micro.*] sections of comm_budgets.toml, the programs of the
+# JAX package's tests/hlo_budget_checks.py
+MICROS: tuple[Entry, ...] = (
+    Entry("micro.put_long_acked_4seg", "acked 50-word put: one 4-segment "
+          "stack + one ack", K, _micro(_put_4seg(False))),
+    Entry("micro.put_long_async_4seg", "the same put on UDP: no ack", K,
+          _micro(_put_4seg(True), acked=False)),
+    Entry("micro.get_medium_4seg", "50-word get: request + 4-segment "
+          "response", K, _micro(_get_4seg)),
+    Entry("micro.put_long_vectored", "2 blocks in one packet + one ack", K,
+          _micro(_vectored_2)),
+    Entry("micro.jacobi_iter_segmenting", "one Jacobi iteration, segmenting "
+          "halos + 2 ack drains", K, _build_jacobi_iter),
+    Entry("micro.put_long_multi_merged", "2 disjoint rings: one stack + one "
+          "reply", K, _micro(_multi(False))),
+    Entry("micro.put_long_multi_deferred", "the same with defer_ack: the "
+          "stack alone", K, _micro(_multi(True))),
+    Entry("micro.put_long_bf16_fallback", "acked bf16 put: split header / "
+          "payload + one ack", K, _micro(_put_bf16, dtype=torch.bfloat16)),
+    Entry("micro.multi_mailbox_flush", "MultiMailbox over 2 disjoint rings: "
+          "one stack + one reply", K, _micro(_multi_mailbox)),
+)
+
+
+def check_micro(name: str, budgets: dict | None = None,
+                device=None) -> tuple[EntryRun, list]:
+    """One ``[micro.*]`` program run once on ``device`` (default: the
+    card) and held to its section of ``comm_budgets.toml`` (or
+    ``budgets``) through :func:`budget.check_budget`.  Returns the run
+    and the budget's (B1) findings; the run's report carries only the
+    rules, which these single-op programs need not satisfy (a vectored
+    put no one waits for, ledgered acks no drain returns)."""
+    micro = next((m for m in MICROS if m.name == name), None)
+    if micro is None:
+        raise KeyError(f"unknown micro program {name!r}; known: "
+                       f"{[m.name for m in MICROS]}")
+    run = run_program(name, micro.build, device)
+    spec = (_budget.load_budgets() if budgets is None else budgets).get(name)
+    measured = _budget.measure(run.exchanges, run.collectives)
+    return run, _budget.check_budget(name, measured, spec, run.tags)
 
 
 # --------------------------------------------------------------------------

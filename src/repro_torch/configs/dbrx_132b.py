@@ -3,7 +3,7 @@ vocab=100352, 16 experts top-4, fine-grained
 [hf:databricks/dbrx-base; unverified].
 
 The JAX package's config also sets ``fsdp=True`` and ``remat="dots"``;
-memory and sharding policies (``remat``, ``fsdp``, ``tp``) are not
+memory and sharding policies (``remat``, ``fsdp``) are not
 ported.  At bf16 the 40 layers hold 131.6 B parameters (263 GB), more
 than one card: ``chip_smoke.py`` serves 4 of them at full width."""
 

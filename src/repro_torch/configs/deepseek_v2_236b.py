@@ -4,7 +4,7 @@ vocab=102400, MLA kv_lora=512, 2 shared + 160 routed top-6
 model's dense intermediate 12288; d_ff_expert=1536 per assignment.
 
 The JAX package's config also sets ``fsdp=True`` and ``remat="dots"``;
-memory and sharding policies (``remat``, ``fsdp``, ``tp``) are not
+memory and sharding policies (``remat``, ``fsdp``) are not
 ported.  At bf16 the 60 layers hold 235,741,434,880 parameters (471 GB),
 more than one card: ``chip_smoke.py`` serves 4 of them at full width."""
 

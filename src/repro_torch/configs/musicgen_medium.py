@@ -5,8 +5,8 @@ precomputed frame embeddings (B, S, d); the head predicts one codebook
 stream (vocab 2048).  LayerNorm + GELU MLP per the MusicGen transformer.
 
 The JAX package's config also sets ``remat="dots"``, an activation
-checkpointing policy; memory and sharding policies (``remat``, ``fsdp``,
-``tp``) are not ported."""
+checkpointing policy; memory and sharding policies (``remat``,
+``fsdp``) are not ported."""
 
 import torch
 

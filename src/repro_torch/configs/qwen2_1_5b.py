@@ -2,8 +2,8 @@
 vocab=151936, QKV bias, tied embeddings [arXiv:2407.10671; hf].
 
 The JAX package's config also sets ``remat="dots"``, an activation
-checkpointing policy; memory and sharding policies (``remat``, ``fsdp``,
-``tp``) are not ported."""
+checkpointing policy; memory and sharding policies (``remat``,
+``fsdp``) are not ported."""
 
 import torch
 

@@ -4,7 +4,7 @@ vocab=152064, QKV bias [arXiv:2407.10671; hf].
 ~72.7 B parameters, ~145 GB in bfloat16: more than one card holds, so
 the port runs its reduced config only.  The JAX package's config also
 sets ``fsdp=True`` and ``remat="dots"``; memory and sharding policies
-(``remat``, ``fsdp``, ``tp``) are not ported."""
+(``remat``, ``fsdp``) are not ported."""
 
 import torch
 

@@ -37,6 +37,11 @@ takes the kernel route (``flash_attention(..., causal=False)``, S text
 tokens over the N image tokens), a decode step and a differentiable
 pass the plain route.
 
+In the sequence-parallel mode (``ring=``, ``cfg.seq_shard``) a GQA
+prompt pass without a window takes a third route, the exact ring
+attention of :mod:`repro_torch.models.ring_attention` over the model's
+kernel axis, before any other, as in the JAX package.
+
 Unlike the JAX package, which returns a new cache, the port writes the
 ring cache in place (the returned cache is the one passed in).
 """
@@ -50,6 +55,7 @@ import torch
 
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.models import blocks as bl
+from repro_torch.models.ring_attention import ring_attention
 
 NEG = -1e30
 
@@ -138,7 +144,7 @@ _scatter2 = _scatter_slots     # the JAX package's name for the MLA caches
 
 
 def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
-        cache=None, fresh=False, differentiable=False):
+        cache=None, fresh=False, differentiable=False, ring=None):
     """Full causal GQA layer: qkv proj -> rope -> attend -> out proj.
 
     ``positions``: (B, S) absolute positions of x; without a cache they
@@ -158,6 +164,14 @@ def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
     :func:`_attend` with the window.  A prompt longer than the ring
     keeps only its last W keys there and attends every query to them,
     as the JAX package does (ROADMAP §3, reference caveats).
+    ``ring``: the model's :class:`~repro_torch.models.moe.ExpertMesh` in
+    the sequence-parallel mode (``cfg.seq_shard``): a prompt pass (S > 1)
+    without a window attends through
+    :func:`~repro_torch.models.ring_attention.ring_attention` over its
+    kernels, whatever the cache and ``differentiable``, as the JAX
+    package's ``ring_ctx`` does; it assumes the attention context is
+    exactly x (a fresh prefill, or training).  A cache still gets the
+    last ``min(S, W)`` keys for decode.
     """
     B, S, _ = x.shape
     q = x @ params["wq"].to(x.dtype)
@@ -171,7 +185,18 @@ def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
     k = bl.apply_rope(k.reshape(B, S, K, dh), positions, rope_base)
     v = v.reshape(B, S, K, dh)
 
-    if cache is None and (differentiable or window and S > window):
+    if ring is not None and S > 1 and not window:
+        out = ring_attention(ring, q.reshape(B, S, K, H // K, dh), k, v,
+                             positions)
+        if cache is not None:   # prefill: still record k/v for decode
+            W = cache["k"].shape[1]
+            if S > W:
+                kw, vw, pw = k[:, -W:], v[:, -W:], positions[:, -W:]
+            else:
+                kw, vw, pw = k, v, positions
+            _ring_write(cache, kw.to(cache["k"].dtype),
+                        vw.to(cache["v"].dtype), pw)
+    elif cache is None and (differentiable or window and S > window):
         out = _attend(q.reshape(B, S, K, H // K, dh), k, v, positions,
                       positions, window=window)
     elif cache is None:

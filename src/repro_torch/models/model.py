@@ -38,6 +38,9 @@ softplus it takes in float32 (``a`` near 0.9-0.999 makes ``sqrt(1 -
 a^2)`` sensitive to it), the xLSTM cells' norm scales ``ln`` and ``gn``
 and the sLSTM's recurrent ``r``, which its time loop reads in float32.
 Ring caches are written in place (``models.attention``).
+``cfg.seq_shard`` (with ``tp`` off and an ``ep`` mesh) runs every GQA
+prompt pass as ring attention over the mesh's kernels
+(:mod:`repro_torch.models.ring_attention`).
 """
 
 from __future__ import annotations
@@ -98,6 +101,12 @@ class ModelConfig:
     # frontend: tokens | embeddings (audio frames, a stubbed modality)
     frontend: str = "tokens"
     dtype: torch.dtype = torch.bfloat16
+    # parallelism, read to choose the route as the JAX package does: with
+    # ``seq_shard`` and no ``tp``, over a ``Model(..., ep=)`` mesh of more
+    # than one kernel, GQA prompt passes take ring attention (the sequence
+    # sharded over the kernels); ``tp`` off also turns the MoE island off
+    tp: bool = True
+    seq_shard: bool = False
     sub_quadratic: bool = False  # may run long_500k (the JAX package's
                                  # dry-run shapes; no port caller yet)
 
@@ -261,9 +270,11 @@ def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
 
 
 def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
-                 differentiable=False, ep=None, image_feats=None):
+                 differentiable=False, ep=None, image_feats=None, ring=None):
     """Returns (x, aux): the MoE block's load-balance loss, None for any
-    other block.  ``ep``: the expert-parallel island, or None.
+    other block.  ``ep``: the expert-parallel island, or None.  ``ring``:
+    the ring-attention mesh, or None; only a GQA block without a window
+    takes it (MLA and cross blocks ignore it, as in the JAX package).
     ``image_feats``: the cross block's keys and values, ``(B, N,
     d_model)``.  An RG-LRU, mLSTM or sLSTM block's ``cache`` is its
     state, written in place; the xLSTM cells norm their own input."""
@@ -297,11 +308,12 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
                         cache=cache, fresh=fresh,
                         differentiable=differentiable)
     else:
+        window = cfg.window if kind == "attn_local" else 0
         a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
-                        K=cfg.n_kv_heads, dh=cfg.dh,
-                        window=cfg.window if kind == "attn_local" else 0,
+                        K=cfg.n_kv_heads, dh=cfg.dh, window=window,
                         rope_base=cfg.rope_base, cache=cache, fresh=fresh,
-                        differentiable=differentiable)
+                        differentiable=differentiable,
+                        ring=None if window else ring)
     x = x + a
     h = _norm(cfg, p["ln2"], x)
     if kind != "moe":
@@ -326,7 +338,10 @@ class Model:
     ``ep`` (a :class:`~repro_torch.models.moe.ExpertMesh`) runs the MoE
     layers' routed experts as the expert-parallel island over its
     kernels, forward only; without it, or where the experts do not split
-    over the kernels, they run on one device (``moe_ffn``)."""
+    over the kernels, they run on one device (``moe_ffn``).  With
+    ``cfg.seq_shard`` and not ``cfg.tp`` the same mesh carries ring
+    attention instead: every GQA prompt pass (S > 1) without a window
+    shards its sequence over the kernels (``_ring_ctx``)."""
 
     def __init__(self, cfg: ModelConfig, device=None, ep=None):
         if cfg.family == "moe" and cfg.moe is None:
@@ -368,10 +383,12 @@ class Model:
 
     def _ep_ctx(self):
         """The expert-parallel island ``(p_moe, h) -> (out, aux)``, or
-        None: no ``ep``, no MoE, one kernel, or experts that do not split
-        over the kernels (the JAX package's ``_ep_ctx`` conditions)."""
+        None: no ``ep``, no MoE, no ``tp``, one kernel, or experts that do
+        not split over the kernels (the JAX package's ``_ep_ctx``
+        conditions)."""
         cfg, ep = self.cfg, self.ep
-        if ep is None or cfg.moe is None or ep.ctx.num_kernels == 1:
+        if (ep is None or cfg.moe is None or not cfg.tp
+                or ep.ctx.num_kernels == 1):
             return None
         if cfg.moe.n_experts % ep.ctx.num_kernels:
             return None
@@ -380,6 +397,18 @@ class Model:
             return moe_lib.moe_routed_island(p_moe, h, cfg.moe, ep,
                                              cfg.dtype)
         return run
+
+    def _ring_ctx(self):
+        """The ring-attention mesh (``ep``), or None: only in the no-TP
+        sequence-parallel mode (``seq_shard`` set, ``tp`` not) over more
+        than one kernel, the JAX package's ``_ring_ctx`` conditions.
+        With ``tp`` the JAX package runs attention head-sharded instead;
+        on one card that is plain attention."""
+        cfg, ep = self.cfg, self.ep
+        if not cfg.seq_shard or cfg.tp or ep is None \
+                or ep.ctx.num_kernels == 1:
+            return None
+        return ep
 
     # -- forward -------------------------------------------------------------
 
@@ -403,6 +432,7 @@ class Model:
         sum of the MoE layers' losses (float32 0 without any).
         ``image_feats``: what the cross blocks attend to, or None."""
         cfg = self.cfg
+        ring = self._ring_ctx() if x.shape[1] > 1 else None
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for si, (pat, reps) in enumerate(self.segs):
             seg_params = {key: _layers(p, reps)
@@ -417,7 +447,8 @@ class Model:
                                           x, positions, cache=c, fresh=fresh,
                                           differentiable=differentiable,
                                           ep=self._island,
-                                          image_feats=image_feats)
+                                          image_feats=image_feats,
+                                          ring=ring)
                     if aux is not None:
                         aux_total = aux_total + aux
         return x, caches, aux_total

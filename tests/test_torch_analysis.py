@@ -516,6 +516,57 @@ def test_tighter_budget_names_the_op():
     assert "put_long_vectored#e0: 2" in rep.findings[0].message
 
 
+# the nine [micro.*] sections: tests/hlo_budget_checks.py's programs and
+# the exchanges the compiled JAX programs count (comm_budgets.toml)
+MICRO_EXCHANGES = {"micro.put_long_acked_4seg": 2,
+                   "micro.put_long_async_4seg": 1,
+                   "micro.get_medium_4seg": 2,
+                   "micro.put_long_vectored": 2,
+                   "micro.jacobi_iter_segmenting": 4,
+                   "micro.put_long_multi_merged": 2,
+                   "micro.put_long_multi_deferred": 1,
+                   "micro.put_long_bf16_fallback": 3,
+                   "micro.multi_mailbox_flush": 2}
+
+
+def test_every_micro_section_has_a_program():
+    from repro_torch.analysis import budget, registry
+
+    sections = sorted(k for k in budget.load_budgets()
+                      if k.startswith("micro."))
+    assert sections == sorted(m.name for m in registry.MICROS) \
+        == sorted(MICRO_EXCHANGES)
+    with pytest.raises(KeyError, match="unknown micro program"):
+        registry.check_micro("micro.nothing", device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(MICRO_EXCHANGES))
+def test_micro_meets_its_budget(name):
+    """Each ``[micro.*]`` program through ``budget.measure`` and
+    ``check_budget`` against its section: no finding, the section's
+    exact exchange count, every exchange attributed to an op."""
+    from repro_torch.analysis import budget, registry
+
+    run, findings = registry.check_micro(name, device="cpu")
+    assert not findings, [f.render() for f in findings]
+    assert run.exchanges == MICRO_EXCHANGES[name] == budget.load_budgets()[
+        name]["collective_permute_exact"]
+    assert sum(run.tags.values()) == run.exchanges
+    assert not any(run.collectives.values())
+
+
+def test_micro_off_its_budget_is_a_b1_error():
+    from repro_torch.analysis import ERROR, budget, registry
+
+    budgets = budget.load_budgets()
+    budgets["micro.put_long_acked_4seg"] = {"collective_permute_exact": 1}
+    _, findings = registry.check_micro("micro.put_long_acked_4seg", budgets,
+                                       device="cpu")
+    assert len(findings) == 1 and findings[0].severity == ERROR
+    assert "measured collective-permute 2 != declared budget 1" in \
+        findings[0].message and "shoal.put_long#e0: 2" in findings[0].message
+
+
 def test_unmeasured_budget_key_warns():
     """``wire_bytes`` is the one budget metric the port does not
     measure: a WARNING, never a pass.  The collective kinds are

@@ -1864,3 +1864,179 @@ def test_moe_island_refuses_grad_on_the_card(cuda):
     p["wu"].requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
         tmoe.moe_routed_island(p, h.detach(), dims, mesh, torch.float32)
+
+
+# -- ring attention and the seq_shard route ----------------------------------
+
+def test_ring_attention_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``ring_attention`` at ``tests/md_checks.py:532``'s shapes (float32,
+    4 kernels x 2 data groups, the test file's seeded inputs) on the card
+    within 2e-5 of its CPU run (cuBLAS sums the block products in
+    another order than the CPU, so not bitwise; TF32 off), at the same
+    3 x 4 exchanges, and within 2e-5 of ``_attend`` on the card."""
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.attention import _attend
+    from repro_torch.models.moe import ExpertMesh
+    from repro_torch.models.ring_attention import ring_attention
+    from test_torch_ring_attention import _qkv
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    outs, ex = {}, {}
+    for device in ("cpu", cuda):
+        q, k, v, pos = (torch.from_numpy(a).to(device) for a in _qkv())
+        mesh = ExpertMesh(ShoalContext(4, device=device), data=2)
+        outs[str(device)] = ring_attention(mesh, q, k, v, pos)
+        ex[str(device)] = mesh.ctx.exchanges
+        if device != "cpu":
+            torch.testing.assert_close(outs[str(device)],
+                                       _attend(q, k, v, pos, pos),
+                                       rtol=2e-5, atol=2e-5)
+    assert ex["cpu"] == ex[str(cuda)] == 12
+    torch.testing.assert_close(outs[str(cuda)].cpu(), outs["cpu"],
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_seq_shard_model_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """qwen2-smoke with ``seq_shard=True, tp=False`` over 4 kernels x 2
+    data groups (float32, TF32 off): ``Model.loss`` and every gradient
+    leaf within 1e-5 (of the leaf's largest |gradient|) of the CPU run,
+    a ring prefill's last logits and its cache within 1e-5, the same
+    exchanges (2 layers x 12)."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.model import build_model
+    from repro_torch.models.moe import ExpertMesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
+    from repro_torch.tree import tree_leaves
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dc.replace(configs.reduced("qwen2-1.5b"), tp=False, seq_shard=True)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(2))
+    res = {}
+    for device in ("cpu", cuda):
+        mesh = ExpertMesh(ShoalContext(4, device=device), data=2)
+        model = build_model(cfg, device=device, ep=mesh)
+        p = _to(params, device)
+        batch = {"tokens": toks.to(device), "labels": toks.to(device)}
+        loss, grads = Trainer(model, AdamWConfig()).value_and_grad(p, batch)
+        with torch.no_grad():
+            logits, cache = model.prefill(p, {"tokens": toks.to(device)},
+                                          model.make_cache(2, 40))
+        res[str(device)] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)],
+                            logits.cpu(), [c.cpu() for c in
+                                           tree_leaves(cache)],
+                            mesh.ctx.exchanges)
+    (l_c, g_c, o_c, c_c, e_c), (l_g, g_g, o_g, c_g, e_g) = \
+        res["cpu"], res[str(cuda)]
+    assert e_c == e_g == 2 * 2 * 12
+    torch.testing.assert_close(l_g, l_c, rtol=1e-5, atol=1e-5)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+    torch.testing.assert_close(o_g, o_c, rtol=1e-5, atol=1e-5)
+    for a, b in zip(c_g, c_c):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# -- the MLA, hybrid and xLSTM lanes ------------------------------------------
+
+def _lane_space(cfg, device):
+    from repro_torch.core.address_space import GlobalAddressSpace
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import TCP
+    from repro_torch.serving import KvSegmentSpace
+    from repro_torch.serving.disagg import _lane_words
+    from test_torch_serving_disagg import _lane_transport
+
+    model = build_model(cfg, device=device)
+    lw = _lane_words(model, 16)
+    n_blocks = sum(leaf.shape[0] for seg in model.make_cache(1, 16)
+                   for blk in seg.values() for leaf in blk.values())
+    transport = _lane_transport(TCP, lw, n_blocks)
+    ctx = ShoalContext(4, transport, 2 * lw, device=device)
+    gas = GlobalAddressSpace(ctx)
+    return model, gas, KvSegmentSpace(gas, model, lanes=2, slots=16), \
+        transport
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "recurrentgemma-2b",
+                                  "xlstm-350m"])
+def test_lane_migration_on_the_card_matches_the_cpu(cuda, arch):
+    """One acked migration of a seeded lane of each kind of state (MLA's
+    latent cache, the hybrid's ring and RG-LRU state, the xLSTM states;
+    smoke size): every state field bitwise the CPU run's, 2 exchanges,
+    and the landed lane bitwise the lane on the card."""
+    from repro_torch import configs
+    from repro_torch.tree import tree_paths
+    from test_torch_serving_disagg import _seeded_lane
+
+    cfg = configs.reduced(arch)
+
+    def run(device):
+        model, gas, kv, _ = _lane_space(cfg, device)
+        lane = _seeded_lane(model, 11)
+        lane = _to(lane, device)
+        seg0 = np.random.default_rng(5).standard_normal(
+            (4, gas.segment_words)).astype(np.float32)
+        st = kv.migrate(gas.make_global_state(seg0.reshape(-1)),
+                        kv.pack_lane(lane), [(1, 3)], 1)
+        if device != "cpu":
+            got = dict(tree_paths(kv.unpack_lane(st.segment[3], 1)))
+            for path, want in tree_paths(lane):
+                assert got[path].dtype == want.dtype, path
+                assert _same_bits(got[path].cpu(), want.cpu()), path
+        return gas.ctx, st
+
+    ctx, _ = _card_and_cpu_states(cuda, run)
+    assert ctx.exchanges == 2
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
+def test_lane_tier_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+    """recurrentgemma-smoke and xlstm-smoke (float32) through the tier (2
+    + 2 kernels, 2 lanes each) on the card: every landed lane bitwise the
+    prefill worker's, 6 migrations at 2 exchanges, no error bit, the CPU
+    run's tokens.  (deepseek-v2-smoke's MLA head dims, 24 / 16, have no
+    flash kernel on the card: its lane is held by the migration test.)"""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import ServingSlices
+    from repro_torch.serving import DisaggServeTier, Request
+    from serving_checks import MAX_NEW, PROMPTS
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.reduced(arch)
+    params = None
+    outs, landed = {}, []
+    for device in ("cpu", cuda):
+        model, _, _, transport = _lane_space(cfg, device)
+        if params is None:
+            params = model.init(torch.Generator().manual_seed(0))
+        tier = DisaggServeTier(model, _to(params, device),
+                               ServingSlices(2, 2), lanes_per_decode=2,
+                               slots=16, transport=transport, device=device)
+        migrate = tier.migrate
+
+        def checked(src, dst, lane, lane_cache, migrate=migrate):
+            adopted = migrate(src, dst, lane, lane_cache)
+            landed.append(all(
+                _same_bits(a[key][n].cpu(), w[key][n].cpu())
+                for a, w in zip(adopted, lane_cache) for key in w
+                for n in w[key]))
+            return adopted
+
+        tier.migrate = checked
+        done = tier.run([Request(i, np.asarray(p, np.int32), m)
+                         for i, (p, m) in enumerate(zip(PROMPTS, MAX_NEW))])
+        outs[str(device)] = {r.rid: r.out for r in done}
+        assert tier.migrations == len(PROMPTS)
+        assert tier.ctx.exchanges == 2 * len(PROMPTS)
+        assert int(tier.state.error.abs().sum()) == 0
+    assert outs["cpu"] == outs[str(cuda)]
+    assert landed == [True] * (2 * len(PROMPTS))

@@ -36,7 +36,8 @@ def test_port_sources_import_no_jax_and_no_reference():
     assert len(files) > 15
     assert REPO / "src" / "repro_torch" / "analysis" / "rules.py" in files
     for name in ("torch_serve_lm.py", "torch_train_lm.py",
-                 "torch_serve_disagg.py"):
+                 "torch_serve_disagg.py", "torch_quickstart.py",
+                 "torch_jacobi_stencil.py"):
         assert REPO / "examples" / name in files
     bad = [f"{f}: {m.group(0).strip()}" for f in files
            for m in FORBIDDEN.finditer(f.read_text())]
@@ -61,6 +62,51 @@ def test_port_imports_and_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "port-ok" in proc.stdout
+
+
+EXAMPLES = {"torch_quickstart.py": "quickstart OK",
+            "torch_jacobi_stencil.py":
+                "jacobi example OK (same source, four topologies)"}
+
+
+def _run_example(name, argv, jax_blocked=True):
+    code = ("import runpy, sys\n"
+            + ("sys.modules['jax'] = None\n"
+               "sys.modules['repro'] = None\n" if jax_blocked else "")
+            + f"sys.argv = [{name!r}] + {argv!r}\n"
+            f"runpy.run_path({str(REPO / 'examples' / name)!r}, "
+            "run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_examples_run_on_the_cpu_with_jax_blocked(name):
+    """``examples/torch_quickstart.py`` (puts, a remote accumulate, a
+    barrier, a get, a ring all-reduce) and
+    ``examples/torch_jacobi_stencil.py`` (512 x 512, 64 iterations on
+    1, 2, 4 and 8 kernels against the oracle, < 1e-5) print their OK
+    lines with ``--device cpu`` and JAX and the JAX package blocked."""
+    proc = _run_example(name, ["--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().splitlines()[-1] == EXAMPLES[name]
+    if name == "torch_jacobi_stencil.py":
+        for k in (1, 2, 4, 8):
+            assert f"kernels={k}:" in proc.stdout
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_examples_default_to_the_card(name):
+    """Without ``--device`` the examples run on the card; without one
+    they raise instead of falling back to the CPU."""
+    proc = _run_example(name, [])
+    if torch.cuda.is_available():
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert EXAMPLES[name] in proc.stdout
+        return
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr and EXAMPLES[name] not in proc.stdout
 
 
 def test_default_device_is_the_card():

@@ -22,6 +22,20 @@ none anywhere.
   through ``ServeFrontend(max_queue=2)``: the same statuses, tokens and
   ``stats()`` as the JAX front end.
 
+The same reference holds the three other kinds of lane state, each the
+smoke config of its family (``LANE_ARCHS``) with the JAX weights
+(``PRNGKey(0)``) and a transport whose frame holds one lane: MLA's
+latent ``ckv``, ``kr``, ``pos`` (deepseek-v2-236b), the local layers'
+ring beside each RG-LRU block's float32 ``conv``, ``h``
+(recurrentgemma-2b; the prompts stay within its 16-token window) and
+the mLSTM ``C``, ``conv``, ``m``, ``n`` and sLSTM ``c``, ``h``, ``m``,
+``n`` states (xlstm-350m): the layout and refusals as above; one acked
+migration of a seeded lane (every ``PgasState`` field bitwise, the
+packed lane words in the segment included, 2 exchanges, the landed lane
+bitwise); the tier's tokens equal to the JAX tier's and (but for the
+MoE model, whose capacity drops depend on the lanes a step routes) the
+solo engine's, 6 migrations at 2 exchanges each.
+
 In process, without JAX: the ``pack_lane`` -> ``unpack_lane`` round
 trip exact in float32 and bfloat16, and the front end's pure-Python
 contracts (the ports of ``tests/test_serving_disagg.py:287-405``, plus
@@ -56,6 +70,10 @@ STATS = ("admitted", "rejected", "completed", "expired", "peak_queue_depth",
 MIGRATIONS = {"remote-acked": ("TCP", [(0, 2)], 1),
               "remote-async": ("UDP", [(1, 3)], 0),
               "local": ("TCP", [(0, 0)], 1)}
+# the MLA, hybrid and xLSTM lanes: one acked migration each
+LANE_ARCHS = ("deepseek-v2-236b", "recurrentgemma-2b", "xlstm-350m")
+LANE_MIGRATION = ([(1, 3)], 1)
+REFUSALS = ("capacity", "mtu", "lane")
 
 
 def _lane_tree(cfg, seed):
@@ -74,6 +92,25 @@ def _lane_tree(cfg, seed):
                 "v": rng.standard_normal(kv).astype(np.float32)}
         tree.append(seg)
     return tree
+
+
+def _seeded_leaves(leaves, seed):
+    """Seeded numpy draws for cache leaves given in flatten order as
+    ``(name, shape)``: positions in [-1, 40), every other leaf standard
+    normal float32 (the two packages flatten in the same order)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-1, 40, shape).astype(np.int32) if name == "pos"
+            else rng.standard_normal(shape).astype(np.float32)
+            for name, shape in leaves]
+
+
+def _lane_transport(tcp, lane_words, n_blocks):
+    """``tcp`` with a frame that holds one lane's vectored put (the
+    payload, its in-packet address list and the header)."""
+    from repro_torch.core.am import HDR_WORDS
+
+    return dataclasses.replace(
+        tcp, max_packet_bytes=4 * (lane_words + n_blocks + HDR_WORDS))
 
 
 def _segment0(name, seg_words):
@@ -203,7 +240,86 @@ def _run_reference(out_path):
     out["frontend/tokens"] = _pad(seq["tokens"])
     out["frontend/stats"] = np.asarray(seq["stats"])
     out["frontend/migrations"] = np.asarray(tier.migrations)
+    for arch in LANE_ARCHS:
+        _lane_reference(out, arch, mesh)
     np.savez(out_path, **out)
+
+
+def _lane_reference(out, arch, mesh):
+    """One family's lane: layout, refusals, an acked migration of a
+    seeded lane and the tier's tokens, under ``lanes/ARCH/...``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs, runtime
+    from repro.core.address_space import GlobalAddressSpace
+    from repro.core.state import ShoalContext
+    from repro.launch.mesh import ServingSlices as JSlices
+    from repro.models.model import build_model
+    from repro.serving import Request
+    from repro.serving.disagg import DisaggServeTier, _lane_words
+    from repro.serving.kv_space import KvSegmentSpace
+
+    key = f"lanes/{arch}"
+    model = build_model(configs.reduced(arch))
+    params = model.init(jax.random.PRNGKey(0))
+    lane_words = _lane_words(model, SLOTS)
+    proto = model.make_cache(1, SLOTS)
+    n_blocks = sum(x.shape[0] for x in jax.tree.leaves(proto))
+    transport = _lane_transport(runtime.TCP, lane_words, n_blocks)
+
+    def space(seg_words=LANES * lane_words, transport=transport):
+        ctx = ShoalContext(mesh=mesh, axes=("kernel",), transport=transport,
+                           segment_words=seg_words)
+        gas = GlobalAddressSpace(ctx)
+        return gas, KvSegmentSpace(gas, model, lanes=LANES, slots=SLOTS)
+
+    gas, kv = space()
+    out[f"{key}/layout/lane_words"] = np.asarray(kv.lane_words)
+    out[f"{key}/layout/leaves"] = np.asarray([repr((
+        leaf.path, leaf.layers, leaf.shape, leaf.words, leaf.offset))
+        for leaf in kv.leaves])
+    out[f"{key}/layout/describe"] = np.asarray(kv.describe())
+    out[f"{key}/layout/addrs"] = np.asarray([[kv.block_addrs(lane, kernel=k)
+                                              for k in range(K)]
+                                             for lane in range(LANES)])
+    refusals = {
+        "capacity": lambda: space(seg_words=LANES * lane_words - 1),
+        "mtu": lambda: space(transport=dataclasses.replace(
+            runtime.TCP, max_packet_bytes=4 * lane_words)),
+        "lane": lambda: kv.lane_base(LANES),
+    }
+    for name, fn in refusals.items():
+        try:
+            fn()
+            out[f"{key}/refusal/{name}"] = np.asarray("nothing")
+        except ValueError as e:
+            out[f"{key}/refusal/{name}"] = np.asarray(str(e))
+    flat, treedef = jax.tree_util.tree_flatten_with_path(proto)
+    leaves = _seeded_leaves([(str(path[-1].key), x.shape)
+                             for path, x in flat], 11)
+    lane_tree = jax.tree_util.tree_unflatten(treedef, leaves)
+    pattern, lane = LANE_MIGRATION
+    seg0 = _segment0("remote-acked", gas.segment_words)
+    st0 = gas.make_global_state(seg0.reshape(-1))
+    blocks = [jnp.asarray(np.broadcast_to(np.asarray(b), (K,) + b.shape))
+              for b in kv.pack_lane(lane_tree)]
+
+    def fn(st, *blocks):
+        return kv.migrate(st, list(blocks), pattern, lane), ()
+
+    st, _, cps, _ = spmd_run(mesh, fn, st0, *blocks)
+    for f in dataclasses.fields(st):
+        out[f"{key}/migrate/{f.name}"] = np.asarray(getattr(st, f.name))
+    out[f"{key}/migrate/cps"] = np.asarray(cps)
+    tier = DisaggServeTier(model, params, JSlices(n_prefill=2, n_decode=2),
+                           lanes_per_decode=LANES, slots=SLOTS,
+                           transport=transport)
+    reqs = _requests(Request)
+    tier.run(reqs)
+    out[f"{key}/tier/tokens"] = _pad([r.out for r in reqs])
+    out[f"{key}/tier/migrations"] = np.asarray(tier.migrations)
+    out[f"{key}/tier/error"] = np.asarray(tier.state.error)
 
 
 @pytest.fixture(scope="module")
@@ -412,6 +528,153 @@ def test_example_runs_on_the_cpu():
     assert "took 2 exchanges" in out
     assert "rejected (backpressure)" in out and "error words [0, 0, 0, 0]" \
         in out
+
+
+# -- the MLA, hybrid and xLSTM lanes ----------------------------------------------
+
+_LANE_MODELS = {}
+
+
+def lane_model(arch):
+    """The port's smoke model of ``arch`` with the JAX package's
+    ``PRNGKey(0)`` weights, and its lane transport."""
+    if arch not in _LANE_MODELS:
+        import jax
+
+        from repro import configs as jconfigs
+        from repro.models.model import build_model as jbuild
+        from repro_torch import configs, runtime
+        from repro_torch.models.convert import params_from_numpy
+        from repro_torch.models.model import build_model
+        from repro_torch.serving.disagg import _lane_words
+
+        jparams = jbuild(jconfigs.reduced(arch)).init(jax.random.PRNGKey(0))
+        cfg = configs.reduced(arch)
+        model = build_model(cfg, device="cpu")
+        n_blocks = sum(leaf.shape[0] for seg in model.make_cache(1, SLOTS)
+                       for blk in seg.values() for leaf in blk.values())
+        _LANE_MODELS[arch] = (model, params_from_numpy(
+            cfg, jax.device_get(jparams), device="cpu"), _lane_transport(
+            runtime.TCP, _lane_words(model, SLOTS), n_blocks))
+    return _LANE_MODELS[arch]
+
+
+def _seeded_lane(model, seed):
+    """:func:`_seeded_leaves` in the port's (B=1) lane tree."""
+    from repro_torch.models.convert import cache_from_numpy
+    from repro_torch.tree import tree_paths, tree_unflatten
+
+    proto = model.make_cache(1, SLOTS)
+    leaves = _seeded_leaves([(p.split("/")[-1], tuple(x.shape))
+                             for p, x in tree_paths(proto)], seed)
+    return cache_from_numpy(model.cfg, tree_unflatten(proto, leaves),
+                            device="cpu")
+
+
+@pytest.mark.parametrize("arch", LANE_ARCHS)
+def test_lane_layout_matches_reference(reference, arch):
+    model, _, transport = lane_model(arch)
+    key = f"lanes/{arch}"
+    _, kv = _space(model, transport=transport)
+    assert kv.lane_words == int(reference[f"{key}/layout/lane_words"])
+    got = [repr((leaf.path, leaf.layers, leaf.shape, leaf.words,
+                 leaf.offset)) for leaf in kv.leaves]
+    assert got == list(reference[f"{key}/layout/leaves"])
+    assert kv.describe() == str(reference[f"{key}/layout/describe"])
+    addrs = [[kv.block_addrs(lane, kernel=k) for k in range(K)]
+             for lane in range(LANES)]
+    np.testing.assert_array_equal(np.asarray(addrs),
+                                  reference[f"{key}/layout/addrs"])
+    names = {leaf.path.split("/")[-1] for leaf in kv.leaves}
+    assert names == {"deepseek-v2-236b": {"ckv", "kr", "pos"},
+                     "recurrentgemma-2b": {"conv", "h", "k", "pos", "v"},
+                     "xlstm-350m": {"C", "c", "conv", "h", "m", "n"}}[arch]
+
+
+@pytest.mark.parametrize("name", REFUSALS)
+@pytest.mark.parametrize("arch", LANE_ARCHS)
+def test_lane_refusals_match_reference(reference, arch, name):
+    from repro_torch import runtime
+    from repro_torch.serving.disagg import _lane_words
+
+    model, _, transport = lane_model(arch)
+    lane_words = _lane_words(model, SLOTS)
+    _, kv = _space(model, transport=transport)
+    calls = {
+        "capacity": lambda: _space(model, seg_words=LANES * lane_words - 1,
+                                   transport=transport),
+        "mtu": lambda: _space(model, transport=dataclasses.replace(
+            runtime.TCP, max_packet_bytes=4 * lane_words)),
+        "lane": lambda: kv.lane_base(LANES),
+    }
+    with pytest.raises(ValueError) as err:
+        calls[name]()
+    assert str(err.value) == str(reference[f"lanes/{arch}/refusal/{name}"])
+
+
+@pytest.mark.parametrize("arch", LANE_ARCHS)
+def test_lane_pack_refuses_a_foreign_structure(arch):
+    model, _, transport = lane_model(arch)
+    _, kv = _space(model, transport=transport)
+    lane = _seeded_lane(model, 1)
+    blk = lane[0][sorted(lane[0])[0]]
+    del blk[sorted(blk)[0]]
+    with pytest.raises(ValueError, match="does not match"):
+        kv.pack_lane(lane)
+
+
+@pytest.mark.parametrize("arch", LANE_ARCHS)
+def test_lane_migration_matches_reference(reference, arch):
+    """The packed lane words land where the JAX tier's do: every state
+    field bitwise, 2 exchanges, and ``unpack_lane`` gives the lane back
+    bitwise (float32 states, int32 positions)."""
+    from repro_torch.core.state import state_to_numpy
+    from repro_torch.tree import tree_paths
+
+    model, _, transport = lane_model(arch)
+    key = f"lanes/{arch}"
+    pattern, lane = LANE_MIGRATION
+    gas, kv = _space(model, transport=transport)
+    st0 = gas.make_global_state(
+        _segment0("remote-acked", gas.segment_words).reshape(-1))
+    lane_cache = _seeded_lane(model, 11)
+    st = kv.migrate(st0, kv.pack_lane(lane_cache), pattern, lane)
+    for f, arr in state_to_numpy(st).items():
+        np.testing.assert_array_equal(arr, reference[f"{key}/migrate/{f}"],
+                                      err_msg=f"{arch}: {f}")
+    assert gas.ctx.exchanges == int(reference[f"{key}/migrate/cps"]) == 2
+    got = dict(tree_paths(kv.unpack_lane(st.segment[pattern[0][1]], lane)))
+    for path, want in tree_paths(lane_cache):
+        assert got[path].dtype == want.dtype, path
+        assert torch.equal(got[path], want), path
+
+
+@pytest.mark.parametrize("arch", LANE_ARCHS)
+def test_lane_tier_matches_reference(reference, arch):
+    from repro_torch.serving import DisaggServeTier, Request, ServeEngine
+
+    model, params, transport = lane_model(arch)
+    key = f"lanes/{arch}"
+    tier = DisaggServeTier(model, params, ServingSlices(2, 2),
+                           lanes_per_decode=LANES, slots=SLOTS,
+                           transport=transport, device="cpu")
+    reqs = _requests(Request)
+    e0 = tier.ctx.exchanges
+    tier.run(reqs)
+    np.testing.assert_array_equal(_pad([r.out for r in reqs]),
+                                  reference[f"{key}/tier/tokens"])
+    assert tier.migrations == int(reference[f"{key}/tier/migrations"]) == 6
+    assert tier.ctx.exchanges - e0 == 2 * tier.migrations
+    np.testing.assert_array_equal(tier.state.error.numpy(),
+                                  reference[f"{key}/tier/error"])
+    assert (tier.state.error == 0).all() and (tier.state.credits == 0).all()
+    if model.cfg.moe is not None:
+        return      # a one-lane step routes fewer pairs: other MoE drops
+    oracle = ServeEngine(model, params, lanes=1, slots=SLOTS)
+    for req in reqs:
+        ref = Request(req.rid, req.prompt, req.max_new)
+        oracle.run([ref])
+        assert req.out == ref.out, (arch, req.rid)
 
 
 # -- serving slices (pure topology logic) --------------------------------------------
