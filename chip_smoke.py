@@ -164,6 +164,19 @@ run's without the migration; both examples
 (``examples/torch_quickstart.py``, ``examples/torch_jacobi_stencil.py``)
 on the card with their OK lines; the nine ``[micro.*]`` budgets of
 ``comm_budgets.toml`` met on the card with the CPU's counts.
+Phase 18 runs the expert-parallel island's backward: the gradients of
+one full-width MoE layer over 4 kernels (deepseek-v2-236b's, psum at cf
+1.25; dbrx-132b's, psum and rs at cf 1.25 and all three dispatches at
+cf 16) against ``moe_ffn``'s autograd on the same weights, every
+collective's adjoint on the ring kernel (or the vectored all-to-all)
+and its launches and exchanges counted exactly; dbrx-132b at full width
+and 1 of its 40 layers trained with the ``xla`` backend over a 4-kernel
+``ExpertMesh`` (the first batch's loss and gradients against the model
+without it, 3 AdamW steps with the state updated in place, 6 ring
+launches and 36 exchanges a step, losses finite and falling, peak
+memory); custom AM handlers on the card (a 3-row ``put_long`` and a
+vectored put of 34 overlapping blocks) bitwise the CPU run's, one
+DataMover gather and one scatter a landed block.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -656,8 +669,9 @@ def phase_kernels(torch, device):
 
 def dm_records(dmc, paths, shapes=None):
     """One JSON record for every DataMover kernel the main paths launched
-    (``paths``: launches by path -- ops, jacobi, messages, lint, and
-    phase 17's lanes, examples and micro budgets -- and counter),
+    (``paths``: launches by path -- ops, jacobi, messages, lint,
+    phase 17's lanes, examples and micro budgets, and phase 18's custom
+    handlers -- and counter),
     measured at the Jacobi
     run's shape if Jacobi launched it, else at the ops phase's; with
     the other design's time in the same call and the launch floor."""
@@ -666,7 +680,7 @@ def dm_records(dmc, paths, shapes=None):
         per_path = {p: c.get(name, 0) for p, c in paths.items()}
         launches = per_path["ops"] + per_path["jacobi"] \
             + per_path["messages"] + sum(per_path.get(p, 0) for p in (
-                "lint", "lanes", "examples", "micro"))
+                "lint", "lanes", "examples", "micro", "handlers"))
         if not launches:
             continue
         case = "jacobi" if per_path["jacobi"] else "ops"
@@ -5015,6 +5029,433 @@ def phase_ring_and_lanes(torch, device):
     return runs, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the expert-parallel island's backward (dbrx-132b's and
+# deepseek-v2-236b's MoE layers at full width), dbrx-132b trained
+# expert-parallel, custom AM handlers on the card
+# ---------------------------------------------------------------------------
+
+# one island call's backward on ISLAND_K kernels, its loss reading out
+# and (psum, rs) aux: (exchanges, collective calls, ring launches) --
+# the adjoint of every forward collective the loss reads, one
+# all-reduce for the psum dispatch's replicated tokens and one for the
+# router (models/moe.py's counting rule)
+ISLAND_BWD = {
+    "psum": (4 * _AR, {"all_reduce": 4}, 4),
+    "rs": (2 * (ISLAND_K - 1) + 2 * _AR,
+           {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 2}, 4),
+    "a2a": (2 + _AR, {"all_to_all": 2, "all_reduce": 1}, 1)}
+ISLAND_GRAD_TOL = 3e-2      # bf16, of the leaf's largest |grad|
+# dbrx-132b's trainer: 1 of 40 layers at full width, 4,492,216,320
+# parameters (untied head), psum at cf 1.25 over ISLAND_K kernels
+EP_LAYERS, EP_PARAMS = 1, 4_492_216_320
+EP_STEPS = 3
+EP_LOSS_TOL = 1e-3          # ep vs moe_ffn route, relative
+EP_GRAD_TOL = 5e-2          # ep vs moe_ffn route, relative L2 a leaf
+# a MoE layer's train step on ISLAND_K kernels: the psum island forward
+# and backward (the loss weighs aux in)
+EP_STEP_RINGS = ISLAND_CALLS["psum"][2] + ISLAND_BWD["psum"][2]
+EP_STEP_EXCHANGES = ISLAND_CALLS["psum"][0] + ISLAND_BWD["psum"][0]
+# custom handlers: a 3-row put_long (3 x MTU_WORDS words) and a vectored
+# put of HANDLER_BLOCKS 64-word blocks 37 words apart (each overlaps the
+# next), through "scale2" (r + 2p, tests/test_handlers_gascore.py:33)
+# and "ordered" (0.5 r + p: the result depends on the landing order)
+HANDLER_ROWS, HANDLER_BLOCKS, HANDLER_STRIDE = 3, 34, 37
+
+
+def _island_grads(torch, fn, p_moe, h, w, with_aux):
+    """``fn(p, h) -> (out, aux)`` and the gradients of ``(out . w).sum()
+    (+ aux)`` in ``h`` and the routed leaves (fresh leaves sharing the
+    weights' storage): ``(loss, [grads], host ms of the forward, of the
+    backward)``."""
+    from repro_torch.models import moe as moe_lib
+
+    leaves = {n: p_moe[n].detach().requires_grad_() for n in moe_lib.ROUTED}
+    x = h.detach().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, aux = fn({**p_moe, **leaves}, x)
+    loss = (out.float() * w).sum() + (aux if with_aux else 0.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, [x] + list(leaves.values()))
+    torch.cuda.synchronize()
+    return (loss.detach(), grads, (t1 - t0) * 1e3,
+            (time.perf_counter() - t1) * 1e3)
+
+
+def check_island_grads(torch, device, p_moe, dims, d, cases=ISLAND_CASES,
+                       tag="ep"):
+    """Check 1 of phase 18: one full-width MoE layer's routed experts
+    (``p_moe``) over ``ISLAND_K`` kernels on seeded ``(1, ISLAND_S, d)``
+    bf16 activations, the loss ``(out . w).sum() + aux`` for a seeded
+    float32 ``w`` (a2a's leaves ``aux`` out: its shards route a
+    sequence slice each, so its aux is not ``moe_ffn``'s); the shared
+    experts (deepseek-v2) added to the island's output as
+    ``models.model._apply_block`` adds them.  For each dispatch of
+    ``cases``: the gradients of ``h`` and the routed leaves against
+    ``moe_ffn``'s autograd on the same weights, each within
+    ``ISLAND_GRAD_TOL`` of its largest |grad|; exchanges, collective
+    calls and ring launches after the backward exactly the forward's
+    (``ISLAND_CALLS``) plus the rule's (``ISLAND_BWD``); host ms of the
+    forward and the backward (synchronised, the median of 3) and the
+    device ms of one profiled backward.  Returns ``{dispatch: launch
+    counts}`` of the counted runs (cf 1.25's psum and rs, cf 16's a2a)."""
+    from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe as moe_lib
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    h = torch.randn(1, ISLAND_S, d, generator=gen,
+                    device=device).to(torch.bfloat16)
+    w = torch.randn(1, ISLAND_S, d, generator=gen, device=device)
+    names = ("h",) + moe_lib.ROUTED
+    runs = {}
+    for cf, dispatches in cases:
+        dcf = dataclasses.replace(dims, capacity_factor=cf)
+        want = {}
+        for dispatch in dispatches:
+            with_aux = dispatch != "a2a"
+            if with_aux not in want:
+                want.clear()          # one reference's gradients at a time
+                want[with_aux] = _island_grads(
+                    torch, lambda p, x: moe_lib.moe_ffn(p, x, dcf), p_moe,
+                    h, w, with_aux)[1]
+            ref = want[with_aux]
+            dd = dataclasses.replace(dcf, dispatch=dispatch)
+
+            def island(p, x, ctx):
+                out, aux = moe_lib.moe_routed_island(
+                    p, x, dd, moe_lib.ExpertMesh(ctx), torch.bfloat16)
+                if dims.n_shared:       # dense, outside the island
+                    out = out + moe_lib.shared_experts(p, x)
+                return out, aux
+
+            ctx = ShoalContext(ISLAND_K, device=device)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            _, got, _, _ = _island_grads(
+                torch, lambda p, x: island(p, x, ctx), p_moe, h, w, with_aux)
+            counts = launch_counts()
+            fx, fcalls, frings = ISLAND_CALLS[dispatch]
+            bx, bcalls, brings = ISLAND_BWD[dispatch]
+            calls = {k: fcalls.get(k, 0) + bcalls.get(k, 0)
+                     for k in COLLECTIVE_KINDS
+                     if fcalls.get(k, 0) + bcalls.get(k, 0)}
+            got_calls = {k: v for k, v in ctx.collectives.items() if v}
+            require(ctx.exchanges == fx + bx and got_calls == calls
+                    and counts["ring_collective"] == frings + brings,
+                    f"island grad {dispatch} cf {cf}: exchanges "
+                    f"{ctx.exchanges}, collectives {got_calls}, ring "
+                    f"launches {counts['ring_collective']}; want "
+                    f"{fx + bx}, {calls}, {frings + brings}")
+            errs = {}
+            for name, a, b in zip(names, got, ref):
+                top = b.float().abs().max().item()
+                err = (a.float() - b.float()).abs().max().item()
+                require(a.shape == b.shape and bool(torch.isfinite(a).all())
+                        and top > 0 and err <= ISLAND_GRAD_TOL * top,
+                        f"island grad {dispatch} cf {cf} d{name}: max|err| "
+                        f"{err} vs moe_ffn > {ISLAND_GRAD_TOL} * {top}")
+                errs[name] = round(err / top, 6)
+            del got
+            if cf == cases[0][0] or dispatch == "a2a":
+                runs[dispatch] = counts
+            # timed: the forward and the backward apart, synchronised
+            times = [_island_grads(torch, lambda p, x: island(
+                p, x, ShoalContext(ISLAND_K, device=device)), p_moe, h, w,
+                with_aux)[2:] for _ in range(3)]
+            fwd_ms = float(np.median([t[0] for t in times]))
+            bwd_ms = float(np.median([t[1] for t in times]))
+            leaves = {n: p_moe[n].detach().requires_grad_()
+                      for n in moe_lib.ROUTED}
+            x = h.detach().requires_grad_()
+            out, aux = island({**p_moe, **leaves}, x,
+                              ShoalContext(ISLAND_K, device=device))
+            loss = (out.float() * w).sum() + (aux if with_aux else 0.0)
+            by_name, window = device_activity(
+                torch, lambda: torch.autograd.grad(
+                    loss, [x] + list(leaves.values())))
+            del out, aux, loss, leaves, x
+            busy = sum(us for _, us in by_name.values()) / 1e3
+            ring = sum(us for n, (_, us) in by_name.items()
+                       if "ring" in n) / 1e3
+            say(tag, check="island-grad", dispatch=dispatch,
+                capacity_factor=cf, kernels=ISLAND_K,
+                experts_per_kernel=dims.n_experts // ISLAND_K,
+                tokens=ISLAND_S, aux_in_loss=with_aux,
+                grad_rel_err=json.dumps(errs),
+                limit=f"{ISLAND_GRAD_TOL}*max|grad|",
+                exchanges=ctx.exchanges, collectives=json.dumps(got_calls),
+                ring_launches=counts["ring_collective"],
+                fwd_host_ms=f"{fwd_ms:.3f}", bwd_host_ms=f"{bwd_ms:.3f}",
+                bwd_over_fwd=f"{bwd_ms / fwd_ms:.3f}",
+                bwd_device_busy_ms=(f"{busy:.4f}" if by_name
+                                    else "not measured"),
+                bwd_ring_device_ms=(f"{ring:.4f}" if by_name
+                                    else "not measured"),
+                profiled_window_ms=f"{window * 1e3:.3f}", card=card_line())
+        del want
+        _free(torch)
+    return runs
+
+
+def check_ep_train(torch, device):
+    """Check 2 of phase 18: dbrx-132b at full width and ``EP_LAYERS`` of
+    its 40 layers (bf16, seed 0), ``Model(..., ep=ExpertMesh(ctx))`` over
+    ``ISLAND_K`` kernels (psum at cf 1.25), trained with the ``xla``
+    backend on ``TokenPipeline``'s first batch of 8 x 512 tokens.  The
+    layer's island gradients first (:func:`check_island_grads`, on the
+    trainer's weights); the first batch's loss and per-leaf gradients
+    against the same model without ``ep`` (the ``moe_ffn`` route: at one
+    data group the psum shards route the full token set, so the aux is
+    the same); then ``EP_STEPS`` AdamW steps (phase 11's warmup
+    schedule) with ``donate`` (the state updated in place, one copy of
+    m and v), each timed by part
+    (forward and backward, AdamW), its ring launches and exchanges
+    exactly ``EP_STEP_RINGS`` / ``EP_STEP_EXCHANGES`` a MoE layer, the
+    losses finite and the last below the first; peak memory over the
+    steps and before them.  Returns ``{run: launch counts}``."""
+    from repro_torch import configs
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfg = dataclasses.replace(configs.full(MOE_ARCH), n_layers=EP_LAYERS)
+    say("ep", model=MOE_ARCH, cut=f"trained at {EP_LAYERS} of 40 layers "
+        f"(full width), {cfg.moe.dispatch} at cf "
+        f"{cfg.moe.capacity_factor} over {ISLAND_K} kernels")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(device)
+    plain, params = _init(torch, device, cfg, "ep")
+    require(cfg.num_params(params) == EP_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    layer0 = {k: v[0] for k, v in
+              params["segments"][0]["b0_moe"]["moe"].items()}
+    runs = {f"island-grad-{MOE_ARCH}-{k}": v for k, v in check_island_grads(
+        torch, device, layer0, cfg.moe, cfg.d_model).items()}
+    del layer0
+    ctx = ShoalContext(ISLAND_K, device=device)
+    model = build_model(cfg, device=device, ep=moe_lib.ExpertMesh(ctx))
+    require(model._island is not None, "the ep model has no island")
+    batch, _ = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                                        seq=TRAIN_SEQ, seed=0),
+                             device=device).next_batch(0)
+    # phase 11's schedule: a constant 1e-3 overshot here too (losses
+    # 12.05, 27.94, 24.29 on the card)
+    opt = AdamWConfig(lr=warmup_cosine(*FAMILY_LR))
+    tr = Trainer(model, opt, TrainerConfig(donate=True))
+    loss_e, g_e = tr.value_and_grad(params, batch)
+    loss_p, g_p = Trainer(plain, opt).value_and_grad(params, batch)
+    rel_loss = abs(loss_e.item() - loss_p.item()) / abs(loss_p.item())
+    require(rel_loss <= EP_LOSS_TOL, f"ep loss {loss_e.item()} vs moe_ffn "
+            f"route {loss_p.item()}: relative {rel_loss}")
+    errs = {path: _rel_l2(torch, a, b) for (path, a), (_, b)
+            in zip(tree_paths(g_e), tree_paths(g_p))}
+    worst = max(errs, key=errs.get)
+    require(errs[worst] <= EP_GRAD_TOL, f"ep vs moe_ffn route gradient "
+            f"{worst}: relative L2 {errs[worst]}")
+    say("ep", check="first-batch", loss_ep=f"{loss_e.item():.6f}",
+        loss_moe_ffn=f"{loss_p.item():.6f}", loss_rel=f"{rel_loss:.3e}",
+        grad_rel_l2_max=f"{errs[worst]:.3e}", worst_leaf=worst,
+        grad_rel_l2=json.dumps({p: f"{e:.3e}" for p, e in errs.items()}),
+        limit=EP_GRAD_TOL, leaves=len(errs))
+    del g_e, g_p, plain
+    _free(torch)
+    first_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    torch.cuda.reset_peak_memory_stats(device)
+
+    state = tr.state_for(params)
+    del params
+    words = sum(p.numel() for p in tree_leaves(state.params))
+    moe_layers = cfg.n_layers - cfg.first_k_dense
+    tr.value_and_grad, fb_log = _synced(tr.value_and_grad)
+    tr.apply_update, opt_log = _synced(tr.apply_update)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ex0 = ctx.exchanges
+    losses, step_ms, per_step = [], [], []
+    for _ in range(EP_STEPS):
+        before = launch_counts()
+        t = time.perf_counter()
+        state, met = tr.step(state, batch)
+        losses.append(met["loss"].item())          # synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(launch_counts()["ring_collective"]
+                        - before["ring_collective"])
+    counts = launch_counts()
+    exchanges = ctx.exchanges - ex0
+    del tr.value_and_grad, tr.apply_update
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"ep train losses {losses}")
+    require(per_step == [moe_layers * EP_STEP_RINGS] * EP_STEPS
+            and exchanges == EP_STEPS * moe_layers * EP_STEP_EXCHANGES
+            and counts["flash_attention"] == 0,
+            f"ep train: ring launches per step {per_step} (want "
+            f"{moe_layers * EP_STEP_RINGS}), {exchanges} exchanges in "
+            f"{EP_STEPS} steps (want {EP_STEP_EXCHANGES} a MoE layer), "
+            f"flash {counts['flash_attention']}")
+    ms = float(np.median(step_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    say("ep", main_path="ok", model=cfg.name, backend="xla",
+        kernels=ISLAND_K, params=words, tokens_per_step=tokens,
+        losses=[f"{v:.5f}" for v in losses],
+        ms_per_step=[f"{v:.2f}" for v in step_ms],
+        ms_per_step_median_2_on=f"{ms:.2f}",
+        fwd_bwd_ms=[f"{v:.2f}" for v in fb_log],
+        adamw_ms=[f"{v:.2f}" for v in opt_log],
+        tokens_per_s=f"{tokens / ms * 1e3:.1f}",
+        ring_launches_per_step=per_step,
+        exchanges_per_step=exchanges // EP_STEPS,
+        peak_allocated_mb=f"{peak_mb:.0f}",
+        peak_before_steps_mb=f"{first_mb:.0f}", card=card_line())
+    # one more step profiled (not counted): device busy, idle share,
+    # the island's ring and the top device activities
+    by_name, window = device_activity(
+        torch, lambda: tr.step(state, batch)[1]["loss"].item())
+    busy = sum(us for _, us in by_name.values()) / 1e3
+    ring = sum(us for n, (_, us) in by_name.items() if "ring" in n) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    say("ep", model=cfg.name, profiled_window_ms=f"{window * 1e3:.2f}",
+        device_busy_ms=f"{busy:.3f}",
+        idle_share=f"{1 - busy / (window * 1e3):.4f}",
+        ring_device_ms=f"{ring:.4f}",
+        device_activities=sum(c for c, _ in by_name.values()),
+        top_device_ms=json.dumps([[name[:110], c, round(us / 1e3, 4)]
+                                  for name, (c, us) in top]))
+    del state, model, tr
+    _free(torch)
+    runs[f"train-ep-{MOE_ARCH}"] = counts
+    return runs
+
+
+def _handler_table(torch):
+    from repro_torch.core import handlers as hd
+
+    table = hd.HandlerTable()
+    scale2 = table.register("scale2", lambda r, p: r + 2 * p)
+    ordered = table.register("ordered", lambda r, p: 0.5 * r + p)
+    return table, scale2, ordered
+
+
+def _handler_prog(torch, seg0, pay, kind, custom):
+    """``put_long`` of ``HANDLER_ROWS`` rows (``kind="long"``) or a
+    vectored put of ``HANDLER_BLOCKS`` overlapping 64-word blocks
+    (``"vectored"``) on 8 kernels round the ring, acked, through a
+    custom handler (``custom``) or the built-in ``H_ADD``."""
+    from repro_torch.analysis import waiver
+    from repro_torch.core import handlers as hd
+    from repro_torch.core import ops
+    from repro_torch.core.state import ShoalContext, replace
+    from repro_torch.runtime import TCP
+
+    def prog(dev):
+        table, scale2, ordered = _handler_table(torch)
+        ctx = ShoalContext(K, dataclasses.replace(
+            TCP, max_packet_bytes=4 * MTU_WORDS), MSG_SEG_WORDS, device=dev,
+            handlers=table if custom else hd.DEFAULT_TABLE)
+        st = replace(ctx.make_state(), segment=torch.tensor(seg0,
+                                                            device=dev))
+        p = torch.tensor(pay, device=dev)
+        if kind == "long":
+            st = ops.put_long(ctx, st, p[:, :HANDLER_ROWS * MTU_WORDS], RING,
+                              dst_addr=100, handler=scale2 if custom
+                              else hd.H_ADD, token=1)
+        else:
+            blocks = [p[:, i * VEC_WORDS:(i + 1) * VEC_WORDS]
+                      for i in range(HANDLER_BLOCKS)]
+            addrs = [200 + HANDLER_STRIDE * i for i in range(HANDLER_BLOCKS)]
+            with waiver("blocks overlap on purpose: an order-dependent "
+                        "handler must see every earlier block"):
+                st = ops.put_long_vectored(ctx, st, blocks, RING, addrs,
+                                           handler=ordered if custom
+                                           else hd.H_ADD, token=1)
+        st = ops.wait_replies(ctx, st, 1, 1)
+        return ctx, st
+    return prog
+
+
+def check_custom_handlers(torch, device):
+    """Check 3 of phase 18: custom AM handlers on a CUDA context.  A
+    3-row ``put_long`` through "scale2" and a vectored put of 34
+    overlapping blocks through "ordered", each on the card bitwise equal
+    to the same program's CPU run (:func:`_on_both`); the DataMover
+    scatter launched once a landed block and its gather once more a
+    block than the built-in ``H_ADD`` run of the same program, whose
+    scatter launches once a call.  Returns ``{run: launch counts}``."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(29)
+    seg0 = rng.standard_normal((K, MSG_SEG_WORDS)).astype(np.float32)
+    pay = rng.standard_normal((K, HANDLER_ROWS * MTU_WORDS)).astype(
+        np.float32)
+    blocks = {"long": HANDLER_ROWS, "vectored": HANDLER_BLOCKS}
+    runs = {}
+    for kind, nblk in blocks.items():
+        launched = {}
+        for custom in (True, False):
+            reset_launch_counts()
+            ctx, _, ran, host = _on_both(
+                torch, device, _handler_prog(torch, seg0, pay, kind, custom),
+                f"handlers {kind} custom={custom}")
+            launched[custom] = ran
+            if custom:
+                runs[f"handlers-{kind}"] = launch_counts()
+            say("ep", check="handlers", put=kind, blocks=nblk,
+                custom=custom, exchanges=ctx.exchanges, state="bitwise the "
+                "CPU run's", host_ms=f"{host:.3f}", launches=ran)
+        op = {c: {o: sum(v for k, v in launched[c].items()
+                         if k.startswith(f"datamover_{o}"))
+                  for o in ("gather", "scatter")} for c in (True, False)}
+        require(op[True]["scatter"] == nblk and op[False]["scatter"] == 1
+                and op[True]["gather"] == op[False]["gather"] + nblk,
+                f"handlers {kind}: DataMover launches {op} (want "
+                f"{nblk} scatters and {nblk} more gathers with the custom "
+                f"handler, 1 scatter with H_ADD)")
+    return runs
+
+
+def phase_ep(torch, device):
+    """Phase 18: the island's gradients on deepseek-v2-236b's MoE layer
+    (160 experts, 40 a kernel, 2 shared; psum at cf 1.25, seeded bf16
+    weights drawn layer-alone), then dbrx-132b's (:func:`check_ep_train`,
+    which also trains it), then custom handlers on the card.  Returns
+    ``({run: launch counts}, {path: launch counts})``: the runs for the
+    ring records, the handler path for the DataMover records."""
+    from repro_torch import configs
+    from repro_torch.models import moe as moe_lib
+
+    t0 = time.perf_counter()
+    cfg = configs.full(MLA_ARCH)
+    _free(torch)
+    p_moe = moe_lib.init_moe(torch.Generator(device=device).manual_seed(0),
+                             cfg.d_model, cfg.moe, dtype=torch.bfloat16)
+    runs = {f"island-grad-{MLA_ARCH}-{k}": v for k, v in check_island_grads(
+        torch, device, p_moe, cfg.moe, cfg.d_model, MLA_ISLAND_CASES,
+        "ep").items()}
+    del p_moe
+    _free(torch)
+    say("ep", check="island-grad", model=MLA_ARCH,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    runs.update(check_ep_train(torch, device))
+    say("ep", check="train", model=MOE_ARCH,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    handled = check_custom_handlers(torch, device)
+    say("ep", check="handlers", seconds=f"{time.perf_counter() - t0:.1f}")
+    paths = {"handlers": {k: sum(c.get(k, 0) for c in handled.values())
+                          for k in DM_COUNTERS.values()}}
+    return runs, paths
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -5240,6 +5681,11 @@ def main() -> int:
     say("phase17", seconds=f"{time.perf_counter() - t0:.1f}",
         card=card_line())
     family.update(late)
+    t0 = time.perf_counter()
+    ep, ep_paths = phase_ep(torch, device)
+    say("phase18", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=card_line())
+    family.update(ep)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])
@@ -5248,7 +5694,8 @@ def main() -> int:
     rings.extend(family_rings + moe_rings)
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
                            "jacobi": counts, "messages": messages,
-                           "lint": linted, **late_paths}, shapes)
+                           "lint": linted, **late_paths, **ep_paths},
+                     shapes)
     for op in ("gather", "scatter"):       # the routed kernel ran
         name = DM_COUNTERS[op, dmc[op]["jacobi"]["route"]]
         require(any(r["name"] == name and r["path_launches"]["jacobi"] > 0

@@ -8,8 +8,10 @@ accumulate (put-with-reduce), min/max.
 
 On the device the GAScore's DataMover write kernel
 (:mod:`repro_torch.kernels.am_pack`) takes the built-in IDs 0-4 as an op
-code; a table with custom entries runs only through the plain tensor
-path (:meth:`HandlerTable.dispatch`), i.e. on CPU tensors.
+code.  A table with custom entries lands block by block there: the
+DataMover gather reads each block's region, :meth:`HandlerTable.dispatch`
+computes the new one on the device, and the scatter writes it
+(``kernels.am_pack.ops.scatter_through_handlers``).
 
 Every array here carries the leading kernel axis ``K``: ``credits`` is
 ``(K, NUM_TOKENS)`` and per-kernel tokens/counts are ints or ``(K,)``
@@ -50,8 +52,8 @@ class HandlerTable:
     """Handler registry, frozen once programs start calling it.
 
     Users may register additional pure handlers (the software-kernel
-    freedom the paper preserves).  Custom handlers run on CPU tensors
-    only: the device's DataMover kernel knows the built-ins.
+    freedom the paper preserves): pure tensor functions, run on the
+    segment's device.
     """
 
     def __init__(self):

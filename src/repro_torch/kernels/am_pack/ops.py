@@ -34,20 +34,54 @@ def datamover_scatter(seg: torch.Tensor, pay: torch.Tensor,
                       table: hd.HandlerTable | None = None) -> torch.Tensor:
     """Land packet rows ``pay (K, B, W)`` in ``seg (K, S)`` in place,
     block by block in order, through each block's handler.  Returns
-    ``seg``.  On CUDA only the built-in handlers exist."""
+    ``seg``.  On CUDA a table of the built-in handlers is one launch of
+    the scatter kernel, which runs them itself; a table with custom
+    handlers lands block by block (:func:`scatter_through_handlers`),
+    two launches a block."""
     table = hd.DEFAULT_TABLE if table is None else table
     if seg.device.type == "cpu":
         return datamover_scatter_ref(seg, pay, addr, nwords, handler, active,
                                      table)
     if not table.builtin_only:
-        raise NotImplementedError(
-            "custom handlers on a CUDA context: the DataMover kernel knows "
-            "the built-in handlers 0-4 only; custom handler op codes land "
-            "with a later slice of the port (run custom handlers on CPU "
-            "tensors meanwhile)")
+        return scatter_through_handlers(seg, pay, addr, nwords, handler,
+                                        active, table, _gather_cuda,
+                                        _scatter_cuda)
+    return _scatter_cuda(seg, pay, addr, nwords, handler, active)
+
+
+def _gather_cuda(seg, addr, nwords, W):
+    return datamover_gather_cuda(seg, _i32(addr), _i32(nwords), W)
+
+
+def _scatter_cuda(seg, pay, addr, nwords, handler, active):
     return datamover_scatter_cuda(seg, pay.to(seg.dtype).contiguous(),
                                   _i32(addr), _i32(nwords), _i32(handler),
                                   _i32(active))
+
+
+def scatter_through_handlers(seg, pay, addr, nwords, handler, active,
+                             table: hd.HandlerTable, gather, scatter):
+    """:func:`datamover_scatter` with any handler table, block by block
+    in block order: ``gather(seg, addr, nwords, W)`` reads the block's
+    region ``(K, 1, W)``, ``table.dispatch`` computes the new region
+    from it and the block's payload (handler ids clipped into the
+    table), and ``scatter`` writes it with ``H_WRITE`` under the block's
+    ``active``, ``nwords`` and in-segment masks, so a later block sees
+    every earlier one.  The kernels move the bytes; the handler's
+    arithmetic is the caller's tensor function, as the JAX package runs
+    ``lax.switch`` outside its Pallas kernels.  On a CUDA segment
+    ``gather`` and ``scatter`` are the DataMover kernels' wrappers, on
+    the CPU their plain versions.  Returns ``seg``."""
+    W = pay.shape[2]
+    write = torch.full((seg.shape[0], 1), hd.H_WRITE, dtype=torch.int32,
+                       device=seg.device)
+    for b in range(pay.shape[1]):
+        blk = slice(b, b + 1)
+        region = gather(seg, addr[:, blk], nwords[:, blk], W)
+        new = table.dispatch(handler[:, blk], region, pay[:, blk])
+        scatter(seg, new.to(seg.dtype), addr[:, blk], nwords[:, blk], write,
+                active[:, blk])
+    return seg
 
 
 def am_pack(segment: torch.Tensor, addr: int, stride: int, blk_words: int,

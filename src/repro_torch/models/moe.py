@@ -27,7 +27,24 @@ every data group at once:
   as a bitcast meta lane, :mod:`repro_torch.actors.coalesce`) and one
   brings the results home.
 
-The island is forward-only: the ring kernel has no autograd edge.
+The island is differentiable.  Its collectives carry autograd edges
+whose backward is the adjoint collective on the same ring kernel
+(:mod:`repro_torch.core.collectives`), and an input that every kernel
+reads whole gets its cotangent summed across the kernels by one ring
+all-reduce, where the JAX package's ``shard_map`` transpose inserts a
+``psum``: the psum dispatch's replicated tokens and the router.  The
+expert slabs are each one kernel's, so they are not reduced; the data
+groups are a loop on each kernel, so sums over them stay local (the
+JAX mesh reduces the slabs over its ``data`` axis instead).  The
+backward's collectives are therefore
+
+    the adjoint of every forward collective whose output reaches the
+    loss + one all-reduce for the tokens (psum only) + one for the
+    router,
+
+each counted in ``ctx.exchanges`` and ``ctx.collectives`` as a forward
+call of its kind.  A loss that leaves ``aux`` out skips the adjoint of
+its all-reduce.
 """
 
 from __future__ import annotations
@@ -263,26 +280,31 @@ def _a2a_combine(ry, state, k: int):
 # the expert-parallel island
 # --------------------------------------------------------------------------
 
-def _slab(p, shard: int, E_local: int, dtype):
-    """Kernel ``shard``'s experts: views of the stacked leaves."""
-    lo = shard * E_local
-    out = {"router": p["router"].to(dtype)}
-    for name in ROUTED[1:]:
-        out[name] = p[name][lo:lo + E_local].to(dtype)
-    return out
+def _slabs(ctx: ShoalContext, p, E_local: int, dtype):
+    """Every kernel's experts, ``[{router, wg, wu, wd}, ...]``: the
+    router broadcast to the kernels, each expert stack split into the
+    kernels' slabs (views, one split a leaf, so autograd stacks the
+    slabs' gradients once)."""
+    router = coll.broadcast_to_kernels(ctx, p["router"]).to(dtype)
+    parts = {name: p[name].split(E_local) for name in ROUTED[1:]}
+    return [{"router": router[s],
+             **{name: parts[name][s].to(dtype) for name in ROUTED[1:]}}
+            for s in range(ctx.num_kernels)]
 
 
-def _to_shards(x, D: int, K: int, seq: bool):
+def _to_shards(ctx: ShoalContext, x, D: int, seq: bool):
     """``(B, S, d)`` -> every ``(kernel, data group)`` shard's tokens
     ``(K, D, T, d)``, each in ``(b, s)`` order: sequence-sharded over the
-    kernels when ``seq``, else replicated (a broadcast view)."""
+    kernels when ``seq``, else replicated (a broadcast whose cotangent
+    is all-reduced over the kernels)."""
+    K = ctx.num_kernels
     B, S, d = x.shape
     if B % D or (seq and S % K):
         raise ValueError(f"moe island: batch {B} x sequence {S} does not "
                          f"shard over {D} data groups x {K} kernels")
     x = x.reshape(D, B // D, S, d)
     if not seq:
-        return x.reshape(1, D, (B // D) * S, d).expand(K, -1, -1, -1)
+        return coll.broadcast_to_kernels(ctx, x.reshape(D, (B // D) * S, d))
     x = x.reshape(D, B // D, K, S // K, d).permute(2, 0, 1, 3, 4)
     return x.reshape(K, D, (B // D) * (S // K), d)
 
@@ -305,14 +327,8 @@ def moe_routed_island(p, h, dims: MoEDims, mesh: ExpertMesh,
     experts run outside).  ``h (B, S, d)`` crosses the island boundary
     in float32 and each shard computes in ``compute_dtype``; returns
     ``(out (B, S, d) in h.dtype, aux)``, ``aux`` the mean over every
-    shard (one all-reduce).  Forward only: raises on inputs that
-    require grad."""
-    if torch.is_grad_enabled() and (
-            h.requires_grad or any(p[n].requires_grad for n in ROUTED)):
-        raise RuntimeError(
-            "moe_routed_island is forward-only (the ring collectives have "
-            "no backward) and got inputs that require grad; differentiate "
-            "through the single-device moe_ffn (Model without ep=)")
+    shard (one all-reduce).  Differentiable in ``h`` and the routed
+    leaves (module docstring)."""
     ctx, D = mesh.ctx, mesh.data
     K, E, k = ctx.num_kernels, dims.n_experts, dims.top_k
     if E % K:
@@ -321,8 +337,8 @@ def moe_routed_island(p, h, dims: MoEDims, mesh: ExpertMesh,
     E_local = E // K
     B, S, d = h.shape
     seq = dims.dispatch in ("a2a", "rs")
-    x = _to_shards(h.float().to(compute_dtype), D, K, seq)
-    slabs = [_slab(p, s, E_local, compute_dtype) for s in range(K)]
+    x = _to_shards(ctx, h.float(), D, seq).to(compute_dtype)
+    slabs = _slabs(ctx, p, E_local, compute_dtype)
     shards = [(s, g) for s in range(K) for g in range(D)]
 
     def stack(rows):                      # [K * D] -> (K, D, ...)

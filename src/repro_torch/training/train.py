@@ -3,10 +3,16 @@
 
 Two backends, both computing the same math (tested against each other):
 
-* ``xla`` -- the whole batch in one loss-and-grad on the device, no
-  Shoal traffic (the JAX package's one-program GSPMD step; the name is
-  kept so the launcher's flags match).  ``microbatches > 1`` loops over
-  equal slices of the batch and accumulates ``loss / n``.
+* ``xla`` -- the whole batch in one loss-and-grad on the device (the
+  JAX package's one-program GSPMD step; the name is kept so the
+  launcher's flags match).  ``microbatches > 1`` loops over equal slices
+  of the batch and accumulates ``loss / n``.  A model built with
+  ``ep=ExpertMesh(ctx, data=D)`` trains expert-parallel, as the JAX
+  ``Trainer`` trains a mesh model: its MoE layers run the island over
+  ``ctx``'s kernels, forward and backward on the ring collectives
+  (:mod:`repro_torch.models.moe`); that is the step's only Shoal
+  traffic.  The ``shoal`` backend refuses such a model, as the JAX
+  package's shoal step fails on it.
 * ``shoal`` -- the paper-faithful path: the trainer holds a
   ``ShoalContext`` of K kernels, the data-parallel members.  Member k
   computes the loss and gradient of rows ``[k B/K, (k+1) B/K)`` of the
@@ -21,8 +27,11 @@ row 0 of each all-reduced leaf (every row is equal).  The K members run
 one after another on the one device.  Losses are differentiated through
 ``Model.loss``, whose attention is the plain route (the flash kernel has
 no backward).  The JAX package's XLA sharding helpers
-(``state_pspecs``, ``state_shardings``, ``batch_shardings``) and buffer
-donation are not ported (ROADMAP).
+(``state_pspecs``, ``state_shardings``, ``batch_shardings``) are not
+ported (ROADMAP).  Its buffer donation is ``TrainerConfig.donate``, off
+by default here (the JAX default is on): the update is written into
+the state's own tensors, so a step holds one copy of the optimizer
+state.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ class TrainerConfig:
     comm_backend: str = "xla"       # xla | shoal
     microbatches: int = 1
     grad_compression: bool = False  # int8 EF on the shoal sync
+    donate: bool = False            # the step updates the state in place
 
 
 class Trainer:
@@ -80,6 +90,14 @@ class Trainer:
             raise ValueError("grad_compression compresses the shoal "
                              "backend's ring all-reduce; the xla backend "
                              "has no sync to compress")
+        if tcfg.comm_backend == "shoal" and model._island is not None:
+            raise ValueError(
+                "the shoal backend does not train an expert-parallel model "
+                "(Model(..., ep=)): its members would nest the island's "
+                "kernels in theirs, which the JAX package's shoal step "
+                "cannot do either (its shard_map over the data axis meets "
+                "the island's over the whole mesh); train it with the xla "
+                "backend")
         self.model = model
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
@@ -214,7 +232,8 @@ class Trainer:
     @torch.no_grad()
     def apply_update(self, state: TrainState, grads, loss, ef_residual=None):
         new_params, new_opt, metrics = aw.adamw_update(
-            self.opt_cfg, grads, state.opt_state, state.params)
+            self.opt_cfg, grads, state.opt_state, state.params,
+            inplace=self.tcfg.donate)
         metrics["loss"] = loss
         return TrainState(params=new_params, opt_state=new_opt,
                           step=state.step + 1,
@@ -222,7 +241,8 @@ class Trainer:
 
     def step(self, state: TrainState, batch):
         """One train step: ``(new state, metrics)``; ``state`` is left
-        as it was."""
+        as it was, unless ``donate`` hands its parameters and optimizer
+        state to the new one, updated in place."""
         loss, grads, res = self.grads(state, batch)
         return self.apply_update(state, grads, loss, res)
 

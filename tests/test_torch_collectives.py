@@ -527,5 +527,124 @@ def test_ring_tile_plan_refuses_what_the_kernel_cannot_hold():
             tile_plan(K, 4096, torch.float32, schedule)
 
 
+# -- the collectives' backward -------------------------------------------------
+
+GRAD_OPS = ("reduce_scatter", "all_gather", "all_reduce", "all_to_all",
+            "broadcast")
+GRAD_KS = (2, 3, 8)
+ADJOINT_KIND = {"reduce_scatter": "all_gather", "all_gather": "reduce_scatter",
+                "all_reduce": "all_reduce", "all_to_all": "all_to_all",
+                "broadcast": "all_reduce"}
+
+
+def _padded(g, K):
+    """``g (K, ...)`` flat and zero-padded to ``(K, K, ceil(size/K))``."""
+    import torch
+
+    flat = g.reshape(K, -1)
+    c = -(-flat.shape[1] // K)
+    flat = torch.cat([flat, flat.new_zeros(K, c * K - flat.shape[1])], 1)
+    return flat.reshape(K, K, c)
+
+
+def _plain_adjoint(op, g, x):
+    """The cotangent of ``x`` from the plain ring schedules, written out
+    on their own: what the autograd edge must give bitwise."""
+    from repro_torch.kernels.gascore_dma.ref import (ALL_REDUCE,
+                                                     ring_all_gather_ref,
+                                                     ring_collective_ref,
+                                                     ring_reduce_scatter_ref)
+
+    K = g.shape[0]
+    size = x[0].numel()
+    if op == "reduce_scatter":
+        return ring_all_gather_ref(g).reshape(K, -1)[:, :size].reshape(
+            x.shape)
+    if op == "all_gather":
+        return ring_reduce_scatter_ref(g).reshape(x.shape)
+    if op == "all_to_all":
+        m = g.shape[1]
+        return g.reshape(K, K, m // K, *g.shape[2:]).transpose(0, 1).reshape(
+            g.shape)
+    full = ring_collective_ref(_padded(g, K), ALL_REDUCE).reshape(K, -1)
+    if op == "all_reduce":
+        return full[:, :size].reshape(x.shape)
+    return full[0, :x.numel()].reshape(x.shape)         # broadcast
+
+
+def _grad_call(op, ctx, x):
+    from repro_torch.core import collectives as coll
+
+    return {"reduce_scatter": coll.ring_reduce_scatter,
+            "all_gather": coll.ring_all_gather,
+            "all_reduce": coll.ring_all_reduce,
+            "all_to_all": coll.all_to_all_vectored,
+            "broadcast": coll.broadcast_to_kernels}[op](ctx, x)
+
+
+@pytest.mark.parametrize("K", GRAD_KS)
+@pytest.mark.parametrize("op", GRAD_OPS)
+def test_collective_backward_is_its_plain_adjoint(op, K):
+    """Each collective's backward, at K kernels and 35 words a kernel (a
+    ragged split: the reduce-scatter's and all-reduce's pad is cut off
+    again), against its adjoint from the plain schedules, bitwise; the
+    backward counts what a forward call of the adjoint's kind counts."""
+    import torch
+
+    from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
+
+    rng = np.random.default_rng(K)
+    shape = {"all_to_all": (K, 2 * K, 3), "broadcast": (5, 7)}.get(
+        op, (K, 5, 7))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x.requires_grad_()
+    ctx = ShoalContext(K, device="cpu")
+    y = _grad_call(op, ctx, x)
+    g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(
+        np.float32))
+    g.reshape(-1)[::5] = 0.0
+    fwd = (ctx.exchanges, dict(ctx.collectives))
+    (dx,) = torch.autograd.grad(y, x, g)
+    _assert_bits(dx, _plain_adjoint(op, g, x.detach()).numpy(), op)
+    each = {"reduce_scatter": K - 1, "all_gather": K - 1,
+            "all_reduce": 2 * (K - 1), "all_to_all": 1}
+    kind = ADJOINT_KIND[op]
+    assert ctx.exchanges - fwd[0] == each[kind]
+    if op != "broadcast":       # a broadcast's forward makes no exchange
+        assert fwd[0] == each[op]
+    assert {k: ctx.collectives[k] - fwd[1][k] for k in COLLECTIVE_KINDS} \
+        == {k: int(k == kind) for k in COLLECTIVE_KINDS}
+
+
+def test_ring_adjoints_reduce_in_float32():
+    """A bfloat16 input's cotangent goes through the adjoint ring in
+    float32 and comes back in bfloat16; without an input that requires
+    grad (or under ``no_grad``) a call builds no autograd edge and gives
+    the same words."""
+    import torch
+
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.state import ShoalContext
+
+    K = 3
+    ctx = ShoalContext(K, device="cpu")
+    rng = np.random.default_rng(5)
+    for op in ("reduce_scatter", "all_gather", "all_reduce", "broadcast"):
+        shape = (5, 7) if op == "broadcast" else (K, 5, 7)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16).requires_grad_()
+        y = _grad_call(op, ctx, x)
+        g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(
+            np.float32)).to(y.dtype)
+        (dx,) = torch.autograd.grad(y, x, g)
+        assert dx.dtype == torch.bfloat16
+        want = _plain_adjoint(op, g.float(), x.detach()).to(torch.bfloat16)
+        _assert_bits(dx, want.float().numpy(), op)
+        with torch.no_grad():
+            plain = _grad_call(op, ctx, x)
+        assert plain.grad_fn is None and torch.equal(plain, y.detach())
+    assert coll.ring_all_reduce(ctx, torch.ones(K, 4)).grad_fn is None
+
+
 if __name__ == "__main__":
     _run_reference(sys.argv[1])

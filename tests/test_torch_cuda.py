@@ -1852,18 +1852,159 @@ def test_moe_island_on_the_card_matches_moe_ffn(cuda, dispatch, dtype, tol):
     assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= tol * top
 
 
-def test_moe_island_refuses_grad_on_the_card(cuda):
+def test_moe_island_refuses_grad_on_the_card(cuda, monkeypatch):
+    """The island used to refuse inputs that require grad; on the card it
+    now differentiates through the ring kernel.  Over 4 kernels x 2 data
+    groups (float32, TF32 off), the gradients of ``(out . w).sum() +
+    aux`` in ``h`` and the routed leaves within 1e-4 of each leaf's
+    largest |grad| of the CPU run's, and the ring launched once for each
+    forward and backward ring collective: psum 2 + 4, rs 3 + 4, a2a
+    1 + 2 (the all-to-alls are no launch)."""
     from repro_torch.core.state import ShoalContext
     from repro_torch.models import moe as tmoe
 
-    dims, p, h = _island_case(cuda, "psum", torch.float32)
-    mesh = tmoe.ExpertMesh(ShoalContext(4, device=cuda))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tmoe.moe_routed_island(p, h.requires_grad_(), dims, mesh,
-                               torch.float32)
-    p["wu"].requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tmoe.moe_routed_island(p, h.detach(), dims, mesh, torch.float32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for dispatch, rings in (("psum", 6), ("rs", 7), ("a2a", 3)):
+        grads = {}
+        for device in (cuda, torch.device("cpu")):
+            dims, p, h = _island_case(device, dispatch, torch.float32)
+            w = torch.randn(h.shape, generator=torch.Generator().manual_seed(
+                5)).to(device)
+            leaves = [p[n].requires_grad_() for n in tmoe.ROUTED]
+            h.requires_grad_()
+            ctx = ShoalContext(4, device=device)
+            reset_launch_counts()
+            out, aux = tmoe.moe_routed_island(p, h, dims,
+                                              tmoe.ExpertMesh(ctx, data=2),
+                                              torch.float32)
+            grads[device.type] = [g.cpu() for g in torch.autograd.grad(
+                (out * w).sum() + aux, [h] + leaves)]
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                assert launch_counts()["ring_collective"] == rings, dispatch
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-4 * b.abs().max().item(),
+                                       err_msg=dispatch)
+
+
+@pytest.mark.parametrize("K", [2, 3, 8])
+@pytest.mark.parametrize("op", ["reduce_scatter", "all_gather",
+                                "all_reduce", "all_to_all", "broadcast"])
+def test_collective_backward_on_the_card_matches_the_cpu(cuda, op, K):
+    """Each collective's backward on the card (the adjoint on the ring
+    kernel, one launch; the all-to-all's transpose, none) bitwise the
+    CPU run's, 35 words a kernel (a ragged split)."""
+    from test_torch_collectives import _grad_call
+
+    from repro_torch.core.state import ShoalContext
+
+    rng = np.random.default_rng(K)
+    shape = {"all_to_all": (K, 2 * K, 3), "broadcast": (5, 7)}.get(
+        op, (K, 5, 7))
+    x = rng.standard_normal(shape).astype(np.float32)
+    got = {}
+    for device in (cuda, torch.device("cpu")):
+        xt = torch.tensor(x, device=device, requires_grad=True)
+        ctx = ShoalContext(K, device=device)
+        reset_launch_counts()
+        y = _grad_call(op, ctx, xt)
+        g = torch.tensor(np.random.default_rng(K + 1).standard_normal(
+            tuple(y.shape)).astype(np.float32), device=device)
+        (got[device.type],) = torch.autograd.grad(y, xt, g)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            want = {"all_to_all": 0, "broadcast": 1}.get(op, 2)
+            assert launch_counts()["ring_collective"] == want
+    assert torch.equal(got["cuda"].cpu().view(torch.int32),
+                       got["cpu"].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_custom_handlers_on_the_card_match_the_cpu(cuda, dtype):
+    """A table with custom handlers on a CUDA segment: overlapping
+    blocks, inactive ones, lanes past ``nwords`` and the segment's ends,
+    ids past the table's end, landed through the DataMover gather and
+    scatter one block at a time (one launch of each a block), bitwise
+    the plain scatter on the CPU; the built-in table keeps one scatter
+    launch a call."""
+    from test_torch_guard import _handler_tables
+
+    from repro_torch.core import handlers as hd
+
+    table = _handler_tables(dtype)
+    g = torch.Generator().manual_seed(11)
+    K, S, B, W = 3, 4096, 40, 96
+    if dtype == torch.int32:
+        seg = torch.randint(-50, 50, (K, S), generator=g, dtype=dtype)
+        pay = torch.randint(-50, 50, (K, B, W), generator=g, dtype=dtype)
+    else:
+        seg = torch.randn(K, S, generator=g).to(dtype)
+        pay = torch.randn(K, B, W, generator=g).to(dtype)
+    addr = (torch.arange(B, dtype=torch.int32) * 61 - 20).expand(K, B) \
+        + torch.arange(K, dtype=torch.int32)[:, None]
+    nwords = torch.randint(0, W + 1, (K, B), generator=g, dtype=torch.int32)
+    handler = torch.randint(-2, len(table) + 4, (K, B), generator=g,
+                            dtype=torch.int32)
+    active = (torch.rand(K, B, generator=g) > 0.15).to(torch.int32)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for tab, scatters, gathers in ((table, B, B), (hd.DEFAULT_TABLE, 1, 0)):
+        hid = handler if tab is table else handler.clamp(0, 4)
+        want = dm.datamover_scatter(seg.clone(), pay, addr, nwords, hid,
+                                    active, tab)
+        reset_launch_counts()
+        got = dm.datamover_scatter(seg.clone().to(cuda), pay.to(cuda),
+                                   addr.to(cuda), nwords.to(cuda),
+                                   hid.to(cuda), active.to(cuda), tab)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert torch.equal(got.cpu().view(bits), want.view(bits))
+        assert counts["datamover_scatter"] + counts[
+            "datamover_scatter_sm90"] == scatters
+        assert counts["datamover_gather"] + counts[
+            "datamover_gather_sm90"] == gathers
+
+
+def test_ep_trainer_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """dbrx-smoke with ``Model(..., ep=ExpertMesh(ShoalContext(4),
+    data=2))`` (float32, TF32 off): one ``xla`` step's loss within 1e-5
+    and every gradient leaf within 1e-5 of its largest |gradient| of the
+    CPU run's; the step's ring launches the island's, forward and
+    backward, 6 a MoE layer (psum; the loss weighs aux in)."""
+    from repro_torch import configs
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
+    from repro_torch.tree import tree_map, tree_paths
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.reduced("dbrx-132b")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    batch, _ = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=4, seq=16,
+                                        seed=0)).next_batch(0)
+    got = {}
+    for device in (cuda, torch.device("cpu")):
+        model = build_model(cfg, device=device, ep=tmoe.ExpertMesh(
+            ShoalContext(4, device=device), data=2))
+        reset_launch_counts()
+        got[device.type] = Trainer(model, AdamWConfig(lr=1e-3)).value_and_grad(
+            tree_map(lambda t: t.to(device), params),
+            {k: v.to(device) for k, v in batch.items()})
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert launch_counts()["ring_collective"] == 6 * cfg.n_layers
+    (lg, gg), (lc, gc) = got["cuda"], got["cpu"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5, atol=1e-5)
+    for (path, a), (_, b) in zip(tree_paths(gg), tree_paths(gc)):
+        np.testing.assert_allclose(a.cpu().double().numpy(),
+                                   b.double().numpy(), rtol=0,
+                                   atol=1e-5 * b.abs().max().item(),
+                                   err_msg=path)
 
 
 # -- ring attention and the seq_shard route ----------------------------------

@@ -444,20 +444,103 @@ def test_non_cpu_tensors_never_reach_a_plain_version():
 
 
 def test_custom_handlers_refused_off_the_cpu_and_run_on_it():
+    """Custom handlers used to be refused on a device; a CUDA segment now
+    lands them through the DataMover kernels block by block.  A segment
+    that is on neither the CPU nor a CUDA card is still refused (it
+    never reaches a plain version), and on the CPU a ``put_long`` with
+    a registered handler is the JAX package's ``ingress_long`` with the
+    same table, bitwise."""
+    import jax.numpy as jnp
+
+    from repro.core import am as jam, gascore as jgc, handlers as jhd
+    from repro.core.state import PgasState as JState
+    from repro.core.state import ShoalContext as JCtx
+    from repro.runtime.topology import make_cpu_mesh
+
     table = hd.HandlerTable()
-    hid = table.register("twice", lambda r, p: r + 2 * p)
+    hid = table.register("scale2", lambda r, p: r + 2 * p)
     assert hid == hd.NUM_BUILTIN and not table.builtin_only
     seg = torch.zeros(1, 8, device="meta")
     i32 = torch.zeros(1, 1, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="CUDA"):
         dm.datamover_scatter(seg, torch.zeros(1, 1, 4, device="meta"), i32,
                              i32, i32, i32, table)
-    ctx = ShoalContext(2, segment_words=16, device="cpu", handlers=table)
-    st = GlobalAddressSpace(ctx).make_global_state(np.ones(32, np.float32))
-    st = ops.put_long(ctx, st, torch.full((2, 4), 3.0), [(0, 1), (1, 0)],
+    jtable = jhd.HandlerTable()
+    assert jtable.register("scale2", lambda r, p: r + 2 * p) == hid
+    S, W = 16, 4
+    rng = np.random.default_rng(3)
+    seg0 = rng.standard_normal((2, S)).astype(np.float32)
+    pay = rng.standard_normal((2, W)).astype(np.float32)
+    ctx = ShoalContext(2, segment_words=S, device="cpu", handlers=table)
+    st = replace(ctx.make_state(), segment=torch.from_numpy(seg0.copy()))
+    st = ops.put_long(ctx, st, torch.from_numpy(pay), [(0, 1), (1, 0)],
                       dst_addr=2, handler=hid, token=1)
-    np.testing.assert_array_equal(st.segment[:, 2:6].numpy(),
-                                  np.full((2, 4), 7.0))
+    jctx = JCtx(mesh=make_cpu_mesh(1, ("kernel",)), axes=("kernel",),
+                segment_words=S, handlers=jtable)
+    hdr = jam.decode(jam.encode(type=jam.make_type(jam.LONG), nwords=W,
+                                dst_addr=2, handler=hid))
+    for k in range(2):
+        jst = JState.make(S)
+        jst = jgc.dataclasses_replace(jst, segment=jnp.asarray(seg0[k]))
+        want = jgc.ingress_long(jctx, jst, hdr, jnp.asarray(pay[1 - k]), W)
+        np.testing.assert_array_equal(
+            st.segment[k].numpy().view(np.int32),
+            np.asarray(want.segment).view(np.int32))
+
+
+def _handler_tables(dtype):
+    """A table with ``r + 2 p`` (the JAX package's "scale2") and one
+    handler whose result depends on the order blocks land."""
+    table = hd.HandlerTable()
+    table.register("scale2", lambda r, p: r + 2 * p)
+    if dtype == torch.int32:
+        table.register("ordered", lambda r, p: 2 * r - p)
+    else:
+        table.register("ordered", lambda r, p: 0.5 * r + p)
+    return table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_scatter_through_handlers_is_the_plain_scatter(dtype):
+    """The custom-handler route (``scatter_through_handlers``) run with
+    the plain gather and scatter equals ``datamover_scatter_ref``
+    bitwise: overlapping blocks (each later block reads what the earlier
+    ones wrote), inactive blocks, lanes past ``nwords`` and past either
+    end of the segment, and handler ids past the table's end (clipped to
+    its last entry) or below 0 (clipped to NOP)."""
+    from repro_torch.kernels.am_pack.ops import scatter_through_handlers
+    from repro_torch.kernels.am_pack.ref import (datamover_gather_ref,
+                                                 datamover_scatter_ref)
+
+    table = _handler_tables(dtype)
+    g = torch.Generator().manual_seed(11)
+    K, S, B, W = 3, 48, 9, 8
+    if dtype == torch.int32:
+        seg = torch.randint(-50, 50, (K, S), generator=g, dtype=dtype)
+        pay = torch.randint(-50, 50, (K, B, W), generator=g, dtype=dtype)
+    else:
+        seg = torch.randn(K, S, generator=g).to(dtype)
+        pay = torch.randn(K, B, W, generator=g).to(dtype)
+    addr = torch.randint(-6, S + 2, (K, B), generator=g, dtype=torch.int32)
+    addr[:, 1:4] = addr[:, :1] + torch.tensor([2, 3, 5], dtype=torch.int32)
+    nwords = torch.randint(0, W + 1, (K, B), generator=g, dtype=torch.int32)
+    handler = torch.randint(-2, len(table) + 4, (K, B), generator=g,
+                            dtype=torch.int32)
+    handler[:, 1:4] = torch.tensor([hd.NUM_BUILTIN, hd.NUM_BUILTIN + 1,
+                                    len(table) + 3], dtype=torch.int32)
+    active = torch.rand(K, B, generator=g) > 0.15
+    want = datamover_scatter_ref(seg.clone(), pay, addr, nwords, handler,
+                                 active, table)
+    got = scatter_through_handlers(
+        seg.clone(), pay, addr, nwords, handler, active, table,
+        datamover_gather_ref, datamover_scatter_ref)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert not torch.equal(want, seg)
+    assert torch.equal(dm.datamover_scatter(seg.clone(), pay, addr, nwords,
+                                            handler, active, table).view(bits),
+                       want.view(bits))
 
 
 def test_lossy_transport_refused_at_call_time():

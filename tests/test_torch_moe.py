@@ -23,8 +23,15 @@ tests/test_torch_moe.py OUT.npz``): the ``moe-dispatch`` entry's model
 dispatch (``psum``, ``rs``, ``a2a``) at capacity factors 16 and 1.25;
 the port runs it over 4 kernels x 2 data groups (``ExpertMesh``): logits
 and aux within 1e-5, and every layer's exchanges and collective calls
-as the dispatch's table says.  An a2a island at 512 experts in bfloat16
-carries expert ids past 256 through the meta lane.
+as the dispatch's table says.  The gradient: ``Model.loss`` (aux weight
+0.01) and every gradient leaf against the mesh model's ``jax.grad``
+within 1e-5, the backward's exchanges and collective calls by the
+counting rule of ``repro_torch.models.moe``, and one ``xla`` trainer
+step's parameters against the JAX ``Trainer``'s within 1e-4
+(``tests/md_checks.py``'s bound).  The subprocess also compiles the
+JAX island's own gradient program for each dispatch and reports its
+collectives by kind, which the rule is held to.  An a2a island at 512
+experts in bfloat16 carries expert ids past 256 through the meta lane.
 """
 
 import dataclasses
@@ -46,7 +53,7 @@ from repro_torch.models.convert import (cache_from_numpy,  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.training import Trainer  # noqa: E402
-from repro_torch.tree import tree_paths  # noqa: E402
+from repro_torch.tree import tree_map, tree_paths  # noqa: E402
 
 TOL = 1e-5
 SLOTS = 16
@@ -328,17 +335,62 @@ def _island_tokens():
         np.int32)
 
 
-def _run_reference(out_path):
+def _island_batch():
+    toks = _island_tokens()
+    return {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+
+
+def _island_grad_ops(mesh, base, out):
+    """Collectives by kind in the JAX island's compiled gradient program,
+    per dispatch: ``d/d(p, h) [(out * w).sum() + aux]`` of one island
+    call on ``(4, 32, 64)`` tokens."""
     import jax
     import jax.numpy as jnp
 
+    from repro.launch.hlo_analysis import parse_collectives
+    from repro.models.model import build_model as jbuild
+    from repro.models.moe import init_moe
+
+    p = init_moe(jax.random.PRNGKey(0), base.d_model, base.moe)
+    p = {k: p[k] for k in ("router", "wg", "wu", "wd")}
+    rng = np.random.default_rng(1)
+    h, w = (jnp.asarray(rng.standard_normal((4, 32, base.d_model)).astype(
+        np.float32)) for _ in range(2))
+    for dispatch in DISPATCHES:
+        cfg = dataclasses.replace(base, moe=dataclasses.replace(
+            base.moe, dispatch=dispatch))
+        run = jbuild(cfg, mesh=mesh, dp_axes=("data",))._ep_ctx()
+
+        def f(p, h):
+            o, aux = run(p, h)
+            return (o * w).sum() + aux
+
+        hlo = jax.jit(jax.grad(f, argnums=(0, 1))).lower(p, h).compile()
+        for kind, n in parse_collectives(hlo.as_text()).ops.items():
+            out[f"{dispatch}/island_grad_ops/{kind}"] = np.asarray(n)
+
+
+def _run_reference(out_path):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch.hlo_analysis import parse_collectives
     from repro.models.model import ModelConfig as JConfig
     from repro.models.model import build_model as jbuild
     from repro.models.moe import MoEDims as JDims
+    from repro.optim import adamw as jaw
     from repro.runtime.jax_compat import make_mesh
+    from repro.training.train import Trainer as JTrainer
+    from repro.training.train import TrainerConfig as JTrainerConfig
+    from repro.training.train import TrainState as JState
 
     mesh = make_mesh((DATA, K), ("data", "model"))
     toks = jnp.asarray(_island_tokens())
+    batch = {k: jax.device_put(jnp.asarray(v),
+                               NamedSharding(mesh, P(("data",))))
+             for k, v in _island_batch().items()}
     out = {}
     for cf in FACTORS:
         base = JConfig(name="tm", family="moe", n_layers=2, d_model=64,
@@ -358,6 +410,24 @@ def _run_reference(out_path):
             logits, aux = jax.jit(m.forward_train)(params, {"tokens": toks})
             out[f"{dispatch}/{cf}/logits"] = np.asarray(logits)
             out[f"{dispatch}/{cf}/aux"] = np.asarray(aux)
+            key = f"{dispatch}/{cf}"
+            out[f"{key}/loss"] = np.asarray(jax.jit(m.loss)(params, batch))
+            grad = jax.jit(jax.grad(m.loss)).lower(params, batch).compile()
+            for i, leaf in enumerate(jax.tree.leaves(jax.device_get(
+                    grad(params, batch)))):
+                out[f"{key}/grad/{i}"] = np.asarray(leaf)
+            for kind, n in parse_collectives(grad.as_text()).ops.items():
+                out[f"{key}/grad_ops/{kind}"] = np.asarray(n)
+            tr = JTrainer(m, jaw.AdamWConfig(lr=1e-3),
+                          JTrainerConfig(donate=False))
+            st = JState(params=params, opt_state=jaw.adamw_init(params),
+                        step=jnp.zeros((), jnp.int32))
+            st, _ = tr.make_train_step()(st, batch)
+            for i, leaf in enumerate(jax.tree.leaves(jax.device_get(
+                    st.params))):
+                out[f"{key}/step/{i}"] = np.asarray(leaf)
+        if cf == FACTORS[0]:
+            _island_grad_ops(mesh, base, out)
     np.savez(out_path, **out)
 
 
@@ -426,19 +496,160 @@ def test_island_falls_back_where_the_jax_package_does():
         ShoalContext(K, device="cpu")))._island is not None
 
 
+def _backward_per_layer(dispatch):
+    """(exchanges, collective calls) of one MoE layer's backward on K
+    kernels: the adjoint of each forward collective (the aux's
+    all-reduce included, ``Model.loss`` weighs it in), one all-reduce
+    for the psum dispatch's replicated tokens and one for the router."""
+    ar = 2 * (K - 1)
+    return {"psum": (4 * ar, {"all_reduce": 4}),
+            "rs": (2 * (K - 1) + 2 * ar,
+                   {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 2}),
+            "a2a": (2 + 2 * ar, {"all_to_all": 2, "all_reduce": 2})}[dispatch]
+
+
+def _island_run(reference, dispatch, cf):
+    """(model, params, ctx, batch) of the port's mesh model."""
+    cfg = _island_cfg(dispatch, cf)
+    params = _island_params(reference, cfg)
+    ctx = ShoalContext(K, device="cpu")
+    model = build_model(cfg, device="cpu",
+                        ep=tmoe.ExpertMesh(ctx, data=DATA))
+    batch = {k: _t(v).long() for k, v in _island_batch().items()}
+    return model, params, ctx, batch
+
+
+def _leaves(reference, prefix):
+    n = sum(1 for k in reference if k.startswith(prefix))
+    return [reference[f"{prefix}{i}"] for i in range(n)]
+
+
+@pytest.mark.parametrize("cf", FACTORS)
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_island_gradients_match_the_jax_mesh(reference, dispatch, cf):
+    """``Model.loss`` and every gradient leaf of the mesh model against
+    its ``jax.grad`` within 1e-5; the backward counts as the rule
+    says, on top of the forward."""
+    from repro_torch.core.state import COLLECTIVE_KINDS
+    from repro_torch.tree import tree_leaves
+
+    model, params, ctx, batch = _island_run(reference, dispatch, cf)
+    loss, grads = Trainer(model, AdamWConfig(lr=1e-3)).value_and_grad(
+        params, batch)
+    _close(loss, reference[f"{dispatch}/{cf}/loss"])
+    want = _leaves(reference, f"{dispatch}/{cf}/grad/")
+    got = tree_leaves(grads)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g, w)
+    routed = [g for g, (path, _) in zip(got, tree_paths(grads))
+              if path.rsplit("/", 1)[-1] in tmoe.ROUTED]
+    assert len(routed) == 4 and all(g.abs().max() > 0 for g in routed)
+    (fx, fc), (bx, bc) = _per_layer(dispatch), _backward_per_layer(dispatch)
+    L = model.cfg.n_layers
+    assert ctx.exchanges == L * (fx + bx)
+    assert ctx.collectives == {k: L * (fc.get(k, 0) + bc.get(k, 0))
+                               for k in COLLECTIVE_KINDS}
+
+
+@pytest.mark.parametrize("cf", FACTORS)
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_island_trainer_step_matches_jax(reference, dispatch, cf):
+    """One ``xla`` step of the mesh model: every parameter within 1e-4
+    of the JAX ``Trainer``'s (``tests/md_checks.py``'s bound), the
+    update written in place under ``donate`` with the same numbers."""
+    from repro_torch.training import TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    model, params, ctx, batch = _island_run(reference, dispatch, cf)
+    want = _leaves(reference, f"{dispatch}/{cf}/step/")
+    tr = Trainer(model, AdamWConfig(lr=1e-3))
+    new, metrics = tr.step(tr.state_for(params), batch)
+    got = tree_leaves(new.params)
+    assert len(got) == len(want) and bool(torch.isfinite(metrics["loss"]))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4)
+    donor = Trainer(model, AdamWConfig(lr=1e-3), TrainerConfig(donate=True))
+    state = donor.state_for(tree_map(torch.clone, params))
+    kept = tree_leaves(state.params)
+    same, _ = donor.step(state, batch)
+    for a, b, c in zip(tree_leaves(same.params), got, kept):
+        assert torch.equal(a, b) and a is c
+
+
 def test_island_refuses_grad():
+    """The island used to refuse inputs that require grad; it now takes
+    them.  Under grad mode ``Model.loss`` is bitwise the ``no_grad``
+    loss, and the no-grad call counts the forward's collectives only
+    (no autograd edge is built there); ``backward`` reaches every routed
+    leaf through the counted adjoints."""
+    from repro_torch.tree import tree_leaves
+
+    cfg = _island_cfg("psum", 16.0)
+    ctx = ShoalContext(K, device="cpu")
+    model = build_model(cfg, device="cpu",
+                        ep=tmoe.ExpertMesh(ctx, data=DATA))
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = _t(_island_tokens()).long()
+    batch = {"tokens": toks, "labels": toks}
+    with torch.no_grad():
+        plain = model.loss(params, batch)
+    fx, _ = _per_layer("psum")
+    assert ctx.exchanges == cfg.n_layers * fx
+    ctx.exchanges = 0
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_()
+    leaves = params["segments"][0]["b0_moe"]["moe"]
+    loss = model.loss(params, batch)
+    assert torch.equal(loss.detach(), plain)
+    loss.backward()
+    bx, _ = _backward_per_layer("psum")
+    assert ctx.exchanges == cfg.n_layers * (fx + bx)
+    for name in tmoe.ROUTED:
+        g = leaves[name].grad
+        assert g is not None and g.shape == leaves[name].shape
+        assert bool(torch.isfinite(g).all()) and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("dispatch", DISPATCHES)
+def test_backward_rule_against_the_jax_island_gradient(reference, dispatch):
+    """The JAX island's compiled gradient program (``d/d(p, h)
+    [(out * w).sum() + aux]``) holds the port's backward collectives by
+    kind, plus what the port does without a collective or does not
+    repeat: one all-reduce of the expert slabs' cotangents over the
+    ``data`` axis (a local sum over the port's data groups) and the
+    forward collectives whose results the backward reads (rs: the token
+    all-gather; a2a: both all-to-alls; the port keeps them from its
+    forward pass)."""
+    _, calls = _backward_per_layer(dispatch)
+    extra = {"psum": {"all_reduce": 1},
+             "rs": {"all_reduce": 1, "all_gather": 1},
+             "a2a": {"all_reduce": 1, "all_to_all": 2}}[dispatch]
+    hlo_kind = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+                "reduce_scatter": "reduce-scatter",
+                "all_to_all": "all-to-all"}
+    prefix = f"{dispatch}/island_grad_ops/"
+    got = {k[len(prefix):]: int(v) for k, v in reference.items()
+           if k.startswith(prefix)}
+    assert got == {hlo_kind[k]: calls.get(k, 0) + extra.get(k, 0)
+                   for k in hlo_kind if calls.get(k, 0) + extra.get(k, 0)}
+
+
+def test_shoal_backend_refuses_an_expert_parallel_model():
+    """The JAX package's shoal step fails on a mesh MoE model (its
+    shard_map over the data axis meets the island's); the port refuses
+    it when the trainer is built, and trains it with the xla backend."""
+    from repro_torch.training import TrainerConfig
+
     cfg = _island_cfg("psum", 16.0)
     model = build_model(cfg, device="cpu", ep=tmoe.ExpertMesh(
         ShoalContext(K, device="cpu"), data=DATA))
-    params = model.init(torch.Generator().manual_seed(0))
-    toks = _t(_island_tokens()).long()
-    leaves = params["segments"][0]["b0_moe"]["moe"]
-    leaves["wg"].requires_grad_()
-    with pytest.raises(RuntimeError, match="forward-only"):
-        model.loss(params, {"tokens": toks, "labels": toks})
-    with torch.no_grad():
-        assert torch.isfinite(model.loss(params, {"tokens": toks,
-                                                  "labels": toks}))
+    with pytest.raises(ValueError, match="expert-parallel"):
+        Trainer(model, AdamWConfig(lr=1e-3),
+                TrainerConfig(comm_backend="shoal"), kernels=2)
+    Trainer(model, AdamWConfig(lr=1e-3))
+    Trainer(build_model(cfg, device="cpu"), AdamWConfig(lr=1e-3),
+            TrainerConfig(comm_backend="shoal"), kernels=2)
 
 
 def test_island_rejects_shapes_that_do_not_shard():
