@@ -177,6 +177,27 @@ launches and 36 exchanges a step, losses finite and falling, peak
 memory); custom AM handlers on the card (a 3-row ``put_long`` and a
 vectored put of 34 overlapping blocks) bitwise the CPU run's, one
 DataMover gather and one scatter a landed block.
+Every trainer above builds its model from a ``full()`` config, which
+carries the JAX package's ``remat="dots"``: each superblock of a
+training pass runs as one checkpoint region that keeps its input and
+the outputs of its batch-free matrix products and recomputes the rest
+in the backward (one region a superblock a member a step, counted).
+A region's recomputation reruns the forward collectives before its
+last saving operation: phase 17's seq_shard loss runs each layer's ring
+twice; dbrx's psum island, which has no shared experts, none (6 ring
+launches and 36 exchanges a step, as without remat); the shoal sync runs
+outside the regions.
+Phase 19 runs activation checkpointing: recurrentgemma-2b at full width
+and all 26 layers (3.34 B parameters, bf16) trained under ``dots``
+with the ``xla`` backend and the state updated in place, 3 steps on
+``TokenPipeline``'s first batch of 8 x 512 (timed by part, peak
+memory, losses finite and falling); the same model at 9 layers under
+none, full, dots and none again (peaks, forward-and-backward and step
+times; full's and dots' loss and gradients bitwise none's wherever a
+second none run reproduced none's bitwise, else within phase 18's
+bounds); the ring launches and exchanges a step of tinyllama-1.1b's
+shoal trainer (phase 9's shape) and of dbrx-132b's ep trainer (phase
+18's shape, psum and rs) under dots and none, asserted.
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -186,6 +207,7 @@ without a card it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2521,6 +2543,31 @@ def _synced(fn):
     return run, log
 
 
+def superblocks(cfg) -> int:
+    """The checkpoint regions of one training pass of ``cfg`` under a
+    ``remat`` policy: one a superblock."""
+    return sum(reps for _, reps in cfg.segments())
+
+
+@contextlib.contextmanager
+def regions():
+    """The model's checkpoint regions (``models.model._checkpointed``)
+    entered while active: yields their policies, in order."""
+    from repro_torch.models import model as mm
+
+    real, log = mm._checkpointed, []
+
+    def counted(remat, fn, *args):
+        log.append(remat)
+        return real(remat, fn, *args)
+
+    mm._checkpointed = counted
+    try:
+        yield log
+    finally:
+        mm._checkpointed = real
+
+
 def _plain_all_reduce(torch, x):
     """``coll.ring_all_reduce``'s result from the ring's plain version
     (``kernels/gascore_dma/ref.py``) on the same padded buffer."""
@@ -2876,18 +2923,25 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
     reset_launch_counts()
     ex0 = tr.ctx.exchanges
     losses, step_ms, per_step = [], [], []
-    for _ in range(steps):
-        before = launch_counts()
-        t = time.perf_counter()
-        state, met = tr.step(state, batch)
-        losses.append(met["loss"].item())          # synchronises
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        per_step.append(launch_counts()["ring_collective"]
-                        - before["ring_collective"])
+    with regions() as reg:
+        for _ in range(steps):
+            before = launch_counts()
+            t = time.perf_counter()
+            state, met = tr.step(state, batch)
+            losses.append(met["loss"].item())          # synchronises
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append(launch_counts()["ring_collective"]
+                            - before["ring_collective"])
     counts = launch_counts()
     exchanges = tr.ctx.exchanges - ex0
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"train losses {losses}")
+    # every member's pass, one region a superblock (none without remat)
+    want_reg = (0 if cfg.remat == "none"
+                else steps * TRAIN_K * superblocks(cfg))
+    require(reg == [cfg.remat] * want_reg, f"{cfg.name}: {len(reg)} "
+            f"checkpoint regions {set(reg)} in {steps} steps, want "
+            f"{want_reg} {cfg.remat}")
     require(exchanges == steps * leaves * per_leaf,
             f"{exchanges} exchanges in {steps} steps")
     if cuda:
@@ -2909,7 +2963,8 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
         ms_per_step_median_2_on=f"{ms:.2f}",
         tokens_per_s=f"{tokens / ms * 1e3:.1f}",
         ring_launches_per_step=per_step, exchanges_per_step=exchanges
-        // steps, launches=counts)
+        // steps, remat=cfg.remat, regions_per_step=len(reg) // steps,
+        launches=counts)
 
     if extras:
         # xla backend (4 microbatches), timed the same way
@@ -4596,6 +4651,14 @@ def _ring_hops(kernels: int) -> int:
     return 3 * kernels
 
 
+def ring_passes(remat: str) -> int:
+    """Times a training pass runs each layer's ring: once, and under
+    ``full`` or ``dots`` once more in the backward (every hop comes
+    before the output projection, which saves for the backward, so the
+    region's recomputation reruns them all)."""
+    return 1 if remat == "none" else 2
+
+
 def _ring_model(torch, device, cfg, kernels=RING_KERNELS):
     from repro_torch.core.state import ShoalContext
     from repro_torch.models.model import build_model
@@ -4680,7 +4743,8 @@ def check_ring_loss(torch, device):
     ``RING_TRAIN_LAYERS`` layers, float32, on 1 x ``RING_TRAIN_S``
     seeded tokens (``tests/md_checks.py:544-565``): the loss within
     ``RING_TRAIN_TOL`` relative, every gradient leaf within it in
-    relative L2; the ring's exchanges in the forward."""
+    relative L2; the ring's exchanges in the forward and, under the
+    config's ``remat``, its recomputation (:func:`ring_passes`)."""
     from repro_torch import configs
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamWConfig
@@ -4707,8 +4771,9 @@ def check_ring_loss(torch, device):
                      (time.perf_counter() - t0) * 1e3)
         del loss, grads
         _free(torch)
-    require(ctx.exchanges == RING_TRAIN_LAYERS * _ring_hops(RING_KERNELS),
-            f"seq_shard loss: {ctx.exchanges} exchanges")
+    require(ctx.exchanges == RING_TRAIN_LAYERS * _ring_hops(RING_KERNELS)
+            * ring_passes(cfg.remat), f"seq_shard loss: {ctx.exchanges} "
+            f"exchanges under remat {cfg.remat}")
     (l_r, g_r, ms_r), (l_p, g_p, ms_p) = out["ring"], out["plain"]
     rel = abs(l_r - l_p) / abs(l_p)
     worst = max((_rel_l2(torch, g_r[p], g_p[p]), p) for p in g_p)
@@ -4717,7 +4782,8 @@ def check_ring_loss(torch, device):
             f"seq_shard loss {l_r} vs {l_p} (relative {rel}); worst "
             f"gradient leaf {worst}")
     say("ring", check="seq_shard-loss-and-gradients", model=cfg.name,
-        layers=RING_TRAIN_LAYERS, tokens=f"1x{RING_TRAIN_S}",
+        layers=RING_TRAIN_LAYERS, remat=cfg.remat,
+        tokens=f"1x{RING_TRAIN_S}",
         dtype="float32", loss_ring=f"{l_r:.7f}", loss_plain=f"{l_p:.7f}",
         loss_rel=f"{rel:.3e}", worst_grad_rel_l2=f"{worst[0]:.3e}",
         worst_leaf=worst[1], leaves=len(g_p), exchanges=ctx.exchanges,
@@ -5052,10 +5118,33 @@ EP_LAYERS, EP_PARAMS = 1, 4_492_216_320
 EP_STEPS = 3
 EP_LOSS_TOL = 1e-3          # ep vs moe_ffn route, relative
 EP_GRAD_TOL = 5e-2          # ep vs moe_ffn route, relative L2 a leaf
-# a MoE layer's train step on ISLAND_K kernels: the psum island forward
-# and backward (the loss weighs aux in)
-EP_STEP_RINGS = ISLAND_CALLS["psum"][2] + ISLAND_BWD["psum"][2]
-EP_STEP_EXCHANGES = ISLAND_CALLS["psum"][0] + ISLAND_BWD["psum"][0]
+# what a MoE layer's checkpoint region (remat full or dots) runs again in
+# the backward: its forward up to the region's last saving operation.
+# With shared experts (they follow the island and save) that is every
+# island collective (ISLAND_CALLS); without them psum none (both
+# all-reduces come after the last save), rs its all-gather, a2a both
+# all-to-alls (tests/test_torch_remat.py)
+ISLAND_RECOMPUTED = {
+    "psum": (0, {}, 0),
+    "rs": (ISLAND_K - 1, {"all_gather": 1}, 1),
+    "a2a": (2, {"all_to_all": 2}, 0)}
+
+
+def island_recomputed(dispatch: str, shared: bool, remat: str):
+    """(exchanges, collective calls, ring launches) a MoE layer's region
+    reruns in the backward under ``remat``."""
+    if remat == "none":
+        return 0, {}, 0
+    return ISLAND_CALLS[dispatch] if shared else ISLAND_RECOMPUTED[dispatch]
+
+
+# a MoE layer's train step on ISLAND_K kernels under dbrx's remat "dots":
+# the psum island forward, its recomputation (none: dbrx has no shared
+# experts) and backward (the loss weighs aux in)
+EP_STEP_RINGS = (ISLAND_CALLS["psum"][2] + ISLAND_BWD["psum"][2]
+                 + island_recomputed("psum", False, "dots")[2])
+EP_STEP_EXCHANGES = (ISLAND_CALLS["psum"][0] + ISLAND_BWD["psum"][0]
+                     + island_recomputed("psum", False, "dots")[0])
 # custom handlers: a 3-row put_long (3 x MTU_WORDS words) and a vectored
 # put of HANDLER_BLOCKS 64-word blocks 37 words apart (each overlaps the
 # next), through "scale2" (r + 2p, tests/test_handlers_gascore.py:33)
@@ -5228,9 +5317,13 @@ def check_ep_train(torch, device):
     from repro_torch.tree import tree_leaves, tree_paths
 
     cfg = dataclasses.replace(configs.full(MOE_ARCH), n_layers=EP_LAYERS)
+    require(cfg.remat == "dots" and not cfg.moe.n_shared,
+            f"{cfg.name}: remat {cfg.remat}, {cfg.moe.n_shared} shared "
+            "experts (EP_STEP_RINGS counts dots without them)")
     say("ep", model=MOE_ARCH, cut=f"trained at {EP_LAYERS} of 40 layers "
         f"(full width), {cfg.moe.dispatch} at cf "
-        f"{cfg.moe.capacity_factor} over {ISLAND_K} kernels")
+        f"{cfg.moe.capacity_factor} over {ISLAND_K} kernels, remat "
+        f"{cfg.remat}")
     _free(torch)
     torch.cuda.reset_peak_memory_stats(device)
     plain, params = _init(torch, device, cfg, "ep")
@@ -5281,19 +5374,22 @@ def check_ep_train(torch, device):
     reset_launch_counts()
     ex0 = ctx.exchanges
     losses, step_ms, per_step = [], [], []
-    for _ in range(EP_STEPS):
-        before = launch_counts()
-        t = time.perf_counter()
-        state, met = tr.step(state, batch)
-        losses.append(met["loss"].item())          # synchronises
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        per_step.append(launch_counts()["ring_collective"]
-                        - before["ring_collective"])
+    with regions() as reg:
+        for _ in range(EP_STEPS):
+            before = launch_counts()
+            t = time.perf_counter()
+            state, met = tr.step(state, batch)
+            losses.append(met["loss"].item())          # synchronises
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append(launch_counts()["ring_collective"]
+                            - before["ring_collective"])
     counts = launch_counts()
     exchanges = ctx.exchanges - ex0
     del tr.value_and_grad, tr.apply_update
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"ep train losses {losses}")
+    require(reg == ["dots"] * EP_STEPS * superblocks(cfg),
+            f"ep train: checkpoint regions {reg}")
     require(per_step == [moe_layers * EP_STEP_RINGS] * EP_STEPS
             and exchanges == EP_STEPS * moe_layers * EP_STEP_EXCHANGES
             and counts["flash_attention"] == 0,
@@ -5454,6 +5550,387 @@ def phase_ep(torch, device):
     paths = {"handlers": {k: sum(c.get(k, 0) for c in handled.values())
                           for k in DM_COUNTERS.values()}}
     return runs, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 19: activation checkpointing (ModelConfig.remat): recurrentgemma-2b
+# trained at full depth under its config's dots, the three policies in
+# turns, and the collectives a recomputed region runs again
+# ---------------------------------------------------------------------------
+
+REMAT_ARCH = HYBRID_ARCH
+REMAT_STEPS = 3
+REMAT_AB_LAYERS = 9                 # three superblocks
+# after one warm-up pass: the first none is the reference, the last one
+# shows which results the card reproduces bitwise
+REMAT_TURNS = ("none", "full", "dots", "dots", "full", "none")
+# full and dots against none where a recomputation is not deterministic:
+# phase 18's bounds (loss relative, each gradient leaf relative L2)
+REMAT_LOSS_TOL, REMAT_GRAD_TOL = EP_LOSS_TOL, EP_GRAD_TOL
+REMAT_EP_DISPATCHES = ("psum", "rs")
+
+
+def _first_batch(torch, device, cfg, rows=TRAIN_BATCH, seq=TRAIN_SEQ):
+    from repro_torch.data import DataConfig, TokenPipeline
+
+    batch, _ = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=rows,
+                                        seq=seq, seed=0),
+                             device=device).next_batch(0)
+    return batch
+
+
+def train_full_depth(torch, device, cfg=None, rows=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, steps=REMAT_STEPS):
+    """Phase 19 (a): recurrentgemma-2b at full width and all 26 layers
+    (bf16, seed 0) under its config's ``remat="dots"``, the ``xla``
+    backend with ``donate`` (AdamW in place), phase 11's warmup
+    schedule, ``TokenPipeline``'s first batch of 8 x 512: ``steps``
+    steps, each timed by part (forward and backward, AdamW), one
+    checkpoint region a superblock a step, the losses finite and the
+    last below the first; peak memory.  Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.full(REMAT_ARCH) if cfg is None else cfg
+    require(cfg.remat == "dots", f"{cfg.name}: remat {cfg.remat}")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "remat")
+    batch = _first_batch(torch, device, cfg, rows, seq)
+    tr = Trainer(model, AdamWConfig(lr=warmup_cosine(*FAMILY_LR)),
+                 TrainerConfig(donate=True))
+    state = tr.state_for(params)
+    del params
+    torch.cuda.synchronize()
+    state_mb = torch.cuda.memory_allocated(device) / 2 ** 20
+    tr.value_and_grad, fb_log = _synced(tr.value_and_grad)
+    tr.apply_update, opt_log = _synced(tr.apply_update)
+    reset_launch_counts()
+    losses, step_ms = [], []
+    with regions() as reg:
+        for _ in range(steps):
+            t = time.perf_counter()
+            state, met = tr.step(state, batch)
+            losses.append(met["loss"].item())          # synchronises
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    counts = launch_counts()
+    del tr.value_and_grad, tr.apply_update
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"{cfg.name} full-depth losses {losses}")
+    require(reg == ["dots"] * steps * superblocks(cfg),
+            f"{cfg.name}: {len(reg)} checkpoint regions in {steps} steps")
+    require(counts["flash_attention"] == 0,
+            f"training launched the flash kernel: {counts}")
+    tokens = rows * seq
+    ms = float(np.median(step_ms[1:]))
+    say("remat", check="full-depth", main_path="ok", model=cfg.name,
+        layers=cfg.n_layers, remat=cfg.remat, backend="xla", donate=True,
+        params=sum(p.numel() for p in tree_leaves(state.params)),
+        tokens_per_step=tokens, losses=[f"{v:.5f}" for v in losses],
+        ms_per_step=[f"{v:.2f}" for v in step_ms],
+        ms_per_step_median_2_on=f"{ms:.2f}",
+        fwd_bwd_ms=[f"{v:.2f}" for v in fb_log],
+        adamw_ms=[f"{v:.2f}" for v in opt_log],
+        tokens_per_s=f"{tokens / ms * 1e3:.1f}",
+        regions_per_step=len(reg) // steps,
+        state_allocated_mb=f"{state_mb:.0f}",
+        peak_allocated_mb=f"{peak_mb:.0f}", card=card_line())
+    del state, model, tr
+    _free(torch)
+    return counts
+
+
+def _leaf_report(torch, got, want):
+    """Per leaf of two gradient trees: (bitwise equal, relative L2)."""
+    from repro_torch.tree import tree_paths
+
+    return {path: (torch.equal(a, b), _rel_l2(torch, a, b))
+            for (path, a), (_, b) in zip(tree_paths(got), tree_paths(want))}
+
+
+def compare_policies(torch, device, cfg=None, layers=REMAT_AB_LAYERS,
+                     rows=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Phase 19 (b): the same weights at ``layers`` layers (three
+    superblocks, full width, bf16, seed 0) under ``REMAT_TURNS``
+    (none, full, dots, dots, full, none, after one warm-up pass), the
+    ``xla`` backend, the first batch: each policy's forward and backward
+    timed and its peak over the weights read, then one step (forward,
+    backward and AdamW in place on one donated state that every turn
+    shares) timed; the medians of each policy's two turns.  The cache
+    is not emptied between turns, so no turn pays the allocator's
+    growth.  The loss and every gradient leaf of full and dots held to
+    the first none run's:
+    bitwise where the second none run reproduced it bitwise (every
+    operation deterministic), else within ``REMAT_LOSS_TOL`` /
+    ``REMAT_GRAD_TOL``.  Returns ``{policy: (peak MiB, fwd+bwd ms, step
+    ms)}``."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+
+    base = dataclasses.replace(
+        configs.full(REMAT_ARCH) if cfg is None else cfg, n_layers=layers)
+    _free(torch)
+    _, params = _init(torch, device, base, "remat")
+    batch = _first_batch(torch, device, base, rows, seq)
+    opt = AdamWConfig(lr=warmup_cosine(*FAMILY_LR))
+    donate = TrainerConfig(donate=True)
+    warm = Trainer(build_model(base, device=device), opt, donate)
+    state = warm.state_for(tree_map(torch.clone, params))
+    state, _ = warm.step(state, batch)      # warm-up: cuBLAS, allocator
+    del warm
+    ref, seen, out = None, {}, {}
+    for turn, policy in enumerate(REMAT_TURNS):
+        cfg = dataclasses.replace(base, remat=policy)
+        tr = Trainer(build_model(cfg, device=device), opt, donate)
+        torch.cuda.synchronize()
+        base_mb = torch.cuda.memory_allocated(device) / 2 ** 20
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        with regions() as reg:
+            loss, grads = tr.value_and_grad(params, batch)
+            torch.cuda.synchronize()
+        fb_ms = (time.perf_counter() - t) * 1e3
+        peak_mb = (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                   - base_mb)
+        require(reg == ([] if policy == "none"
+                        else [policy] * superblocks(cfg)),
+                f"remat {policy}: checkpoint regions {reg}")
+        require(bool(torch.isfinite(loss)), f"remat {policy}: loss {loss}")
+        if ref is None:
+            ref = (loss, grads)
+        elif policy != "none" or turn == len(REMAT_TURNS) - 1:
+            seen[turn] = (loss.item(), loss.item() == ref[0].item(),
+                          _leaf_report(torch, grads, ref[1]))
+        del grads
+        t = time.perf_counter()
+        state, met = tr.step(state, batch)
+        met["loss"].item()
+        step_ms = (time.perf_counter() - t) * 1e3
+        del met, tr
+        out.setdefault(policy, []).append((peak_mb, fb_ms, step_ms))
+    # the second none run: which leaves the card reproduces bitwise
+    _, loss_det, det = seen.pop(len(REMAT_TURNS) - 1)
+    ref_loss = ref[0].item()
+    for turn, (loss, same, leaves) in seen.items():
+        policy = REMAT_TURNS[turn]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        require(same if loss_det else rel <= REMAT_LOSS_TOL,
+                f"remat {policy}: loss {loss} vs none {ref_loss}")
+        bad = [p for p, (eq, err) in leaves.items()
+               if not (eq if det[p][0] else err <= REMAT_GRAD_TOL)]
+        require(not bad, f"remat {policy}: gradient leaves {bad[:4]} "
+                f"differ from none")
+        worst = max(err for _, err in leaves.values())
+        say("remat", check="policies", policy=policy, layers=layers,
+            loss=f"{loss:.6f}", loss_none=f"{ref_loss:.6f}",
+            loss_bitwise=same, none_loss_reproduced=loss_det,
+            leaves=len(leaves),
+            leaves_bitwise=sum(eq for eq, _ in leaves.values()),
+            leaves_none_reproduced=sum(d for d, _ in det.values()),
+            grad_rel_l2_max=f"{worst:.3e}", limit=REMAT_GRAD_TOL)
+    runs = {p: tuple(float(np.median([r[i] for r in v])) for i in range(3))
+            for p, v in out.items()}
+    say("remat", check="policies", model=base.name, layers=layers,
+        tokens=f"{rows}x{seq}", peak_over_weights_mb=json.dumps(
+            {p: round(v[0]) for p, v in runs.items()}),
+        fwd_bwd_ms=json.dumps({p: round(v[1], 2) for p, v in runs.items()}),
+        step_ms=json.dumps({p: round(v[2], 2) for p, v in runs.items()}),
+        turns=list(REMAT_TURNS), card=card_line())
+    del params, ref, state
+    _free(torch)
+    return runs
+
+
+REMAT_SHOAL_TURNS = ("dots", "none", "none", "dots")
+
+
+def count_shoal_policies(torch, device, cfg=None, rows=TRAIN_BATCH,
+                         seq=TRAIN_SEQ):
+    """Phase 19 (c), the shoal trainer: tinyllama-1.1b at phase 9's shape
+    (full depth, K = 4, bf16, seed 0), after one warm-up step under
+    each policy, one step a turn under ``REMAT_SHOAL_TURNS`` from the same weights: one ring
+    launch and 2 (K - 1) exchanges a leaf a step under both policies
+    (the sync runs outside the regions), K members x 22 regions a step
+    under dots; the step timed (the median of each policy's two), the
+    losses equal within ``REMAT_LOSS_TOL``.  Returns ``{run: launch
+    counts}``."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    base = configs.full(ARCH) if cfg is None else cfg
+    _free(torch)
+    _, params = _init(torch, device, base, "remat")
+    batch = _first_batch(torch, device, base, rows, seq)
+    leaves = len(tree_leaves(params))
+    trainers = {p: Trainer(build_model(dataclasses.replace(base, remat=p),
+                                       device=device),
+                           AdamWConfig(lr=TRAIN_LR),
+                           TrainerConfig(comm_backend="shoal"),
+                           kernels=TRAIN_K) for p in ("dots", "none")}
+    state = trainers["none"].state_for(params)
+    for tr in trainers.values():            # warm-up: cuBLAS, allocator
+        tr.step(state, batch)
+    runs, seen = {}, {}
+    for policy in REMAT_SHOAL_TURNS:
+        tr = trainers[policy]
+        ex0 = tr.ctx.exchanges
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        with regions() as reg:
+            new, met = tr.step(state, batch)
+            loss = met["loss"].item()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = launch_counts()
+        exchanges = tr.ctx.exchanges - ex0
+        peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
+        require(counts["ring_collective"] == leaves
+                and exchanges == leaves * 2 * (TRAIN_K - 1)
+                and len(reg) == (0 if policy == "none"
+                                 else TRAIN_K * superblocks(base)),
+                f"shoal remat {policy}: {counts['ring_collective']} ring "
+                f"launches, {exchanges} exchanges, {len(reg)} regions for "
+                f"{leaves} leaves")
+        runs[f"remat-shoal-{base.name}-{policy}"] = counts
+        seen.setdefault(policy, []).append((loss, ms, peak_mb))
+        del new, met
+    for policy, turns in seen.items():
+        say("remat", check="shoal-counts", model=base.name, remat=policy,
+            kernels=TRAIN_K, ring_launches=leaves,
+            exchanges=leaves * 2 * (TRAIN_K - 1),
+            regions=0 if policy == "none" else TRAIN_K * superblocks(base),
+            loss=f"{turns[0][0]:.6f}",
+            step_ms=[f"{ms:.2f}" for _, ms, _ in turns],
+            step_ms_median=f"{float(np.median([m for _, m, _ in turns])):.2f}",
+            peak_allocated_mb=f"{max(p for _, _, p in turns):.0f}",
+            card=card_line())
+    l_d, l_n = seen["dots"][0][0], seen["none"][0][0]
+    require(abs(l_d - l_n) / abs(l_n) <= REMAT_LOSS_TOL,
+            f"shoal loss dots {l_d} vs none {l_n}")
+    del params, state, trainers
+    _free(torch)
+    return runs
+
+
+def count_ep_policies(torch, device, cfg=None, rows=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, dispatches=REMAT_EP_DISPATCHES):
+    """Phase 19 (c), the ep trainer: dbrx-132b at phase 18's shape (full
+    width, ``EP_LAYERS`` layer, cf 1.25 over ``ISLAND_K`` kernels) with
+    the psum and rs dispatches, one ``value_and_grad`` of the first
+    batch under none and under dots from the same weights: exchanges,
+    collective calls and ring launches exactly the island's forward,
+    backward and, under dots, what the region reruns
+    (:func:`island_recomputed`: nothing for psum, the all-gather for
+    rs); the dots loss and gradients against none's.  Returns ``{run:
+    launch counts}``."""
+    from repro_torch import configs
+    from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
+
+    base = dataclasses.replace(
+        configs.full(MOE_ARCH) if cfg is None else cfg, n_layers=EP_LAYERS)
+    _free(torch)
+    _, params = _init(torch, device, base, "remat")
+    batch = _first_batch(torch, device, base, rows, seq)
+    moe_layers = base.n_layers - base.first_k_dense
+    shared = bool(base.moe.n_shared)
+    runs = {}
+    for dispatch in dispatches:
+        ref = None
+        for policy in ("none", "dots"):
+            cfg = dataclasses.replace(base, remat=policy, moe=dataclasses
+                                      .replace(base.moe, dispatch=dispatch))
+            ctx = ShoalContext(ISLAND_K, device=device)
+            model = build_model(cfg, device=device,
+                                ep=moe_lib.ExpertMesh(ctx))
+            _free(torch)
+            reset_launch_counts()
+            with regions() as reg:
+                loss, grads = Trainer(model, AdamWConfig()).value_and_grad(
+                    params, batch)
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            parts = (ISLAND_CALLS[dispatch], ISLAND_BWD[dispatch],
+                     island_recomputed(dispatch, shared, policy))
+            want_x = moe_layers * sum(p[0] for p in parts)
+            want_r = moe_layers * sum(p[2] for p in parts)
+            want_c = {k: moe_layers * sum(p[1].get(k, 0) for p in parts)
+                      for k in COLLECTIVE_KINDS}
+            got_c = {k: ctx.collectives[k] for k in COLLECTIVE_KINDS}
+            require(ctx.exchanges == want_x and got_c == want_c
+                    and counts["ring_collective"] == want_r
+                    and len(reg) == (0 if policy == "none"
+                                     else superblocks(cfg)),
+                    f"ep {dispatch} remat {policy}: exchanges "
+                    f"{ctx.exchanges}, collectives {got_c}, ring launches "
+                    f"{counts['ring_collective']}, regions {len(reg)}; want "
+                    f"{want_x}, {want_c}, {want_r}")
+            runs[f"remat-ep-{base.name}-{dispatch}-{policy}"] = counts
+            extra = {}
+            if ref is None:
+                ref = (loss, grads)
+            else:
+                leaves = _leaf_report(torch, grads, ref[1])
+                rel = abs(loss.item() - ref[0].item()) / abs(ref[0].item())
+                worst = max(err for _, err in leaves.values())
+                require(rel <= REMAT_LOSS_TOL and worst <= REMAT_GRAD_TOL,
+                        f"ep {dispatch} dots vs none: loss relative {rel}, "
+                        f"gradient relative L2 {worst}")
+                extra = dict(loss_rel=f"{rel:.3e}",
+                             loss_bitwise=bool(torch.equal(loss, ref[0])),
+                             leaves_bitwise=sum(e for e, _ in
+                                                leaves.values()),
+                             leaves=len(leaves),
+                             grad_rel_l2_max=f"{worst:.3e}")
+            say("remat", check="ep-counts", model=base.name,
+                dispatch=dispatch, remat=policy, kernels=ISLAND_K,
+                exchanges=ctx.exchanges, collectives=json.dumps(
+                    {k: v for k, v in got_c.items() if v}),
+                ring_launches=counts["ring_collective"], regions=len(reg),
+                loss=f"{loss.item():.6f}", **extra, card=card_line())
+            del loss, grads, model
+        del ref
+    del params
+    _free(torch)
+    return runs
+
+
+def phase_remat(torch, device):
+    """Phase 19: recurrentgemma-2b trained at full depth under ``dots``
+    (:func:`train_full_depth`), the three policies in turns at 9 layers
+    (:func:`compare_policies`), and the ring launches and exchanges a
+    step of the shoal and ep trainers under dots against none
+    (:func:`count_shoal_policies`, :func:`count_ep_policies`).  Returns
+    ``{run: launch counts}``."""
+    t0 = time.perf_counter()
+    runs = {f"train-remat-{REMAT_ARCH}": train_full_depth(torch, device)}
+    say("remat", part="a", seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    compare_policies(torch, device)
+    say("remat", part="b", seconds=f"{time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    runs.update(count_shoal_policies(torch, device))
+    runs.update(count_ep_policies(torch, device))
+    say("remat", part="c", seconds=f"{time.perf_counter() - t0:.1f}")
+    return runs
 
 
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
@@ -5686,6 +6163,11 @@ def main() -> int:
     say("phase18", seconds=f"{time.perf_counter() - t0:.1f}",
         card=card_line())
     family.update(ep)
+    t0 = time.perf_counter()
+    remat = phase_remat(torch, device)
+    say("phase19", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=card_line())
+    family.update(remat)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])

@@ -2,10 +2,10 @@
 vocab=100352, 16 experts top-4, fine-grained
 [hf:databricks/dbrx-base; unverified].
 
-The JAX package's config also sets ``fsdp=True`` and ``remat="dots"``;
-memory and sharding policies (``remat``, ``fsdp``) are not
-ported.  At bf16 the 40 layers hold 131.6 B parameters (263 GB), more
-than one card: ``chip_smoke.py`` serves 4 of them at full width."""
+``remat="dots"`` as in the JAX package; its ``fsdp=True`` (a sharding
+policy) is not ported.  At bf16 the 40 layers hold 131.6 B parameters
+(263 GB), more than one card: ``chip_smoke.py`` serves 4 of them at full
+width."""
 
 import torch
 
@@ -17,7 +17,8 @@ def full() -> ModelConfig:
     return ModelConfig(
         name="dbrx-132b", family="moe", n_layers=40, d_model=6144,
         n_heads=48, n_kv_heads=8, d_ff=10752, vocab=100352,
-        moe=MoEDims(n_experts=16, top_k=4, d_ff_expert=10752))
+        moe=MoEDims(n_experts=16, top_k=4, d_ff_expert=10752),
+        remat="dots")
 
 
 def reduced() -> ModelConfig:

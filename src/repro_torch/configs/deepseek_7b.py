@@ -1,9 +1,7 @@
 """deepseek-7b [dense]: 30L d_model=4096 32H (kv=32, MHA) d_ff=11008
 vocab=102400 (llama-arch) [arXiv:2401.02954; hf].
 
-The JAX package's config also sets ``remat="dots"``, an activation
-checkpointing policy; memory and sharding policies (``remat``,
-``fsdp``) are not ported."""
+``remat="dots"`` (activation checkpointing) as in the JAX package."""
 
 import torch
 
@@ -13,7 +11,7 @@ from repro_torch.models.model import ModelConfig
 def full() -> ModelConfig:
     return ModelConfig(
         name="deepseek-7b", family="dense", n_layers=30, d_model=4096,
-        n_heads=32, n_kv_heads=32, d_ff=11008, vocab=102400)
+        n_heads=32, n_kv_heads=32, d_ff=11008, vocab=102400, remat="dots")
 
 
 def reduced() -> ModelConfig:

@@ -3,10 +3,10 @@ vocab=102400, MLA kv_lora=512, 2 shared + 160 routed top-6
 [arXiv:2405.04434; hf].  Dense first layer (first_k_dense=1) uses the
 model's dense intermediate 12288; d_ff_expert=1536 per assignment.
 
-The JAX package's config also sets ``fsdp=True`` and ``remat="dots"``;
-memory and sharding policies (``remat``, ``fsdp``) are not
-ported.  At bf16 the 60 layers hold 235,741,434,880 parameters (471 GB),
-more than one card: ``chip_smoke.py`` serves 4 of them at full width."""
+``remat="dots"`` as in the JAX package; its ``fsdp=True`` (a sharding
+policy) is not ported.  At bf16 the 60 layers hold 235,741,434,880
+parameters (471 GB), more than one card: ``chip_smoke.py`` serves 4 of
+them at full width."""
 
 import torch
 
@@ -22,7 +22,7 @@ def full() -> ModelConfig:
         moe=MoEDims(n_experts=160, top_k=6, d_ff_expert=1536, n_shared=2),
         mla=MLADims(q_lora=1536, kv_lora=512, dh_nope=128, dh_rope=64,
                     dh_v=128),
-        first_k_dense=1)
+        first_k_dense=1, remat="dots")
 
 
 def reduced() -> ModelConfig:

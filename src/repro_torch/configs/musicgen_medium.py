@@ -4,9 +4,7 @@ The EnCodec frontend is a STUB, as in the JAX package: the batch holds
 precomputed frame embeddings (B, S, d); the head predicts one codebook
 stream (vocab 2048).  LayerNorm + GELU MLP per the MusicGen transformer.
 
-The JAX package's config also sets ``remat="dots"``, an activation
-checkpointing policy; memory and sharding policies (``remat``,
-``fsdp``) are not ported."""
+``remat="dots"`` (activation checkpointing) as in the JAX package."""
 
 import torch
 
@@ -17,7 +15,7 @@ def full() -> ModelConfig:
     return ModelConfig(
         name="musicgen-medium", family="audio", n_layers=48, d_model=1536,
         n_heads=24, n_kv_heads=24, d_ff=6144, vocab=2048,
-        norm="ln", mlp="gelu", frontend="embeddings")
+        norm="ln", mlp="gelu", frontend="embeddings", remat="dots")
 
 
 def reduced() -> ModelConfig:

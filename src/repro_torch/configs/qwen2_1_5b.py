@@ -1,9 +1,7 @@
 """qwen2-1.5b [dense]: 28L d_model=1536 12H (GQA kv=2) d_ff=8960
 vocab=151936, QKV bias, tied embeddings [arXiv:2407.10671; hf].
 
-The JAX package's config also sets ``remat="dots"``, an activation
-checkpointing policy; memory and sharding policies (``remat``,
-``fsdp``) are not ported."""
+``remat="dots"`` (activation checkpointing) as in the JAX package."""
 
 import torch
 
@@ -14,7 +12,7 @@ def full() -> ModelConfig:
     return ModelConfig(
         name="qwen2-1.5b", family="dense", n_layers=28, d_model=1536,
         n_heads=12, n_kv_heads=2, d_ff=8960, vocab=151936,
-        qkv_bias=True, tie_embeddings=True, rope_base=1e6)
+        qkv_bias=True, tie_embeddings=True, rope_base=1e6, remat="dots")
 
 
 def reduced() -> ModelConfig:

@@ -2,9 +2,8 @@
 vocab=152064, QKV bias [arXiv:2407.10671; hf].
 
 ~72.7 B parameters, ~145 GB in bfloat16: more than one card holds, so
-the port runs its reduced config only.  The JAX package's config also
-sets ``fsdp=True`` and ``remat="dots"``; memory and sharding policies
-(``remat``, ``fsdp``) are not ported."""
+the port runs its reduced config only.  ``remat="dots"`` as in the JAX
+package; its ``fsdp=True`` (a sharding policy) is not ported."""
 
 import torch
 
@@ -15,7 +14,7 @@ def full() -> ModelConfig:
     return ModelConfig(
         name="qwen2-72b", family="dense", n_layers=80, d_model=8192,
         n_heads=64, n_kv_heads=8, d_ff=29568, vocab=152064,
-        qkv_bias=True, rope_base=1e6)
+        qkv_bias=True, rope_base=1e6, remat="dots")
 
 
 def reduced() -> ModelConfig:

@@ -3,11 +3,11 @@ vocab=256000 -- RG-LRU + local attention, pattern 1 attn : 2 recurrent
 [arXiv:2402.19427; hf].  Sub-quadratic: RG-LRU state + 2048-token
 local-attention window.
 
-The JAX package's config also sets ``remat="dots"``; memory and sharding
-policies are not ported.  At bf16 the 26 layers (8 superblocks of two
-RG-LRU blocks and one local-attention block, and a remainder of two
-RG-LRU blocks) hold about 3.3 B parameters, 6.7 GB: the card serves it
-at full width and depth."""
+``remat="dots"`` as in the JAX package.  At bf16 the 26 layers (8
+superblocks of two RG-LRU blocks and one local-attention block, and a
+remainder of two RG-LRU blocks) hold about 3.3 B parameters, 6.7 GB: the
+card serves it and, under ``dots``, trains it at full width and
+depth."""
 
 import torch
 
@@ -20,7 +20,7 @@ def full() -> ModelConfig:
         d_model=2560, n_heads=10, n_kv_heads=1, d_ff=7680, vocab=256000,
         d_head=256, window=2048, lru_width=2560,
         block_pattern=("rglru", "rglru", "attn_local"),
-        sub_quadratic=True)
+        sub_quadratic=True, remat="dots")
 
 
 def reduced() -> ModelConfig:

@@ -1,5 +1,6 @@
 """tinyllama-1.1b [dense]: 22L d_model=2048 32H (GQA kv=4) d_ff=5632
-vocab=32000 (llama2-arch small) [arXiv:2401.02385; hf]."""
+vocab=32000 (llama2-arch small) [arXiv:2401.02385; hf].
+``remat="dots"`` as in the JAX package."""
 
 import torch
 
@@ -9,7 +10,7 @@ from repro_torch.models.model import ModelConfig
 def full() -> ModelConfig:
     return ModelConfig(
         name="tinyllama-1.1b", family="dense", n_layers=22, d_model=2048,
-        n_heads=32, n_kv_heads=4, d_ff=5632, vocab=32000)
+        n_heads=32, n_kv_heads=4, d_ff=5632, vocab=32000, remat="dots")
 
 
 def reduced() -> ModelConfig:

@@ -41,6 +41,17 @@ Ring caches are written in place (``models.attention``).
 ``cfg.seq_shard`` (with ``tp`` off and an ``ep`` mesh) runs every GQA
 prompt pass as ring attention over the mesh's kernels
 (:mod:`repro_torch.models.ring_attention`).
+
+``cfg.remat`` is the JAX package's activation checkpointing policy, on
+the same unit: a training pass (no cache, autograd recording) runs each
+superblock -- one pass over a segment's pattern, with its aux loss -- as
+one ``torch.utils.checkpoint`` region, which keeps the region's input
+and recomputes the rest in the backward.  ``"full"`` keeps nothing
+else; ``"dots"`` (``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable``) also keeps the output of every
+matrix product without a batch dimension (:func:`dots_policy`);
+``"none"`` keeps every intermediate.  Serving, prefill and decode never
+enter a region.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.state import resolve_device
 from repro_torch.models import attention as attn
@@ -64,6 +76,9 @@ from repro_torch.tree import tree_leaves
 # gn; the sLSTM's ln2 is a block norm) and the sLSTM's recurrent r
 F32_KEYS = ("ln1", "ln2", "final_norm", "qln", "kvln", "kln", "gate", "lam",
             "ln", "gn", "r")
+
+# ModelConfig.remat's values, the JAX package's
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +122,7 @@ class ModelConfig:
     # sharded over the kernels); ``tp`` off also turns the MoE island off
     tp: bool = True
     seq_shard: bool = False
+    remat: str = "none"          # none | full | dots (activation ckpt policy)
     sub_quadratic: bool = False  # may run long_500k (the JAX package's
                                  # dry-run shapes; no port caller yet)
 
@@ -328,6 +344,51 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
 
 
 # --------------------------------------------------------------------------
+# activation checkpointing (cfg.remat)
+# --------------------------------------------------------------------------
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: save the output of ``aten.mm``, recompute
+    every other operation.
+
+    JAX's ``dots_with_no_batch_dims_saveable`` saves a ``dot_general``
+    with no dimension shared by both operands and the output.  The
+    port writes every such product -- the weight projections: the MLPs,
+    q / k / v / o, MLA's latent projections, the RG-LRU and xLSTM in and
+    out projections, the router, the shared experts -- as ``x @ W`` on
+    a 2-D weight, which dispatches ``aten.mm`` (a 2-D by 2-D product has
+    no batch dimension), and every product with one -- attention's
+    scores and values, the block-diagonal gates, the experts, the
+    xLSTM's chunk contractions and its recurrence -- as ``einsum``,
+    ``bmm`` or a batched ``matmul``, which dispatch ``aten.bmm``.  The
+    decision reads the operation, not ``bmm``'s batch size: an einsum
+    dispatches ``bmm`` with a batch of 1 for a batch-free contraction as
+    well as for a batched one whose batch is 1, so a batch-free product
+    must not be written as an einsum."""
+    if op in _SAVED_BY_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SAVED_BY_DOTS = frozenset({torch.ops.aten.mm.default})
+
+
+def _dots_contexts():
+    # the module global is read at every region, so a test can wrap it
+    return ckpt.create_selective_checkpoint_contexts(dots_policy)
+
+
+def _checkpointed(remat: str, fn, *args):
+    """``fn(*args)`` as one checkpoint region under ``remat`` ("full" or
+    "dots").  Non-reentrant, so autograd reaches the tensors ``fn``
+    closes over and the parameter dicts in ``args``; the model draws no
+    random numbers, so no RNG state is stashed."""
+    kw = {"context_fn": _dots_contexts} if remat == "dots" else {}
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+
+
+# --------------------------------------------------------------------------
 # the Model
 # --------------------------------------------------------------------------
 
@@ -337,8 +398,8 @@ class Model:
 
     ``ep`` (a :class:`~repro_torch.models.moe.ExpertMesh`) runs the MoE
     layers' routed experts as the expert-parallel island over its
-    kernels, forward only; without it, or where the experts do not split
-    over the kernels, they run on one device (``moe_ffn``).  With
+    kernels, forward and backward; without it, or where the experts do
+    not split over the kernels, they run on one device (``moe_ffn``).  With
     ``cfg.seq_shard`` and not ``cfg.tp`` the same mesh carries ring
     attention instead: every GQA prompt pass (S > 1) without a window
     shards its sequence over the kernels (``_ring_ctx``)."""
@@ -346,6 +407,9 @@ class Model:
     def __init__(self, cfg: ModelConfig, device=None, ep=None):
         if cfg.family == "moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: the moe family needs cfg.moe")
+        if cfg.remat not in REMAT:
+            raise ValueError(f"{cfg.name}: unknown remat policy "
+                             f"{cfg.remat!r}; known: {REMAT}")
         self.cfg = cfg
         self.segs = cfg.segments()
         self.device = resolve_device(device)
@@ -430,27 +494,46 @@ class Model:
                       fresh=False, differentiable=False, image_feats=None):
         """Every layer in order; returns (x, caches, aux), ``aux`` the
         sum of the MoE layers' losses (float32 0 without any).
-        ``image_feats``: what the cross blocks attend to, or None."""
+        ``image_feats``: what the cross blocks attend to, or None.  A
+        training pass (no cache, autograd recording) runs each
+        superblock as one checkpoint region under ``cfg.remat``."""
         cfg = self.cfg
         ring = self._ring_ctx() if x.shape[1] > 1 else None
+        remat = cfg.remat if caches is None and torch.is_grad_enabled() \
+            else "none"
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for si, (pat, reps) in enumerate(self.segs):
             seg_params = {key: _layers(p, reps)
                           for key, p in params["segments"][si].items()}
             seg_cache = None if caches is None else {
                 key: _layers(c, reps) for key, c in caches[si].items()}
-            for layer in range(reps):
+
+            def superblock(x, p_layer, c_layer=None, pat=pat):
+                """One pass over ``pat``: (x, the blocks' summed aux or
+                None)."""
+                aux_sb = None
                 for i, kind in enumerate(pat):
                     key = f"b{i}_{kind}"
-                    c = None if seg_cache is None else seg_cache[key][layer]
-                    x, aux = _apply_block(cfg, kind, seg_params[key][layer],
-                                          x, positions, cache=c, fresh=fresh,
-                                          differentiable=differentiable,
-                                          ep=self._island,
-                                          image_feats=image_feats,
-                                          ring=ring)
+                    x, aux = _apply_block(
+                        cfg, kind, p_layer[key], x, positions,
+                        cache=None if c_layer is None else c_layer[key],
+                        fresh=fresh, differentiable=differentiable,
+                        ep=self._island, image_feats=image_feats, ring=ring)
                     if aux is not None:
-                        aux_total = aux_total + aux
+                        aux_sb = aux if aux_sb is None else aux_sb + aux
+                return x, aux_sb
+
+            for layer in range(reps):
+                p_layer = {key: p[layer] for key, p in seg_params.items()}
+                if seg_cache is not None:
+                    x, aux = superblock(x, p_layer, {
+                        key: c[layer] for key, c in seg_cache.items()})
+                elif remat == "none":
+                    x, aux = superblock(x, p_layer)
+                else:
+                    x, aux = _checkpointed(remat, superblock, x, p_layer)
+                if aux is not None:
+                    aux_total = aux_total + aux
         return x, caches, aux_total
 
     def _positions(self, B: int, S: int):

@@ -2181,3 +2181,68 @@ def test_lane_tier_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
         assert int(tier.state.error.abs().sum()) == 0
     assert outs["cpu"] == outs[str(cuda)]
     assert landed == [True] * (2 * len(PROMPTS))
+
+
+# -- activation checkpointing (ModelConfig.remat) ------------------------------
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "dbrx-132b"])
+def test_remat_on_the_card_matches_none(cuda, monkeypatch, arch):
+    """The smoke config (float32, TF32 off) under ``full`` and ``dots``
+    against ``none`` on the card: the loss and every gradient leaf
+    bitwise wherever a second ``none`` run reproduces the first bitwise
+    (every operation deterministic), else within 1e-5 of the leaf's
+    largest |gradient|; one checkpoint region a superblock.
+    recurrentgemma-smoke's regions recompute the associative scan's
+    in-place writes; dbrx-smoke runs the island over 4 kernels x 2 data
+    groups (psum, no shared experts: its region reruns no collective, so
+    6 ring launches a MoE layer under every policy)."""
+    from repro_torch import configs
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import model as tmodel
+    from repro_torch.models import moe as tmoe
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import Trainer
+    from repro_torch.tree import tree_leaves
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    base = configs.reduced(arch)
+    params = _to(tmodel.build_model(base, device="cpu").init(
+        torch.Generator().manual_seed(0)), cuda)
+    batch, _ = TokenPipeline(DataConfig(vocab=base.vocab, batch=4, seq=16,
+                                        seed=0), device=cuda).next_batch(0)
+    regions = []
+    real = tmodel._checkpointed
+
+    def counted(remat, fn, *args):
+        regions.append(remat)
+        return real(remat, fn, *args)
+
+    monkeypatch.setattr(tmodel, "_checkpointed", counted)
+    runs = []
+    for policy in ("none", "full", "dots", "none"):
+        cfg = dataclasses.replace(base, remat=policy)
+        ep = (tmoe.ExpertMesh(ShoalContext(4, device=cuda), data=2)
+              if cfg.family == "moe" else None)
+        regions.clear()
+        reset_launch_counts()
+        loss, grads = Trainer(tmodel.build_model(cfg, device=cuda, ep=ep),
+                              AdamWConfig()).value_and_grad(params, batch)
+        torch.cuda.synchronize()
+        assert regions == ([] if policy == "none" else
+                           [policy] * sum(r for _, r in cfg.segments()))
+        if ep is not None:
+            assert launch_counts()["ring_collective"] == 6 * cfg.n_layers
+        runs.append((loss, tree_leaves(grads)))
+    (l0, g0), (l1, g1) = runs[0], runs[-1]
+    for loss, grads in runs[1:3]:
+        if torch.equal(l0, l1):
+            assert torch.equal(loss, l0)
+        else:
+            torch.testing.assert_close(loss, l0, rtol=1e-5, atol=1e-5)
+        for a, b, again in zip(grads, g0, g1):
+            if torch.equal(b, again):
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(
+                    a, b, rtol=0, atol=1e-5 * b.abs().max().item())

@@ -164,12 +164,15 @@ def test_configs_match_the_jax_package(arch):
         "qwen2-72b": (80, 8192, 64, 8, 29568, 152064),
         "musicgen-medium": (48, 1536, 24, 24, 6144, 2048)}[arch]
     assert full.dtype == torch.bfloat16
-    # the route's switches are ported (the ring reads them); no memory
-    # or sharding policy is
+    # the route's switches are ported (the ring reads them), and so is
+    # the memory policy remat; the sharding policy fsdp is not
     want = jconfigs.full(arch)
     assert (full.tp, full.seq_shard) == (want.tp, want.seq_shard) \
         == (True, False)
-    assert not any(hasattr(full, f) for f in ("remat", "fsdp"))
+    assert full.remat == want.remat == "dots"
+    assert configs.reduced(arch).remat == jconfigs.reduced(arch).remat \
+        == "none"
+    assert not hasattr(full, "fsdp")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
