@@ -223,6 +223,7 @@ SRC = os.path.join(REPO, "src")
 HBM_BPS = 3.35e12          # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM dense bfloat16 tensor-core rate
+TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 JACOBI_N, JACOBI_K, JACOBI_ITERS = 4096, 8, 1024
 PROFILE_ITERS = 64         # iterations in the profiled Jacobi window
 MTU_WORDS = 2250           # 9000-byte frame / 4-byte words
@@ -238,6 +239,11 @@ RING_SM90_SRC = "src/repro_torch/kernels/gascore_dma/csrc/gascore_dma_sm90.cu"
 RING_TPU = "src/repro/kernels/gascore_dma/gascore_dma.py:62"
 FLASH_SRC = "src/repro_torch/kernels/attention/csrc/flash.cu"
 FLASH_SM90_SRC = "src/repro_torch/kernels/attention/csrc/flash_sm90.cu"
+FLASH_F32_SRC = "src/repro_torch/kernels/attention/csrc/flash_sm90_f32.cu"
+# the profiler's name of each flash kernel (a substring of its symbol)
+FLASH_NAMES = {"sm90": "flash_attention_kernel_sm90",
+               "sm90_f32": "flash_attention_kernel_sm90_f32",
+               "simple": "flash_attention_kernel"}
 FLASH_TPU = "src/repro/kernels/attention/flash.py:80"
 ARCH = "tinyllama-1.1b"
 LANES, SLOTS, REQUESTS, MAX_NEW = 4, 2048, 8, 32
@@ -1736,19 +1742,36 @@ def _flash_err(torch, got, want, tol, what):
     return err
 
 
+def flash_ops(kernel, B, H, S, T, dqk, dv, causal):
+    """The operations a flash kernel issues, and the rate they run at:
+    S^2 a head for the causal QK^T and PV each (2 S T without causality)
+    times dqk and dv; the float32 Hopper kernel counts each product as
+    often as its build's precision issues it (three TF32 passes for a
+    split one) at the TF32 rate, the bf16 Hopper kernel runs at the bf16
+    rate, the simple one at the float32 FMA rate."""
+    from repro_torch.kernels.attention import flash as fl
+
+    pairs = B * H * (S * S if causal else 2 * S * T)
+    if kernel == "sm90_f32":
+        precision = fl.f32_precision()
+        return pairs * (dqk * (3 if precision >= 1 else 1)
+                        + dv * (3 if precision >= 2 else 1)), TF32_FLOPS
+    return pairs * (dqk + dv), BF16_FLOPS if kernel == "sm90" else F32_FLOPS
+
+
 def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
                 timed=True):
-    """Flash kernels (``kernels``: ``"sm90"``, ``"simple"``) against their
-    plain version on the same inputs, each within the tolerance of the
-    inputs' type (:func:`_flash_err`).  With ``timed``: device ms in turns
-    (the kernels, the plain version over 5 calls a turn,
-    ``scaled_dot_product_attention`` -- the library yardstick, used
-    nowhere in the port -- then the same in reverse), and the bound by
-    bytes (q, k, v read once, the output written once) and by operations
-    (S^2 (dqk + dv) a head for the causal QK^T and PV, 2 S T (dqk + dv)
-    without causality) at the rate of the inputs' type.  Returns
-    ``{kernel: m}``: ``err``, and with ``timed`` ``ms``, ``plain``,
-    ``lib``, ``nbytes``, ``ops``, ``rate`` and ``turns``."""
+    """Flash kernels (``kernels``: ``"sm90"``, ``"sm90_f32"``,
+    ``"simple"``) against their plain version on the same inputs, each
+    within the tolerance of the inputs' type (:func:`_flash_err`).  With
+    ``timed``: device ms in turns (the kernels, the plain version over 5
+    calls a turn, ``scaled_dot_product_attention`` -- the library
+    yardstick, used nowhere in the port -- then the same in reverse), and
+    the bound by bytes (q, k, v read once, the output written once) and
+    by operations (:func:`flash_ops`: each kernel's own, at its rate;
+    ``f32_ops``, the function's, beside it).  Returns ``{kernel: m}``:
+    ``err``, and with ``timed`` ``ms``, ``plain``, ``lib``, ``nbytes``,
+    ``ops``, ``rate``, ``f32_ops`` and ``turns``."""
     import torch.nn.functional as F
 
     B, S, H, dqk = q.shape
@@ -1772,8 +1795,7 @@ def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
         return device_ms(
             lambda: fa.flash_attention_cuda(q, k, v, kernel=r,
                                             causal=causal),
-            kernel=("flash_attention_kernel_sm90" if r == "sm90"
-                    else "flash_attention_kernel"))
+            kernel=FLASH_NAMES[r])
 
     order = tuple(kernels) + ("plain", "library")
     turns = {r: [] for r in order}
@@ -1783,12 +1805,13 @@ def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
                 lib=float(np.mean(turns["library"])),
                 nbytes=(q.numel() + k.numel() + v.numel() + want.numel())
                 * q.element_size(),
-                ops=B * H * (S * S if causal else 2 * S * T) * (dqk + dv),
-                rate=BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS,
+                f32_ops=flash_ops("simple", B, H, S, T, dqk, dv, causal)[0],
                 turns={r: [round(t, 5) for t in ts]
                        for r, ts in turns.items()})
     del qt, kt, vt, want
-    return {r: dict(base, err=m["err"], ms=float(np.mean(turns[r])))
+    return {r: dict(base, err=m["err"], ms=float(np.mean(turns[r])),
+                    **dict(zip(("ops", "rate"), flash_ops(
+                        r, B, H, S, T, dqk, dv, causal))))
             for r, m in out.items()}
 
 
@@ -1801,11 +1824,13 @@ def check_flash(torch, device):
     (H 12, K 2, dh 128), deepseek-7b's (H 32, K 32, dh 128: group size
     1), musicgen-medium's (H 24, K 24, dh 64) and dbrx-132b's (H 48, K
     8, dh 128), a ragged S = 1000 and
-    a served prompt's S = 903; the simple kernel alone in float32
-    (tinyllama's shape and a reference shape at dh 128).  At the
-    prefill shapes, timed by :func:`_flash_case`.  Returns the records
-    of the simple kernel (bfloat16, tinyllama) and of the Hopper
-    kernel."""
+    a served prompt's S = 903; in float32 the float32 Hopper kernel
+    (``flash_sm90_f32.cu``, which the wrapper picks) and the simple one
+    at tinyllama's and qwen2-1.5b's shapes (the float32 logit checks'
+    prompt passes) and a reference shape at dh 128.  At the prefill
+    shapes, timed by :func:`_flash_case`.  Returns the records of the
+    simple kernel (bfloat16, tinyllama) and of the two Hopper
+    kernels."""
     from repro_torch.kernels import attention as fa
 
     gen = torch.Generator(device=device).manual_seed(21)
@@ -1818,13 +1843,15 @@ def check_flash(torch, device):
              ("dbrx-132b-prefill", (1, 1024, 48, 8, 128), torch.bfloat16),
              ("ragged-1000", (1, 1000, 32, 4, 64), torch.bfloat16),
              ("served-903", (1, 903, 32, 4, 64), torch.bfloat16),
+             ("qwen2-1.5b-prefill", (1, 1024, 12, 2, 128), torch.float32),
              ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
     records, timed = {}, {}
     for case, (B, S, H, Kv, dh), dtype in cases:
         q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
         name = str(dtype).split(".")[-1]
         route = fa.flash_kernel_for(q, k, v)
-        require(route == ("sm90" if dtype == torch.bfloat16 else "simple"),
+        require(route == ("sm90" if dtype == torch.bfloat16
+                          else "sm90_f32"),
                 f"flash {case} {name}: dispatched to {route}")
         ms = _flash_case(torch, fa, q, k, v, case,
                          kernels=tuple(dict.fromkeys((route, "simple"))),
@@ -1840,6 +1867,7 @@ def check_flash(torch, device):
                         plain_ms=f"{m['plain']:.5f}",
                         library_ms=f"{m['lib']:.5f}",
                         bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                        ffma_floor_ms=f"{m['f32_ops'] / F32_FLOPS * 1e3:.5f}",
                         turns_ms=json.dumps(m["turns"]))
         say("serving", kernel="flash_attention", **line)
         del q, k, v
@@ -1864,7 +1892,39 @@ def check_flash(torch, device):
             "plain_ms": m["plain"], "library_ms": m["lib"],
             "bound_ms": bound(m)[0], "max_abs_err": m["err"]}
     records["flash_attention_sm90"] = sm90
+    records["flash_attention_sm90_f32"] = f32_record(
+        timed[("tinyllama-prefill", "float32", "sm90_f32")],
+        timed[("tinyllama-prefill", "float32", "simple")])
+    records["flash_attention_sm90_f32"]["qwen2_dh128"] = f32_shape(
+        "B1xS1024xH12xK2xdh128",
+        timed[("qwen2-1.5b-prefill", "float32", "sm90_f32")],
+        timed[("qwen2-1.5b-prefill", "float32", "simple")])
     return records
+
+
+def f32_shape(shape, m, simple):
+    """The float32 Hopper kernel at one shape, beside the simple kernel
+    on the same inputs: its TF32 bound (:func:`bound`) and the FFMA
+    floor of the same function."""
+    bound_ms, bound_by = bound(m)
+    return {"shape": shape, "ms": m["ms"], "simple_ms": simple["ms"],
+            "plain_ms": m["plain"], "library_ms": m["lib"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ffma_floor_ms": m["f32_ops"] / F32_FLOPS * 1e3,
+            "max_abs_err": m["err"], "simple_max_abs_err": simple["err"]}
+
+
+def f32_record(m, simple):
+    """The JSON record of the float32 Hopper kernel at tinyllama's
+    float32 prompt shape (launches filled in by the float32 logit
+    checks)."""
+    from repro_torch.kernels.attention import flash as fl
+
+    rec = entry("flash_attention_sm90_f32", FLASH_F32_SRC, FLASH_TPU, m)
+    rec.update({k: v for k, v in f32_shape("B1xS1024xH32xK4xdh64", m,
+                                           simple).items()
+                if k not in rec}, precision=fl.f32_precision())
+    return rec
 
 
 def attention_layers(cfg) -> int:
@@ -1892,26 +1952,29 @@ def check_prefill_logits(torch, model, params, batch, tag="serving",
     is taken by a cache that is not fresh: one slot holds a position past
     the prompt, which the causal mask excludes, so the function is the
     same.  ``batch``: token ids or frame embeddings, ``(B, S, ...)``.
-    ``flash``: the flash kernel every layer must launch, ``"sm90"`` or
-    ``"simple"``; by default the Hopper one for bfloat16, the simple one
-    for float32."""
+    ``flash``: the flash kernel every layer must launch, ``"sm90"``,
+    ``"sm90_f32"`` or ``"simple"``; by default the Hopper one of the
+    model's type (bfloat16 or float32)."""
     from repro_torch.kernels import attention as fa, launch_counts
     from repro_torch.models import attention as attn
 
     B, S = next(iter(batch.values())).shape[:2]
-    names = ("flash_attention", "flash_attention_sm90")
+    names = ("flash_attention", "flash_attention_sm90",
+             "flash_attention_sm90_f32")
 
     def prefill(cache):
         before = launch_counts()
         logits, _ = model.prefill(params, batch, cache)
         torch.cuda.synchronize()
         after = launch_counts()
-        return logits.float(), tuple(after[n] - before[n] for n in names)
+        return logits.float(), {n: after[n] - before[n] for n in after}
 
-    kernel, n_kernel = prefill(model.make_cache(B, SLOTS))
+    kernel, ran = prefill(model.make_cache(B, SLOTS))
+    n_kernel = tuple(ran[n] for n in names)
     attn.flash_attention = fa.flash_attention_ref
     try:
         plain, n_plain = prefill(model.make_cache(B, SLOTS))
+        n_plain = tuple(n_plain[n] for n in names)
     finally:
         attn.flash_attention = fa.flash_attention
     cache = model.make_cache(B, SLOTS)
@@ -1920,15 +1983,17 @@ def check_prefill_logits(torch, model, params, batch, tag="serving",
             if "pos" in blk:        # an RG-LRU state has no slots
                 blk["pos"][:, :, -1] = 2 ** 30
     route, n_route = prefill(cache)
+    n_route = tuple(n_route[n] for n in names)
     layers = attention_layers(model.cfg)
-    # bfloat16 goes through the Hopper kernel, float32 the simple one,
-    # unless the caller names the kernel
+    # bfloat16 goes through the bf16 Hopper kernel, float32 the float32
+    # one, unless the caller names the kernel
     if flash is None:
-        flash = "sm90" if model.cfg.dtype == torch.bfloat16 else "simple"
-    sm90 = layers if flash == "sm90" else 0
-    require((n_kernel, n_plain, n_route) == ((layers, sm90), (0, 0), (0, 0)),
-            f"logit check: (flash, sm90) launches "
-            f"{(n_kernel, n_plain, n_route)}")
+        flash = "sm90" if model.cfg.dtype == torch.bfloat16 else "sm90_f32"
+    want = (layers, layers * (flash == "sm90"), layers * (flash == "sm90_f32"))
+    require((n_kernel, n_plain, n_route) == (want, (0, 0, 0), (0, 0, 0)),
+            f"logit check: (flash, sm90, sm90_f32) launches "
+            f"{(n_kernel, n_plain, n_route)}, want {want} on the {flash} "
+            f"kernel")
     require(bool(torch.isfinite(kernel).all())
             and kernel.shape == (B, model.cfg.vocab), "prefill logits")
     dtype = str(model.cfg.dtype).split(".")[-1]
@@ -1939,8 +2004,7 @@ def check_prefill_logits(torch, model, params, batch, tag="serving",
             f"plain version: max|err| {err} > {tol} * {top}")
     route_err = (kernel - route).abs().max().item()
     say(tag, check="prefill-logits", model=model.cfg.name, dtype=dtype,
-        prompts=B, prompt_tokens=S, kernel="sm90" if sm90 else "simple",
-        max_abs_logit=top,
+        prompts=B, prompt_tokens=S, kernel=flash, max_abs_logit=top,
         kernel_vs_plain_err=err, limit=f"{tol}*max|logit|",
         kernel_vs_attend_route_err=route_err,
         attend_route_rel=f"{route_err / top:.5f}",
@@ -2056,9 +2120,9 @@ def serve_requests(torch, model, params, prompts, tag="serving",
     warm-up on an engine of its own), the launch counts reset before the
     run and read after it; every request and slot event checked, and
     every prompt pass of every attention layer (:func:`attention_layers`)
-    a launch of the flash kernel named by ``flash``: the Hopper one
+    a launch of the flash kernel named by ``flash``: the bf16 Hopper one
     (bfloat16 at dh 64 / 128 / 256 and MLA's q·k 192 / v 128), or the
-    simple one (float32).  Prints the run's lines under
+    simple one.  Prints the run's lines under
     ``tag`` (tokens/s, prefill ms per request, decode ms per 4-lane
     step) and returns the run's launch counts; ``out``, a dict, gets the
     engine (``"engine"``) and its finished requests (``"requests"``)."""
@@ -2138,9 +2202,12 @@ def phase_serving(torch, device):
     """Phase 6.  The kernel against its plain version, then the main
     path: ``ServeEngine.run`` on tinyllama-1.1b at full width and depth
     (counts reset before it, read after it), every request and slot
-    event checked; then one prefill's logits, kernel vs plain attention.
-    Returns the records of the two flash kernels."""
+    event checked; then one prefill's logits, kernel vs plain attention,
+    in bfloat16 and in float32 (the float32 Hopper kernel's main path:
+    the counts reset before it, read after it).  Returns the records of
+    the three flash kernels."""
     from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import build_model
 
     records = check_flash(torch, device)
@@ -2159,20 +2226,30 @@ def phase_serving(torch, device):
                          prompt_batch(torch, model, prompts[0]))
     profile_serving(torch, model, params, prompts[0])
     ab_prefill(torch, model, params, prompts[0])
-    # the same weights in float32: only the kernel's own rounding is left
+    # the same weights in float32: the float32 Hopper kernel's TF32
+    # rounding is what is left
     f32 = build_model(dataclasses.replace(cfg, dtype=torch.float32),
                       device=device)
-    check_prefill_logits(torch, f32, f32.init(torch.Generator(
-        device=device).manual_seed(0)), prompt_batch(torch, f32, prompts[0]))
-    del f32
-    # the wrapper's counter (either kernel) and the Hopper kernel's own
+    f32_params = f32.init(torch.Generator(device=device).manual_seed(0))
+    reset_launch_counts()
+    check_prefill_logits(torch, f32, f32_params,
+                         prompt_batch(torch, f32, prompts[0]))
+    f32_counts = launch_counts()
+    del f32, f32_params
+    # the wrapper's counter (any kernel) and each Hopper kernel's own
     records["flash_attention"]["launches"] = counts["flash_attention"]
     records["flash_attention"]["simple_kernel_launches"] = (
-        counts["flash_attention"] - counts["flash_attention_sm90"])
+        counts["flash_attention"] - counts["flash_attention_sm90"]
+        - counts["flash_attention_sm90_f32"])
     records["flash_attention_sm90"]["launches"] = \
         counts["flash_attention_sm90"]
-    for name in ("flash_attention", "flash_attention_sm90"):
-        records[name]["path_launches"] = {"serving": counts[name]}
+    for name in ("flash_attention", "flash_attention_sm90",
+                 "flash_attention_sm90_f32"):
+        records[name]["path_launches"] = {
+            "serving": counts[name], f"logits-f32-{cfg.name}":
+            f32_counts[name]}
+    records["flash_attention_sm90_f32"]["launches"] = \
+        f32_counts["flash_attention_sm90_f32"]
     return records, model, params
 
 
@@ -3108,8 +3185,11 @@ def serve_family(torch, device, arch):
     tokens each, 4 lanes of 2048 slots, every prompt pass of every layer
     on the Hopper flash kernel (requests x layers launches); one
     prefill's logits, kernel vs plain version (qwen2-1.5b also in
-    float32 through the simple kernel).  Returns the run's counts."""
+    float32 through the float32 Hopper kernel: its main path, the counts
+    reset before it, read after it).  Returns the run's counts and those
+    of the float32 check (None but for qwen2-1.5b)."""
     from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import build_model
 
     cfg = configs.full(arch)
@@ -3120,15 +3200,18 @@ def serve_family(torch, device, arch):
                          prompt_batch(torch, model, prompts[0]), "dense")
     del params
     _free(torch)
+    f32_counts = None
     if arch == "qwen2-1.5b":
         f32 = build_model(dataclasses.replace(cfg, dtype=torch.float32),
                           device=device)
-        check_prefill_logits(torch, f32, f32.init(torch.Generator(
-            device=device).manual_seed(0)),
-            prompt_batch(torch, f32, prompts[0]), "dense")
-        del f32
+        f32_params = f32.init(torch.Generator(device=device).manual_seed(0))
+        reset_launch_counts()
+        check_prefill_logits(torch, f32, f32_params,
+                             prompt_batch(torch, f32, prompts[0]), "dense")
+        f32_counts = launch_counts()
+        del f32, f32_params
         _free(torch)
-    return counts
+    return counts, f32_counts
 
 
 def serve_frames(torch, device):
@@ -3216,7 +3299,9 @@ def phase_family(torch, device):
     runs, rings = {}, []
     for arch in FAMILY_SERVED:
         t0 = time.perf_counter()
-        runs[f"serve-{arch}"] = serve_family(torch, device, arch)
+        runs[f"serve-{arch}"], f32_counts = serve_family(torch, device, arch)
+        if f32_counts is not None:
+            runs[f"logits-f32-{arch}"] = f32_counts
         say("dense", model=arch,
             serve_seconds=f"{time.perf_counter() - t0:.1f}")
     t0 = time.perf_counter()
@@ -3654,57 +3739,67 @@ SM90_MLA_PTXAS = "ILi192ELi128E"    # the Hopper kernel's (192, 128) ones
 
 
 def check_flash_mla(torch, device):
-    """Both flash kernels alone at deepseek-v2's prompt shape
-    (``MLA_FLASH``, bfloat16, seed 29): first the ragged cases of
-    ``MLA_RAGGED``, then the prompt shape, which the wrapper must route
-    to the Hopper kernel, held and timed by :func:`_flash_case` in turns
-    (``scaled_dot_product_attention`` takes a v head dim of its own),
-    beside the simple kernel's own float32 floor.  Run right after phase
-    6, where the profiler has been reliable.  Returns ``{kernel:
-    record}``."""
+    """The flash kernels alone at deepseek-v2's prompt shape
+    (``MLA_FLASH``, seed 29): first the ragged cases of ``MLA_RAGGED``,
+    then the prompt shape, which the wrapper must route to the Hopper
+    kernel of the type, held and timed by :func:`_flash_case` in turns
+    beside the simple kernel (``scaled_dot_product_attention`` takes a v
+    head dim of its own), beside the simple kernel's own float32 floor:
+    in bfloat16, then in float32 (the float32 Hopper kernel).  Run right
+    after phase 6, where the profiler has been reliable.  Returns
+    ``{kernel: record}`` (``"sm90"``, ``"simple"`` in bfloat16;
+    ``"sm90_f32"``, ``"simple_f32"``)."""
     from repro_torch.kernels import attention as fa
 
     B, S, H, Kv, dqk, dv = MLA_FLASH
     gen = torch.Generator(device=device).manual_seed(29)
-    for b, s, t, causal in MLA_RAGGED:
-        q, k, v = _cross_inputs(torch, gen, device, b, s, H, Kv, t, dqk,
-                                torch.bfloat16, dv)
-        ms = _flash_case(torch, fa, q, k, v, f"MLA B{b}xS{s}xT{t}",
-                         causal=causal, timed=False,
-                         kernels=("sm90", "simple"))
-        say("mla", check="flash-ragged", shape=f"B{b}xS{s}xH{H}xK{Kv}xT{t}"
-            f"xdqk{dqk}xdv{dv}", causal=causal, tol=FLASH_TOL["bfloat16"],
-            **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
-        del q, k, v
-    q, k, v = _cross_inputs(torch, gen, device, B, S, H, Kv, S, dqk,
-                            torch.bfloat16, dv)
-    route = fa.flash_kernel_for(q, k, v)
-    require(route == "sm90", f"flash at MLA's {dqk}/{dv}: routed to {route}")
-    ms = _flash_case(torch, fa, q, k, v, f"q·k {dqk} / v {dv}",
-                     kernels=("sm90", "simple"))
     out = {}
-    for r, m in ms.items():
-        bound_ms, bound_by = bound(m)
-        out[r] = {"case": "deepseek-v2-prefill",
-                  "shape": f"B{B}xS{S}xH{H}xK{Kv}xdqk{dqk}xdv{dv}",
-                  "dtype": "bfloat16", "route": route,
-                  "max_abs_err": m["err"], "ms": m["ms"],
-                  "plain_ms": m["plain"], "library_ms": m["lib"],
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "turns_ms": m["turns"], "launches": 0}
-        say("mla", kernel=f"flash_attention ({r})",
-            tol=FLASH_TOL["bfloat16"],
-            ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
-            bound_share=f"{bound_ms / m['ms']:.5f}",
-            bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
-            ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
-            f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
-            **{key: (f"{val:.5f}" if isinstance(val, float) else val)
-               for key, val in out[r].items() if key != "turns_ms"},
-            turns_ms=json.dumps(m["turns"]), card=card_line())
+    for dtype, hopper in ((torch.bfloat16, "sm90"),
+                          (torch.float32, "sm90_f32")):
+        name = str(dtype).split(".")[-1]
+        for b, s, t, causal in MLA_RAGGED:
+            q, k, v = _cross_inputs(torch, gen, device, b, s, H, Kv, t, dqk,
+                                    dtype, dv)
+            ms = _flash_case(torch, fa, q, k, v, f"MLA B{b}xS{s}xT{t}",
+                             causal=causal, timed=False,
+                             kernels=(hopper, "simple"))
+            say("mla", check="flash-ragged", shape=f"B{b}xS{s}xH{H}xK{Kv}"
+                f"xT{t}xdqk{dqk}xdv{dv}", dtype=name, causal=causal,
+                tol=FLASH_TOL[name],
+                **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
+            del q, k, v
+        q, k, v = _cross_inputs(torch, gen, device, B, S, H, Kv, S, dqk,
+                                dtype, dv)
+        route = fa.flash_kernel_for(q, k, v)
+        require(route == hopper, f"flash at MLA's {dqk}/{dv} ({name}): "
+                f"routed to {route}")
+        ms = _flash_case(torch, fa, q, k, v, f"q·k {dqk} / v {dv}",
+                         kernels=(hopper, "simple"))
+        for r, m in ms.items():
+            bound_ms, bound_by = bound(m)
+            key = r if dtype == torch.bfloat16 or r != "simple" \
+                else "simple_f32"
+            out[key] = {"case": "deepseek-v2-prefill",
+                        "shape": f"B{B}xS{S}xH{H}xK{Kv}xdqk{dqk}xdv{dv}",
+                        "dtype": name, "route": route,
+                        "max_abs_err": m["err"], "ms": m["ms"],
+                        "plain_ms": m["plain"], "library_ms": m["lib"],
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "ffma_floor_ms": m["f32_ops"] / F32_FLOPS * 1e3,
+                        "turns_ms": m["turns"], "launches": 0}
+            say("mla", kernel=f"flash_attention ({r})",
+                tol=FLASH_TOL[name],
+                ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
+                bound_share=f"{bound_ms / m['ms']:.5f}",
+                bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
+                ops_bound_ms=f"{m['ops'] / m['rate'] * 1e3:.5f}",
+                **{key2: (f"{val:.5f}" if isinstance(val, float) else val)
+                   for key2, val in out[key].items() if key2 != "turns_ms"},
+                turns_ms=json.dumps(m["turns"]), card=card_line())
+        del q, k, v
+        _free(torch)
     out["sm90"]["simple_ms"] = out["simple"]["ms"]
-    del q, k, v
-    _free(torch)
+    out["sm90_f32"]["simple_ms"] = out["simple_f32"]["ms"]
     return out
 
 
@@ -3824,7 +3919,9 @@ CROSS_RAGGED = ((4, 1024, 64, 8, 1000, 128, "bfloat16"),
                 (4, 1024, 64, 8, 129, 128, "bfloat16"),
                 (4, 1024, 64, 8, 1, 128, "bfloat16"),
                 (4, 7, 64, 8, 1600, 128, "bfloat16"),
-                (1, 256, 64, 8, 1000, 128, "float32"))
+                (1, 256, 64, 8, 1000, 128, "float32"),
+                (1, 256, 64, 8, 129, 128, "float32"),
+                (1, 7, 64, 8, 1, 128, "float32"))
 CROSS_TOL = 3e-2            # bf16, of the largest |out| (a cross layer)
 
 
@@ -3836,14 +3933,16 @@ def _cross_inputs(torch, gen, device, B, S, H, Kv, T, dh, dtype, dv=None):
 
 
 def check_flash_cross(torch, device):
-    """Both flash kernels with ``causal=False`` alone, first at
-    ``CROSS_RAGGED`` and then at llama-3.2-vision's cross-attention
-    prompt shape (``CROSS_FLASH``, bf16, seed 31), each against the plain
-    version (bf16 3e-2, float32 2e-3, :func:`_flash_err`); at the prompt
-    shape, and at the self-attention layers' causal shape (T = S = 1024,
-    64 / 8 heads), timed (:func:`_flash_case`).  Run right after phase 6,
-    where the profiler has been reliable.  Returns ``{(kernel, "cross" |
-    "self"): record}``."""
+    """The flash kernels with ``causal=False`` alone, first at
+    ``CROSS_RAGGED`` (the Hopper kernel of the type beside the simple
+    one) and then at llama-3.2-vision's cross-attention prompt shape
+    (``CROSS_FLASH``, bf16, seed 31), each against the plain version
+    (bf16 3e-2, float32 2e-3, :func:`_flash_err`); at the prompt shape,
+    and at the self-attention layers' causal shape (T = S = 1024, 64 / 8
+    heads), timed (:func:`_flash_case`); then the cross prompt shape in
+    float32 on the float32 Hopper kernel and the simple one, timed.  Run
+    right after phase 6, where the profiler has been reliable.  Returns
+    ``{(kernel, "cross" | "self" | "cross-f32"): record}``."""
     from repro_torch.kernels import attention as fa
 
     gen = torch.Generator(device=device).manual_seed(31)
@@ -3852,43 +3951,51 @@ def check_flash_cross(torch, device):
         q, k, v = _cross_inputs(torch, gen, device, b, s, h, kv, t, d, dtype)
         ms = _flash_case(torch, fa, q, k, v, f"non-causal B{b}xS{s}xT{t}",
                          causal=False, timed=False,
-                         kernels=("sm90", "simple") if name == "bfloat16"
-                         else ("simple",))
+                         kernels=("sm90" if name == "bfloat16"
+                                  else "sm90_f32", "simple"))
         say("vlm", check="flash-noncausal", shape=f"B{b}xS{s}xH{h}xK{kv}"
             f"xT{t}xdh{d}", dtype=name, tol=FLASH_TOL[name],
             **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
         del q, k, v
     B, S, H, Kv, T, dh = CROSS_FLASH
     out = {}
-    for key, t, causal, tag in (
-            ("cross", T, False, "llama-vision-cross-prefill"),
-            ("self", S, True, "llama-vision-self-prefill")):
+    for key, t, causal, tag, dtype in (
+            ("cross", T, False, "llama-vision-cross-prefill",
+             torch.bfloat16),
+            ("self", S, True, "llama-vision-self-prefill", torch.bfloat16),
+            ("cross-f32", T, False, "llama-vision-cross-prefill",
+             torch.float32)):
+        name = str(dtype).split(".")[-1]
+        hopper = "sm90" if dtype == torch.bfloat16 else "sm90_f32"
         q, k, v = _cross_inputs(torch, gen, device, B, S, H, Kv, t, dh,
-                                torch.bfloat16)
-        require(fa.flash_kernel_for(q, k, v) == "sm90",
-                f"{tag}: bf16 at dh {dh} not routed to the Hopper kernel")
+                                dtype)
+        require(fa.flash_kernel_for(q, k, v) == hopper,
+                f"{tag}: {name} at dh {dh} not routed to {hopper}")
         ms = _flash_case(torch, fa, q, k, v, tag, causal=causal,
-                         kernels=("sm90", "simple"))
+                         kernels=(hopper, "simple"))
         shape = f"B{B}xS{S}xH{H}xK{Kv}xT{t}xdh{dh}"
         for r, m in ms.items():
             bound_ms, bound_by = bound(m)
             out[r, key] = {
-                "case": tag, "shape": shape, "dtype": "bfloat16",
+                "case": tag, "shape": shape, "dtype": name,
                 "causal": causal, "max_abs_err": m["err"], "ms": m["ms"],
                 "plain_ms": m["plain"], "library_ms": m["lib"],
-                "bound_ms": bound_ms, "bound_by": bound_by, "launches": 0}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ffma_floor_ms": m["f32_ops"] / F32_FLOPS * 1e3,
+                "launches": 0}
             say("vlm", kernel=f"flash_attention ({r})", case=tag,
-                shape=shape, causal=causal, tol=FLASH_TOL["bfloat16"],
+                shape=shape, dtype=name, causal=causal, tol=FLASH_TOL[name],
                 max_abs_err=m["err"], ms=f"{m['ms']:.5f}",
                 plain_ms=f"{m['plain']:.5f}", library_ms=f"{m['lib']:.5f}",
                 bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
                 bound_share=f"{bound_ms / m['ms']:.4f}",
                 ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
                 bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
-                ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
+                ops_bound_ms=f"{m['ops'] / m['rate'] * 1e3:.5f}",
                 turns_ms=json.dumps(m["turns"]))
-        out["sm90", key]["simple_ms"] = out["simple", key]["ms"]
+        out[hopper, key]["simple_ms"] = out["simple", key]["ms"]
         del q, k, v
+        _free(torch)
     _free(torch)
     return out
 
@@ -4142,11 +4249,13 @@ HYBRID_TRAIN_STEPS = 4
 HYBRID_FLASH = (1, 1024, 10, 1, 256)
 # ragged cases held to the plain version (B, S, H, K, T, dtype, causal):
 # S 1000, S 7, and causal=False over T 129 keys (one key into the last
-# key tile); bfloat16 on both kernels, float32 on the simple one
+# key tile); on the Hopper kernel of the type and the simple one
 HYBRID_RAGGED = ((1, 1000, 10, 1, 1000, "bfloat16", True),
                  (4, 7, 10, 1, 7, "bfloat16", True),
                  (1, 1024, 10, 1, 129, "bfloat16", False),
-                 (1, 1000, 10, 1, 1000, "float32", True))
+                 (1, 1000, 10, 1, 1000, "float32", True),
+                 (4, 7, 10, 1, 7, "float32", True),
+                 (1, 1024, 10, 1, 129, "float32", False))
 HYBRID_PTXAS = "Li4ELi64ELi64ELi16E"    # the four-threads-a-row kernel
 SM90_DH256_PTXAS = "ILi256ELi256E"      # the Hopper kernel at dh 256
 # check_window_wrap: a prompt that fills all but 8 of the ring's slots,
@@ -4155,12 +4264,12 @@ WRAP_PROMPT, WRAP_STEPS = 2040, 32
 
 
 def check_flash_hybrid(torch, device):
-    """Both flash kernels alone at recurrentgemma-2b's local-attention
+    """The flash kernels alone at recurrentgemma-2b's local-attention
     prompt shape (``HYBRID_FLASH``: 10 query heads over 1 kv head at head
     dim 256, seed 37): first the ragged cases of ``HYBRID_RAGGED``, then
-    the prompt shape in bf16 -- routed to the Hopper kernel, both kernels
-    timed in turns -- and in float32 (the simple kernel), held to the
-    plain version and timed by :func:`_flash_case` beside
+    the prompt shape in bf16 and in float32 -- routed to the Hopper
+    kernel of the type, timed in turns beside the simple one -- held to
+    the plain version and timed by :func:`_flash_case` beside
     ``scaled_dot_product_attention(..., enable_gqa=True)``.  Returns
     ``{(kernel, dtype): record}``."""
     from repro_torch.kernels import attention as fa
@@ -4171,8 +4280,8 @@ def check_flash_hybrid(torch, device):
                                 getattr(torch, name))
         ms = _flash_case(torch, fa, q, k, v, f"dh 256 B{b}xS{s}xT{t}",
                          causal=causal, timed=False,
-                         kernels=("sm90", "simple") if name == "bfloat16"
-                         else ("simple",))
+                         kernels=("sm90" if name == "bfloat16"
+                                  else "sm90_f32", "simple"))
         say("hybrid", check="flash-dh256", shape=f"B{b}xS{s}xH{h}xK{kv}"
             f"xT{t}xdh256", dtype=name, causal=causal, tol=FLASH_TOL[name],
             **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
@@ -4183,7 +4292,7 @@ def check_flash_hybrid(torch, device):
         name = str(dtype).split(".")[-1]
         q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
         route = fa.flash_kernel_for(q, k, v)
-        want = "sm90" if dtype == torch.bfloat16 else "simple"
+        want = "sm90" if dtype == torch.bfloat16 else "sm90_f32"
         require(route == want, f"flash at dh {dh} ({name}): routed to "
                 f"{route}, want {want}")
         ms = _flash_case(torch, fa, q, k, v, f"dh {dh} MQA",
@@ -4196,20 +4305,21 @@ def check_flash_hybrid(torch, device):
                 "route": route, "max_abs_err": m["err"],
                 "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "ffma_floor_ms": m["f32_ops"] / F32_FLOPS * 1e3,
                 "turns_ms": m["turns"], "launches": 0}
             say("hybrid", kernel=f"flash_attention ({r})",
                 tol=FLASH_TOL[name],
                 ratio_to_library=f"{m['ms'] / m['lib']:.3f}",
                 bound_share=f"{bound_ms / m['ms']:.5f}",
                 bytes_bound_ms=f"{m['nbytes'] / HBM_BPS * 1e3:.5f}",
-                ops_bound_ms=f"{m['ops'] / BF16_FLOPS * 1e3:.5f}",
-                f32_floor_ms=f"{m['ops'] / F32_FLOPS * 1e3:.5f}",
+                ops_bound_ms=f"{m['ops'] / m['rate'] * 1e3:.5f}",
                 **{key: (f"{val:.5f}" if isinstance(val, float) else val)
                    for key, val in out[r, name].items()
                    if key != "turns_ms"},
                 turns_ms=json.dumps(m["turns"]), card=card_line())
         del q, k, v
     out["sm90", "bfloat16"]["simple_ms"] = out["simple", "bfloat16"]["ms"]
+    out["sm90_f32", "float32"]["simple_ms"] = out["simple", "float32"]["ms"]
     _free(torch)
     return out
 
@@ -5962,18 +6072,18 @@ def ring_launches(counts, name) -> int:
     return counts[name]
 
 
-def ptxas_summary(log: str) -> dict:
+def ptxas_summary(log: str, kernel="flash_attention_kernel_sm90") -> dict:
     """``{"dh64": "110 registers, 0 bytes spill stores, ...", ...}`` from
-    the Hopper flash kernel's ``ptxas -v`` log (one entry per (q·k, v)
-    instantiation: ``dh64``, ``dh128``, ``dqk192-dv128``, ``dh256``;
-    ``-noncausal`` marks the ``causal=False`` ones)."""
+    a Hopper flash kernel's ``ptxas -v`` log (the bf16 one's by default;
+    one entry per (q·k, v) instantiation: ``dh64``, ``dh128``,
+    ``dqk192-dv128``, ``dh256``; ``-noncausal`` marks the
+    ``causal=False`` ones)."""
     import re
 
     out, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            pair = re.search(r"flash_attention_kernel_sm90ILi(\d+)ELi(\d+)E",
-                             line)
+            pair = re.search(kernel + r"ILi(\d+)ELi(\d+)E", line)
             key = None
             if pair:
                 dqk, dv = pair.groups()
@@ -6068,6 +6178,16 @@ def main() -> int:
         logs.get("flash_sm90", ""), SM90_MLA_PTXAS)
     kernels["flash_attention"]["deepseek_v2_mla"] = mla_flash["simple"]
     kernels["flash_attention_sm90"]["deepseek_v2_mla"] = mla_flash["sm90"]
+    f32 = kernels["flash_attention_sm90_f32"]
+    f32["deepseek_v2_mla"] = mla_flash["sm90_f32"]
+    kernels["flash_attention"]["deepseek_v2_mla_f32"] = mla_flash["simple_f32"]
+    f32["ptxas"] = ptxas_summary(logs.get("flash_sm90_f32", ""),
+                                 FLASH_NAMES["sm90_f32"])
+    f32_spill = ring_ptxas_summary(logs.get("flash_sm90_f32", ""),
+                                   FLASH_NAMES["sm90_f32"])
+    # no spill at any head-dim pair (an empty log: built before)
+    require(f32_spill["spill_bytes_max"] == 0,
+            f"the float32 Hopper kernel spills: {f32_spill}")
     cross_flash = check_flash_cross(torch, device)
     kernels["flash_attention"]["llama_vision_cross"] = \
         cross_flash["simple", "cross"]
@@ -6075,6 +6195,9 @@ def main() -> int:
         cross_flash["sm90", "cross"]
     kernels["flash_attention_sm90"]["llama_vision_self"] = \
         cross_flash["sm90", "self"]
+    f32["llama_vision_cross"] = cross_flash["sm90_f32", "cross-f32"]
+    kernels["flash_attention"]["llama_vision_cross_f32"] = \
+        cross_flash["simple", "cross-f32"]
     kernels["flash_attention_sm90"]["ptxas"] = ptxas_summary(
         logs.get("flash_sm90", ""))
     hybrid_flash = check_flash_hybrid(torch, device)
@@ -6092,6 +6215,7 @@ def main() -> int:
         hybrid_flash["simple", "float32"]
     kernels["flash_attention_sm90"]["recurrentgemma_dh256"] = \
         hybrid_flash["sm90", "bfloat16"]
+    f32["recurrentgemma_dh256"] = hybrid_flash["sm90_f32", "float32"]
     t0 = time.perf_counter()
     migration = phase_disagg(torch, model, params)
     del model, params
@@ -6171,8 +6295,17 @@ def main() -> int:
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])
-        for name in ("flash_attention", "flash_attention_sm90"):
+        for name in ("flash_attention", "flash_attention_sm90",
+                     "flash_attention_sm90_f32"):
             kernels[name]["path_launches"][run] = ran[name]
+    # the float32 Hopper kernel's main path: the float32 logit checks of
+    # phases 6 and 11, one launch a layer each
+    f32["launches"] = sum(n for run, n in f32["path_launches"].items()
+                          if run.startswith("logits-f32-"))
+    require(all(f32["path_launches"][f"logits-f32-{arch}"] > 0
+                for arch in (ARCH, "qwen2-1.5b")),
+            f"the float32 logit checks did not launch the float32 Hopper "
+            f"kernel: {f32['path_launches']}")
     rings.extend(family_rings + moe_rings)
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
                            "jacobi": counts, "messages": messages,

@@ -10,12 +10,13 @@ A/B of a change to the kernels' causal path on one CUDA card.
 Run one process a side, in turns (parent, tree, tree, parent), in one
 call: each process builds its tree's kernels (into that tree's
 ``build/``) and calls them through that tree's wrapper,
-``kernels.attention.flash_attention_cuda(q, k, v)`` (the routed kernel)
-and ``kernel="simple"`` for bfloat16, so the two trees' C interfaces
-may differ.  Shapes (B, S, H, K, q·k dh, v dh; seed 3): tinyllama-1.1b,
+``kernels.attention.flash_attention_cuda(q, k, v)`` (the routed kernel:
+a Hopper kernel of the type) and ``kernel="simple"``, so the two trees'
+C interfaces may differ.  Shapes (B, S, H, K, q·k dh, v dh; seed 3): tinyllama-1.1b,
 qwen2-1.5b, deepseek-7b, dbrx-132b, musicgen-medium and
-llama-3.2-vision-90b's self-attention in bf16, tinyllama in float32,
-deepseek-v2-236b's MLA 192 / 128 in bf16.  Device ms per launch from
+llama-3.2-vision-90b's self-attention in bf16, deepseek-v2-236b's MLA
+192 / 128 in bf16; tinyllama, qwen2-1.5b, deepseek-v2-236b's MLA and
+recurrentgemma-2b's dh 256 in float32 (``--dtype`` keeps one type).  Device ms per launch from
 ``torch.profiler`` (``chip_smoke.device_ms``) and a digest of the
 output's bytes (equal digests on both sides: bitwise equal outputs);
 one line per shape and kernel, and the card's name and power limit.
@@ -40,8 +41,11 @@ SHAPES = (("tinyllama-1.1b", (1, 1024, 32, 4, 64, 64), "bfloat16"),
           ("dbrx-132b", (1, 1024, 48, 8, 128, 128), "bfloat16"),
           ("musicgen-medium", (1, 1024, 24, 24, 64, 64), "bfloat16"),
           ("llama-3.2-vision-self", (4, 1024, 64, 8, 128, 128), "bfloat16"),
+          ("deepseek-v2-236b", (1, 1024, 128, 128, 192, 128), "bfloat16"),
           ("tinyllama-1.1b", (1, 1024, 32, 4, 64, 64), "float32"),
-          ("deepseek-v2-236b", (1, 1024, 128, 128, 192, 128), "bfloat16"))
+          ("qwen2-1.5b", (1, 1024, 12, 2, 128, 128), "float32"),
+          ("deepseek-v2-236b", (1, 1024, 128, 128, 192, 128), "float32"),
+          ("recurrentgemma-2b", (1, 1024, 10, 1, 256, 256), "float32"))
 
 
 def main() -> int:
@@ -49,6 +53,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(REPO, "src"),
                     help="the src/ directory whose repro_torch to time")
     ap.add_argument("--tag", default="tree")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    help="only the shapes of this type")
     args = ap.parse_args()
     sys.path[:0] = [os.path.abspath(args.src), REPO]
     import torch
@@ -62,6 +68,8 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     for case, (B, S, H, K, dh, dv), name in SHAPES:
+        if args.dtype not in (None, name):
+            continue
         dt = getattr(torch, name)
         q, k, v = (torch.randn(B, S, n, e, generator=gen, device=dev).to(dt)
                    for n, e in ((H, dh), (K, dh), (K, dv)))
@@ -72,8 +80,7 @@ def main() -> int:
                                   .numpy().tobytes()).hexdigest()[:16]
             ms = cs.device_ms(
                 lambda: fa.flash_attention_cuda(q, k, v, kernel=kernel),
-                kernel=("flash_attention_kernel_sm90" if kernel == "sm90"
-                        else "flash_attention_kernel"))
+                kernel=cs.FLASH_NAMES[kernel])
             cs.say("flash_ab", tag=args.tag, case=case,
                    shape=f"B{B}xS{S}xH{H}xK{K}xdh{dh}xdv{dv}", dtype=name,
                    kernel=kernel, ms=f"{ms:.5f}", digest=digest)

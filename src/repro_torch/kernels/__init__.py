@@ -22,8 +22,9 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   of its own (cross-attention's prompt pass over image tokens),
   replacing ``flash_attention_pallas``: a Hopper kernel (TMA tile ring,
   ``wgmma``) for bfloat16 at head dims 64, 128 and 256 and at MLA's q·k
-  192 with v 128, and a simple kernel for every other input it holds
-  (float32 among them).
+  192 with v 128, a Hopper kernel for float32 at the same head dims (TMA
+  tile ring, TF32 ``mma.sync``), and a simple kernel for every other
+  input it holds.
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
@@ -35,6 +36,7 @@ from repro_torch.kernels.am_pack.am_pack import (launch_gather,
                                                  launch_scatter_sm90)
 from repro_torch.kernels.attention.flash import (flash_attention_cuda,
                                                  launch_flash_sm90,
+                                                 launch_flash_sm90_f32,
                                                  noncausal_launches)
 from repro_torch.kernels.gascore_dma.gascore_dma import (
     launch_ring_sm90, ring_allreduce_dma_cuda, ring_collective_cuda)
@@ -51,7 +53,8 @@ LAUNCH_COUNTERS = {
     "ring_collective": ring_collective_cuda,        # either ring kernel
     "ring_cluster_sm90": launch_ring_sm90,          # the cluster kernel
     "flash_attention": flash_attention_cuda,        # either flash kernel
-    "flash_attention_sm90": launch_flash_sm90,      # the Hopper kernel
+    "flash_attention_sm90": launch_flash_sm90,      # the bf16 Hopper kernel
+    "flash_attention_sm90_f32": launch_flash_sm90_f32,  # the float32 one
     "flash_attention_noncausal": noncausal_launches,  # either, causal off
 }
 

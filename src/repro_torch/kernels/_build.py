@@ -32,6 +32,7 @@ SOURCES = {
     "gascore_dma_sm90": _PKG / "gascore_dma" / "csrc" / "gascore_dma_sm90.cu",
     "flash": _PKG / "attention" / "csrc" / "flash.cu",
     "flash_sm90": _PKG / "attention" / "csrc" / "flash_sm90.cu",
+    "flash_sm90_f32": _PKG / "attention" / "csrc" / "flash_sm90_f32.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -34,8 +34,18 @@
 // 128 + 32 floats, past the 255-register cap, and BK = 32 tiles would
 // take 67,584 bytes: so TPR = 4 (256 threads a CTA, 64 + 64 + 16 floats a
 // thread, as at dh 128) and BK = 16 keys (17,408 + 17,408 bytes).  Every
-// product is a float32 FMA on the CUDA cores; wgmma, TMA and warp
-// specialisation are later work.
+// product is a float32 FMA on the CUDA cores.
+//
+// Which inputs still reach it: the wrapper (flash.py, flash_kernel_for)
+// sends bfloat16 on TMA's 16-byte grid at (q.k, v) head dims (64, 64),
+// (128, 128), (192, 128) and (256, 256) to flash_sm90.cu (wgmma) and
+// float32 on the same grid at the same head dims to flash_sm90_f32.cu
+// (TF32 mma.sync).  This kernel takes the rest, in either type: the
+// other head dims up to 256 (the smoke configs' 16 and 32 among them),
+// and views whose head dim is not contiguous, with a zero stride (an
+// expanded kv head) or with strides or pointers off the 16-byte grid.  It
+// also stays the exact-float32 yardstick the Hopper kernels are timed
+// and checked beside (kernel="simple").
 //
 // Bound on an H100: 2 * S^2 * dh operations per head (causal QK^T and
 // PV) against (3 + 1) * S * dh elements moved, so at S = 1024, dh = 64

@@ -1,24 +1,29 @@
-"""ctypes bindings of the two flash-attention kernels, causal or not.
+"""ctypes bindings of the three flash-attention kernels, causal or not.
 
 * ``csrc/flash_sm90.cu`` (``flash_attention_sm90_fwd``): the Hopper
   kernel -- TMA tile ring, ``wgmma`` on the tensor cores -- for bfloat16
   q, k, v laid out on TMA's 16-byte grid at the (q·k, v) head dims of
   ``SM90_HEAD_DIMS``: 64, 128, MLA's 192 / 128 and recurrentgemma's 256.
+* ``csrc/flash_sm90_f32.cu`` (``flash_attention_sm90_f32_fwd``): the
+  Hopper kernel for float32 -- TMA tile ring, TF32 ``mma.sync`` on the
+  tensor cores -- on the same grid at the head dims of
+  ``SM90_F32_HEAD_DIMS``.
 * ``csrc/flash.cu`` (``flash_attention_fwd``): the simple kernel --
-  float32 FMAs, any strides -- for everything else it holds (float32,
-  other head dims up to 256, views whose head dim is not contiguous or
-  whose strides or pointers are off TMA's grid).
+  float32 FMAs, any strides -- for everything else it holds (other head
+  dims up to 256, views whose head dim is not contiguous or whose
+  strides or pointers are off TMA's grid, in either type).
 
 :func:`flash_kernel_for` decides between them from shapes, strides,
 dtype and alignment alone, before the launch; nothing is retried.
 :func:`flash_attention_cuda` takes CUDA tensors only, checks them,
 allocates the output, launches the chosen kernel on PyTorch's current
-stream and raises if the launch fails.  Both kernels take ``causal`` and
-a key length ``T`` of its own (``T == S`` when causal; any ``T >= 1``
+stream and raises if the launch fails.  All three take ``causal`` and a
+key length ``T`` of its own (``T == S`` when causal; any ``T >= 1``
 without: cross-attention's prompt pass over the image tokens).
-Launches are counted on ``flash_attention_cuda.launches`` (either
-kernel), on ``launch_flash_sm90.launches`` (the Hopper kernel alone) and
-on ``noncausal_launches.launches`` (either kernel with ``causal`` off).
+Launches are counted on ``flash_attention_cuda.launches`` (any kernel),
+on ``launch_flash_sm90.launches`` and ``launch_flash_sm90_f32.launches``
+(each Hopper kernel alone) and on ``noncausal_launches.launches`` (any
+kernel with ``causal`` off).
 """
 
 from __future__ import annotations
@@ -33,11 +38,14 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256                # largest head dim the simple kernel holds
 MLA_HEAD_DIMS = (192, 128)  # the one (q·k, v) pair of unequal head dims
-# (q·k, v) head dims the Hopper kernel holds
+# (q·k, v) head dims the bfloat16 Hopper kernel holds
 SM90_HEAD_DIMS = ((64, 64), (128, 128), MLA_HEAD_DIMS, (256, 256))
+# and the float32 one: each pair where it beat the simple kernel in one
+# chip call (scripts/flash_f32_variants.py)
+SM90_F32_HEAD_DIMS = ((64, 64), (128, 128), MLA_HEAD_DIMS, (256, 256))
 TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
 MAX_GRID_YZ = 65535         # heads (grid y) and batch (grid z)
-KERNELS = ("sm90", "simple")
+KERNELS = ("sm90", "sm90_f32", "simple")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _Strides = ctypes.c_longlong * 4
 
@@ -68,20 +76,28 @@ def _lib_sm90():
     return lib
 
 
+# the Hopper kernel of each type, and the head dims it takes
+_SM90 = {torch.bfloat16: ("sm90", SM90_HEAD_DIMS),
+         torch.float32: ("sm90_f32", SM90_F32_HEAD_DIMS)}
+
+
 def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> str:
-    """``"sm90"`` when the Hopper kernel takes these inputs, else
-    ``"simple"``.  A pure function of dtype, shapes, strides and the
-    pointers' alignment: bfloat16 q, k and v whose (q·k, v) head dims
-    are one of ``SM90_HEAD_DIMS`` -- (64, 64), (128, 128), MLA's (192,
-    128), (256, 256) -- the head dim contiguous, every other stride a
-    positive multiple of 16 bytes and every pointer 16-byte aligned (what
-    a TMA tensor map takes).  Float32, other head dims and inputs off
-    that grid go to the simple kernel.
+    """``"sm90"`` or ``"sm90_f32"`` when a Hopper kernel takes these
+    inputs, else ``"simple"``.  A pure function of dtype, shapes,
+    strides and the pointers' alignment: q, k and v of one type --
+    bfloat16 at the (q·k, v) head dims of ``SM90_HEAD_DIMS`` (the
+    ``wgmma`` kernel), float32 at those of ``SM90_F32_HEAD_DIMS`` (the
+    TF32 kernel); both (64, 64), (128, 128), MLA's (192, 128), (256,
+    256) -- with the head dim contiguous, every other stride a positive
+    multiple of 16 bytes and every pointer 16-byte aligned (what a TMA
+    tensor map takes).  Other head dims and inputs off that grid go to
+    the simple kernel.
     Causal or not, and the key length, do not enter the choice."""
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _SM90:
         return "simple"
-    if (q.shape[-1], v.shape[-1]) not in SM90_HEAD_DIMS:
+    route, dims = _SM90[q.dtype]
+    if (q.shape[-1], v.shape[-1]) not in dims:
         return "simple"
     for t in (q, k, v):
         *outer, inner = t.stride()
@@ -89,7 +105,7 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
             return "simple"
         if any(s <= 0 or s * t.element_size() % TMA_ALIGN for s in outer):
             return "simple"
-    return "sm90"
+    return route
 
 
 def check_shapes(q_shape, k_shape, v_shape, causal: bool = True) -> None:
@@ -157,6 +173,41 @@ def launch_flash_sm90(q, k, v, out, causal=True) -> None:
     launch_flash_sm90.launches += 1
 
 
+def _lib_sm90_f32():
+    lib = _build.load("flash_sm90_f32")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_sm90_f32_fwd.argtypes = [
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _Strides, _Strides,
+            _Strides, _I, _P]
+        lib.flash_attention_sm90_f32_fwd.restype = _I
+        lib.flash_sm90_f32_error_string.argtypes = [_I]
+        lib.flash_sm90_f32_error_string.restype = ctypes.c_char_p
+        lib.flash_sm90_f32_precision.restype = _I
+        lib._typed = True
+    return lib
+
+
+def f32_precision() -> int:
+    """The routed float32 build's ``PRECISION``: 0, one TF32 pass on
+    both products; 1, QKᵀ split into three; 2, both split."""
+    return int(_lib_sm90_f32().flash_sm90_f32_precision())
+
+
+def launch_flash_sm90_f32(q, k, v, out, causal=True) -> None:
+    """Launch the float32 Hopper kernel on checked inputs it takes;
+    raises if the launch fails."""
+    lib = _lib_sm90_f32()
+    dims, strides = _args(q, k, v, out)
+    status = lib.flash_attention_sm90_f32_fwd(
+        *dims, v.shape[-1], *strides, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(
+            f"flash_attention_sm90_f32_fwd: error {status} "
+            f"({lib.flash_sm90_f32_error_string(status).decode()})")
+    launch_flash_sm90_f32.launches += 1
+
+
 def _launch_simple(q, k, v, out, causal=True) -> None:
     """Launch the simple kernel on checked inputs; raises if the launch
     fails."""
@@ -180,16 +231,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous ``(B, S, H, dv)``.  The kernel is
     :func:`flash_kernel_for`'s choice; ``kernel="simple"`` forces the
     simple one (for comparisons: nothing on the main path sets it), and
-    ``kernel="sm90"`` raises on inputs the Hopper kernel does not take."""
+    ``kernel="sm90"`` / ``"sm90_f32"`` raises on inputs that Hopper
+    kernel does not take."""
     _check(q, k, v, causal)
     route = flash_kernel_for(q, k, v)
     if kernel is not None:
         if kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, got "
                              f"{kernel!r}")
-        if kernel == "sm90" and route != "sm90":
-            raise ValueError("the sm90 kernel does not take these inputs "
-                             "(see flash_kernel_for)")
+        if kernel != "simple" and route != kernel:
+            raise ValueError(f"the {kernel} kernel does not take these "
+                             f"inputs (see flash_kernel_for)")
         route = kernel
     out = torch.empty(q.shape[:-1] + v.shape[-1:], dtype=q.dtype,
                       device=q.device)
@@ -197,6 +249,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if route == "sm90":
         launch_flash_sm90(q, k, v, out, causal)
+    elif route == "sm90_f32":
+        launch_flash_sm90_f32(q, k, v, out, causal)
     else:
         _launch_simple(q, k, v, out, causal)
     flash_attention_cuda.launches += 1
@@ -207,5 +261,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_cuda.launches = 0
 launch_flash_sm90.launches = 0
+launch_flash_sm90_f32.launches = 0
 # launches of either kernel with causal=False
 noncausal_launches = types.SimpleNamespace(launches=0)

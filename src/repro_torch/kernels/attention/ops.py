@@ -1,5 +1,6 @@
-"""Flash-attention wrapper: a CUDA kernel for CUDA tensors (the Hopper
-kernel or the simple one, chosen by shape before the launch), the plain
+"""Flash-attention wrapper: a CUDA kernel for CUDA tensors (a Hopper
+kernel -- bfloat16 or float32 -- or the simple one, chosen by shape
+before the launch), the plain
 version for CPU tensors, and nothing else (no fallback)."""
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     t <= s); without it, ``S`` queries over all ``T >= 1`` keys
     (cross-attention's prompt pass over the image tokens).  ``dv`` is
     ``dh`` or, for MLA's prompt passes, ``(dh, dv) = (192, 128)`` (the
-    Hopper kernel on the card in bfloat16, the simple one in float32).  The counterpart of the JAX package's
+    Hopper kernels on the card, in bfloat16 and in float32).  The
+    counterpart of the JAX package's
     ``kernels.attention.flash_attention`` (there ``(BH, S, dh)`` padded
     to a block multiple, ``T == S``; here the heads stay in place, kv
     heads are shared by ``H // K`` query heads without a copy, and the

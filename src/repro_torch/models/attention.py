@@ -27,8 +27,8 @@ Two routes compute the same attention:
 
 MLA (:func:`mla`) takes the same two routes for its prompt passes, with
 a q·k head dim of ``dh_nope + dh_rope`` and a v head dim of ``dh_v``
-(192 and 128 at full width, which the Hopper flash kernel takes in
-bfloat16), and a third for a decode step: the absorbed form, whose
+(192 and 128 at full width, which the Hopper flash kernels take in
+bfloat16 and in float32), and a third for a decode step: the absorbed form, whose
 scores are taken in the latent space of the cache.
 
 Cross-attention (:func:`cross_attention`) reads its keys and values

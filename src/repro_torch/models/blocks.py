@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -54,18 +55,44 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
 # MLPs
 # --------------------------------------------------------------------------
 
-def swiglu(x, wg, wu, wd):
-    """SwiGLU gated MLP (llama/qwen/deepseek family)."""
+# the depth of unread products running on this thread (see product())
+_unread = threading.local()
+
+
+def product(x, w, *, unread: bool = False):
+    """``x @ w``, a batch-free product.  ``unread``: it is the last
+    product of a checkpoint region -- only the residual add that ends the
+    region takes its output, and the backward never reads it -- so the
+    ``dots`` policy (``models.model.dots_policy``) keeps no copy of it,
+    as JAX's partial evaluation drops it (:func:`in_unread_product`)."""
+    if not unread:
+        return x @ w
+    _unread.depth = getattr(_unread, "depth", 0) + 1
+    try:
+        return x @ w
+    finally:
+        _unread.depth -= 1
+
+
+def in_unread_product() -> bool:
+    """True while an ``unread`` :func:`product` runs on this thread."""
+    return getattr(_unread, "depth", 0) > 0
+
+
+def swiglu(x, wg, wu, wd, *, unread: bool = False):
+    """SwiGLU gated MLP (llama/qwen/deepseek family).  ``unread``: the
+    down projection ends a checkpoint region (:func:`product`)."""
     g = F.silu(x @ wg.to(x.dtype))
     u = x @ wu.to(x.dtype)
-    return (g * u) @ wd.to(x.dtype)
+    return product(g * u, wd.to(x.dtype), unread=unread)
 
 
-def gelu_mlp(x, wi, bi, wo, bo):
+def gelu_mlp(x, wi, bi, wo, bo, *, unread: bool = False):
     """Plain GELU MLP (musicgen family); tanh-approximate, as
-    ``jax.nn.gelu`` is by default."""
+    ``jax.nn.gelu`` is by default.  ``unread``: the down projection ends
+    a checkpoint region (:func:`product`)."""
     h = F.gelu(x @ wi.to(x.dtype) + bi.to(x.dtype), approximate="tanh")
-    return h @ wo.to(x.dtype) + bo.to(x.dtype)
+    return product(h, wo.to(x.dtype), unread=unread) + bo.to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -223,10 +223,11 @@ def _init_mlp(cfg, gen, lead=()):
             "wd": bl.dense_init(gen, lead + (f, d), n)}
 
 
-def _mlp(cfg, p, x):
+def _mlp(cfg, p, x, unread=False):
     if cfg.mlp == "gelu":
-        return bl.gelu_mlp(x, p["wi"], p["bi"], p["wo"], p["bo"])
-    return bl.swiglu(x, p["wg"], p["wu"], p["wd"])
+        return bl.gelu_mlp(x, p["wi"], p["bi"], p["wo"], p["bo"],
+                           unread=unread)
+    return bl.swiglu(x, p["wg"], p["wu"], p["wd"], unread=unread)
 
 
 # the dense, MoE, cross, local-attention, RG-LRU, mLSTM and sLSTM blocks:
@@ -286,27 +287,33 @@ def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
 
 
 def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
-                 differentiable=False, ep=None, image_feats=None, ring=None):
+                 differentiable=False, ep=None, image_feats=None, ring=None,
+                 last=False):
     """Returns (x, aux): the MoE block's load-balance loss, None for any
-    other block.  ``ep``: the expert-parallel island, or None.  ``ring``:
-    the ring-attention mesh, or None; only a GQA block without a window
+    other block.  ``last``: the block ends its superblock, so its last
+    batch-free product ends a checkpoint region and the backward never
+    reads its output (``blocks.product(..., unread=True)``).  ``ep``:
+    the expert-parallel island, or None.  ``ring``: the ring-attention
+    mesh, or None; only a GQA block without a window
     takes it (MLA and cross blocks ignore it, as in the JAX package).
     ``image_feats``: the cross block's keys and values, ``(B, N,
     d_model)``.  An RG-LRU, mLSTM or sLSTM block's ``cache`` is its
     state, written in place; the xLSTM cells norm their own input."""
     if kind == "mlstm":
         x, _ = xl.mlstm_block(p["cell"], x, nh=cfg.n_heads,
-                              chunk=cfg.mlstm_chunk, state=cache)
+                              chunk=cfg.mlstm_chunk, state=cache,
+                              unread=last)
         return x, None
     if kind == "slstm":
-        x, _ = xl.slstm_block(p["cell"], x, nh=cfg.n_heads, state=cache)
+        x, _ = xl.slstm_block(p["cell"], x, nh=cfg.n_heads, state=cache,
+                              unread=last)
         return x, None
     h = _norm(cfg, p["ln1"], x)
     if kind == "rglru":
         r, _ = rec.rglru_block(p["rnn"], h, state=cache)
         x = x + r
         h = _norm(cfg, p["ln2"], x)
-        return x + _mlp(cfg, p["mlp"], h), None
+        return x + _mlp(cfg, p["mlp"], h, unread=last), None
     if kind == "cross":
         if image_feats is None:
             raise ValueError(f"{cfg.name}: a cross-attention block needs "
@@ -318,7 +325,7 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
                                      dh=cfg.dh,
                                      differentiable=differentiable)
         h = _norm(cfg, p["ln2"], x)
-        return x + _mlp(cfg, p["mlp"], h), None
+        return x + _mlp(cfg, p["mlp"], h, unread=last), None
     if cfg.mla and kind != "attn_local":
         a, _ = attn.mla(p["attn"], h, positions, H=cfg.n_heads, dims=cfg.mla,
                         cache=cache, fresh=fresh,
@@ -333,13 +340,13 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
     x = x + a
     h = _norm(cfg, p["ln2"], x)
     if kind != "moe":
-        return x + _mlp(cfg, p["mlp"], h), None
+        return x + _mlp(cfg, p["mlp"], h, unread=last), None
     if ep is None:
-        f, aux = moe_lib.moe_ffn(p["moe"], h, cfg.moe)
+        f, aux = moe_lib.moe_ffn(p["moe"], h, cfg.moe, unread=last)
         return x + f, aux
     f, aux = ep(p["moe"], h)
     if cfg.moe.n_shared:            # shared experts run outside the island
-        f = f + moe_lib.shared_experts(p["moe"], h)
+        f = f + moe_lib.shared_experts(p["moe"], h, unread=last)
     return x + f, aux
 
 
@@ -348,8 +355,8 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
 # --------------------------------------------------------------------------
 
 def dots_policy(ctx, op, *args, **kwargs):
-    """The ``dots`` policy: save the output of ``aten.mm``, recompute
-    every other operation.
+    """The ``dots`` policy: save the output of ``aten.mm`` but the
+    region's last product, recompute every other operation.
 
     JAX's ``dots_with_no_batch_dims_saveable`` saves a ``dot_general``
     with no dimension shared by both operands and the output.  The
@@ -364,8 +371,16 @@ def dots_policy(ctx, op, *args, **kwargs):
     decision reads the operation, not ``bmm``'s batch size: an einsum
     dispatches ``bmm`` with a batch of 1 for a batch-free contraction as
     well as for a batched one whose batch is 1, so a batch-free product
-    must not be written as an einsum."""
-    if op in _SAVED_BY_DOTS:
+    must not be written as an einsum.
+
+    The superblock's last batch-free product (its last block's down
+    projection, or the shared experts') runs as ``blocks.product(...,
+    unread=True)``: only the residual add that ends the region reads its
+    output, the backward never does, and the recomputation stops before
+    it (early stop: its inputs are the region's last saves).  JAX's
+    partial evaluation drops that output; so does this policy, and
+    ``dots`` keeps what ``saved_residuals`` lists."""
+    if op in _SAVED_BY_DOTS and not bl.in_unread_product():
         return ckpt.CheckpointPolicy.MUST_SAVE
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -518,7 +533,8 @@ class Model:
                         cfg, kind, p_layer[key], x, positions,
                         cache=None if c_layer is None else c_layer[key],
                         fresh=fresh, differentiable=differentiable,
-                        ep=self._island, image_feats=image_feats, ring=ring)
+                        ep=self._island, image_feats=image_feats, ring=ring,
+                        last=i == len(pat) - 1)
                     if aux is not None:
                         aux_sb = aux if aux_sb is None else aux_sb + aux
                 return x, aux_sb

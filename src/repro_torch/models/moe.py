@@ -168,18 +168,20 @@ def _combine(contrib, T: int, k: int):
     return out
 
 
-def shared_experts(p, x):
+def shared_experts(p, x, *, unread: bool = False):
     """The shared experts (deepseek-v2) of x (..., d): one dense SwiGLU
     every token passes through, added to the routed experts' output
-    (inside :func:`moe_ffn`, outside the island)."""
+    (inside :func:`moe_ffn`, outside the island).  ``unread``: their
+    down projection ends a checkpoint region (``blocks.product``)."""
     d = x.shape[-1]
     return bl.swiglu(x.reshape(-1, d), p["ws_g"], p["ws_u"],
-                     p["ws_d"]).reshape(x.shape)
+                     p["ws_d"], unread=unread).reshape(x.shape)
 
 
-def moe_ffn(p, x, dims: MoEDims):
+def moe_ffn(p, x, dims: MoEDims, *, unread: bool = False):
     """Single-device MoE feed-forward over x (B, S, d), the shared
-    experts included: the oracle the island is held to."""
+    experts included: the oracle the island is held to.  ``unread``:
+    the shared experts' down projection ends a checkpoint region."""
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
@@ -187,7 +189,7 @@ def moe_ffn(p, x, dims: MoEDims):
     capacity = max(1, int(T * dims.top_k * dims.capacity_factor / E))
     out, aux = _dispatch_local(p, xf, dims, 0, E, capacity)
     if dims.n_shared:
-        out = out + shared_experts(p, xf)
+        out = out + shared_experts(p, xf, unread=unread)
     return out.reshape(B, S, d), aux
 
 

@@ -166,14 +166,16 @@ def _chunk_mlstm(q, k, v, logf, logi, chunk: int, init=None):
     return h.reshape(B, S, nh, dh).to(q.dtype), final
 
 
-def mlstm_block(p, x, *, nh, chunk: int = 64, state=None):
+def mlstm_block(p, x, *, nh, chunk: int = 64, state=None,
+                unread: bool = False):
     """x: (B,S,d) -> (out (B,S,d), state).  ``state``: None (training)
     or the float32 dict C (B,nh,dh,dh), n (B,nh,dh), m (B,nh), conv
     (B,W-1,pd) of a decode step (S == 1: the exact stabilized
     recurrence) or a prefill that carries it on (S > 1: the chunk form
     from it), written in place with the new state.  A prompt that is not
     a chunk multiple is padded with logf = 0 (no decay) and logi - 1e9
-    (no input) on the padding."""
+    (no input) on the padding.  ``unread``: the down projection ends a
+    checkpoint region (``blocks.product``)."""
     B, S, d = x.shape
     xi = bl.rms_norm(x, p["ln"])
     up = xi @ p["w_up"].to(x.dtype)
@@ -234,7 +236,7 @@ def mlstm_block(p, x, *, nh, chunk: int = 64, state=None):
 
     h = h.reshape(B, S, pd)
     h = bl.rms_norm(h, p["gn"]) * gate
-    return x + h @ p["w_down"].to(x.dtype), state
+    return x + bl.product(h, p["w_down"].to(x.dtype), unread=unread), state
 
 
 def make_mlstm_state(B, d, nh, device, pf: float = 2.0, conv_width: int = 4,
@@ -275,12 +277,13 @@ def init_slstm(gen, d, nh, mlp_pf: float = 4.0 / 3.0, lead: tuple = ()):
     }
 
 
-def slstm_block(p, x, *, nh, state=None):
+def slstm_block(p, x, *, nh, state=None, unread: bool = False):
     """Sequential sLSTM with exponential gating and block-diagonal
     recurrence (``r`` in float32), one step of the loop a token.
     ``state``: None (a zero start, m at -1e30) or the float32 dict h, c,
     n, m, each (B,d), written in place with the last step's.  Returns
-    (out (B,S,d), state)."""
+    (out (B,S,d), state).  ``unread``: the FFN's down projection ends a
+    checkpoint region (``blocks.product``)."""
     B, S, d = x.shape
     dh = d // nh
     xi = bl.rms_norm(x, p["ln"])
@@ -313,7 +316,8 @@ def slstm_block(p, x, *, nh, state=None):
     y = bl.rms_norm(torch.stack(hs, dim=1).to(x.dtype), p["gn"])
     y = x + y
     # gated MLP (the block's own FFN; config d_ff = 0)
-    y = y + bl.swiglu(bl.rms_norm(y, p["ln2"]), p["wg"], p["wu"], p["wd"])
+    y = y + bl.swiglu(bl.rms_norm(y, p["ln2"]), p["wg"], p["wu"], p["wd"],
+                      unread=unread)
     if state is not None:
         for name, new in (("h", h), ("c", c), ("n", n), ("m", m)):
             state[name].copy_(new)

@@ -20,6 +20,10 @@ where only future keys change, the simple kernel also at MLA's q·k 192
 / v 128, both kernels also with causal=False at a key length of its
 own (cross-attention's prompt pass), the simple kernel also at head
 dim 256 (recurrentgemma's MQA prompt pass, four threads a row); the
+float32 Hopper flash kernel (TF32) at 2e-3 against the plain version
+and the simple kernel at each of its head-dim pairs, causal and not,
+ragged, on the views ``mla`` and a fused projection make, and bitwise
+against itself where only future keys change; the
 engines on the
 card serve the CPU run's tokens exactly (float32 tinyllama-smoke and a
 small MLA model at deepseek-v2's head dims); the
@@ -684,19 +688,20 @@ def _mla_qkv(B, S, H, K, dtype, seed, device):
 @pytest.mark.parametrize("H,K", [(8, 8), (8, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_mla_head_dims_matches_plain(cuda, S, H, K, dtype):
-    """The routed kernel: the Hopper one in bfloat16, the simple one in
-    float32."""
+    """The routed kernel: the Hopper one of the type (``flash_sm90.cu``
+    in bfloat16, ``flash_sm90_f32.cu`` in float32)."""
     from repro_torch.kernels import attention as fa
 
     B = 2 if S < 512 else 1
     bf16 = dtype == torch.bfloat16
     q, k, v = _mla_qkv(B, S, H, K, dtype, S + K, cuda)
-    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "simple")
+    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "sm90_f32")
     reset_launch_counts()
     got = fa.flash_attention(q, k, v)
     counts = launch_counts()
-    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
-        == (1, int(bf16))
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_sm90_f32"]) == (1, int(bf16),
+                                                    int(not bf16))
     assert got.shape == (B, S, H, 128) and got.dtype == dtype
     _flash_close(got, fa.flash_attention_ref(q, k, v), dtype)
 
@@ -731,8 +736,8 @@ def test_flash_kernel_at_mla_head_dims_reads_cat_and_expand_views(cuda):
 
 
 def test_flash_at_mla_head_dims_refuses_sm90_and_other_pairs(cuda):
-    """The Hopper kernel takes MLA's (192, 128) in bfloat16, not in
-    float32; every kernel refuses the other unequal pairs."""
+    """The bfloat16 Hopper kernel takes MLA's (192, 128) in bfloat16, not
+    in float32; every kernel refuses the other unequal pairs."""
     from repro_torch.kernels import attention as fa
 
     q, k, v = _mla_qkv(1, 70, 4, 4, torch.bfloat16, 3, cuda)
@@ -760,8 +765,8 @@ def test_flash_at_mla_head_dims_refuses_sm90_and_other_pairs(cuda):
 def test_mla_engine_on_the_card_serves_the_cpu_tokens(cuda):
     """A small MLA model at deepseek-v2's head dims (nope 128, rope 64,
     v 128; float32) served on the card gives the CPU run's tokens; every
-    prompt pass of every layer launches the simple kernel, decode (the
-    absorbed form) never."""
+    prompt pass of every layer launches the float32 Hopper kernel (TF32
+    products), decode (the absorbed form) never."""
     from repro_torch.models.attention import MLADims
     from repro_torch.models.model import ModelConfig, build_model
     from repro_torch.serving import Request, ServeEngine
@@ -783,8 +788,9 @@ def test_mla_engine_on_the_card_serves_the_cpu_tokens(cuda):
         outs[str(device)] = {r.rid: r.out for r in done}
         counts = launch_counts()
     assert outs["cpu"] == outs[str(cuda)]
-    assert (counts["flash_attention"], counts["flash_attention_sm90"]) == (
-        len(prompts) * cfg.n_layers, 0)
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_sm90_f32"]) == (
+        len(prompts) * cfg.n_layers, 0, len(prompts) * cfg.n_layers)
 
 
 def test_engine_on_the_card_serves_the_cpu_tokens(cuda):
@@ -925,21 +931,23 @@ def _cross_qkv(B, S, T, H, K, dh, dtype, seed, device):
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_noncausal_flash_kernels_match_plain(cuda, T, S, dh, dtype):
-    """The routed kernel (Hopper for bf16, simple for float32) and the
-    simple one forced, both with causal=False, against the plain
-    version; the route and the non-causal counter."""
+    """The routed kernel (the Hopper one of the type) and the simple one
+    forced, both with causal=False, against the plain version; the
+    route and the non-causal counter."""
     from repro_torch.kernels import attention as fa
 
     B = 2 if S < 512 else 1
     q, k, v = _cross_qkv(B, S, T, 8, 2, dh, dtype, S + T + dh, cuda)
     bf16 = dtype == torch.bfloat16
-    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "simple")
+    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "sm90_f32")
     reset_launch_counts()
     got = fa.flash_attention(q, k, v, causal=False)
     simple = fa.flash_attention_cuda(q, k, v, kernel="simple", causal=False)
     counts = launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_sm90"],
-            counts["flash_attention_noncausal"]) == (2, int(bf16), 2)
+            counts["flash_attention_sm90_f32"],
+            counts["flash_attention_noncausal"]) \
+        == (2, int(bf16), int(not bf16), 2)
     want = fa.flash_attention_ref(q, k, v, causal=False)
     assert got.shape == (B, S, 8, dh)
     _flash_close(got, want, dtype)
@@ -1040,19 +1048,20 @@ def test_vlm_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
 @pytest.mark.parametrize("H,K", [(10, 1), (4, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_dh_256_matches_plain(cuda, S, H, K, dtype):
-    """The routed kernel: the Hopper one in bfloat16, the simple one in
-    float32."""
+    """The routed kernel: the Hopper one of the type (``flash_sm90.cu``
+    in bfloat16, ``flash_sm90_f32.cu`` in float32)."""
     from repro_torch.kernels import attention as fa
 
     B = 2 if S < 512 else 1
     bf16 = dtype == torch.bfloat16
     q, k, v = _qkv(B, S, H, K, 256, dtype, S + H, cuda)
-    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "simple")
+    assert fa.flash_kernel_for(q, k, v) == ("sm90" if bf16 else "sm90_f32")
     reset_launch_counts()
     got = fa.flash_attention(q, k, v)
     counts = launch_counts()
-    assert (counts["flash_attention"], counts["flash_attention_sm90"]) \
-        == (1, int(bf16))
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_sm90_f32"]) == (1, int(bf16),
+                                                    int(not bf16))
     assert got.shape == (B, S, H, 256) and got.dtype == dtype
     _flash_close(got, fa.flash_attention_ref(q, k, v), dtype)
 
@@ -1208,6 +1217,146 @@ def test_flash_sm90_at_mla_and_dh_256_is_causal(cuda, dqk, dv):
     assert launch_counts()["flash_attention_sm90"] == 2
     assert torch.equal(out[:, :t], out2[:, :t])
     assert not torch.equal(out[:, t:], out2[:, t:])
+
+
+# -- the float32 Hopper kernel (csrc/flash_sm90_f32.cu, TF32 mma.sync) ------
+# float32 on TMA's grid at (64, 64), (128, 128), (192, 128) and (256, 256)
+# goes to it; held to the plain version at float32's 2e-3 and to the
+# simple kernel (FFMA, exact float32 products) at the same tolerance.
+
+F32_PAIRS = [(64, 64, 32, 4), (128, 128, 12, 2), (192, 128, 8, 8),
+             (256, 256, 10, 1)]
+
+
+def _f32_qkv(B, S, T, H, K, dqk, dv, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=gen).to(device)
+            for shape in ((B, S, H, dqk), (B, T, K, dqk), (B, T, K, dv))]
+
+
+@pytest.mark.parametrize("causal,S,T", [
+    (True, 7, 7), (True, 65, 65), (True, 1000, 1000), (True, 1024, 1024),
+    (False, 7, 1600), (False, 65, 129), (False, 256, 1), (False, 64, 1000),
+])
+@pytest.mark.parametrize("dqk,dv,H,K", F32_PAIRS)
+def test_flash_sm90_f32_matches_plain_and_simple(cuda, causal, S, T, dqk,
+                                                 dv, H, K):
+    """Each head-dim pair, causal and not; ragged S (7, 65, 1000: a
+    partial query block) and T (129, 1: one key into the last key tile,
+    whose zero-filled keys only the mask keeps out)."""
+    from repro_torch.kernels import attention as fa
+
+    B = 2 if S < 512 else 1
+    q, k, v = _f32_qkv(B, S, T, H, K, dqk, dv, S + T + dqk, cuda)
+    assert fa.flash_kernel_for(q, k, v) == "sm90_f32"
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    simple = fa.flash_attention_cuda(q, k, v, kernel="simple", causal=causal)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_sm90_f32"],
+            counts["flash_attention_noncausal"]) \
+        == (2, 0, 1, 0 if causal else 2)
+    assert got.shape == (B, S, H, dv) and got.dtype == torch.float32
+    want = fa.flash_attention_ref(q, k, v, causal=causal)
+    _flash_close(got, want, torch.float32)
+    _flash_close(got, simple, torch.float32)
+
+
+@pytest.mark.parametrize("dqk,dv", [(64, 64), (128, 128), (192, 128),
+                                    (256, 256)])
+def test_flash_sm90_f32_is_causal(cuda, dqk, dv):
+    """Changing keys and values from position t on leaves every row
+    before t bitwise unchanged (t inside a 64-row block and a key tile),
+    and the rows from t on changed."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, t = 2, 300, 137
+    q, k, v = _f32_qkv(B, S, S, 4, 2, dqk, dv, 5, cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t:] = 8 * torch.randn_like(k2[:, t:])
+    v2[:, t:] = -v2[:, t:] + 3
+    reset_launch_counts()
+    out, out2 = fa.flash_attention(q, k, v), fa.flash_attention(q, k2, v2)
+    assert launch_counts()["flash_attention_sm90_f32"] == 2
+    assert torch.equal(out[:, :t], out2[:, :t])
+    assert not torch.equal(out[:, t:], out2[:, t:])
+
+
+@pytest.mark.parametrize("dh", [64, 256])
+def test_noncausal_flash_sm90_f32_reads_every_key(cuda, dh):
+    """Changing the last key and value (in the ragged last tile) changes
+    the first query's row: no causal mask is left on."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _f32_qkv(1, 130, 1000, 4, 2, dh, dh, 3, cuda)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, -1] = 4 * q[:, 0, :2]
+    v2[:, -1] = 8
+    reset_launch_counts()
+    out = fa.flash_attention(q, k, v, causal=False)
+    out2 = fa.flash_attention(q, k2, v2, causal=False)
+    assert launch_counts()["flash_attention_sm90_f32"] == 2
+    assert not torch.equal(out[:, 0], out2[:, 0])
+    _flash_close(out2, fa.flash_attention_ref(q, k2, v2, causal=False),
+                 torch.float32)
+
+
+def test_flash_sm90_f32_reads_mla_and_fused_projection_views(cuda):
+    """float32 views as ``mla`` makes them (q a slice of a wider
+    projection 16 bytes in, k the cat of per-head keys and the shared
+    rope key broadcast, v a view of a fused k / v row) and as ``gqa``
+    slices one fused projection at dh 64 and 256 -- the float32 Hopper
+    kernel; k as an ``expand`` of one head (stride 0) and q 8 bytes off
+    the grid -- the simple kernel; every one held to the plain version."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H = 2, 77, 4
+    gen = torch.Generator().manual_seed(29)
+    q_wide = torch.randn(B, S, H, 200, generator=gen).to(cuda)
+    kv = torch.randn(B, S, H, 128 + 128, generator=gen).to(cuda)
+    kr = torch.randn(B, S, 64, generator=gen).to(cuda)
+    k = torch.cat([kv[..., :128], kr[:, :, None].expand(B, S, H, 64)], -1)
+    v = kv[..., 128:]
+    cases = [(q_wide[..., 4:196], k, v, "sm90_f32"),
+             (q_wide[..., 4:196], k[:, :, :1].expand(B, S, H, 192), v,
+              "simple"),
+             (q_wide[..., 2:194], k, v, "simple")]
+    for dh, Hq, Kv in ((64, 8, 2), (256, 10, 1)):
+        qkv = torch.randn(B, S, (Hq + 2 * Kv) * dh + 4, generator=gen).to(
+            cuda)[..., 4:]
+        cases.append((qkv[..., :Hq * dh].view(B, S, Hq, dh),
+                      qkv[..., Hq * dh:(Hq + Kv) * dh].view(B, S, Kv, dh),
+                      qkv[..., (Hq + Kv) * dh:].view(B, S, Kv, dh),
+                      "sm90_f32"))
+    for qq, kk, vv, route in cases:
+        assert not qq.is_contiguous() and not vv.is_contiguous()
+        assert fa.flash_kernel_for(qq, kk, vv) == route
+        reset_launch_counts()
+        got = fa.flash_attention(qq, kk, vv)
+        assert launch_counts()["flash_attention_sm90_f32"] == int(
+            route == "sm90_f32")
+        _flash_close(got, fa.flash_attention_ref(qq, kk, vv), torch.float32)
+
+
+def test_flash_sm90_f32_forced_and_refused(cuda):
+    """``kernel="sm90_f32"`` launches it on inputs it takes and refuses
+    bfloat16 and off-grid float32 before any launch; ``kernel="simple"``
+    still reaches the simple kernel at its head dims."""
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = _f32_qkv(1, 70, 70, 4, 2, 64, 64, 3, cuda)
+    reset_launch_counts()
+    for qq, kk, vv in ((q.bfloat16(), k.bfloat16(), v.bfloat16()),
+                       (q, k[:, :, :1].expand(1, 70, 2, 64), v)):
+        with pytest.raises(ValueError, match="sm90_f32 kernel does not"):
+            fa.flash_attention_cuda(qq, kk, vv, kernel="sm90_f32")
+    assert launch_counts()["flash_attention"] == 0
+    got = fa.flash_attention_cuda(q, k, v, kernel="sm90_f32")
+    simple = fa.flash_attention_cuda(q, k, v, kernel="simple")
+    assert (launch_counts()["flash_attention"],
+            launch_counts()["flash_attention_sm90_f32"]) == (2, 1)
+    _flash_close(got, simple, torch.float32)
 
 
 def test_hybrid_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):

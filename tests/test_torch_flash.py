@@ -202,11 +202,11 @@ def test_mqa_flash_at_dh_256_matches_jax_attend(dtype, S):
                          jnp.asarray(pos), jnp.asarray(pos), window=64)
     got = fa.flash_attention(_torch(q, tdt), _torch(k, tdt), _torch(v, tdt))
     # on the card bf16 takes the Hopper kernel at dh 256, float32 the
-    # simple one
+    # float32 Hopper kernel
     assert fl.flash_kernel_for(*(_torch(a, torch.bfloat16)
                                  for a in (q, k, v))) == "sm90"
     assert fl.flash_kernel_for(*(_torch(a, torch.float32)
-                                 for a in (q, k, v))) == "simple"
+                                 for a in (q, k, v))) == "sm90_f32"
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32).reshape(
                                    B, S, H, dh), rtol=tol, atol=tol)
@@ -214,12 +214,15 @@ def test_mqa_flash_at_dh_256_matches_jax_attend(dtype, S):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_mla_shapes_go_to_the_simple_kernel(dtype):
-    """MLA's q·k 192 / v 128: the simple kernel takes them in float32,
-    the Hopper kernel in bfloat16."""
+    """MLA's q·k 192 / v 128: the Hopper kernels take them, the float32
+    one (TF32 ``mma.sync``) in float32, the ``wgmma`` one in bfloat16; a
+    zero-stride float32 k still goes to the simple kernel."""
     q, k, v = (torch.zeros(s, dtype=dtype)
                for s in _shapes(1, 64, 4, 4, 192, 128))
     assert fl.flash_kernel_for(q, k, v) == (
-        "sm90" if dtype == torch.bfloat16 else "simple")
+        "sm90" if dtype == torch.bfloat16 else "sm90_f32")
+    assert fl.flash_kernel_for(q, k[:, :, :1].expand(k.shape), v) \
+        == "simple"
 
 
 # (B, S, T, H, K, dh) of non-causal attention: S queries over T != S keys

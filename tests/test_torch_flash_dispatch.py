@@ -4,11 +4,15 @@
 dtype, shapes, strides and pointer alignment: the Hopper kernel
 (``csrc/flash_sm90.cu``, TMA + ``wgmma``) takes bfloat16 q, k, v on
 TMA's 16-byte grid at (q·k, v) head dims (64, 64), (128, 128), MLA's
-(192, 128) and (256, 256), and the simple kernel (``csrc/flash.cu``)
-everything else the wrapper accepts.  Both kernels
+(192, 128) and (256, 256), the float32 Hopper kernel
+(``csrc/flash_sm90_f32.cu``, TMA + TF32 ``mma.sync``) float32 ones on
+the same grid at the same head dims, and the simple kernel
+(``csrc/flash.cu``) everything else the wrapper accepts.  The kernels
 run only on the card (``tests/test_torch_cuda.py``); here the choice,
 the build registry and the counters are checked without one.
 """
+
+import re
 
 import pytest
 import torch
@@ -19,6 +23,7 @@ from repro_torch.kernels.attention import flash as fl
 from repro_torch.models import attention as tattn
 
 BF16 = torch.bfloat16
+F32 = torch.float32
 
 
 def _qkv(B=1, S=40, H=4, K=2, dh=64, dtype=BF16):
@@ -60,8 +65,9 @@ def _shared_kv_heads():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: _qkv(dtype=torch.float32),          # float32: the simple kernel
-    lambda: _qkv(dh=128, dtype=torch.float32),
+    # float32 at a head dim neither Hopper kernel takes, and off the grid
+    lambda: _qkv(dh=96, dtype=F32),
+    lambda: _fused(1, 40, 1, 1, 128, 3 * 128 + 2, dtype=F32),
     lambda: _qkv(dh=16), lambda: _qkv(dh=32), lambda: _qkv(dh=48),
     lambda: _qkv(dh=100), lambda: _qkv(dh=96),
     _mixed_dtypes,
@@ -76,6 +82,39 @@ def _shared_kv_heads():
         "stride-off-grid", "pointer-off-grid"])
 def test_other_inputs_go_to_the_simple_kernel(make):
     assert fl.flash_kernel_for(*make()) == "simple"
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2), (32, 4), (12, 2)])
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 65), (1, 1024)])
+def test_float32_hopper_kernel_takes_head_dims_64_and_128(dh, H, K, B, S):
+    assert fl.flash_kernel_for(*_qkv(B, S, H, K, dh, dtype=F32)) \
+        == "sm90_f32"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _qkv(dh=16, dtype=F32),      # tinyllama-smoke: the simple one
+    lambda: _qkv(dh=48, dtype=F32),
+    lambda: (_qkv(dtype=F32)[0].transpose(-1, -2).contiguous()
+             .transpose(-1, -2), *_qkv(dtype=F32)[1:]),
+    lambda: (_qkv(K=1, dtype=F32)[0],
+             *(t.expand(1, 40, 2, 64) for t in _qkv(K=1, dtype=F32)[1:])),
+    # a row of 3*64 + 2 float32: 776-byte strides, off the 16-byte grid
+    lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 2, dtype=F32),
+    # strides on the grid, pointers 8 bytes off it
+    lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 4, offset=2, dtype=F32),
+], ids=["dh16", "dh48", "head-dim-strided", "zero-stride", "stride-off-grid",
+        "pointer-off-grid"])
+def test_float32_off_the_hopper_grid_goes_to_the_simple_kernel(make):
+    assert fl.flash_kernel_for(*make()) == "simple"
+
+
+def test_float32_hopper_kernel_takes_fused_projection_views():
+    """A fused float32 qkv projection's views: strides of 4 * 64 + 4
+    elements, pointers 16 bytes in, on TMA's grid."""
+    q, k, v = _fused(2, 77, 4, 2, 64, 8 * 64 + 4, offset=4, dtype=F32)
+    assert not q.is_contiguous()
+    assert fl.flash_kernel_for(q, k, v) == "sm90_f32"
 
 
 def test_hopper_kernel_takes_fused_projection_views():
@@ -112,7 +151,7 @@ def test_prompt_pass_of_a_bf16_gqa_layer_takes_the_hopper_kernel(
 def test_wrapper_refuses_cpu_tensors_whatever_the_kernel():
     """A tensor off the card never reaches either kernel: the wrapper
     refuses it before choosing, a forced kernel included."""
-    for kernel in (None, "sm90", "simple"):
+    for kernel in (None, "sm90", "sm90_f32", "simple"):
         with pytest.raises(ValueError, match="CUDA"):
             fa.flash_attention_cuda(*_qkv(), kernel=kernel)
 
@@ -130,11 +169,35 @@ def test_build_registers_the_hopper_source_for_sm90a():
     assert _build.library_path("flash_sm90").name.startswith("libflash_sm90")
 
 
+def test_build_registers_the_float32_hopper_source_for_sm90a():
+    src = _build.SOURCES["flash_sm90_f32"]
+    assert src.name == "flash_sm90_f32.cu" and src.exists()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    text = src.read_text()
+    # chip_smoke.py and the profiler match kernels on this substring
+    assert "flash_attention_kernel_sm90_f32" in text
+    for ptx in ("cp.async.bulk.tensor", "mbarrier.try_wait",
+                "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                "cvt.rna.tf32.f32", "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
+        assert ptx in text
+    # one precision a build: scripts/flash_f32_variants.py rewrites it
+    assert len(re.findall(r"constexpr int PRECISION = [012];", text)) == 1
+    assert _build.library_path("flash_sm90_f32").name.startswith(
+        "libflash_sm90_f32")
+
+
 def test_counters_name_both_flash_kernels():
     assert LAUNCH_COUNTERS["flash_attention"] is fl.flash_attention_cuda
     assert LAUNCH_COUNTERS["flash_attention_sm90"] is fl.launch_flash_sm90
     assert LAUNCH_COUNTERS["flash_attention_noncausal"] \
         is fl.noncausal_launches
+
+
+def test_counter_names_the_float32_hopper_kernel():
+    assert LAUNCH_COUNTERS["flash_attention_sm90_f32"] \
+        is fl.launch_flash_sm90_f32
+    assert isinstance(fl.launch_flash_sm90_f32.launches, int)
+    assert "sm90_f32" in fl.KERNELS
 
 
 @pytest.mark.parametrize("T", [1, 1000, 1600])
@@ -145,7 +208,8 @@ def test_route_does_not_depend_on_causality_or_key_length(T):
     q = torch.zeros(1, 7, 8, 128, dtype=BF16)
     kv = torch.zeros(1, T, 2, 128, dtype=BF16)
     assert fl.flash_kernel_for(q, kv, kv) == "sm90"
-    assert fl.flash_kernel_for(q.float(), kv.float(), kv.float()) == "simple"
+    assert fl.flash_kernel_for(q.float(), kv.float(), kv.float()) \
+        == "sm90_f32"
 
 
 def test_cross_attention_prompt_pass_takes_the_hopper_kernel(monkeypatch):
@@ -191,15 +255,15 @@ def test_hopper_kernel_takes_bf16_mla_and_dh_256(dqk, dv, H, K, B, S):
 @pytest.mark.parametrize("T", [1, 129, 1000])
 def test_route_at_mla_and_dh_256_does_not_depend_on_key_length(dqk, dv, T):
     """Without causality (T != S) the new pairs go where a prompt over
-    itself goes: bfloat16 to the Hopper kernel, float32 to the simple
-    one."""
+    itself goes: bfloat16 to the Hopper kernel, float32 to the float32
+    Hopper kernel."""
     assert fl.flash_kernel_for(*_pair(1, 7, T, dqk=dqk, dv=dv)) == "sm90"
     assert fl.flash_kernel_for(*_pair(1, 7, T, dqk=dqk, dv=dv,
-                                      dtype=torch.float32)) == "simple"
+                                      dtype=F32)) == "sm90_f32"
 
 
-def _pair_expanded(dqk, dv):
-    q, k, v = _pair(K=1, dqk=dqk, dv=dv)
+def _pair_expanded(dqk, dv, dtype=BF16):
+    q, k, v = _pair(K=1, dqk=dqk, dv=dv, dtype=dtype)
     return q, k.expand(1, 40, 4, dqk), v.expand(1, 40, 4, dv)
 
 
@@ -216,11 +280,20 @@ def _pair_head_dim_strided(dqk, dv):
 
 @pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
 @pytest.mark.parametrize("make", [
-    lambda dqk, dv: _pair(dqk=dqk, dv=dv, dtype=torch.float32),
+    # float32 with a zero stride: off the float32 kernel's grid
+    lambda dqk, dv: _pair_expanded(dqk, dv, F32),
     _pair_expanded, _pair_off_grid, _pair_head_dim_strided,
 ], ids=["float32", "zero-stride", "pointer-off-grid", "head-dim-strided"])
 def test_other_mla_and_dh_256_inputs_go_to_the_simple_kernel(make, dqk, dv):
     assert fl.flash_kernel_for(*make(dqk, dv)) == "simple"
+
+
+@pytest.mark.parametrize("dqk,dv", [(192, 128), (256, 256)])
+@pytest.mark.parametrize("H,K", [(128, 128), (8, 2), (10, 1)])
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 65), (1, 1024)])
+def test_float32_hopper_kernel_takes_mla_and_dh_256(dqk, dv, H, K, B, S):
+    assert fl.flash_kernel_for(*_pair(B, S, H=H, K=K, dqk=dqk, dv=dv,
+                                      dtype=F32)) == "sm90_f32"
 
 
 @pytest.mark.parametrize("dqk,dv", [(256, 128), (128, 192), (192, 64)])
@@ -275,3 +348,40 @@ def test_dh_256_mqa_prompt_pass_takes_the_hopper_kernel(monkeypatch):
     monkeypatch.setattr(tattn, "flash_attention", spy)
     tattn.gqa(params, x, torch.arange(S)[None], H=H, K=K, dh=dh, window=16)
     assert seen == ["sm90"]
+
+
+@pytest.mark.parametrize("layer", ["gqa-dh64", "mla", "local-dh256"])
+def test_float32_prompt_passes_take_the_float32_hopper_kernel(
+        monkeypatch, layer):
+    """The views a float32 layer's prompt pass hands the flash route --
+    ``gqa``'s projections at dh 64, MLA's cat(nope, rope) q and k and its
+    v from the latents at 192 / 128, recurrentgemma's windowed MQA at
+    dh 256 -- are inputs the float32 Hopper kernel takes."""
+    gen = torch.Generator().manual_seed(9)
+    seen = []
+
+    def spy(q, k, v):
+        seen.append((fl.flash_kernel_for(q, k, v), q.shape[-1],
+                     v.shape[-1]))
+        return fa.flash_attention_ref(q, k, v)
+
+    monkeypatch.setattr(tattn, "flash_attention", spy)
+    S = 9
+    if layer == "mla":
+        H, d = 4, 256
+        dims = tattn.MLADims(q_lora=32, kv_lora=16)
+        params = tattn.init_mla(gen, d, H, dims)
+        x = torch.randn(1, S, d, generator=gen)
+        tattn.mla(params, x, torch.arange(S)[None], H=H, dims=dims)
+        assert seen == [("sm90_f32", 192, 128)]
+        return
+    H, K, dh, d, window = ((4, 2, 64, 256, 0) if layer == "gqa-dh64"
+                           else (10, 1, 256, 128, 16))
+    params = {name: torch.randn(d, n, generator=gen)
+              for name, n in (("wq", H * dh), ("wk", K * dh),
+                              ("wv", K * dh))}
+    params["wo"] = torch.randn(H * dh, d, generator=gen)
+    x = torch.randn(1, S, d, generator=gen)
+    tattn.gqa(params, x, torch.arange(S)[None], H=H, K=K, dh=dh,
+              window=window)
+    assert seen == [("sm90_f32", dh, dh)]

@@ -202,4 +202,5 @@ def test_cpu_tensors_never_launch_a_kernel():
                                "ring_cluster_sm90": 0,
                                "flash_attention": 0,
                                "flash_attention_sm90": 0,
+                               "flash_attention_sm90_f32": 0,
                                "flash_attention_noncausal": 0}

@@ -25,13 +25,12 @@ against the JAX package, on the CPU.
   > full, ``full`` keeps exactly the superblock's input ``x``, and the
   shapes ``dots`` keeps are the JAX superblock's scan residuals that
   ``saved_residuals`` reports (parameters and closed-over constants --
-  positions, rope frequencies, image features -- left out), plus one
-  pinned difference: the port caches every ``aten.mm`` output, the
-  superblock's last product included, where that output only feeds the
-  residual add that ends the region and the backward never reads it
-  (JAX's partial evaluation drops it).  A MoE superblock ends with its
-  experts, a batched product that is recomputed, so there the two lists
-  are equal.
+  positions, rope frequencies, image features -- left out), in every
+  family: the superblock's last batch-free product, whose output only
+  the residual add that ends the region reads, runs as
+  ``blocks.product(..., unread=True)`` and is not kept, as JAX's
+  partial evaluation drops it (a MoE superblock ends with its experts,
+  a batched product that is recomputed).
 * The expert-parallel island (psum / rs / a2a over 4 kernels x 2 data
   groups) and ring attention under ``seq_shard``: exchanges, collective
   calls and ring-kernel calls of one ``value_and_grad``, asserted
@@ -404,12 +403,8 @@ def _jax_residuals(arch):
             if "p_layer" not in why and "from a constant" not in why]
 
 
-# a superblock whose last product's output the backward never reads: every
-# family but the MoE one, whose superblock ends with the experts
-LAST_PRODUCT_UNREAD = {a: a != "dbrx-132b" for a in FAMILIES}
-
-
-@pytest.mark.parametrize("arch", FAMILIES)
+# and MLA's MoE superblock, whose last product is the shared experts'
+@pytest.mark.parametrize("arch", FAMILIES + ["deepseek-v2-236b"])
 def test_saved_activations_per_superblock(arch):
     kept = {p: _port_kept(arch, p) for p in POLICIES}
     nbytes = {p: sum(b for _, b in v) for p, v in kept.items()}
@@ -419,11 +414,7 @@ def test_saved_activations_per_superblock(arch):
     assert kept["full"] == [((B, S, cfg.d_model), x_bytes)]
     assert kept["dots"][0] == kept["full"][0]
     got = sorted((int(np.prod(s)), s[-1]) for s, _ in kept["dots"])
-    want = _jax_residuals(arch)
-    if LAST_PRODUCT_UNREAD[arch]:
-        last = kept["dots"][-1][0]
-        want = want + [(int(np.prod(last)), last[-1])]
-    assert got == sorted(want)
+    assert got == sorted(_jax_residuals(arch))
 
 
 # -- recomputed collectives -------------------------------------------------

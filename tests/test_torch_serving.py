@@ -430,7 +430,7 @@ def test_moe_engine_serves_the_jax_engines_tokens(monkeypatch):
     drops = []
     real = tmoe.moe_ffn
 
-    def counted(p, x, dims):
+    def counted(p, x, dims, **kw):
         B, S, d = x.shape
         if S == 1:
             cap = max(1, int(B * dims.top_k * dims.capacity_factor
@@ -439,7 +439,7 @@ def test_moe_engine_serves_the_jax_engines_tokens(monkeypatch):
             per = torch.bincount(experts.reshape(-1),
                                  minlength=dims.n_experts)
             drops.append(int((per - cap).clamp(min=0).sum()))
-        return real(p, x, dims)
+        return real(p, x, dims, **kw)
 
     monkeypatch.setattr(tmoe, "moe_ffn", counted)
     done = teng.ServeEngine(moe.tm, moe.tparams, lanes=4, slots=SLOTS).run(
