@@ -198,6 +198,21 @@ second none run reproduced none's bitwise, else within phase 18's
 bounds); the ring launches and exchanges a step of tinyllama-1.1b's
 shoal trainer (phase 9's shape) and of dbrx-132b's ep trainer (phase
 18's shape, psum and rs) under dots and none, asserted.
+Phase 20 runs what a user calls: ``launch.train`` through its own
+``main(argv)`` at tinyllama-1.1b's full width and depth (shoal, K 4, 8
+x 512) with a failure injected at step 3 and a checkpoint every 2 steps
+-- the failure, the restore of step 2, done at step 5 -- and an
+uninterrupted twin, the two final checkpoints equal leaf by leaf
+(sha256), 12 ring launches and 72 exchanges a step; ``launch.serve``
+with its defaults (qwen2-1.5b, 6 requests on 2 lanes), its printed
+tokens the in-process engine's, 6 x 28 Hopper flash launches; the GPipe
+pipeline (``training.pipeline.pipeline_apply``) over qwen2-1.5b's 28
+layers in float32, 4 stages of 7 on a 4-kernel context, 8 microbatches
+of 1 x 256 tokens, bitwise the stack run microbatch by microbatch
+forward and within 1e-5 backward, 17 exchanges forward and 30 forward
+and backward; qwen2-72b at full width and 8 of its 80 layers (9.51 B
+parameters) served as phase 11 serves qwen2-1.5b (8 x 8 Hopper flash
+launches, logits within 3e-2 of the plain version).
 Kernel times are device times from ``torch.profiler``.  One line per
 phase; any failure raises and the script exits non-zero.
 The last two lines are a JSON object with every kernel's numbers and
@@ -1742,13 +1757,16 @@ def _flash_err(torch, got, want, tol, what):
     return err
 
 
-def flash_ops(kernel, B, H, S, T, dqk, dv, causal):
+def flash_ops(kernel, dtype, B, H, S, T, dqk, dv, causal):
     """The operations a flash kernel issues, and the rate they run at:
     S^2 a head for the causal QK^T and PV each (2 S T without causality)
     times dqk and dv; the float32 Hopper kernel counts each product as
     often as its build's precision issues it (three TF32 passes for a
-    split one) at the TF32 rate, the bf16 Hopper kernel runs at the bf16
-    rate, the simple one at the float32 FMA rate."""
+    split one) at the TF32 rate; the bf16 Hopper kernel and the simple
+    one each product once, at the card's rate for the inputs' type (the
+    16-bit tensor-core rate, or TF32 for float32), the simple kernel's
+    own float32 FMAs notwithstanding (the FFMA floor, ``f32_ops`` over
+    ``F32_FLOPS``, stands beside it)."""
     from repro_torch.kernels.attention import flash as fl
 
     pairs = B * H * (S * S if causal else 2 * S * T)
@@ -1756,7 +1774,27 @@ def flash_ops(kernel, B, H, S, T, dqk, dv, causal):
         precision = fl.f32_precision()
         return pairs * (dqk * (3 if precision >= 1 else 1)
                         + dv * (3 if precision >= 2 else 1)), TF32_FLOPS
-    return pairs * (dqk + dv), BF16_FLOPS if kernel == "sm90" else F32_FLOPS
+    return pairs * (dqk + dv), (TF32_FLOPS if dtype == "float32"
+                                else BF16_FLOPS)
+
+
+TURN_SPREAD, TURN_PAIRS = 1.5, 3
+
+
+def steady_turns(ts, again, what):
+    """A timing's two turns, taken again as a pair (``again()`` a turn)
+    while the larger exceeds the smaller ``TURN_SPREAD`` times -- a
+    profiler window that lost activities reads low -- up to
+    ``TURN_PAIRS`` pairs more; fails if the last pair still spreads."""
+    for _ in range(TURN_PAIRS):
+        if max(ts) <= TURN_SPREAD * min(ts):
+            return ts
+        say("profile", retake=what, turns_ms=[round(t, 5) for t in ts])
+        ts = [again(), again()]
+    require(max(ts) <= TURN_SPREAD * min(ts),
+            f"{what}: turns {ts} spread beyond {TURN_SPREAD}x after "
+            f"{TURN_PAIRS} pairs more")
+    return ts
 
 
 def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
@@ -1769,7 +1807,8 @@ def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
     yardstick, used nowhere in the port -- then the same in reverse), and
     the bound by bytes (q, k, v read once, the output written once) and
     by operations (:func:`flash_ops`: each kernel's own, at its rate;
-    ``f32_ops``, the function's, beside it).  Returns ``{kernel: m}``:
+    ``f32_ops``, the function's, beside it); a pair of turns that spreads
+    is taken again (:func:`steady_turns`).  Returns ``{kernel: m}``:
     ``err``, and with ``timed`` ``ms``, ``plain``, ``lib``, ``nbytes``,
     ``ops``, ``rate``, ``f32_ops`` and ``turns``."""
     import torch.nn.functional as F
@@ -1801,18 +1840,27 @@ def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
     turns = {r: [] for r in order}
     for r in order + order[::-1]:
         turns[r].append(run(r))
+    for r in order:
+        turns[r] = steady_turns(turns[r], lambda r=r: run(r),
+                                f"flash {r}, {tag} {name}")
     base = dict(plain=float(np.mean(turns["plain"])),
                 lib=float(np.mean(turns["library"])),
                 nbytes=(q.numel() + k.numel() + v.numel() + want.numel())
                 * q.element_size(),
-                f32_ops=flash_ops("simple", B, H, S, T, dqk, dv, causal)[0],
+                f32_ops=flash_ops("simple", name, B, H, S, T, dqk, dv,
+                                  causal)[0],
                 turns={r: [round(t, 5) for t in ts]
                        for r, ts in turns.items()})
     del qt, kt, vt, want
     return {r: dict(base, err=m["err"], ms=float(np.mean(turns[r])),
                     **dict(zip(("ops", "rate"), flash_ops(
-                        r, B, H, S, T, dqk, dv, causal))))
+                        r, name, B, H, S, T, dqk, dv, causal))))
             for r, m in out.items()}
+
+
+# the simple kernel's own shape: a head dim that neither Hopper kernel
+# takes (the smoke configs' 32), B 1 x S 1024 x H 8 (K 2)
+SIMPLE_CASE, SIMPLE_SHAPE = "simple-dh32", (1, 1024, 8, 2, 32)
 
 
 def check_flash(torch, device):
@@ -1822,15 +1870,16 @@ def check_flash(torch, device):
     (``flash.cu``, forced), at the prefill shapes of the served models
     (B 1, S 1024): tinyllama-1.1b's (H 32, K 4, dh 64), qwen2-1.5b's
     (H 12, K 2, dh 128), deepseek-7b's (H 32, K 32, dh 128: group size
-    1), musicgen-medium's (H 24, K 24, dh 64) and dbrx-132b's (H 48, K
-    8, dh 128), a ragged S = 1000 and
+    1), musicgen-medium's (H 24, K 24, dh 64), dbrx-132b's (H 48, K
+    8, dh 128) and qwen2-72b's (H 64, K 8, dh 128), a ragged S = 1000 and
     a served prompt's S = 903; in float32 the float32 Hopper kernel
     (``flash_sm90_f32.cu``, which the wrapper picks) and the simple one
     at tinyllama's and qwen2-1.5b's shapes (the float32 logit checks'
-    prompt passes) and a reference shape at dh 128.  At the prefill
-    shapes, timed by :func:`_flash_case`.  Returns the records of the
-    simple kernel (bfloat16, tinyllama) and of the two Hopper
-    kernels."""
+    prompt passes) and a reference shape at dh 128; the simple kernel on
+    its own route at dh 32 (``SIMPLE_SHAPE``), float32 and bfloat16.  At
+    the prefill shapes and dh 32, timed by :func:`_flash_case`.  Returns
+    the records of the simple kernel (bfloat16, tinyllama; dh 32 in both
+    types) and of the two Hopper kernels."""
     from repro_torch.kernels import attention as fa
 
     gen = torch.Generator(device=device).manual_seed(21)
@@ -1841,25 +1890,32 @@ def check_flash(torch, device):
              ("musicgen-medium-prefill", (1, 1024, 24, 24, 64),
               torch.bfloat16),
              ("dbrx-132b-prefill", (1, 1024, 48, 8, 128), torch.bfloat16),
+             ("qwen2-72b-prefill", (1, 1024, 64, 8, 128), torch.bfloat16),
              ("ragged-1000", (1, 1000, 32, 4, 64), torch.bfloat16),
              ("served-903", (1, 903, 32, 4, 64), torch.bfloat16),
              ("qwen2-1.5b-prefill", (1, 1024, 12, 2, 128), torch.float32),
              ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
+    # the simple kernel on its own route: a head dim off the Hopper
+    # kernels' pairs, in both types
+    cases += [(SIMPLE_CASE, SIMPLE_SHAPE, dtype)
+              for dtype in (torch.float32, torch.bfloat16)]
     records, timed = {}, {}
     for case, (B, S, H, Kv, dh), dtype in cases:
         q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
         name = str(dtype).split(".")[-1]
         route = fa.flash_kernel_for(q, k, v)
-        require(route == ("sm90" if dtype == torch.bfloat16
+        require(route == ("simple" if case == SIMPLE_CASE else
+                          "sm90" if dtype == torch.bfloat16
                           else "sm90_f32"),
                 f"flash {case} {name}: dispatched to {route}")
+        is_timed = case.endswith("-prefill") or case == SIMPLE_CASE
         ms = _flash_case(torch, fa, q, k, v, case,
                          kernels=tuple(dict.fromkeys((route, "simple"))),
-                         timed=case.endswith("-prefill"))
+                         timed=is_timed)
         line = dict(case=case, shape=f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}",
                     dtype=name, tol=FLASH_TOL[name],
                     **{f"{r}_max_abs_err": m["err"] for r, m in ms.items()})
-        if case.endswith("-prefill"):
+        if is_timed:
             timed.update({(case, name, r): m for r, m in ms.items()})
             m = ms[route]
             bound_ms, bound_by = bound(m)
@@ -1872,8 +1928,10 @@ def check_flash(torch, device):
         say("serving", kernel="flash_attention", **line)
         del q, k, v
     tiny = ("tinyllama-prefill", "bfloat16")
-    records["flash_attention"] = entry("flash_attention", FLASH_SRC,
-                                       FLASH_TPU, timed[(*tiny, "simple")])
+    m = timed[(*tiny, "simple")]
+    records["flash_attention"] = dict(
+        entry("flash_attention", FLASH_SRC, FLASH_TPU, m),
+        ffma_floor_ms=m["f32_ops"] / F32_FLOPS * 1e3)
     sm90 = entry("flash_attention_sm90", FLASH_SM90_SRC, FLASH_TPU,
                  timed[(*tiny, "sm90")])
     sm90["simple_ms"] = timed[(*tiny, "simple")]["ms"]
@@ -1884,7 +1942,9 @@ def check_flash(torch, device):
             ("musicgen_medium_dh64", "musicgen-medium-prefill",
              "B1xS1024xH24xK24xdh64"),
             ("dbrx_132b_dh128", "dbrx-132b-prefill",
-             "B1xS1024xH48xK8xdh128")):
+             "B1xS1024xH48xK8xdh128"),
+            ("qwen2_72b_dh128", "qwen2-72b-prefill",
+             "B1xS1024xH64xK8xdh128")):
         m = timed[case, "bfloat16", "sm90"]
         sm90[key] = {
             "shape": shape, "ms": m["ms"],
@@ -1892,6 +1952,16 @@ def check_flash(torch, device):
             "plain_ms": m["plain"], "library_ms": m["lib"],
             "bound_ms": bound(m)[0], "max_abs_err": m["err"]}
     records["flash_attention_sm90"] = sm90
+    B, S, H, Kv, dh = SIMPLE_SHAPE
+    for name in ("float32", "bfloat16"):
+        m = timed[SIMPLE_CASE, name, "simple"]
+        bound_ms, bound_by = bound(m)
+        records["flash_attention"][f"dh{dh}_{name}"] = {
+            "shape": f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}", "route": "simple",
+            "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ffma_floor_ms": m["f32_ops"] / F32_FLOPS * 1e3,
+            "max_abs_err": m["err"]}
     records["flash_attention_sm90_f32"] = f32_record(
         timed[("tinyllama-prefill", "float32", "sm90_f32")],
         timed[("tinyllama-prefill", "float32", "simple")])
@@ -4499,10 +4569,10 @@ def check_mlstm_chunk_form(torch, model, params, prompt):
     ``LOGIT_TOL["float32"]``, bf16 within ``LOGIT_TOL["bfloat16"]`` of
     the block's largest |contribution| (no sLSTM: nothing chaotic)."""
     from repro_torch.models import xlstm as xl
-    from repro_torch.models.model import _layers
+    from repro_torch.tree import tree_unstack
 
     cfg = model.cfg
-    cell = _layers(params["segments"][0]["b0_mlstm"], 1)[0]["cell"]
+    cell = tree_unstack(params["segments"][0]["b0_mlstm"], 1)[0]["cell"]
     toks = torch.as_tensor(prompt.astype(np.int64), device=model.device)
     x16 = model._embed_in(params, {"tokens": toks[None]})
     out = {}
@@ -4761,6 +4831,14 @@ def _ring_hops(kernels: int) -> int:
     return 3 * kernels
 
 
+def ring_backward_hops(kernels: int) -> int:
+    """Exchanges of one ring call's backward: the k and v cotangents
+    handed back a hop, every hop but the last (whose rotated block
+    nothing reads); the positions carry none.  The compiled JAX
+    ``value_and_grad``'s count (``tests/test_torch_ring_attention.py``)."""
+    return 2 * (kernels - 1)
+
+
 def ring_passes(remat: str) -> int:
     """Times a training pass runs each layer's ring: once, and under
     ``full`` or ``dots`` once more in the backward (every hop comes
@@ -4853,8 +4931,9 @@ def check_ring_loss(torch, device):
     ``RING_TRAIN_LAYERS`` layers, float32, on 1 x ``RING_TRAIN_S``
     seeded tokens (``tests/md_checks.py:544-565``): the loss within
     ``RING_TRAIN_TOL`` relative, every gradient leaf within it in
-    relative L2; the ring's exchanges in the forward and, under the
-    config's ``remat``, its recomputation (:func:`ring_passes`)."""
+    relative L2; the ring's exchanges in the forward, under the
+    config's ``remat`` its recomputation (:func:`ring_passes`), and the
+    backward's hand-backs (:func:`ring_backward_hops`)."""
     from repro_torch import configs
     from repro_torch.models.model import build_model
     from repro_torch.optim import AdamWConfig
@@ -4881,9 +4960,10 @@ def check_ring_loss(torch, device):
                      (time.perf_counter() - t0) * 1e3)
         del loss, grads
         _free(torch)
-    require(ctx.exchanges == RING_TRAIN_LAYERS * _ring_hops(RING_KERNELS)
-            * ring_passes(cfg.remat), f"seq_shard loss: {ctx.exchanges} "
-            f"exchanges under remat {cfg.remat}")
+    require(ctx.exchanges == RING_TRAIN_LAYERS * (
+        _ring_hops(RING_KERNELS) * ring_passes(cfg.remat)
+        + ring_backward_hops(RING_KERNELS)), f"seq_shard loss: "
+        f"{ctx.exchanges} exchanges under remat {cfg.remat}")
     (l_r, g_r, ms_r), (l_p, g_p, ms_p) = out["ring"], out["plain"]
     rel = abs(l_r - l_p) / abs(l_p)
     worst = max((_rel_l2(torch, g_r[p], g_p[p]), p) for p in g_p)
@@ -6043,6 +6123,442 @@ def phase_remat(torch, device):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the launchers through their own main(argv), the GPipe pipeline
+# over Medium-AM handoffs, and qwen2-72b served at 8 of its 80 layers
+# ---------------------------------------------------------------------------
+
+# launch.train with a failure: tinyllama-1.1b at full width and depth on
+# the shoal backend (K 4), the README's card command with a failure at
+# step 3 and a checkpoint every 2 steps
+ENTRY_TRAIN = ("--arch", ARCH, "--backend", "shoal", "--kernels", "4",
+               "--batch", "8", "--seq", "512", "--log-every", "1")
+ENTRY_STEPS, ENTRY_FAIL_AT, ENTRY_CKPT_EVERY = 5, 3, 2
+ENTRY_LEAVES = 12           # tinyllama's leaves: a ring launch each a step
+ENTRY_EXCHANGES = 72        # a step: 2 (K - 1) a leaf, the JAX step's
+# the GPipe pipeline: qwen2-1.5b's 28 decoder layers in float32, 4 stages
+# of 7 on a 4-kernel ShoalContext, 8 microbatches of 1 x 256 tokens
+PIPE_ARCH, PIPE_STAGES, PIPE_M, PIPE_S = "qwen2-1.5b", 4, 8, 256
+PIPE_GRAD_TOL = 1e-5        # relative L2 a leaf, against the stack's
+BIG_ARCH, BIG_LAYERS = "qwen2-72b", 8
+BIG_PARAMS = 9_512_902_656  # 8 of 80 layers, the embedding and the head
+
+
+def peak_mb(torch, device) -> float:
+    """The most memory allocated on ``device`` since the last reset, in
+    MiB."""
+    return torch.cuda.max_memory_allocated(device) / 2 ** 20
+
+
+def run_launcher(main, argv):
+    """A launcher's ``main(argv)`` -- the code ``python -m`` runs -- in
+    this process, its standard output kept and then printed: (exit
+    code, text)."""
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(list(argv))
+    finally:
+        print(out.getvalue(), end="", flush=True)
+    return rc, out.getvalue()
+
+
+def _lines_in_order(text, wanted, what):
+    """Every line of ``wanted`` in ``text``, in that order."""
+    at = -1
+    for line in wanted:
+        i = text.find(line, at + 1)
+        require(i > at, f"{what}: no {line!r} after offset {at}")
+        at = i
+
+
+def _manifest(directory, step):
+    with open(os.path.join(directory, f"step_{step:08d}",
+                           "manifest.json")) as f:
+        return json.load(f)
+
+
+def _launcher_step_s(text):
+    """The launcher's own seconds a step, from its ``[train]`` lines."""
+    import re
+
+    return [float(v) for v in re.findall(r"\(([0-9.]+)s/step\)", text)]
+
+
+def check_train_launcher(torch, device, train=ENTRY_TRAIN):
+    """``launch.train`` at ``train``'s width with a failure injected at
+    step ``ENTRY_FAIL_AT`` and a checkpoint every ``ENTRY_CKPT_EVERY``
+    steps, then an uninterrupted twin (no checkpoint but the final one),
+    each in a temporary directory: the failed run's lines (the failure,
+    the restore of step 2 at data step 2, done at the last step), one
+    ring launch a leaf a step and the JAX step's exchanges in both runs,
+    and the two final checkpoints equal leaf by leaf (manifest sha256);
+    the launcher's seconds a step, every checkpoint write's and the
+    restore's seconds, peak memory.  Returns ``{run: launch counts}``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as lt
+
+    contexts, writes, restores = [], [], []
+    real_parts, real_write = lt.make_parts, ck.CheckpointManager._write
+    real_restore = ck.CheckpointManager.restore
+
+    def parts(args):
+        out = real_parts(args)
+        contexts.append(out[2].ctx)
+        return out
+
+    def write(self, step, host, extras):
+        t = time.perf_counter()
+        real_write(self, step, host, extras)
+        writes.append((step, time.perf_counter() - t))
+
+    def restore(self, *args, **kw):
+        t = time.perf_counter()
+        out = real_restore(self, *args, **kw)
+        restores.append(time.perf_counter() - t)
+        return out
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    disk = shutil.disk_usage(root)
+    say("entry", check="train-launcher", ckpt_root=root,
+        disk_free_gb=f"{disk.free / 1e9:.1f}",
+        disk_total_gb=f"{disk.total / 1e9:.1f}")
+    runs, finals = {}, {}
+    lt.make_parts = parts
+    ck.CheckpointManager._write = write
+    ck.CheckpointManager.restore = restore
+    try:
+        for run, extra in (
+                ("failed", ("--fail-at", str(ENTRY_FAIL_AT),
+                            "--ckpt-every", str(ENTRY_CKPT_EVERY))),
+                ("twin", ("--ckpt-every", "100"))):
+            d = os.path.join(root, run)
+            for log in (contexts, writes, restores):
+                log.clear()
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc, text = run_launcher(lt.main, train + (
+                "--steps", str(ENTRY_STEPS), "--ckpt-dir", d) + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            ex = sum(c.exchanges for c in contexts)
+            # the failed run replays the steps after its last checkpoint
+            ran = ENTRY_STEPS + (ENTRY_FAIL_AT - ENTRY_CKPT_EVERY
+                                 if run == "failed" else 0)
+            require(rc == 0, f"launch.train ({run}) exited {rc}")
+            if run == "failed":
+                _lines_in_order(text, (
+                    f"[launch] attempt 0 failed: injected failure at step "
+                    f"{ENTRY_FAIL_AT}",
+                    f"[launch] restored step {ENTRY_CKPT_EVERY} (data step "
+                    f"{ENTRY_CKPT_EVERY})",
+                    f"[launch] done at step {ENTRY_STEPS}"),
+                    "launch.train with a failure")
+                want_writes = [ENTRY_CKPT_EVERY * i for i in
+                               range(1, ENTRY_STEPS // ENTRY_CKPT_EVERY + 1)]
+            else:
+                require("restored" not in text and "failed" not in text,
+                        "launch.train (twin) restored or failed")
+                want_writes = []
+            steps_written = sorted(s for s, _ in writes)
+            require(steps_written == want_writes + [ENTRY_STEPS],
+                    f"launch.train ({run}): checkpoint writes "
+                    f"{steps_written}")
+            require(len(restores) == (run == "failed"),
+                    f"launch.train ({run}): {len(restores)} restores")
+            require(counts["ring_collective"] == ran * ENTRY_LEAVES
+                    and ex == ran * ENTRY_EXCHANGES,
+                    f"launch.train ({run}): {counts['ring_collective']} ring "
+                    f"launches, {ex} exchanges in {ran} steps, want "
+                    f"{ENTRY_LEAVES} and {ENTRY_EXCHANGES} a step")
+            finals[run] = _manifest(d, ENTRY_STEPS)
+            runs[f"launch-train-{run}"] = counts
+            say("entry", check=f"train-launcher-{run}", model=ARCH,
+                card=card_line(), steps_run=ran, exit=rc,
+                launcher_s_per_step=_launcher_step_s(text),
+                ckpt_write_s={s: f"{t:.2f}" for s, t in writes},
+                restore_s=[f"{t:.2f}" for t in restores],
+                seconds=f"{seconds:.1f}",
+                ring_launches=counts["ring_collective"],
+                ring_launches_per_step=counts["ring_collective"] // ran,
+                exchanges_per_step=ex // ran,
+                peak_allocated_mb=f"{peak_mb(torch, device):.0f}")
+    finally:
+        lt.make_parts = real_parts
+        ck.CheckpointManager._write = real_write
+        ck.CheckpointManager.restore = real_restore
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = finals["failed"], finals["twin"]
+    differ = [x["path"] for x, y in zip(a["leaves"], b["leaves"])
+              if (x["path"], x["sha256"]) != (y["path"], y["sha256"])]
+    require(len(a["leaves"]) == len(b["leaves"]) and not differ
+            and a["extras"] == b["extras"] and a["step"] == b["step"],
+            f"launch.train: the restarted run's final checkpoint differs "
+            f"from its uninterrupted twin's at {differ[:5]} "
+            f"({len(differ)} of {len(a['leaves'])} leaves), extras "
+            f"{a['extras']} vs {b['extras']}")
+    say("entry", check="train-launcher-restart", model=ARCH,
+        final_leaves_equal_sha256=len(a["leaves"]), extras=a["extras"])
+    return runs
+
+
+def _printed_tokens(text):
+    """``{rid: (prompt, tokens)}`` from ``launch.serve``'s lines."""
+    import re
+
+    out = {}
+    for rid, prompt, toks in re.findall(
+            r"^req (\d+): prompt \[([^\]]*)\] -> \[([^\]]*)\]$", text,
+            re.M):
+        out[int(rid)] = tuple(tuple(int(v) for v in s.split(",") if v)
+                              for s in (prompt, toks))
+    return out
+
+
+def check_serve_launcher(torch, device, argv=()):
+    """``launch.serve`` with its defaults (its parser's, and ``argv``):
+    its printed tokens equal to ``ServeEngine.run`` on the same weights
+    and requests (``launch.serve.make_requests``) in this process, and
+    every prompt pass of every layer on the bf16 Hopper flash kernel.
+    Returns the launcher run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as ls
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    rc, text = run_launcher(ls.main, argv)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = peak_mb(torch, device)
+    require(rc == 0, f"launch.serve exited {rc}")
+    got = _printed_tokens(text)
+    args = ls.build_parser().parse_args(argv)
+    cfg = (configs.reduced if args.reduced else configs.full)(args.arch)
+    model = build_model(cfg, device=device)
+    params = model.init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    done = ServeEngine(model, params, lanes=args.lanes,
+                       slots=args.slots).run(ls.make_requests(cfg, args))
+    want = {r.rid: (tuple(r.prompt.tolist()), tuple(r.out)) for r in done}
+    require(got == want, f"launch.serve printed {got}, the engine in "
+            f"process gave {want}")
+    layers = attention_layers(cfg)
+    n = args.requests
+    require(counts["flash_attention"] == counts["flash_attention_sm90"]
+            == n * layers, f"launch.serve: flash launches "
+            f"{counts['flash_attention']}, sm90 "
+            f"{counts['flash_attention_sm90']}, want {n} x {layers} on the "
+            f"Hopper kernel")
+    summary = [line for line in text.splitlines()
+               if line.startswith("[serve]")]
+    say("entry", check="serve-launcher", model=cfg.name, card=card_line(),
+        requests=n, tokens_equal_engine=sum(len(t) for _, t in want.values()),
+        launcher_line=summary[-1].replace(" ", "_") if summary else None,
+        flash_launches=counts["flash_attention"],
+        flash_sm90_launches=counts["flash_attention_sm90"],
+        peak_allocated_mb=f"{peak:.0f}")
+    del model, params
+    _free(torch)
+    return counts
+
+
+def stack_stage_fn(cfg, positions):
+    """A pipeline stage over a slice of a dense model's layer stack: its
+    layers in order, each applied as ``Model.loss`` applies it (the plain
+    attention route, ``models.model._apply_block``; the block ends its
+    one-block superblock)."""
+    from repro_torch.models import model as mm
+    from repro_torch.tree import tree_leaves, tree_unstack
+
+    def stage(p, x):
+        n = tree_leaves(p)[0].shape[0]
+        for layer in tree_unstack(p, n):
+            x, _ = mm._apply_block(cfg, "dense", layer, x, positions,
+                                   differentiable=True, last=True)
+        return x
+    return stage
+
+
+def pipeline_exchanges(n: int, M: int) -> tuple[int, int]:
+    """Exchanges of ``pipeline_apply`` over ``n`` stages and ``M``
+    microbatches: forward, and forward + backward.  The forward hands
+    off once a tick (``M + n - 1``) and broadcasts the result (``2(n -
+    1)``); the backward hands each tick's cotangents back but the last
+    tick's, whose handoff no stage reads (``M + n - 2``), and the
+    broadcast's payload hops (``n - 1``; the validity flags carry none).
+    The JAX package's compiled ``value_and_grad`` counts one more: its
+    scan transposes the last tick's handoff too, on a zero cotangent
+    (``tests/test_torch_pipeline_elastic.py``)."""
+    fwd = (M + n - 1) + 2 * (n - 1)
+    return fwd, fwd + (M + n - 2) + (n - 1)
+
+
+def pipeline_vs_stack(torch, model, params, mbs, probe, stages):
+    """``pipeline_apply`` of a dense model's layer stack over ``stages``
+    kernels (``split_stages``) against the same stack run microbatch by
+    microbatch: outputs, the gradients of ``(out * probe).sum()`` in
+    every stacked leaf, the exchanges of the forward and of forward +
+    backward, host ms of each part (synchronised, after one stage's
+    forward and backward off the clock).  ``mbs``: (M, B, S, d)
+    activations.  Returns a dict of those."""
+    from repro_torch.core.state import ShoalContext
+    from repro_torch.training.pipeline import pipeline_apply, split_stages
+    from repro_torch.tree import tree_leaves, tree_map
+
+    sync = torch.cuda.synchronize if mbs.is_cuda else (lambda: None)
+    stack = tree_map(lambda t: t.detach().requires_grad_(),
+                     params["segments"][0]["b0_dense"])
+    leaves = tree_leaves(stack)
+    B, S = mbs.shape[1:3]
+    stage = stack_stage_fn(model.cfg, torch.arange(
+        S, device=mbs.device).expand(B, S))
+    ctx = ShoalContext(stages, device=mbs.device)
+    # warm-up off the clock: one stage's forward and backward at the
+    # timed shapes (the library's first float32 products)
+    warm = stage(tree_map(lambda t: t[:t.shape[0] // stages], stack),
+                 mbs[0])
+    torch.autograd.grad(warm.sum(), leaves)
+    del warm
+    ms = {}
+    sync()
+    t = time.perf_counter()
+    out = pipeline_apply(ctx, stage, split_stages(stack, stages), mbs)
+    sync()
+    ms["pipeline_fwd"] = (time.perf_counter() - t) * 1e3
+    fwd = ctx.exchanges
+    t = time.perf_counter()
+    grads = torch.autograd.grad((out * probe).sum(), leaves)
+    sync()
+    ms["pipeline_bwd"] = (time.perf_counter() - t) * 1e3
+    total = ctx.exchanges
+    out = out.detach()
+    t = time.perf_counter()
+    want = torch.stack([stage(stack, mbs[m]) for m in range(mbs.shape[0])])
+    sync()
+    ms["stack_fwd"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    want_grads = torch.autograd.grad((want * probe).sum(), leaves)
+    sync()
+    ms["stack_bwd"] = (time.perf_counter() - t) * 1e3
+    return {"out": out, "want": want.detach(), "grads": grads,
+            "want_grads": want_grads, "exchanges": (fwd, total), "ms": ms}
+
+
+def check_pipeline(torch, device, S=PIPE_S):
+    """Phase 20's pipeline: ``PIPE_ARCH``'s layer stack at full width in
+    float32 over ``PIPE_STAGES`` kernels, ``PIPE_M`` microbatches of 1 x
+    ``S`` embedded seeded tokens: the output bitwise the stack's run
+    microbatch by microbatch, every leaf's gradient within
+    ``PIPE_GRAD_TOL`` relative L2, the exchanges
+    :func:`pipeline_exchanges`'s (the CPU test's counts).  Host ms of the
+    forward and the backward, peak memory."""
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(configs.full(PIPE_ARCH), dtype=torch.float32)
+    require(cfg.segments() == [(("dense",), cfg.n_layers)],
+            f"{cfg.name}: not one stack of dense layers")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(20)
+    toks = torch.randint(0, cfg.vocab, (PIPE_M, S), device=device,
+                         generator=gen)
+    with torch.no_grad():
+        mbs = model._embed_in(params, {"tokens": toks})[:, None]
+    probe = torch.randn(mbs.shape, device=device, generator=gen)
+    reset_launch_counts()
+    r = pipeline_vs_stack(torch, model, params, mbs, probe, PIPE_STAGES)
+    counts = launch_counts()
+    peak = peak_mb(torch, device)
+    want_ex = pipeline_exchanges(PIPE_STAGES, PIPE_M)
+    require(r["exchanges"] == want_ex, f"pipeline exchanges (forward, "
+            f"forward + backward) {r['exchanges']}, want {want_ex}")
+    require(torch.equal(r["out"], r["want"]),
+            f"pipeline output differs from the stack's: max|err| "
+            f"{(r['out'] - r['want']).abs().max().item()}")
+    worst = max((_rel_l2(torch, g, w), i) for i, (g, w) in
+                enumerate(zip(r["grads"], r["want_grads"])))
+    require(worst[0] <= PIPE_GRAD_TOL and all(
+        bool(torch.isfinite(g).all()) for g in r["grads"]),
+        f"pipeline gradients: worst leaf {worst} > {PIPE_GRAD_TOL}")
+    say("entry", check="pipeline", model=cfg.name, card=card_line(),
+        layers=cfg.n_layers, stages=PIPE_STAGES, microbatches=PIPE_M,
+        tokens=f"{PIPE_M}x1x{S}", dtype="float32", output="bitwise",
+        worst_grad_rel_l2=f"{worst[0]:.3e}", leaves=len(r["grads"]),
+        exchanges_forward=r["exchanges"][0],
+        exchanges_forward_backward=r["exchanges"][1],
+        ms=json.dumps({k: round(v, 2) for k, v in r["ms"].items()}),
+        peak_allocated_mb=f"{peak:.0f}")
+    del r, model, params, mbs, probe
+    _free(torch)
+    return counts
+
+
+def serve_big(torch, device):
+    """qwen2-72b at full width and 8 of its 80 layers (bf16, seed 0)
+    served as phase 11 serves qwen2-1.5b: 8 requests of 128-1024 prompt
+    tokens, 32 new tokens each, 4 lanes of 2048 slots, every prompt pass
+    of every layer on the Hopper flash kernel; one prefill's logits,
+    kernel vs plain version; peak memory.  Returns the run's counts."""
+    from repro_torch import configs
+
+    full = configs.full(BIG_ARCH)
+    cfg = dataclasses.replace(full, n_layers=BIG_LAYERS)
+    say("entry", model=BIG_ARCH, cut=f"served at {BIG_LAYERS} of "
+        f"{full.n_layers} layers (full width)")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats(device)
+    model, params = _init(torch, device, cfg, "entry")
+    require(cfg.num_params(params) == BIG_PARAMS,
+            f"{cfg.name}: {cfg.num_params(params)} parameters")
+    prompts = serve_prompts(cfg.vocab)
+    counts = serve_requests(torch, model, params, prompts, "entry")
+    check_prefill_logits(torch, model, params,
+                         prompt_batch(torch, model, prompts[0]), "entry")
+    say("entry", model=cfg.name, card=card_line(),
+        peak_allocated_mb=f"{peak_mb(torch, device):.0f}")
+    del model, params
+    _free(torch)
+    return counts
+
+
+def phase_entry(torch, device):
+    """Phase 20: ``launch.train`` with a failure and its twin
+    (:func:`check_train_launcher`), ``launch.serve``
+    (:func:`check_serve_launcher`), the GPipe pipeline
+    (:func:`check_pipeline`) and qwen2-72b served at 8 of 80 layers
+    (:func:`serve_big`), in that order.  Returns ``{run: launch
+    counts}``."""
+    runs = {}
+    for part, fn in (("train-launcher", check_train_launcher),
+                     ("serve-launcher", check_serve_launcher),
+                     ("pipeline", check_pipeline),
+                     (f"serve-{BIG_ARCH}", serve_big)):
+        t0 = time.perf_counter()
+        got = fn(torch, device)
+        runs.update(got if part == "train-launcher" else
+                    {("launch-serve" if part == "serve-launcher"
+                      else part): got})
+        say("entry", part=part, seconds=f"{time.perf_counter() - t0:.1f}")
+    return runs
+
+
 def ring_ptxas_summary(log: str, kernel="ring_cluster_kernel_sm90") -> dict:
     """A kernel's ``ptxas -v`` log in brief (the cluster ring kernel's by
     default): how many instantiations, their registers (least-most) and
@@ -6292,6 +6808,11 @@ def main() -> int:
     say("phase19", seconds=f"{time.perf_counter() - t0:.1f}",
         card=card_line())
     family.update(remat)
+    t0 = time.perf_counter()
+    entry_runs = phase_entry(torch, device)
+    say("phase20", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=card_line())
+    family.update(entry_runs)
     for run, ran in family.items():     # each model's main path, by kernel
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])

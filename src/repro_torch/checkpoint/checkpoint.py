@@ -118,6 +118,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._pending: threading.Thread | None = None
+        self._failed: BaseException | None = None
 
     # -- save ---------------------------------------------------------------
 
@@ -132,15 +133,26 @@ class CheckpointManager:
         """Snapshot to host now; write in the background."""
         self.wait()
         host = self._snapshot(tree)
-        t = threading.Thread(target=self._write,
+        t = threading.Thread(target=self._write_or_keep_failure,
                              args=(step, host, extras or {}))
         t.start()
         self._pending = t
 
+    def _write_or_keep_failure(self, step: int, host, extras: dict):
+        try:
+            self._write(step, host, extras)
+        except BaseException as e:      # re-raised by wait()
+            self._failed = e
+
     def wait(self):
+        """Join the background write, if any; raise again the exception
+        it died of, so a failed write is never taken for a saved one."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._failed is not None:
+            failed, self._failed = self._failed, None
+            raise failed
 
     def _write(self, step: int, host, extras: dict):
         final = os.path.join(self.directory, f"step_{step:08d}")

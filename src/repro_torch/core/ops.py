@@ -93,13 +93,36 @@ def _col(x):
 def _permute(ctx: ShoalContext, pattern: Pattern,
              x: torch.Tensor) -> torch.Tensor:
     """One exchange: ``out[d] = x[s]`` for every ``(s, d)`` of the
-    pattern, zeros on kernels that receive nothing."""
+    pattern, zeros on kernels that receive nothing.  Under autograd (an
+    input that requires grad, grad mode on) the backward is one exchange
+    more: the cotangents handed back along the reversed pattern, as the
+    transpose of the reference's ``ppermute`` is the reverse
+    ``ppermute``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Handoff.apply(ctx, pattern, x)
     table = ctx.pattern(pattern)
     ctx.exchanges += 1
     _lint.note_exchange()
     out = torch.zeros_like(x)
     out[table.dsts] = x[table.srcs]
     return out
+
+
+class _Handoff(torch.autograd.Function):
+    """:func:`_permute` with a counted backward: the reversed pattern
+    through :func:`_permute` itself.  A pattern is a partial permutation
+    (``ShoalContext.pattern`` refuses any other), so each source gets
+    the cotangent of its one destination and a kernel that sent nothing
+    gets zeros, as the index copy's own backward gives them."""
+
+    @staticmethod
+    def forward(fc, ctx, pattern, x):
+        fc.ctx, fc.pattern = ctx, pattern
+        return _permute(ctx, pattern, x)
+
+    @staticmethod
+    def backward(fc, g):
+        return None, None, _permute(fc.ctx, _reverse(fc.pattern), g)
 
 
 def _exchange(ctx: ShoalContext, pattern: Pattern, hdr: torch.Tensor,

@@ -31,7 +31,7 @@ from repro_torch.models.model import build_model
 from repro_torch.serving.engine import Request, ServeEngine
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true")
@@ -42,7 +42,22 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def make_requests(cfg, args) -> list:
+    """The launcher's requests: ``args.requests`` prompts of 3-9 random
+    tokens from ``args.seed``, ``args.max_new`` new tokens each."""
+    rng = np.random.default_rng(args.seed)
+    return [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        rng.integers(3, 10)).astype(np.int32),
+                    max_new=args.max_new)
+            for i in range(args.requests)]
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = (configs.reduced if args.reduced else configs.full)(args.arch)
@@ -52,12 +67,7 @@ def main(argv=None):
     params = model.init(torch.Generator(device=device).manual_seed(args.seed))
     engine = ServeEngine(model, params, lanes=args.lanes, slots=args.slots)
 
-    rng = np.random.default_rng(args.seed)
-    reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab,
-                                        rng.integers(3, 10)).astype(np.int32),
-                    max_new=args.max_new)
-            for i in range(args.requests)]
+    reqs = make_requests(cfg, args)
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0

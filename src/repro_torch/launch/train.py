@@ -75,21 +75,26 @@ def train_once(args, injector=None):
               f"(data step {dstep})", flush=True)
 
     t_last = time.time()
-    while int(state.step) < args.steps:
-        if injector is not None:
-            injector.check(int(state.step))
-        batch, dstep = pipe.next_batch(dstep)
-        state, metrics = step_fn(state, batch)
-        s = int(state.step)
-        if s % args.log_every == 0:
-            dt = time.time() - t_last
-            t_last = time.time()
-            print(f"[train] step {s:5d} loss {float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({dt / args.log_every:.2f}s/step)", flush=True)
-        if s % args.ckpt_every == 0:
-            mgr.save_async(s, state, extras={"data_step": dstep})
-    mgr.wait()
+    try:
+        while int(state.step) < args.steps:
+            if injector is not None:
+                injector.check(int(state.step))
+            batch, dstep = pipe.next_batch(dstep)
+            state, metrics = step_fn(state, batch)
+            s = int(state.step)
+            if s % args.log_every == 0:
+                dt = time.time() - t_last
+                t_last = time.time()
+                print(f"[train] step {s:5d} loss "
+                      f"{float(metrics['loss']):.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({dt / args.log_every:.2f}s/step)", flush=True)
+            if s % args.ckpt_every == 0:
+                mgr.save_async(s, state, extras={"data_step": dstep})
+    finally:
+        # the attempt ends only when its write has landed (or raised), so
+        # a restart restores the last checkpoint it started
+        mgr.wait()
     mgr.save(int(state.step), state, extras={"data_step": dstep})
     return state
 

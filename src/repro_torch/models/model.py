@@ -69,7 +69,7 @@ from repro_torch.models import blocks as bl
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models import xlstm as xl
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_unstack
 
 # float32 subtrees: the block norms, MLA's latent norms, cross-attention's
 # q / k norms and its gate, the RG-LRU's lam, the xLSTM cells' norms (ln,
@@ -169,18 +169,6 @@ class ModelConfig:
 
     def num_params(self, params) -> int:
         return sum(t.numel() for t in tree_leaves(params))
-
-
-def _layers(tree, n: int) -> list:
-    """Every layer of a layer-stacked tree, as views (no copy) from one
-    ``unbind`` per leaf.  Autograd gives an unbind one backward that
-    stacks the layers' gradients once; indexing each layer instead would
-    give every layer a full-size zero gradient of the stacked leaf to
-    sum."""
-    if isinstance(tree, dict):
-        per_key = {k: _layers(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(torch.unbind(tree, 0))
 
 
 def cast_params(cfg: ModelConfig, tree, device, *, f32: bool = False):
@@ -518,10 +506,10 @@ class Model:
             else "none"
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
         for si, (pat, reps) in enumerate(self.segs):
-            seg_params = {key: _layers(p, reps)
+            seg_params = {key: tree_unstack(p, reps)
                           for key, p in params["segments"][si].items()}
             seg_cache = None if caches is None else {
-                key: _layers(c, reps) for key, c in caches[si].items()}
+                key: tree_unstack(c, reps) for key, c in caches[si].items()}
 
             def superblock(x, p_layer, c_layer=None, pat=pat):
                 """One pass over ``pat``: (x, the blocks' summed aux or

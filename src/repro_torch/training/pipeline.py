@@ -21,7 +21,7 @@ import torch
 from repro_torch.core import collectives as coll
 from repro_torch.core import ops
 from repro_torch.core.state import ShoalContext
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_unstack
 
 
 def pipeline_apply(ctx: ShoalContext, stage_fn, stage_params,
@@ -33,11 +33,14 @@ def pipeline_apply(ctx: ShoalContext, stage_fn, stage_params,
     (stage i's slice is kernel i's).  Returns the last stage's output
     for every microbatch, (M, mb, ...), as every kernel holds it after
     the broadcast.  Exchanges: one per tick, then the broadcast's
-    ``2(n - 1)``."""
+    ``2(n - 1)``; a backward through the result adds one reverse
+    handoff a tick but the last (whose handoff no stage reads) and
+    the broadcast's ``n - 1`` payload hops (its validity flags carry
+    no cotangent)."""
     n = ctx.num_kernels
     M = mbs.shape[0]
     perm = [(i, i + 1) for i in range(n - 1)]          # stage i -> i+1
-    stages = [tree_map(lambda x, i=i: x[i], stage_params) for i in range(n)]
+    stages = tree_unstack(stage_params, n)
     inbox = torch.zeros((n,) + mbs.shape[1:], dtype=mbs.dtype,
                         device=mbs.device)
     done = []

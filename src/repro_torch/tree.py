@@ -73,3 +73,14 @@ def tree_unflatten(like, leaves):
     order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_unstack(tree, n: int) -> list:
+    """``n`` trees of ``tree``'s structure, the ``i``-th holding slice
+    ``i`` of every leaf's leading dim, as views (no copy) from one
+    ``unbind`` a leaf.  Autograd gives an unbind one backward that
+    stacks the slices' gradients once; indexing each slice instead would
+    give every slice a full-size zero gradient of the stacked leaf to
+    sum."""
+    per_leaf = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    return [tree_unflatten(tree, [s[i] for s in per_leaf]) for i in range(n)]

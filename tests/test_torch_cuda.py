@@ -2191,7 +2191,8 @@ def test_seq_shard_model_on_the_card_matches_the_cpu(cuda, monkeypatch):
     data groups (float32, TF32 off): ``Model.loss`` and every gradient
     leaf within 1e-5 (of the leaf's largest |gradient|) of the CPU run,
     a ring prefill's last logits and its cache within 1e-5, the same
-    exchanges (2 layers x 12)."""
+    exchanges (2 layers: the loss's 12 and its backward's 6 a layer,
+    the compiled JAX value_and_grad's count, and the prefill's 12)."""
     import dataclasses as dc
 
     from repro_torch import configs
@@ -2224,7 +2225,7 @@ def test_seq_shard_model_on_the_card_matches_the_cpu(cuda, monkeypatch):
                             mesh.ctx.exchanges)
     (l_c, g_c, o_c, c_c, e_c), (l_g, g_g, o_g, c_g, e_g) = \
         res["cpu"], res[str(cuda)]
-    assert e_c == e_g == 2 * 2 * 12
+    assert e_c == e_g == 2 * (12 + 6) + 2 * 12
     torch.testing.assert_close(l_g, l_c, rtol=1e-5, atol=1e-5)
     for a, b in zip(g_g, g_c):
         torch.testing.assert_close(a, b, rtol=0,
@@ -2395,3 +2396,90 @@ def test_remat_on_the_card_matches_none(cuda, monkeypatch, arch):
             else:
                 torch.testing.assert_close(
                     a, b, rtol=0, atol=1e-5 * b.abs().max().item())
+
+
+def test_pipeline_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``chip_smoke.py``'s pipeline check at smoke size (qwen2-smoke at
+    8 layers over 4 stages, 3 microbatches of 1 x 16, float32, TF32
+    off): on the card the output bitwise the stack's run microbatch by
+    microbatch and every gradient within 1e-5 of it; the card's run
+    within 1e-5 of the CPU run's, with the same exchanges forward and
+    forward + backward."""
+    import chip_smoke
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    n, M, S = 4, 3, 16
+    cfg = dataclasses.replace(configs.reduced("qwen2-1.5b"), n_layers=8)
+    cpu_params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (M, S)))
+    probe = torch.from_numpy(rng.standard_normal(
+        (M, 1, S, cfg.d_model)).astype(np.float32))
+    runs = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        params = _to(cpu_params, device)
+        with torch.no_grad():
+            mbs = model._embed_in(params, {"tokens": toks.to(device)})[:, None]
+        runs[str(device)] = chip_smoke.pipeline_vs_stack(
+            torch, model, params, mbs, probe.to(device), n)
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    assert card["exchanges"] == cpu["exchanges"] \
+        == chip_smoke.pipeline_exchanges(n, M)
+    assert torch.equal(card["out"], card["want"])
+    torch.testing.assert_close(card["out"].cpu(), cpu["out"], rtol=1e-5,
+                               atol=1e-5)
+    for g, w, c in zip(card["grads"], card["want_grads"], cpu["grads"]):
+        assert chip_smoke._rel_l2(torch, g, w) <= chip_smoke.PIPE_GRAD_TOL
+        torch.testing.assert_close(g.cpu(), c, rtol=0,
+                                   atol=1e-5 * c.abs().max().item())
+
+
+def test_train_launcher_restart_on_the_card(cuda, tmp_path, capsys,
+                                            monkeypatch):
+    """``launch.train`` at the reduced config on the card (shoal, K 2),
+    every leaf write slowed: a failure at step 3 restores step 2, the
+    checkpoint in flight, and the run ends with its uninterrupted
+    twin's checkpoint, leaf for leaf (manifest sha256); one ring launch
+    a leaf a step."""
+    import json
+    import os
+    import time
+
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.launch import train as launch_train
+
+    real = ck._save_leaf
+
+    def slow(path, leaf, dtype):
+        time.sleep(0.02)
+        real(path, leaf, dtype)
+
+    monkeypatch.setattr(ck, "_save_leaf", slow)
+    common = ["--reduced", "--device", "cuda", "--steps", "5", "--batch",
+              "4", "--seq", "16", "--log-every", "1", "--backend", "shoal",
+              "--kernels", "2"]
+    rings = {}
+    for run, extra in (("crash", ["--fail-at", "3", "--ckpt-every", "2"]),
+                       ("straight", ["--ckpt-every", "100"])):
+        reset_launch_counts()
+        assert launch_train.main(common + ["--ckpt-dir", str(tmp_path / run)]
+                                 + extra) == 0
+        rings[run] = launch_counts()["ring_collective"]
+    out = capsys.readouterr().out
+    assert "[launch] restored step 2 (data step 2)" in out
+    assert out.count("[launch] done at step 5") == 2
+
+    def manifest(run):
+        with open(os.path.join(tmp_path, run, "step_00000005",
+                               "manifest.json")) as f:
+            return json.load(f)
+
+    a, b = manifest("crash"), manifest("straight")
+    assert [(e["path"], e["sha256"]) for e in a["leaves"]] \
+        == [(e["path"], e["sha256"]) for e in b["leaves"]]
+    leaves = rings["straight"] // 5
+    assert rings == {"crash": 6 * leaves, "straight": 5 * leaves}

@@ -12,6 +12,7 @@ run only on the card (``tests/test_torch_cuda.py``); here the choice,
 the build registry and the counters are checked without one.
 """
 
+import itertools
 import re
 
 import pytest
@@ -385,3 +386,35 @@ def test_float32_prompt_passes_take_the_float32_hopper_kernel(
     tattn.gqa(params, x, torch.arange(S)[None], H=H, K=K, dh=dh,
               window=window)
     assert seen == [("sm90_f32", dh, dh)]
+
+
+@pytest.mark.parametrize("kernel,dtype,rate", [
+    ("simple", "float32", "TF32_FLOPS"), ("simple", "bfloat16", "BF16_FLOPS"),
+    ("sm90", "bfloat16", "BF16_FLOPS")])
+def test_flash_bound_takes_the_cards_rate_for_the_inputs_type(kernel, dtype,
+                                                              rate):
+    """``chip_smoke.py``'s flash bound: each product once, at the card's
+    rate for the inputs' type, whichever kernel runs it (the simple
+    kernel's FFMA floor is reported beside it, not as its bound)."""
+    import chip_smoke
+
+    ops, got = chip_smoke.flash_ops(kernel, dtype, 1, 8, 1024, 1024, 32,
+                                    32, True)
+    assert got == getattr(chip_smoke, rate)
+    assert ops == 8 * 1024 * 1024 * (32 + 32)
+
+
+def test_flash_timing_retakes_a_pair_of_turns_that_spreads(monkeypatch):
+    """A pair of turns whose larger exceeds the smaller 1.5 times (a
+    profiler window that lost activities) is taken again; a spread that
+    persists fails the check instead of entering the record."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "say", lambda *a, **k: None)
+    again = iter([0.18, 0.17]).__next__
+    assert chip_smoke.steady_turns([0.17693, 0.01469], again, "t") \
+        == [0.18, 0.17]
+    assert chip_smoke.steady_turns([0.1, 0.12], None, "t") == [0.1, 0.12]
+    with pytest.raises(AssertionError, match="spread"):
+        chip_smoke.steady_turns([0.1, 0.3],
+                                itertools.cycle([0.1, 0.3]).__next__, "t")

@@ -9,12 +9,18 @@ The JAX references run on 8 emulated CPU devices in one subprocess
   and the same layers in 4 stages: the port's output within 2e-5 of the
   JAX package's and of the sequential reference, its gradient within
   2e-5 of autograd through the sequential version; one exchange per
-  tick plus the broadcast's ``2(n - 1)``.
+  tick plus the broadcast's ``2(n - 1)``, the compiled JAX forward's
+  collective-permutes; forward + backward one less than the compiled
+  JAX ``value_and_grad``'s (its scan also transposes the last tick's
+  handoff, which no stage reads).
 * ``quorum_mean_grads`` over a data axis of 2 (one rank dead, as
   ``tests/md_checks.py:494-504``) and of 4: every kernel's row and the
   live count equal to the JAX package's (1e-6), no exchange counted.
 
-In process: ``delivery_live_mask`` under ``tests/fault_checks.py:145-150``'s
+In process: ``pipeline_apply`` over qwen2-smoke's layer stack (8
+layers, 4 stages) against the stack run microbatch by microbatch,
+through ``chip_smoke.py``'s own check (forward bitwise, gradients
+1e-5); ``delivery_live_mask`` under ``tests/fault_checks.py:145-150``'s
 contract -- a reliable put over a ring whose every link drops every
 packet exhausts its retries on every kernel, the error words latch
 ``ERR_RETRY_EXHAUSTED`` and the mask drops every kernel; with only the
@@ -31,7 +37,7 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _torch_reference import run_reference  # noqa: E402
+from _torch_reference import cp_count, run_reference  # noqa: E402
 
 from repro_torch.core import handlers as hd, ops  # noqa: E402
 from repro_torch.core.faults import FaultModel  # noqa: E402
@@ -54,6 +60,11 @@ def _pipe_inputs():
     w = (rng.standard_normal((L, D, D)) * 0.3).astype(np.float32)
     xs = rng.standard_normal((M, MB, D)).astype(np.float32)
     return w, xs
+
+
+def _probe():
+    return np.random.default_rng(1).standard_normal((M, MB, D)).astype(
+        np.float32)
 
 
 def _grads_in(n):
@@ -81,12 +92,22 @@ def _run_reference(out_path):
         x, _ = jax.lax.scan(body, x, pslice["w"])
         return x
 
+    probe = jnp.asarray(_probe())
     out = {}
     for n in STAGES:
         mesh = make_mesh((n, 8 // n), ("pod", "chip"))
-        out[f"pipe/{n}"] = np.asarray(jax.jit(lambda p, x: jpipe(
-            mesh, "pod", stage_fn, p, x))(jsplit({"w": jnp.asarray(w)}, n),
-                                          jnp.asarray(xs)))
+        params = jsplit({"w": jnp.asarray(w)}, n)
+
+        def fwd(p, x, mesh=mesh):
+            return jpipe(mesh, "pod", stage_fn, p, x)
+
+        fn = jax.jit(fwd).lower(params, jnp.asarray(xs)).compile()
+        out[f"pipe/{n}"] = np.asarray(fn(params, jnp.asarray(xs)))
+        out[f"pipe/{n}/cps"] = np.asarray(cp_count(fn))
+        vg = jax.jit(jax.value_and_grad(
+            lambda p, x: (fwd(p, x) * probe).sum())).lower(
+            params, jnp.asarray(xs)).compile()
+        out[f"pipe/{n}/value_and_grad/cps"] = np.asarray(cp_count(vg))
     for n, live in QUORUM.items():
         mesh = make_mesh((n, 8 // n), ("data", "model"))
 
@@ -119,12 +140,16 @@ def _stage_fn(p, x):
 
 @pytest.mark.parametrize("n", STAGES)
 def test_pipeline_apply_matches_jax_and_the_sequential_model(reference, n):
+    import chip_smoke
+
     w_np, xs_np = _pipe_inputs()
     w = torch.from_numpy(w_np).requires_grad_()
     xs = torch.from_numpy(xs_np)
     ctx = ShoalContext(n, device="cpu")
     out = pipeline_apply(ctx, _stage_fn, split_stages({"w": w}, n), xs)
-    assert ctx.exchanges == (M + n - 1) + 2 * (n - 1)
+    fwd, total = chip_smoke.pipeline_exchanges(n, M)
+    assert ctx.exchanges == int(reference[f"pipe/{n}/cps"]) == fwd \
+        == (M + n - 1) + 2 * (n - 1)
     ref = xs
     for layer in range(L):
         ref = torch.tanh(ref @ w[layer])
@@ -132,13 +157,46 @@ def test_pipeline_apply_matches_jax_and_the_sequential_model(reference, n):
                                rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
                                rtol=2e-5, atol=2e-5)
-    # the backward schedule: autograd through the ticks and handoffs
-    probe = torch.from_numpy(np.random.default_rng(1).standard_normal(
-        xs_np.shape).astype(np.float32))
+    # the backward schedule: autograd through the ticks and handoffs, each
+    # handoff's adjoint one counted exchange.  The JAX scan also
+    # transposes the last tick's handoff, which no stage reads, on a zero
+    # cotangent: its compiled value_and_grad counts one exchange more
+    probe = torch.from_numpy(_probe())
     got, = torch.autograd.grad((out * probe).sum(), w)
+    assert ctx.exchanges == total \
+        == int(reference[f"pipe/{n}/value_and_grad/cps"]) - 1
     want, = torch.autograd.grad((ref * probe).sum(), w)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
                                atol=2e-5)
+
+
+def test_pipeline_over_a_model_layer_stack_equals_the_stack():
+    """qwen2-smoke at 8 layers over 4 stages of 2 (``chip_smoke.py``'s
+    pipeline check at a small width): the output bitwise the stack run
+    microbatch by microbatch, every leaf's gradient within 1e-5
+    relative L2, the exchanges those of ``pipeline_exchanges``."""
+    import dataclasses
+
+    import chip_smoke
+
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    n, M, S = 4, 3, 16
+    cfg = dataclasses.replace(configs.reduced("qwen2-1.5b"), n_layers=8)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (M, S)))
+    with torch.no_grad():
+        mbs = model._embed_in(params, {"tokens": toks})[:, None]
+    probe = torch.from_numpy(rng.standard_normal(mbs.shape).astype(
+        np.float32))
+    r = chip_smoke.pipeline_vs_stack(torch, model, params, mbs, probe, n)
+    assert r["exchanges"] == chip_smoke.pipeline_exchanges(n, M) == (12, 20)
+    assert torch.equal(r["out"], r["want"])
+    for g, w in zip(r["grads"], r["want_grads"]):
+        assert chip_smoke._rel_l2(torch, g, w) <= chip_smoke.PIPE_GRAD_TOL
 
 
 def test_split_stages_refuses_an_uneven_split():
@@ -146,6 +204,24 @@ def test_split_stages_refuses_an_uneven_split():
     assert stacked["w"].shape == (2, 2, 2, 2)
     with pytest.raises(ValueError, match="3 stages"):
         split_stages({"w": torch.zeros(4, 2, 2)}, 3)
+
+
+def test_tree_unstack_gives_each_stage_its_views():
+    """The pipeline's (and the layer loop's) slices: views of each leaf,
+    in the tree's structure, whose gradients stack back into the leaf."""
+    from repro_torch.tree import tree_unstack
+
+    w = torch.arange(24.0).reshape(3, 2, 4).requires_grad_()
+    tree = {"b": {"w": w}, "a": w[:, 0]}
+    parts = tree_unstack(tree, 3)
+    assert [list(p) for p in parts] == [["b", "a"]] * 3
+    for i, p in enumerate(parts):
+        assert p["b"]["w"].data_ptr() == w[i].data_ptr()
+        assert torch.equal(p["b"]["w"], w[i])
+        assert torch.equal(p["a"], w[i, 0])
+    sum((i + 1) * p["b"]["w"].sum() for i, p in enumerate(parts)).backward()
+    assert torch.equal(w.grad, torch.arange(1.0, 4.0)[:, None, None]
+                       .expand(3, 2, 4))
 
 
 # -- quorum and delivery failure -------------------------------------------------

@@ -42,14 +42,16 @@ against the JAX package, on the CPU.
   island collective; without them psum recomputes none (its two
   all-reduces come after the last save), rs its all-gather, a2a both
   all-to-alls.  Ring attention's 3 n exchanges a layer all come before
-  the output projection, so all run again.
+  the output projection, so all run again; its backward adds the k and
+  v hand-backs, 2 (n - 1) a layer, under every policy.
 * Beside those counts, the JAX mesh (2, 4)'s compiled gradient program
   under each policy (one 8-device subprocess, ``python
   tests/test_torch_remat.py OUT.npz``, started when the module's first
   test runs and read by the last), recorded: GSPMD's tensor-parallel
   collectives make the rest, so only that remat never removes a
-  collective is asserted.  ``scripts/remat_counts.py`` prints both
-  tables.
+  collective is asserted, and that the ring's collective-permutes are
+  the port's exchanges under each policy.  ``scripts/remat_counts.py``
+  prints both tables.
 """
 
 import dataclasses
@@ -506,7 +508,10 @@ def test_island_collectives_recomputed(dispatch, shared, ring_calls):
 def test_ring_attention_recomputed_under_seq_shard():
     """qwen2-smoke (2 layers) with ``seq_shard`` over 4 kernels: 3
     exchanges a hop (k, v, positions), 4 hops a layer; ``dots`` runs
-    every layer's ring again in the backward."""
+    every layer's ring again in the backward; the backward hands the k
+    and v cotangents back every hop but the last, 2 (K - 1) a layer, as
+    the compiled JAX ``value_and_grad`` counts them
+    (``tests/test_torch_ring_attention.py``)."""
     runs = {}
     for policy in ("none", "dots"):
         cfg = dataclasses.replace(configs.reduced(RING_ARCH), tp=False,
@@ -517,7 +522,7 @@ def test_ring_attention_recomputed_under_seq_shard():
         params = model.init(torch.Generator().manual_seed(0))
         loss, grads = Trainer(model, AdamWConfig(lr=1e-3)).value_and_grad(
             params, _port_batch(_tokens(cfg.vocab)))
-        per_layer = 3 * K * (2 if policy == "dots" else 1)
+        per_layer = 3 * K * (2 if policy == "dots" else 1) + 2 * (K - 1)
         assert ctx.exchanges == cfg.n_layers * per_layer, policy
         assert not any(ctx.collectives.values())
         runs[policy] = loss, tree_leaves(grads)
@@ -541,6 +546,15 @@ def test_the_jax_mesh_counts_beside_the_port(reference_run):
         for policy in ("full", "dots"):
             for kind, n in table["none"].items():
                 assert table[policy].get(kind, 0) >= n, (case, policy, kind)
+    # the ring's collective-permutes are the port's exchanges of
+    # test_ring_attention_recomputed_under_seq_shard: 2 layers, the
+    # forward's 3 K (twice under a recomputing policy) and the
+    # backward's 2 (K - 1)
+    layers = configs.reduced(RING_ARCH).n_layers
+    for policy in POLICIES:
+        passes = 1 if policy == "none" else 2
+        assert int(ref[f"ring/{policy}/collective-permute"]) \
+            == layers * (3 * K * passes + 2 * (K - 1)), policy
 
 
 # -- serving never enters a region ------------------------------------------

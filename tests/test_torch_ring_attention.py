@@ -17,7 +17,8 @@ fixed seeds, float32 throughout:
 * qwen2-smoke with ``seq_shard=True, tp=False`` (the JAX package's
   weights carried across): ``Model.loss`` within 1e-5 and every
   gradient leaf within 1e-5 of its largest |gradient|, the exchanges of
-  the loss equal to the compiled JAX loss's collective-permutes; a
+  ``value_and_grad`` (the forward's and the backward's hand-backs) equal
+  to the compiled JAX ``value_and_grad``'s collective-permutes; a
   prefill through the ring on a 40-slot cache and on a 16-slot one (S
   32 > W: the last 16 keys written) -- last logits within 1e-5, every
   cache leaf equal (positions exactly) -- then one decode step (S 1: no
@@ -27,7 +28,7 @@ fixed seeds, float32 throughout:
   ``tp``, more than one kernel, S > 1, GQA without a window; not with
   ``tp``, one kernel, no mesh, a decode step, recurrentgemma's local
   layers, MLA; the ``S % n`` and ``B % data`` refusals; the gradient
-  through ``_permute``'s index copy.
+  through ``_permute``'s counted backward.
 """
 
 import dataclasses
@@ -105,7 +106,10 @@ def _run_reference(out_path):
     loss_fn = jax.jit(model.loss).lower(params, batch).compile()
     out["loss/value"] = np.asarray(loss_fn(params, batch))
     out["loss/cps"] = np.asarray(cp_count(loss_fn))
-    grads = jax.jit(jax.grad(model.loss))(params, batch)
+    vg_fn = jax.jit(jax.value_and_grad(model.loss)).lower(
+        params, batch).compile()
+    out["value_and_grad/cps"] = np.asarray(cp_count(vg_fn))
+    _, grads = vg_fn(params, batch)
     for i, leaf in enumerate(jax.tree.leaves(jax.device_get(grads))):
         out[f"grads/{i}"] = np.asarray(leaf)
     for slots in CACHES:
@@ -199,20 +203,33 @@ def test_ring_attention_refuses_shapes_that_do_not_shard(kernels, data, B,
 
 
 def test_permute_carries_the_gradient():
-    """``_permute``'s index copy sends each kernel's gradient back along
-    the reversed pattern (kernels that receive nothing get zeros)."""
+    """``_permute``'s backward sends each kernel's gradient back along
+    the reversed pattern (kernels that receive nothing get zeros), one
+    counted exchange, noted to the lint recorder as the forward's is;
+    without grad, one exchange and no autograd edge."""
+    from repro_torch.analysis import trace
+
     ctx = ShoalContext(4, device="cpu")
     x = torch.randn(4, 3, generator=torch.Generator().manual_seed(0),
                     requires_grad=True)
     w = torch.arange(12, dtype=torch.float32).reshape(4, 3)
     ring = [(i, (i + 1) % 4) for i in range(4)]
-    (ops._permute(ctx, ring, x) * w).sum().backward()
+    with trace.record() as rec:
+        y = ops._permute(ctx, ring, x)
+        assert ctx.exchanges == 1
+        (y * w).sum().backward()
+    assert ctx.exchanges == 2 and rec.unattributed == 2
     assert torch.equal(x.grad, torch.roll(w, -1, 0))
     x.grad = None
     (ops._permute(ctx, [(0, 2)], x) * w).sum().backward()
+    assert ctx.exchanges == 4
     want = torch.zeros_like(w)
     want[0] = w[2]
     assert torch.equal(x.grad, want)
+    with torch.no_grad():
+        assert ops._permute(ctx, ring, x).grad_fn is None
+    assert ops._permute(ctx, ring, x.detach()).grad_fn is None
+    assert ctx.exchanges == 6
 
 
 # -- the seq_shard model ---------------------------------------------------
@@ -228,8 +245,12 @@ def test_seq_shard_loss_and_gradients_match_jax(reference, smoke):
     loss, grads = Trainer(model, AdamWConfig(lr=1e-3)).value_and_grad(
         params, {"tokens": toks, "labels": toks})
     _close(loss, reference["loss/value"])
-    assert mesh.ctx.exchanges == int(reference["loss/cps"]) \
-        == cfg.n_layers * 3 * K
+    # the forward's 3 a hop (k, v, positions) and the backward's k and v
+    # cotangents handed back every hop but the last, whose rotated block
+    # nothing reads: the compiled JAX value_and_grad's count
+    assert int(reference["loss/cps"]) == cfg.n_layers * 3 * K
+    assert mesh.ctx.exchanges == int(reference["value_and_grad/cps"]) \
+        == cfg.n_layers * (3 * K + 2 * (K - 1))
     paths = [p for p, _ in tree_paths(grads)]
     for i, (path, g) in enumerate(zip(paths, tree_leaves(grads))):
         want = reference[f"grads/{i}"]
