@@ -37,12 +37,17 @@ lanes, 2048 slots, 8 requests of 128-1024 prompt tokens and 32 new
 tokens each, greedy -- whose prompt passes run the Hopper flash-attention
 kernel (``flash_sm90.cu``: TMA tile ring, ``wgmma``; every launch counted).
 It holds that kernel and the simple one (``flash.cu``, which serves
-float32 and other head dims) to their plain version on the same inputs,
-at tinyllama-1.1b's and qwen2-1.5b's prefill shapes and two ragged
-lengths, holds one prefill's logits (bfloat16 through the Hopper kernel,
-the same weights in float32 through the simple one) to the same prefill
-with the plain version in the kernel's place, and profiles a prefill and
-a window of decode steps (device busy time, idle share).
+the views TMA cannot describe) to their plain version on the same
+inputs, at tinyllama-1.1b's and qwen2-1.5b's prefill shapes and two
+ragged lengths, holds one prefill's logits (bfloat16 through the Hopper
+kernel, the same weights in float32 through the float32 Hopper kernel)
+to the same prefill with the plain version in the kernel's place, and
+profiles a prefill and a window of decode steps (device busy time, idle
+share).  The padded Hopper route -- head dims below a tile, zero columns
+past them -- is timed beside the simple kernel and SDPA at dh 32, 16
+(H 8), phi-2's 80 and phi-3-mini's 96 (H 32) in both types, and
+qwen2-smoke (dh 16) is served in bfloat16 through it, its prefill
+logits held to the plain version.
 Phase 8 serves the same model through the disaggregated tier: 2 prefill
 and 2 decode kernels, 2 lanes each, every finished prefill's KV cache
 moved to a decode lane as ONE vectored put into the decode kernel's
@@ -1858,9 +1863,14 @@ def _flash_case(torch, fa, q, k, v, tag, *, kernels, causal=True,
             for r, m in out.items()}
 
 
-# the simple kernel's own shape: a head dim that neither Hopper kernel
-# takes (the smoke configs' 32), B 1 x S 1024 x H 8 (K 2)
-SIMPLE_CASE, SIMPLE_SHAPE = "simple-dh32", (1, 1024, 8, 2, 32)
+# the padded Hopper route's shapes (head dims that run in a tile's PAD
+# instantiation), B 1 x S 1024, each in both types: the reduced configs'
+# 32 and 16 at H 8 (K 2), and phi-2's (d 2560, 32 heads: dh 80) and
+# phi-3-mini's (d 3072, 32 heads: dh 96) attention
+PAD_CASES = (("pad-dh32", (1, 1024, 8, 2, 32)),
+             ("pad-dh16", (1, 1024, 8, 2, 16)),
+             ("phi-2-dh80", (1, 1024, 32, 32, 80)),
+             ("phi-3-mini-dh96", (1, 1024, 32, 32, 96)))
 
 
 def check_flash(torch, device):
@@ -1875,12 +1885,16 @@ def check_flash(torch, device):
     a served prompt's S = 903; in float32 the float32 Hopper kernel
     (``flash_sm90_f32.cu``, which the wrapper picks) and the simple one
     at tinyllama's and qwen2-1.5b's shapes (the float32 logit checks'
-    prompt passes) and a reference shape at dh 128; the simple kernel on
-    its own route at dh 32 (``SIMPLE_SHAPE``), float32 and bfloat16.  At
-    the prefill shapes and dh 32, timed by :func:`_flash_case`.  Returns
-    the records of the simple kernel (bfloat16, tinyllama; dh 32 in both
-    types) and of the two Hopper kernels."""
+    prompt passes) and a reference shape at dh 128; the padded Hopper
+    route at ``PAD_CASES`` (dh 32, 16, 80, 96), float32 and bfloat16,
+    beside the simple kernel forced, which it must beat (the route keeps
+    a head dim on the Hopper kernel only where it won).  At the prefill
+    shapes and the padded ones, timed by :func:`_flash_case`.  Returns
+    the records of the simple kernel (bfloat16, tinyllama; the padded
+    cases in both types) and of the two Hopper kernels (the padded
+    cases under ``padded``)."""
     from repro_torch.kernels import attention as fa
+    from repro_torch.kernels.attention import flash as fl
 
     gen = torch.Generator(device=device).manual_seed(21)
     cases = [("tinyllama-prefill", (1, 1024, 32, 4, 64), torch.bfloat16),
@@ -1895,20 +1909,19 @@ def check_flash(torch, device):
              ("served-903", (1, 903, 32, 4, 64), torch.bfloat16),
              ("qwen2-1.5b-prefill", (1, 1024, 12, 2, 128), torch.float32),
              ("reference-dh128", (4, 128, 1, 1, 128), torch.float32)]
-    # the simple kernel on its own route: a head dim off the Hopper
-    # kernels' pairs, in both types
-    cases += [(SIMPLE_CASE, SIMPLE_SHAPE, dtype)
+    # the padded Hopper route: head dims below a tile, in both types
+    padded = dict(PAD_CASES)
+    cases += [(case, shape, dtype) for case, shape in PAD_CASES
               for dtype in (torch.float32, torch.bfloat16)]
     records, timed = {}, {}
     for case, (B, S, H, Kv, dh), dtype in cases:
         q, k, v = _flash_inputs(torch, gen, device, B, S, H, Kv, dh, dtype)
         name = str(dtype).split(".")[-1]
         route = fa.flash_kernel_for(q, k, v)
-        require(route == ("simple" if case == SIMPLE_CASE else
-                          "sm90" if dtype == torch.bfloat16
+        require(route == ("sm90" if dtype == torch.bfloat16
                           else "sm90_f32"),
                 f"flash {case} {name}: dispatched to {route}")
-        is_timed = case.endswith("-prefill") or case == SIMPLE_CASE
+        is_timed = case.endswith("-prefill") or case in padded
         ms = _flash_case(torch, fa, q, k, v, case,
                          kernels=tuple(dict.fromkeys((route, "simple"))),
                          timed=is_timed)
@@ -1925,6 +1938,22 @@ def check_flash(torch, device):
                         bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
                         ffma_floor_ms=f"{m['f32_ops'] / F32_FLOPS * 1e3:.5f}",
                         turns_ms=json.dumps(m["turns"]))
+        if case in padded:
+            # the tile's own operations beside the function's bound
+            m = ms[route]
+            m["tile"] = fl.sm90_tile(dtype, dh, dh)
+            m["kernel_ops"], rate = flash_ops(route, name, B, H, S, S,
+                                              *m["tile"], True)
+            m["kernel_ops_ms"] = m["kernel_ops"] / rate * 1e3
+            line.update(tile="x".join(map(str, m["tile"])),
+                        kernel_ops=m["kernel_ops"],
+                        kernel_ops_ms=f"{m['kernel_ops_ms']:.5f}")
+            # a head dim stays on the Hopper kernel only where it beat
+            # the simple one
+            require(ms[route]["ms"] < ms["simple"]["ms"],
+                    f"flash {case} {name}: the {route} kernel "
+                    f"{ms[route]['ms']:.5f} ms did not beat the simple "
+                    f"kernel's {ms['simple']['ms']:.5f}")
         say("serving", kernel="flash_attention", **line)
         del q, k, v
     tiny = ("tinyllama-prefill", "bfloat16")
@@ -1952,16 +1981,6 @@ def check_flash(torch, device):
             "plain_ms": m["plain"], "library_ms": m["lib"],
             "bound_ms": bound(m)[0], "max_abs_err": m["err"]}
     records["flash_attention_sm90"] = sm90
-    B, S, H, Kv, dh = SIMPLE_SHAPE
-    for name in ("float32", "bfloat16"):
-        m = timed[SIMPLE_CASE, name, "simple"]
-        bound_ms, bound_by = bound(m)
-        records["flash_attention"][f"dh{dh}_{name}"] = {
-            "shape": f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}", "route": "simple",
-            "ms": m["ms"], "plain_ms": m["plain"], "library_ms": m["lib"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "ffma_floor_ms": m["f32_ops"] / F32_FLOPS * 1e3,
-            "max_abs_err": m["err"]}
     records["flash_attention_sm90_f32"] = f32_record(
         timed[("tinyllama-prefill", "float32", "sm90_f32")],
         timed[("tinyllama-prefill", "float32", "simple")])
@@ -1969,6 +1988,31 @@ def check_flash(torch, device):
         "B1xS1024xH12xK2xdh128",
         timed[("qwen2-1.5b-prefill", "float32", "sm90_f32")],
         timed[("qwen2-1.5b-prefill", "float32", "simple")])
+    # the padded route: the Hopper kernel of each type beside the simple
+    # kernel forced on the same inputs; the bound is the function's (the
+    # true head dim), the padded tile's own operations beside it
+    for key, route, name in (("flash_attention_sm90", "sm90", "bfloat16"),
+                             ("flash_attention_sm90_f32", "sm90_f32",
+                              "float32")):
+        records[key]["padded"] = {}
+        for case, (B, S, H, Kv, dh) in PAD_CASES:
+            m, simple = (timed[case, name, r] for r in (route, "simple"))
+            shape = f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}"
+            bound_ms, bound_by = bound(m)
+            records[key]["padded"][case] = {
+                "shape": shape, "tile": list(m["tile"]), "ms": m["ms"],
+                "simple_ms": simple["ms"], "plain_ms": m["plain"],
+                "library_ms": m["lib"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "kernel_ops": m["kernel_ops"],
+                "kernel_ops_ms": m["kernel_ops_ms"], "max_abs_err": m["err"],
+                "simple_max_abs_err": simple["err"]}
+            bound_ms, bound_by = bound(simple)
+            records["flash_attention"][f"{case}_{name}"] = {
+                "shape": shape, "route": route, "ms": simple["ms"],
+                "plain_ms": simple["plain"], "library_ms": simple["lib"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "ffma_floor_ms": simple["f32_ops"] / F32_FLOPS * 1e3,
+                "max_abs_err": simple["err"]}
     return records
 
 
@@ -2191,8 +2235,8 @@ def serve_requests(torch, model, params, prompts, tag="serving",
     run and read after it; every request and slot event checked, and
     every prompt pass of every attention layer (:func:`attention_layers`)
     a launch of the flash kernel named by ``flash``: the bf16 Hopper one
-    (bfloat16 at dh 64 / 128 / 256 and MLA's q·k 192 / v 128), or the
-    simple one.  Prints the run's lines under
+    (bfloat16 at equal head dims that are multiples of 8 and MLA's q·k
+    192 / v 128), or the simple one.  Prints the run's lines under
     ``tag`` (tokens/s, prefill ms per request, decode ms per 4-lane
     step) and returns the run's launch counts; ``out``, a dict, gets the
     engine (``"engine"``) and its finished requests (``"requests"``)."""
@@ -2235,9 +2279,9 @@ def serve_requests(torch, model, params, prompts, tag="serving",
             and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
             f"{cfg.name} served: {len(done)} of {n} requests finished, "
             f"tokens {[len(r.out) for r in reqs]}")
-    # bfloat16 prompts at dh 64 / 128 / 256 and MLA's 192 / 128 sit on
-    # TMA's grid, so every prompt pass of every attention layer takes the
-    # Hopper kernel
+    # bfloat16 prompts at head dims that are multiples of 8 and MLA's
+    # 192 / 128 sit on TMA's grid, so every prompt pass of every attention
+    # layer takes the Hopper kernel
     layers = attention_layers(cfg)
     want = n * layers
     sm90 = want if flash == "sm90" else 0
@@ -2268,14 +2312,46 @@ def serve_requests(torch, model, params, prompts, tag="serving",
     return counts
 
 
+# the served model of the padded route: the reduced qwen2-1.5b config
+# (qwen2-smoke: d 96 over 6 heads, dh 16, qkv bias) in bfloat16
+PAD_ARCH = "qwen2-1.5b"
+
+
+def serve_padded(torch, device):
+    """The padded Hopper route on a served model: qwen2-smoke (dh 16) in
+    bfloat16 on the card, served through ``ServeEngine``
+    (:func:`serve_requests`, counts reset before it and read after it:
+    every prompt pass of every layer a launch of the bf16 Hopper kernel,
+    none of ``flash.cu``), then one prefill's logits held to the same
+    prefill with the plain version in the kernel's place
+    (:func:`check_prefill_logits`, the Hopper kernel required).  Returns
+    the serving run's launch counts and the model's name."""
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(configs.reduced(PAD_ARCH), dtype=torch.bfloat16)
+    model = build_model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    prompts = serve_prompts(cfg.vocab)
+    counts = serve_requests(torch, model, params, prompts, "pad", "sm90")
+    require(counts["flash_attention"] == counts["flash_attention_sm90"] > 0,
+            f"{cfg.name}: flash launches {counts['flash_attention']}, of "
+            f"them on the Hopper kernel {counts['flash_attention_sm90']}")
+    check_prefill_logits(torch, model, params,
+                         prompt_batch(torch, model, prompts[0]), "pad",
+                         "sm90")
+    return counts, cfg.name
+
+
 def phase_serving(torch, device):
     """Phase 6.  The kernel against its plain version, then the main
     path: ``ServeEngine.run`` on tinyllama-1.1b at full width and depth
     (counts reset before it, read after it), every request and slot
     event checked; then one prefill's logits, kernel vs plain attention,
     in bfloat16 and in float32 (the float32 Hopper kernel's main path:
-    the counts reset before it, read after it).  Returns the records of
-    the three flash kernels."""
+    the counts reset before it, read after it); then the padded route's
+    served model (:func:`serve_padded`).  Returns the records of the
+    three flash kernels."""
     from repro_torch import configs
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import build_model
@@ -2320,6 +2396,11 @@ def phase_serving(torch, device):
             f32_counts[name]}
     records["flash_attention_sm90_f32"]["launches"] = \
         f32_counts["flash_attention_sm90_f32"]
+    pad_counts, pad_name = serve_padded(torch, device)
+    for name in ("flash_attention", "flash_attention_sm90",
+                 "flash_attention_sm90_f32"):
+        records[name]["path_launches"][f"serve-{pad_name}-bf16"] = \
+            pad_counts[name]
     return records, model, params
 
 
@@ -6593,19 +6674,22 @@ def ptxas_summary(log: str, kernel="flash_attention_kernel_sm90") -> dict:
     a Hopper flash kernel's ``ptxas -v`` log (the bf16 one's by default;
     one entry per (q·k, v) instantiation: ``dh64``, ``dh128``,
     ``dqk192-dv128``, ``dh256``; ``-noncausal`` marks the
-    ``causal=False`` ones)."""
+    ``causal=False`` ones, ``-padded`` those of the padded route)."""
     import re
 
     out, key = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            pair = re.search(kernel + r"ILi(\d+)ELi(\d+)E", line)
+            pair = re.search(kernel + r"ILi(\d+)ELi(\d+)ELb([01])ELb([01])E",
+                             line)
             key = None
             if pair:
-                dqk, dv = pair.groups()
+                dqk, dv, causal, pad = pair.groups()
                 key = f"dh{dqk}" if dqk == dv else f"dqk{dqk}-dv{dv}"
-                if "Lb0E" in line:
+                if causal == "0":
                     key += "-noncausal"
+                if pad == "1":
+                    key += "-padded"
         elif key and "spill" in line:
             out[key] = line.strip()
         elif key and "registers" in line:

@@ -12,11 +12,12 @@ call: each process builds its tree's kernels (into that tree's
 ``build/``) and calls them through that tree's wrapper,
 ``kernels.attention.flash_attention_cuda(q, k, v)`` (the routed kernel:
 a Hopper kernel of the type) and ``kernel="simple"``, so the two trees'
-C interfaces may differ.  Shapes (B, S, H, K, q·k dh, v dh; seed 3): tinyllama-1.1b,
-qwen2-1.5b, deepseek-7b, dbrx-132b, musicgen-medium and
+C interfaces may differ.  Shapes (B, S, H, K, q·k dh, v dh; seed 3):
+tinyllama-1.1b, qwen2-1.5b, deepseek-7b, dbrx-132b, musicgen-medium and
 llama-3.2-vision-90b's self-attention in bf16, deepseek-v2-236b's MLA
-192 / 128 in bf16; tinyllama, qwen2-1.5b, deepseek-v2-236b's MLA and
-recurrentgemma-2b's dh 256 in float32 (``--dtype`` keeps one type).  Device ms per launch from
+192 / 128 and recurrentgemma-2b's dh 256 in bf16; tinyllama, qwen2-1.5b,
+deepseek-v2-236b's MLA and recurrentgemma-2b's dh 256 in float32
+(``--dtype`` keeps one type).  Device ms per launch from
 ``torch.profiler`` (``chip_smoke.device_ms``) and a digest of the
 output's bytes (equal digests on both sides: bitwise equal outputs);
 one line per shape and kernel, and the card's name and power limit.
@@ -42,6 +43,7 @@ SHAPES = (("tinyllama-1.1b", (1, 1024, 32, 4, 64, 64), "bfloat16"),
           ("musicgen-medium", (1, 1024, 24, 24, 64, 64), "bfloat16"),
           ("llama-3.2-vision-self", (4, 1024, 64, 8, 128, 128), "bfloat16"),
           ("deepseek-v2-236b", (1, 1024, 128, 128, 192, 128), "bfloat16"),
+          ("recurrentgemma-2b", (1, 1024, 10, 1, 256, 256), "bfloat16"),
           ("tinyllama-1.1b", (1, 1024, 32, 4, 64, 64), "float32"),
           ("qwen2-1.5b", (1, 1024, 12, 2, 128, 128), "float32"),
           ("deepseek-v2-236b", (1, 1024, 128, 128, 192, 128), "float32"),

@@ -77,8 +77,9 @@ def start(text: str):
 
 
 def ptxas(log: str, dqk: int, dv: int) -> str:
-    """Registers and spill of the causal instantiation at (dqk, dv)."""
-    mark, inside, out = f"ILi{dqk}ELi{dv}ELb1E", False, []
+    """Registers and spill of the causal instantiation at its own (dqk, dv)
+    (not the padded one)."""
+    mark, inside, out = f"ILi{dqk}ELi{dv}ELb1ELb0E", False, []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             inside = mark in line

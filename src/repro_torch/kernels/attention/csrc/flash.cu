@@ -37,15 +37,17 @@
 // product is a float32 FMA on the CUDA cores.
 //
 // Which inputs still reach it: the wrapper (flash.py, flash_kernel_for)
-// sends bfloat16 on TMA's 16-byte grid at (q.k, v) head dims (64, 64),
-// (128, 128), (192, 128) and (256, 256) to flash_sm90.cu (wgmma) and
-// float32 on the same grid at the same head dims to flash_sm90_f32.cu
-// (TF32 mma.sync).  This kernel takes the rest, in either type: the
-// other head dims up to 256 (the smoke configs' 16 and 32 among them),
-// and views whose head dim is not contiguous, with a zero stride (an
-// expanded kv head) or with strides or pointers off the 16-byte grid.  It
-// also stays the exact-float32 yardstick the Hopper kernels are timed
-// and checked beside (kernel="simple").
+// sends bfloat16 on TMA's 16-byte grid to flash_sm90.cu (wgmma) and
+// float32 on that grid to flash_sm90_f32.cu (TF32 mma.sync), at MLA's
+// (q.k, v) = (192, 128) and at every equal head dim up to 256 whose row
+// is a multiple of 16 bytes (padded to the Hopper kernel's tile: the
+// smoke configs' 16, phi-2's 80 and phi-3-mini's 96 among them).  This
+// kernel takes what TMA cannot describe, in either type: a head dim that
+// is not contiguous, a zero or off-grid stride (an expanded kv head, a
+// fused row of 3 * 64 + 4 columns), a pointer off the 16-byte grid, a
+// head-dim row that is not a multiple of 16 bytes (bfloat16 dh 100,
+// float32 dh 30).  It also stays the exact-float32 yardstick the Hopper
+// kernels are timed and checked beside (kernel="simple").
 //
 // Bound on an H100: 2 * S^2 * dh operations per head (causal QK^T and
 // PV) against (3 + 1) * S * dh elements moved, so at S = 1024, dh = 64

@@ -1,5 +1,5 @@
-// Flash attention (forward) for Hopper's tensor cores: bfloat16, head dims
-// (q.k, v) of (64, 64), (128, 128), (192, 128) -- MLA -- or (256, 256),
+// Flash attention (forward) for Hopper's tensor cores: bfloat16, equal head
+// dims (q.k = v) that are multiples of 8 up to 256, or MLA's (192, 128),
 // GQA layout, causal or over every key.
 //
 // Replaces the Pallas TPU kernel of the JAX package
@@ -16,6 +16,24 @@
 // key valid -- cross-attention's prompt pass, S text tokens over T image
 // tokens.
 //
+// Head dims and tiles.  The tiles (64, 64), (128, 128), (192, 128) --
+// MLA -- and (256, 256) run their own head dims as instantiations of
+// their own.  Any other equal head dim d on TMA's 16-byte grid (d % 8 ==
+// 0, d <= 256) runs in the smallest square tile of 16, 32, 64, 128 and
+// 256 that holds it (MIN_TILE 16), in a padded instantiation (PAD), so
+// that the tiles' own head dims compile without the padded route's
+// runtime head dims, box counts and column guard (which cost the served
+// dh 128 shapes 3-6 % in scripts/flash_ab.py's A/B on an H100).  The
+// tensor maps are encoded at the true d, so TMA fills the columns past d
+// with zeros: Q and K's zero columns add nothing to QK^T, and V's give
+// zero output columns, which are never stored.  A box wholly past d (the
+// 256 tile at d <= 192) is not loaded: the CTA zeroes it once in every
+// stage.  The scale is the true d's, and the output rows are d wide.
+// phi-2's d 80 and phi-3-mini's 96 pad to 128.  The 16 and 32 tiles
+// take one box of their own width -- 32- or 64-byte rows in the 32- or
+// 64-byte swizzle, P.V by wgmma.m64n16k16 / m64n32k16 -- so the reduced
+// configs' 16 and 32 run unpadded, as d 8 and 24 nearly do.
+//
 // Bound on an H100: S^2 (dqk + dv) operations per head (causal QK^T and
 // PV) against S (2 dqk + 2 dv) elements moved.  tinyllama-1.1b's prefill
 // (B 1, S 1024, H 32, K 4, dh 64) needs 4.3 GFLOP, 4.3 us at the
@@ -31,6 +49,8 @@
 // 128: every head its own keys) moves 168 MB, 0.050 ms, against 0.043 ms
 // of operations: bound by bytes.  recurrentgemma-2b's local layers (B 1,
 // S 1024, H 10 over K 1, dh 256) do 5.4 GFLOP, 5.4 us, on 11.5 MB.
+// phi-2's attention (B 1, S 1024, H 32 = K, d 80) moves 21 MB, 6.3 us,
+// against 5.4 us of operations (8.7 us at the padded 128): bound by bytes.
 //
 // Design.  One CTA per (query block of BQ = 64 rows, head, sequence),
 // 160 threads: one consumer warpgroup (warps 0-3, `wgmma` needs four
@@ -70,9 +90,10 @@
 //   dh 256, where the O accumulator alone is 128 registers a thread,
 //   64-key tiles three stages deep, one CTA an SM (32-key tiles spill
 //   at two CTAs an SM and lose at one).
-// Inputs it does not take (float32, other head dims, a head dim that
-// is not contiguous, strides or pointers off TMA's 16-byte grid) go to
-// csrc/flash.cu; the wrapper decides by shape before the launch.
+// Inputs it does not take (float32, a head dim off the 16-byte grid or
+// unequal but MLA's, a head dim that is not contiguous, strides or
+// pointers off TMA's 16-byte grid) go to csrc/flash.cu; the wrapper
+// decides by shape before the launch.
 
 #include <cuda.h>            // CUtensorMap and the driver's enums only
 #include <cuda_bf16.h>
@@ -93,8 +114,11 @@ constexpr int BK_MLA = 64;
 constexpr int STAGES_MLA = 2;
 constexpr int BK_DH256 = 64;
 constexpr int STAGES_DH256 = 3;
-constexpr int BOX_COLS = 64;        // head-dim columns of one TMA box
-constexpr int ROW_BYTES = 128;      // a box row: 64 bf16, the swizzle span
+// the smallest tile a padded head dim runs in: 16, then 32, 64, ...
+// (scripts/flash_pad_sweep.py times the 16 and 32 tiles against a
+// MIN_TILE 64 build, which pads every head dim below 64 to 64)
+constexpr int MIN_TILE = 16;
+constexpr int BOX_COLS = 64;        // head-dim columns of a TMA box at most
 constexpr int CONSUMERS = 128;      // the consumer warpgroup
 constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int SM_SMEM = 233472;     // an SM's shared memory (228 KB)
@@ -106,10 +130,16 @@ template <int DQK, int DV>
 struct Cfg {
   static constexpr bool MLA = DQK == 192;
   static constexpr bool WIDE = DQK == 256;
-  static constexpr int BK = DQK == 64    ? BK_DH64
+  static constexpr int BK = DQK <= 64    ? BK_DH64
                             : DQK == 128 ? BK_DH128
                             : MLA        ? BK_MLA
                                          : BK_DH256;
+  // a TMA box: 64 columns, 128-byte rows in the 128-byte swizzle; at the
+  // 16 and 32 tiles the tile's width, 32- or 64-byte rows in the swizzle
+  // of that span
+  static constexpr int BOX = DQK < BOX_COLS ? DQK : BOX_COLS;
+  static constexpr int ROW = 2 * BOX;                   // a box row's bytes
+  static constexpr int KROW = ROW / 32;                 // k-steps in a row
   // 64 x 64 tiles (dh 64): 3 stages, 56 KB, 3 CTAs per SM (at most 136
   // registers); larger tiles at dh 64 / 128: 2 stages and at most 204
   // registers (at dh 128 with 128 keys, 144 KB: one CTA per SM)
@@ -118,10 +148,10 @@ struct Cfg {
                                 : WIDE ? STAGES_DH256
                                 : SMALL ? 3
                                         : 2;
-  static constexpr int Q_BOXES = DQK / BOX_COLS;        // Q's and K's
-  static constexpr int V_BOXES = DV / BOX_COLS;
-  static constexpr int Q_TILE = Q_BOXES * BQ * ROW_BYTES;
-  static constexpr int KV_BOX = BK * ROW_BYTES;         // BK rows of a box
+  static constexpr int Q_BOXES = DQK / BOX;             // Q's and K's
+  static constexpr int V_BOXES = DV / BOX;
+  static constexpr int Q_TILE = Q_BOXES * BQ * ROW;
+  static constexpr int KV_BOX = BK * ROW;               // BK rows of a box
   static constexpr int K_TILE = Q_BOXES * KV_BOX;       // a K tile
   static constexpr int V_TILE = V_BOXES * KV_BOX;       // a V tile
   static constexpr int K_OFF = Q_TILE;                  // after Q
@@ -136,7 +166,7 @@ struct Cfg {
                                     : FIT > 3      ? 3
                                     : FIT < 1      ? 1
                                                    : FIT;
-  static_assert(DQK % BOX_COLS == 0 && DV % BOX_COLS == 0 && BK % 32 == 0,
+  static_assert(DQK % BOX == 0 && DV % BOX == 0 && BK % 32 == 0,
                 "tiles of whole boxes and 16-key steps");
   static_assert(8 * (1 + 3 * STAGES) <= 128, "the barriers' 128 bytes");
   static_assert(SMEM <= CTA_SMEM, "a CTA's shared memory");
@@ -193,16 +223,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
 }
 
 // wgmma shared-memory descriptor for a tile written by TMA with the
-// 128-byte swizzle (layout type 1): start address, leading and stride
-// byte offsets, all in 16-byte units.  K-major operands (Q, K): 8-row
-// groups 1024 B apart (stride), the leading offset unused.  MN-major
-// V: 8-key groups 1024 B apart (stride), 64-column boxes KV_BOX apart
-// (leading).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead,
-                                               uint32_t stride) {
+// swizzle of its ROW-byte rows (layout type 1: 128 bytes, 2: 64, 3: 32):
+// start address, leading and stride byte offsets, all in 16-byte units.
+// K-major operands (Q, K): 8-row groups 8 ROW apart (stride), the
+// leading offset unused.  MN-major V: 8-key groups 8 ROW apart (stride),
+// 64-column boxes KV_BOX apart (leading; one box at the small tiles).
+template <int ROW>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lead,
+                                            uint32_t stride) {
+  constexpr uint64_t layout = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -213,6 +245,14 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// zero `bytes` (a multiple of 16) of shared memory from `p`, 16 bytes a
+// thread in turn over `threads` threads
+__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes,
+                                          int threads) {
+  for (int i = (int)threadIdx.x * 16; i < bytes; i += threads * 16)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // 2^x on the special-function unit; subnormal results flush to 0
@@ -299,6 +339,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D += P V, m64n16k16 and m64n32k16 (the 16 and 32 tiles): A (P, bf16)
+// from registers, B (V) from shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // D += P V, m64n64k16: A (P, bf16) from registers, B (V) from shared
@@ -436,7 +507,11 @@ template <int DV>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (DV == 64)
+  if constexpr (DV == 16)
+    wgmma_rs_n16(o, a, db);
+  else if constexpr (DV == 32)
+    wgmma_rs_n32(o, a, db);
+  else if constexpr (DV == 64)
     wgmma_rs_n64(o, a, db);
   else if constexpr (DV == 128)
     wgmma_rs_n128(o, a, db);
@@ -462,15 +537,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Grid: one CTA per (query block, head, sequence), flattened so that the
 // longest query blocks of every head come first.  CAUSAL is a template
 // argument: the causal instantiation is the causal kernel alone, with
-// no branch of the non-causal one in its tile loop.
-template <int DQK, int DV, bool CAUSAL>
+// no branch of the non-causal one in its tile loop.  PAD: the head dims
+// dqk / dv are below the tile's DQK / DV (the padded route); without it
+// they are the tile's own and the kernel compiles as if it had none.
+template <int DQK, int DV, bool CAUSAL, bool PAD>
 __global__ void __launch_bounds__(THREADS, Cfg<DQK, DV>::MIN_BLOCKS)
     flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 __nv_bfloat16* __restrict__ o, int S, int T,
-                                int H, int G, int B, int n_qb,
-                                float scale_log2) {
+                                int H, int G, int B, int n_qb, int dqk,
+                                int dv, float scale_log2) {
   using C = Cfg<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -506,29 +583,48 @@ __global__ void __launch_bounds__(THREADS, Cfg<DQK, DV>::MIN_BLOCKS)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // the boxes that hold head-dim columns: TMA loads only those (columns
+  // past dqk / dv in them read as zeros); a tile wider than the head dim
+  // by a box or more keeps its other boxes at the zeros written here
+  const int q_boxes = PAD ? (dqk + C::BOX - 1) / C::BOX : C::Q_BOXES;
+  const int v_boxes = PAD ? (dv + C::BOX - 1) / C::BOX : C::V_BOXES;
+  if (PAD) {
+    uint8_t* tiles = smem_raw + (base - raw);  // the same, generic
+    for (int x = q_boxes; x < C::Q_BOXES; ++x) {
+      zero_smem(tiles + x * BQ * C::ROW, BQ * C::ROW, THREADS);
+      for (int s = 0; s < C::STAGES; ++s)
+        zero_smem(tiles + C::K_OFF + s * C::K_TILE + x * C::KV_BOX,
+                  C::KV_BOX, THREADS);
+    }
+    for (int x = v_boxes; x < C::V_BOXES; ++x)
+      for (int s = 0; s < C::STAGES; ++s)
+        zero_smem(tiles + C::V_OFF + s * C::V_TILE + x * C::KV_BOX,
+                  C::KV_BOX, THREADS);
+    // (wgmma reads them through the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
   __syncthreads();
 
   if (threadIdx.x >= CONSUMERS) {
     // ---- producer: lane 0 of warp 4 issues every load ----
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(q_full, C::Q_TILE);
+      mbar_expect_tx(q_full, q_boxes * BQ * C::ROW);
 #pragma unroll
-      for (int x = 0; x < C::Q_BOXES; ++x)
-        tma_load(sq + x * BQ * ROW_BYTES, &tq, q_full, x * BOX_COLS, q0, h,
-                 b);
+      for (int x = 0; x < q_boxes; ++x)
+        tma_load(sq + x * BQ * C::ROW, &tq, q_full, x * C::BOX, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % C::STAGES, n = t / C::STAGES;
         if (n > 0) mbar_wait(empty(s), (n - 1) & 1);   // stage used up
-        mbar_expect_tx(k_full(s), C::K_TILE);
+        mbar_expect_tx(k_full(s), q_boxes * C::KV_BOX);
 #pragma unroll
-        for (int x = 0; x < C::Q_BOXES; ++x)
+        for (int x = 0; x < q_boxes; ++x)
           tma_load(sk + s * C::K_TILE + x * C::KV_BOX, &tk, k_full(s),
-                   x * BOX_COLS, t * BK, kvh, b);
-        mbar_expect_tx(v_full(s), C::V_TILE);
+                   x * C::BOX, t * BK, kvh, b);
+        mbar_expect_tx(v_full(s), v_boxes * C::KV_BOX);
 #pragma unroll
-        for (int x = 0; x < C::V_BOXES; ++x)
+        for (int x = 0; x < v_boxes; ++x)
           tma_load(sv + s * C::V_TILE + x * C::KV_BOX, &tv, v_full(s),
-                   x * BOX_COLS, t * BK, kvh, b);
+                   x * C::BOX, t * BK, kvh, b);
       }
     }
     return;
@@ -554,17 +650,19 @@ __global__ void __launch_bounds__(THREADS, Cfg<DQK, DV>::MIN_BLOCKS)
     const int s = t % C::STAGES;
     const uint32_t parity = (t / C::STAGES) & 1;
 
-    // S = Q K^T over dqk in steps of 16 (32 bytes inside a 128-byte row)
+    // S = Q K^T over dqk in steps of 16 (32 bytes inside a box row)
     mbar_wait(k_full(s), parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DQK / 16; ++kk) {
       wgmma_qk<BK>(
-          sc, desc_sw128(sq + (kk / 4) * BQ * ROW_BYTES + (kk % 4) * 32, 16,
-                         1024),
-          desc_sw128(sk + s * C::K_TILE + (kk / 4) * C::KV_BOX +
-                         (kk % 4) * 32,
-                     16, 1024),
+          sc,
+          desc_sw<C::ROW>(sq + (kk / C::KROW) * BQ * C::ROW +
+                              (kk % C::KROW) * 32,
+                          16, 8 * C::ROW),
+          desc_sw<C::ROW>(sk + s * C::K_TILE + (kk / C::KROW) * C::KV_BOX +
+                              (kk % C::KROW) * 32,
+                          16, 8 * C::ROW),
           kk > 0);
     }
     wgmma_commit();
@@ -643,22 +741,26 @@ __global__ void __launch_bounds__(THREADS, Cfg<DQK, DV>::MIN_BLOCKS)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
       wgmma_pv<DV>(acc, pa[kk],
-                   desc_sw128(sv + s * C::V_TILE + kk * 16 * ROW_BYTES,
-                              C::KV_BOX, 1024));
+                   desc_sw<C::ROW>(sv + s * C::V_TILE + kk * 16 * C::ROW,
+                                   C::KV_BOX, 8 * C::ROW));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
     mbar_arrive(empty(s));
   }
 
-  // epilogue: acc / max(l, 1e-30), rows < S, straight from registers;
-  // o is (B, S, H, DV)
+  // epilogue: acc / max(l, 1e-30), rows < S and v's dv columns (those
+  // past them, in a padded tile, are zeros), straight from registers; o
+  // is (B, S, H, dv)
   const float d0 = fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = fmaxf(quad_sum(l1), 1e-30f);
-  __nv_bfloat16* o0 = o + (((long long)b * S + row0) * H + h) * DV + col0;
-  __nv_bfloat16* o1 = o0 + 8LL * H * DV;
+  const int d_out = PAD ? dv : DV;
+  __nv_bfloat16* o0 =
+      o + (((long long)b * S + row0) * H + h) * d_out + col0;
+  __nv_bfloat16* o1 = o0 + 8LL * H * d_out;
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) {
+    if (PAD && 8 * j + col0 >= dv) break;
     if (row0 < S)
       *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j] / d0, acc[4 * j + 1] / d0);
@@ -703,10 +805,12 @@ constexpr int ERR_ENCODE = -2;        // the driver refused a tensor map
 constexpr int ERR_SHAPE = -3;         // an input this kernel does not take
 
 // a (B, rows, heads, d) bf16 tensor with element strides {b, s, h, 1}
-// as a 4-d map (d, rows, heads, B) of 64-column boxes of box_rows rows,
-// 128-byte swizzle; rows past `rows` read as zeros
+// as a 4-d map (d, rows, heads, B) of box_cols-column boxes of box_rows
+// rows, swizzled over the box row (64 columns: 128 bytes; 32: 64; 16:
+// 32); rows past `rows` and columns past `d` (a tile wider than the head
+// dim) read as zeros
 int encode(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
-           int d, const long long* st, int box_rows) {
+           int d, const long long* st, int box_rows, int box_cols) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
@@ -714,12 +818,16 @@ int encode(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
   const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[2] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {BOX_COLS, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1,
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE;
@@ -731,38 +839,44 @@ bool on_grid(const void* p, const long long* st) {
          st[1] > 0 && st[2] > 0;
 }
 
-template <int DQK, int DV, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL, bool PAD>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int B, int S, int T, int H, int K, cudaStream_t st) {
+           void* o, int B, int S, int T, int H, int K, int dqk, int dv,
+           cudaStream_t st) {
   using C = Cfg<DQK, DV>;
-  auto kernel = flash_attention_kernel_sm90<DQK, DV, CAUSAL>;
+  auto kernel = flash_attention_kernel_sm90<DQK, DV, CAUSAL, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int n_qb = (S + BQ - 1) / BQ;
-  // the scale is q's head dim's: 1 / sqrt(192) for MLA, not v's 128
+  // the scale is q's true head dim's: 1 / sqrt(192) for MLA, not v's
+  // 128, and 1 / sqrt(80) for d 80 in the 128 tile
   const float scale_log2 =
-      (float)(1.0 / sqrt((double)DQK) * 1.4426950408889634);
+      (float)(1.0 / sqrt((double)dqk) * 1.4426950408889634);
   kernel<<<n_qb * H * B, THREADS, C::SMEM, st>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, S, T, H, H / K, B, n_qb, scale_log2);
+      tq, tk, tv, (__nv_bfloat16*)o, S, T, H, H / K, B, n_qb, dqk, dv,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
-// the maps (Q and K at DQK, V at DV; K and V in BK-row boxes), then the
-// causal or the non-causal instantiation
-template <int DQK, int DV>
+// the maps at the true head dims (Q and K at dqk, V at dv, each at most
+// its tile's DQK / DV; K and V in BK-row boxes), then the causal or the
+// non-causal instantiation of the (DQK, DV) tile, padded or not
+template <int DQK, int DV, bool PAD>
 int run(const void* q, const void* k, const void* v, void* o, int B, int S,
-        int T, int H, int K, const long long* q_strides,
+        int T, int H, int K, int dqk, int dv, const long long* q_strides,
         const long long* k_strides, const long long* v_strides, int causal,
         cudaStream_t st) {
-  constexpr int BK = Cfg<DQK, DV>::BK;
+  using C = Cfg<DQK, DV>;
   CUtensorMap tq, tk, tv;
-  int r = encode(&tq, q, B, S, H, DQK, q_strides, BQ);
-  if (r == 0) r = encode(&tk, k, B, T, K, DQK, k_strides, BK);
-  if (r == 0) r = encode(&tv, v, B, T, K, DV, v_strides, BK);
+  int r = encode(&tq, q, B, S, H, dqk, q_strides, BQ, C::BOX);
+  if (r == 0) r = encode(&tk, k, B, T, K, dqk, k_strides, C::BK, C::BOX);
+  if (r == 0) r = encode(&tv, v, B, T, K, dv, v_strides, C::BK, C::BOX);
   if (r != 0) return r;
-  return causal ? launch<DQK, DV, true>(tq, tk, tv, o, B, S, T, H, K, st)
-                : launch<DQK, DV, false>(tq, tk, tv, o, B, S, T, H, K, st);
+  return causal ? launch<DQK, DV, true, PAD>(tq, tk, tv, o, B, S, T, H, K,
+                                             dqk, dv, st)
+                : launch<DQK, DV, false, PAD>(tq, tk, tv, o, B, S, T, H, K,
+                                              dqk, dv, st);
 }
 
 }  // namespace
@@ -772,7 +886,8 @@ extern "C" {
 // q (B, S, H, dh), k (B, T, K, dh) and v (B, T, K, dv), bfloat16, element
 // strides {b, s, h, d} with d == 1, the others multiples of 8 (16 bytes),
 // and 16-byte aligned pointers; o a contiguous (B, S, H, dv).  (dh, dv)
-// is (64, 64), (128, 128), (192, 128) or (256, 256).  causal: 1 (T == S,
+// is (192, 128) or equal, a multiple of 8 up to 256 (run in the tile of
+// 64, 128 or 256 that holds it).  causal: 1 (T == S,
 // query s reads keys t <= s) or 0 (every key).  Returns 0 when the launch
 // was accepted, a cudaError_t, or one of this file's negative codes
 // (flash_sm90_error_string).
@@ -789,16 +904,22 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
       !on_grid(v, v_strides) || (reinterpret_cast<uintptr_t>(o) % 16) != 0)
     return ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_SM90_RUN(DQK, DV)                                             \
-  if (dh == DQK && dv == DV)                                                \
-    return run<DQK, DV>(q, k, v, o, B, S, T, H, K, q_strides, k_strides,    \
-                        v_strides, causal, st);
-  FLASH_SM90_RUN(64, 64)
-  FLASH_SM90_RUN(128, 128)
-  FLASH_SM90_RUN(192, 128)
-  FLASH_SM90_RUN(256, 256)
+#define FLASH_SM90_RUN(DQK, DV, PAD)                                        \
+  return run<DQK, DV, PAD>(q, k, v, o, B, S, T, H, K, dh, dv, q_strides,    \
+                           k_strides, v_strides, causal, st);
+  // the tiles' own head dims
+  if (dh == 64 && dv == 64) FLASH_SM90_RUN(64, 64, false)
+  if (dh == 128 && dv == 128) FLASH_SM90_RUN(128, 128, false)
+  if (dh == 192 && dv == 128) FLASH_SM90_RUN(192, 128, false)
+  if (dh == 256 && dv == 256) FLASH_SM90_RUN(256, 256, false)
+  // any other equal head dim on the grid, in the tile that holds it
+  if (dh != dv || dh <= 0 || dh % 8 != 0 || dh > 256) return ERR_SHAPE;
+  if (MIN_TILE <= 16 && dh <= 16) FLASH_SM90_RUN(16, 16, true)
+  if (MIN_TILE <= 32 && dh <= 32) FLASH_SM90_RUN(32, 32, true)
+  if (dh <= 64) FLASH_SM90_RUN(64, 64, true)
+  if (dh <= 128) FLASH_SM90_RUN(128, 128, true)
+  FLASH_SM90_RUN(256, 256, true)
 #undef FLASH_SM90_RUN
-  return ERR_SHAPE;
 }
 
 const char* flash_sm90_error_string(int code) {

@@ -1,6 +1,6 @@
 // Flash attention (forward) for Hopper's tensor cores in float32: TF32
-// products, head dims (q.k, v) of (64, 64), (128, 128), (192, 128) -- MLA
-// -- or (256, 256), GQA layout, causal or over every key.
+// products, equal head dims (q.k = v) that are multiples of 4 up to 256,
+// or MLA's (192, 128), GQA layout, causal or over every key.
 //
 // Replaces the Pallas TPU kernel of the JAX package
 //   src/repro/kernels/attention/flash.py  flash_attention_pallas
@@ -16,6 +16,19 @@
 // H, dqk), k (B, T, K, dqk), v (B, T, K, dv), query head h reading kv head
 // h / (H / K) without a copy.  Causal: T == S, query s reads keys t <= s.
 // Not causal: any T >= 1, every key valid (cross-attention's prompt pass).
+//
+// Head dims and tiles.  Five tiles are instantiated: (32, 32), (64, 64),
+// (128, 128), (192, 128) -- MLA -- and (256, 256).  Any other equal head
+// dim d on TMA's 16-byte grid (d % 4 == 0, d <= 256) runs in the smallest
+// square tile that holds it (32 up to SMALL_TILE, then 64, 128, 256), in
+// an instantiation of its own (PAD; the 32 tile exists only padded), so
+// that the tiles' own head dims compile without the padded route's
+// runtime dims (which cost MLA's pair 4 % in scripts/flash_ab.py's A/B on
+// an H100).  The tensor maps are encoded at the true d, so TMA fills the
+// columns past d with zeros, which add nothing to QK^T and give zero
+// output columns, never stored; a 32-column box wholly past d is not
+// loaded, and the CTA zeroes it once in every stage; the scale is the
+// true d's, the output rows d wide.
 //
 // Precision (PRECISION below, one build per value; the routed value is
 // the fastest that held every float32 check on the card,
@@ -73,14 +86,15 @@
 //   (each thread loads V rows 2t and 2t + 1); the sum over keys does not
 //   depend on their order.  V's swizzled rows keep these loads free of
 //   bank conflicts as well.
-// * Key tiles: 64 keys at dh 64 (one warpgroup, two stages, 81 KB, two
-//   CTAs an SM); 32 at dh 128 (two warpgroups, four stages, 160 KB), at
-//   MLA's 192 / 128 (one warpgroup, two stages, 128 KB) and at dh 256
-//   (192 KB: the Q block alone is 64 KB, and the O accumulator 128
-//   registers a thread; one CTA an SM).
-// Inputs it does not take (other head dims, a head dim that is not
-// contiguous, strides or pointers off TMA's 16-byte grid) go to
-// csrc/flash.cu; the wrapper decides by shape before the launch.
+// * Key tiles: 64 keys at dh 32 (one warpgroup, two stages, 41 KB) and
+//   at dh 64 (81 KB, two CTAs an SM); 32 at dh 128 (two warpgroups, four
+//   stages, 160 KB), at MLA's 192 / 128 (one warpgroup, two stages, 128
+//   KB) and at dh 256 (192 KB: the Q block alone is 64 KB, and the O
+//   accumulator 128 registers a thread; one CTA an SM).
+// Inputs it does not take (a head dim off the 16-byte grid or unequal
+// but MLA's, a head dim that is not contiguous, strides or pointers off
+// TMA's 16-byte grid) go to csrc/flash.cu; the wrapper decides by shape
+// before the launch.
 
 #include <cuda.h>            // CUtensorMap and the driver's enums only
 #include <cuda_runtime.h>
@@ -90,8 +104,13 @@
 namespace {
 
 constexpr int PRECISION = 0;        // 0, 1 or 2: see the header
+// head dims up to SMALL_TILE run in the (32, 32) tile, and the rest up
+// to 64 in (64, 64); 64 sends every d <= 64 to (64, 64) (the A/B of
+// scripts/flash_pad_sweep.py: 32 where it was faster)
+constexpr int SMALL_TILE = 32;
 constexpr int BQ = 64;              // query rows of a CTA (four warps)
-constexpr int BK_DH64 = 64;         // keys of one ring stage at dh 64
+constexpr int BK_DH32 = 64;         // keys of one ring stage at dh 32
+constexpr int BK_DH64 = 64;         // and at dh 64
 constexpr int BK_DH128 = 32;        // at dh 128
 constexpr int BK_WIDE = 32;         // at MLA's 192 / 128 and at dh 256
 constexpr int WARPGROUP = 128;      // four consumer warps, 16 rows each
@@ -108,7 +127,8 @@ struct Cfg {
   // 288 threads of two cap a thread at 168 registers and O spills; at
   // MLA's 192 / 128 two, on 16-key tiles to fit, were slower)
   static constexpr int WG = DQK == 128 ? 2 : 1;
-  static constexpr int BK = DQK == 64    ? BK_DH64
+  static constexpr int BK = DQK == 32    ? BK_DH32
+                            : DQK == 64  ? BK_DH64
                             : DQK == 128 ? BK_DH128
                                          : BK_WIDE;
   // two stages a warpgroup: tile t goes to stage t % STAGES, which only
@@ -196,6 +216,14 @@ __device__ __forceinline__ float lds(const uint8_t* tiles, uint32_t off) {
   return *reinterpret_cast<const float*>(tiles + off);
 }
 
+// zero `bytes` (a multiple of 16) of shared memory from `p`, 16 bytes a
+// thread in turn over `threads` threads
+__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes,
+                                          int threads) {
+  for (int i = (int)threadIdx.x * 16; i < bytes; i += threads * 16)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0u, 0u, 0u, 0u);
+}
+
 // 2^x on the special-function unit; subnormal results flush to 0
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -269,8 +297,10 @@ __device__ __forceinline__ uint32_t at(uint32_t tile, int r, int c) {
 }
 
 // Grid: one CTA per (query block, head, sequence), flattened so that the
-// longest query blocks of every head come first.
-template <int DQK, int DV, bool CAUSAL>
+// longest query blocks of every head come first.  PAD: the head dims dqk
+// / dv are below the tile's DQK / DV (the padded route); without it they
+// are the tile's own and the kernel compiles as if it had none.
+template <int DQK, int DV, bool CAUSAL, bool PAD>
 __global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS,
                                   Cfg<DQK, DV>::MIN_BLOCKS)
     flash_attention_kernel_sm90_f32(const __grid_constant__ CUtensorMap tq,
@@ -278,7 +308,7 @@ __global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS,
                                     const __grid_constant__ CUtensorMap tv,
                                     float* __restrict__ o, int S, int T,
                                     int H, int G, int B, int n_qb,
-                                    float scale_log2) {
+                                    int dqk, int dv, float scale_log2) {
   using C = Cfg<DQK, DV>;
   constexpr int BK = C::BK, STAGES = C::STAGES, WG = C::WG;
   constexpr bool SPLIT_QK = PRECISION >= 1;
@@ -317,27 +347,44 @@ __global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS,
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  // the boxes that hold head-dim columns: TMA loads only those (columns
+  // past dqk / dv in them read as zeros); a tile wider than the head dim
+  // by a box or more keeps its other boxes at the zeros written here
+  const int q_boxes = PAD ? (dqk + BOX_COLS - 1) / BOX_COLS : C::Q_BOXES;
+  const int v_boxes = PAD ? (dv + BOX_COLS - 1) / BOX_COLS : C::V_BOXES;
+  if (PAD) {
+    for (int x = q_boxes; x < C::Q_BOXES; ++x) {
+      zero_smem(tiles + x * BQ * ROW_BYTES, BQ * ROW_BYTES, C::THREADS);
+      for (int s = 0; s < STAGES; ++s)
+        zero_smem(tiles + C::K_OFF + s * C::K_TILE + x * C::KV_BOX,
+                  C::KV_BOX, C::THREADS);
+    }
+    for (int x = v_boxes; x < C::V_BOXES; ++x)
+      for (int s = 0; s < STAGES; ++s)
+        zero_smem(tiles + C::V_OFF + s * C::V_TILE + x * C::KV_BOX,
+                  C::KV_BOX, C::THREADS);
+  }
   __syncthreads();
 
   if (threadIdx.x >= C::CONSUMERS) {
     // ---- producer: lane 0 of the last warp issues every load ----
     if (threadIdx.x == C::CONSUMERS) {
-      mbar_expect_tx(q_full, C::Q_TILE);
+      mbar_expect_tx(q_full, q_boxes * BQ * ROW_BYTES);
 #pragma unroll
-      for (int x = 0; x < C::Q_BOXES; ++x)
+      for (int x = 0; x < q_boxes; ++x)
         tma_load(sq + x * BQ * ROW_BYTES, &tq, q_full, x * BOX_COLS, q0, h,
                  b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES, n = t / STAGES;
         if (n > 0) mbar_wait(empty(s), (n - 1) & 1);   // stage used up
-        mbar_expect_tx(k_full(s), C::K_TILE);
+        mbar_expect_tx(k_full(s), q_boxes * C::KV_BOX);
 #pragma unroll
-        for (int x = 0; x < C::Q_BOXES; ++x)
+        for (int x = 0; x < q_boxes; ++x)
           tma_load(sk + s * C::K_TILE + x * C::KV_BOX, &tk, k_full(s),
                    x * BOX_COLS, t * BK, kvh, b);
-        mbar_expect_tx(v_full(s), C::V_TILE);
+        mbar_expect_tx(v_full(s), v_boxes * C::KV_BOX);
 #pragma unroll
-        for (int x = 0; x < C::V_BOXES; ++x)
+        for (int x = 0; x < v_boxes; ++x)
           tma_load(sv + s * C::V_TILE + x * C::KV_BOX, &tv, v_full(s),
                    x * BOX_COLS, t * BK, kvh, b);
       }
@@ -512,14 +559,18 @@ __global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS,
     }
   }
 
-  // epilogue: acc / max(l, 1e-30), rows < S, straight from registers;
-  // o is (B, S, H, DV)
+  // epilogue: acc / max(l, 1e-30), rows < S and v's dv columns (those
+  // past them, in a padded tile, are zeros; dv is even, so a thread's
+  // pair of columns is in or out together), straight from registers; o
+  // is (B, S, H, dv)
   const float d0 = fmaxf(l0, 1e-30f);
   const float d1 = fmaxf(l1, 1e-30f);
-  float* o0 = o + (((long long)b * S + row0) * H + h) * DV + 2 * tq4;
-  float* o1 = o0 + 8LL * H * DV;
+  const int d_out = PAD ? dv : DV;
+  float* o0 = o + (((long long)b * S + row0) * H + h) * d_out + 2 * tq4;
+  float* o1 = o0 + 8LL * H * d_out;
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) {
+    if (PAD && 8 * j + 2 * tq4 >= dv) break;
     if (row0 < S)
       *reinterpret_cast<float2*>(o0 + 8 * j) =
           make_float2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
@@ -565,7 +616,8 @@ constexpr int ERR_SHAPE = -3;         // an input this kernel does not take
 
 // a (B, rows, heads, d) float32 tensor with element strides {b, s, h, 1}
 // as a 4-d map (d, rows, heads, B) of 32-column boxes of box_rows rows,
-// 128-byte swizzle; rows past `rows` read as zeros
+// 128-byte swizzle; rows past `rows` and columns past `d` (a tile wider
+// than the head dim) read as zeros
 int encode(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
            int d, const long long* st, int box_rows) {
   EncodeTiled fn = encode_fn();
@@ -594,38 +646,44 @@ bool on_grid(const void* p, const long long* st) {
          st[1] > 0 && st[2] > 0;
 }
 
-template <int DQK, int DV, bool CAUSAL>
+template <int DQK, int DV, bool CAUSAL, bool PAD>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int B, int S, int T, int H, int K, cudaStream_t st) {
+           void* o, int B, int S, int T, int H, int K, int dqk, int dv,
+           cudaStream_t st) {
   using C = Cfg<DQK, DV>;
-  auto kernel = flash_attention_kernel_sm90_f32<DQK, DV, CAUSAL>;
+  auto kernel = flash_attention_kernel_sm90_f32<DQK, DV, CAUSAL, PAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const int n_qb = (S + BQ - 1) / BQ;
-  // the scale is q's head dim's: 1 / sqrt(192) for MLA, not v's 128
+  // the scale is q's true head dim's: 1 / sqrt(192) for MLA, not v's
+  // 128, and 1 / sqrt(80) for d 80 in the 128 tile
   const float scale_log2 =
-      (float)(1.0 / sqrt((double)DQK) * 1.4426950408889634);
+      (float)(1.0 / sqrt((double)dqk) * 1.4426950408889634);
   kernel<<<n_qb * H * B, C::THREADS, C::SMEM, st>>>(
-      tq, tk, tv, (float*)o, S, T, H, H / K, B, n_qb, scale_log2);
+      tq, tk, tv, (float*)o, S, T, H, H / K, B, n_qb, dqk, dv,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
-// the maps (Q and K at DQK, V at DV; K and V in BK-row boxes), then the
-// causal or the non-causal instantiation
-template <int DQK, int DV>
+// the maps at the true head dims (Q and K at dqk, V at dv, each at most
+// its tile's DQK / DV; K and V in BK-row boxes), then the causal or the
+// non-causal instantiation of the (DQK, DV) tile, padded or not
+template <int DQK, int DV, bool PAD>
 int run(const void* q, const void* k, const void* v, void* o, int B, int S,
-        int T, int H, int K, const long long* q_strides,
+        int T, int H, int K, int dqk, int dv, const long long* q_strides,
         const long long* k_strides, const long long* v_strides, int causal,
         cudaStream_t st) {
   constexpr int BK = Cfg<DQK, DV>::BK;
   CUtensorMap tq, tk, tv;
-  int r = encode(&tq, q, B, S, H, DQK, q_strides, BQ);
-  if (r == 0) r = encode(&tk, k, B, T, K, DQK, k_strides, BK);
-  if (r == 0) r = encode(&tv, v, B, T, K, DV, v_strides, BK);
+  int r = encode(&tq, q, B, S, H, dqk, q_strides, BQ);
+  if (r == 0) r = encode(&tk, k, B, T, K, dqk, k_strides, BK);
+  if (r == 0) r = encode(&tv, v, B, T, K, dv, v_strides, BK);
   if (r != 0) return r;
-  return causal ? launch<DQK, DV, true>(tq, tk, tv, o, B, S, T, H, K, st)
-                : launch<DQK, DV, false>(tq, tk, tv, o, B, S, T, H, K, st);
+  return causal ? launch<DQK, DV, true, PAD>(tq, tk, tv, o, B, S, T, H, K,
+                                             dqk, dv, st)
+                : launch<DQK, DV, false, PAD>(tq, tk, tv, o, B, S, T, H, K,
+                                              dqk, dv, st);
 }
 
 }  // namespace
@@ -635,7 +693,8 @@ extern "C" {
 // q (B, S, H, dh), k (B, T, K, dh) and v (B, T, K, dv), float32, element
 // strides {b, s, h, d} with d == 1, the others multiples of 4 (16 bytes),
 // and 16-byte aligned pointers; o a contiguous (B, S, H, dv).  (dh, dv)
-// is (64, 64), (128, 128), (192, 128) or (256, 256).  causal: 1 (T == S,
+// is (192, 128) or equal, a multiple of 4 up to 256 (run in the tile of
+// 32, 64, 128 or 256 that holds it).  causal: 1 (T == S,
 // query s reads keys t <= s) or 0 (every key).  Returns 0 when the launch
 // was accepted, a cudaError_t, or one of this file's negative codes
 // (flash_sm90_f32_error_string).
@@ -652,16 +711,21 @@ int flash_attention_sm90_f32_fwd(const void* q, const void* k, const void* v,
       !on_grid(v, v_strides) || (reinterpret_cast<uintptr_t>(o) % 16) != 0)
     return ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_F32_RUN(DQK, DV)                                              \
-  if (dh == DQK && dv == DV)                                                \
-    return run<DQK, DV>(q, k, v, o, B, S, T, H, K, q_strides, k_strides,    \
-                        v_strides, causal, st);
-  FLASH_F32_RUN(64, 64)
-  FLASH_F32_RUN(128, 128)
-  FLASH_F32_RUN(192, 128)
-  FLASH_F32_RUN(256, 256)
+#define FLASH_F32_RUN(DQK, DV, PAD)                                         \
+  return run<DQK, DV, PAD>(q, k, v, o, B, S, T, H, K, dh, dv, q_strides,    \
+                           k_strides, v_strides, causal, st);
+  // the tiles' own head dims (the 32 tile's too runs as a padded one)
+  if (dh == 64 && dv == 64) FLASH_F32_RUN(64, 64, false)
+  if (dh == 128 && dv == 128) FLASH_F32_RUN(128, 128, false)
+  if (dh == 192 && dv == 128) FLASH_F32_RUN(192, 128, false)
+  if (dh == 256 && dv == 256) FLASH_F32_RUN(256, 256, false)
+  // any other equal head dim on the grid, in the tile that holds it
+  if (dh != dv || dh <= 0 || dh % 4 != 0 || dh > 256) return ERR_SHAPE;
+  if (dh <= SMALL_TILE) FLASH_F32_RUN(SMALL_TILE, SMALL_TILE, true)
+  if (dh <= 64) FLASH_F32_RUN(64, 64, true)
+  if (dh <= 128) FLASH_F32_RUN(128, 128, true)
+  FLASH_F32_RUN(256, 256, true)
 #undef FLASH_F32_RUN
-  return ERR_SHAPE;
 }
 
 // which products the build splits: its PRECISION (0, 1 or 2)

@@ -2,16 +2,22 @@
 
 * ``csrc/flash_sm90.cu`` (``flash_attention_sm90_fwd``): the Hopper
   kernel -- TMA tile ring, ``wgmma`` on the tensor cores -- for bfloat16
-  q, k, v laid out on TMA's 16-byte grid at the (q·k, v) head dims of
-  ``SM90_HEAD_DIMS``: 64, 128, MLA's 192 / 128 and recurrentgemma's 256.
+  q, k, v laid out on TMA's 16-byte grid: every equal head dim whose row
+  is on that grid (a multiple of 8, up to 256), run in the smallest of
+  its tiles ``SM90_TILES`` that holds it (zero columns past the head
+  dim), and MLA's q·k 192 / v 128.
 * ``csrc/flash_sm90_f32.cu`` (``flash_attention_sm90_f32_fwd``): the
   Hopper kernel for float32 -- TMA tile ring, TF32 ``mma.sync`` on the
-  tensor cores -- on the same grid at the head dims of
-  ``SM90_F32_HEAD_DIMS``.
+  tensor cores -- on the same grid: equal head dims that are multiples
+  of 4 up to 256 (tiles ``SM90_F32_TILES``) and MLA's pair.
 * ``csrc/flash.cu`` (``flash_attention_fwd``): the simple kernel --
-  float32 FMAs, any strides -- for everything else it holds (other head
-  dims up to 256, views whose head dim is not contiguous or whose
-  strides or pointers are off TMA's grid, in either type).
+  float32 FMAs, any strides -- for what TMA cannot describe, in either
+  type: a head dim that is not contiguous, a zero or off-grid stride
+  (an expanded kv head), a misaligned pointer, a head-dim row that is
+  not a multiple of 16 bytes (bfloat16 dh 100, float32 dh 30).  Every
+  head dim the Hopper kernels take beat it in one chip call
+  (``scripts/flash_pad_sweep.py``), so none is kept on it.
+  ``kernel="simple"`` forces it: the exact float32 yardstick.
 
 :func:`flash_kernel_for` decides between them from shapes, strides,
 dtype and alignment alone, before the launch; nothing is retried.
@@ -36,13 +42,12 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DH = 256                # largest head dim the simple kernel holds
+MAX_DH = 256                # largest head dim any kernel holds
 MLA_HEAD_DIMS = (192, 128)  # the one (q·k, v) pair of unequal head dims
-# (q·k, v) head dims the bfloat16 Hopper kernel holds
-SM90_HEAD_DIMS = ((64, 64), (128, 128), MLA_HEAD_DIMS, (256, 256))
-# and the float32 one: each pair where it beat the simple kernel in one
-# chip call (scripts/flash_f32_variants.py)
-SM90_F32_HEAD_DIMS = ((64, 64), (128, 128), MLA_HEAD_DIMS, (256, 256))
+# the square tiles each Hopper kernel is instantiated at (beside MLA's
+# (192, 128)); an equal head dim runs in the smallest that holds it
+SM90_TILES = (16, 32, 64, 128, 256)     # flash_sm90.cu's MIN_TILE 16
+SM90_F32_TILES = (32, 64, 128, 256)     # flash_sm90_f32.cu's SMALL_TILE 32
 TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
 MAX_GRID_YZ = 65535         # heads (grid y) and batch (grid z)
 KERNELS = ("sm90", "sm90_f32", "simple")
@@ -76,9 +81,32 @@ def _lib_sm90():
     return lib
 
 
-# the Hopper kernel of each type, and the head dims it takes
-_SM90 = {torch.bfloat16: ("sm90", SM90_HEAD_DIMS),
-         torch.float32: ("sm90_f32", SM90_F32_HEAD_DIMS)}
+# the Hopper kernel of each type, its tiles, and the head dims whose row
+# is a multiple of 16 bytes: multiples of 8 (bfloat16) or 4 (float32)
+_SM90 = {torch.bfloat16: ("sm90", SM90_TILES, 8),
+         torch.float32: ("sm90_f32", SM90_F32_TILES, 4)}
+
+
+def sm90_head_dims(dtype: torch.dtype, dqk: int, dv: int) -> bool:
+    """Whether the Hopper kernel of ``dtype`` takes head dims ``(dqk,
+    dv)``: MLA's (192, 128), or equal ones up to ``MAX_DH`` whose row is
+    a multiple of 16 bytes (bfloat16: of 8; float32: of 4)."""
+    if dtype not in _SM90:
+        return False
+    if (dqk, dv) == MLA_HEAD_DIMS:
+        return True
+    return dqk == dv and 0 < dqk <= MAX_DH and dqk % _SM90[dtype][2] == 0
+
+
+def sm90_tile(dtype: torch.dtype, dqk: int, dv: int) -> tuple[int, int]:
+    """The ``(q·k, v)`` tile the Hopper kernel of ``dtype`` runs head
+    dims ``(dqk, dv)`` in (those :func:`sm90_head_dims` takes): MLA's
+    pair as it is, an equal head dim in the smallest square tile that
+    holds it, its columns past the head dim zeros."""
+    if (dqk, dv) == MLA_HEAD_DIMS:
+        return MLA_HEAD_DIMS
+    tile = next(t for t in _SM90[dtype][1] if t >= dqk)
+    return tile, tile
 
 
 def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
@@ -86,18 +114,17 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
     """``"sm90"`` or ``"sm90_f32"`` when a Hopper kernel takes these
     inputs, else ``"simple"``.  A pure function of dtype, shapes,
     strides and the pointers' alignment: q, k and v of one type --
-    bfloat16 at the (q·k, v) head dims of ``SM90_HEAD_DIMS`` (the
-    ``wgmma`` kernel), float32 at those of ``SM90_F32_HEAD_DIMS`` (the
-    TF32 kernel); both (64, 64), (128, 128), MLA's (192, 128), (256,
-    256) -- with the head dim contiguous, every other stride a positive
-    multiple of 16 bytes and every pointer 16-byte aligned (what a TMA
-    tensor map takes).  Other head dims and inputs off that grid go to
-    the simple kernel.
+    bfloat16 (the ``wgmma`` kernel) or float32 (the TF32 kernel) -- at
+    head dims :func:`sm90_head_dims` admits (MLA's (192, 128), or equal
+    ones whose row is a multiple of 16 bytes up to 256), with the head
+    dim contiguous, every other stride a positive multiple of 16 bytes
+    and every pointer 16-byte aligned (what a TMA tensor map takes).
+    Everything else goes to the simple kernel.
     Causal or not, and the key length, do not enter the choice."""
     if not q.dtype == k.dtype == v.dtype or q.dtype not in _SM90:
         return "simple"
-    route, dims = _SM90[q.dtype]
-    if (q.shape[-1], v.shape[-1]) not in dims:
+    route = _SM90[q.dtype][0]
+    if not sm90_head_dims(q.dtype, q.shape[-1], v.shape[-1]):
         return "simple"
     for t in (q, k, v):
         *outer, inner = t.stride()

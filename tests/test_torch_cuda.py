@@ -23,10 +23,13 @@ dim 256 (recurrentgemma's MQA prompt pass, four threads a row); the
 float32 Hopper flash kernel (TF32) at 2e-3 against the plain version
 and the simple kernel at each of its head-dim pairs, causal and not,
 ragged, on the views ``mla`` and a fused projection make, and bitwise
-against itself where only future keys change; the
+against itself where only future keys change; both Hopper flash kernels
+on the padded route (head dims below a tile) at the tolerance of the
+type, causal and at T 129 and T 1; the
 engines on the
-card serve the CPU run's tokens exactly (float32 tinyllama-smoke and a
-small MLA model at deepseek-v2's head dims); the
+card serve the CPU run's tokens exactly (float32 tinyllama-smoke, whose
+flash calls take the exact float32 kernel there -- ``exact_flash`` --,
+and a small MLA model at deepseek-v2's head dims); the
 float32 trainer on the card within 1e-5 of its CPU run (TF32 off), its
 all-reduced rows bitwise equal and its int32 ring sums exact.
 """
@@ -50,6 +53,27 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run on the card with -m cuda")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def exact_flash(monkeypatch):
+    """The models' flash route on the card through the exact float32
+    kernel (``flash.cu``, ``kernel="simple"``) for float32 inputs: the
+    float32 Hopper kernel rounds its products to TF32, which a check of
+    the card against the CPU at 1e-5 with TF32 off does not allow (that
+    kernel is held to its plain version at 2e-3 by the flash tests);
+    the smoke configs' float32 models (dh 16) run their prompt passes on
+    the exact kernel under it."""
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import attention as attn
+
+    def exact(q, k, v, causal=True):
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            return fa.flash_attention_cuda(q, k, v, kernel="simple",
+                                           causal=causal)
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    monkeypatch.setattr(attn, "flash_attention", exact)
 
 
 def _i32(rows, device):
@@ -660,7 +684,8 @@ def test_flash_launch_counters_show_which_kernel_ran(cuda):
     assert counts() == (1, 1)
     fa.flash_attention(*_qkv(1, 70, 4, 2, 64, torch.float32, 3, cuda))
     assert counts() == (2, 1)
-    fa.flash_attention(*_qkv(1, 70, 4, 2, 48, torch.bfloat16, 3, cuda))
+    # a 200-byte head-dim row: off TMA's grid, the simple kernel
+    fa.flash_attention(*_qkv(1, 70, 4, 2, 100, torch.bfloat16, 3, cuda))
     assert counts() == (3, 1)
     fa.flash_attention_cuda(*bf16, kernel="simple")
     assert counts() == (4, 1)
@@ -793,10 +818,10 @@ def test_mla_engine_on_the_card_serves_the_cpu_tokens(cuda):
         len(prompts) * cfg.n_layers, 0, len(prompts) * cfg.n_layers)
 
 
-def test_engine_on_the_card_serves_the_cpu_tokens(cuda):
-    """tinyllama-smoke (float32) served on the card through the flash
-    kernel gives the CPU run's tokens; every prompt pass launches the
-    kernel once per layer, decode never."""
+def test_engine_on_the_card_serves_the_cpu_tokens(cuda, exact_flash):
+    """tinyllama-smoke (float32) served on the card through the exact
+    flash kernel (``exact_flash``) gives the CPU run's tokens; every
+    prompt pass launches the kernel once per layer, decode never."""
     from repro_torch import configs
     from repro_torch.models.model import build_model
     from repro_torch.serving import Request, ServeEngine
@@ -877,7 +902,8 @@ def test_qwen2_at_full_width_serves_through_the_sm90_kernel(cuda):
     assert (got.float() - want.float()).abs().max().item() <= 3e-2 * top
 
 
-def test_musicgen_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
+def test_musicgen_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                     exact_flash):
     """musicgen-smoke (float32, frame embeddings): a prefill through the
     flash kernel and two decode steps on the card within 1e-5 of the CPU
     run (TF32 off)."""
@@ -1000,7 +1026,8 @@ def test_flash_refuses_another_key_length_when_causal(cuda):
             launch_counts()["flash_attention_noncausal"]) == (1, 1)
 
 
-def test_vlm_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
+def test_vlm_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                exact_flash):
     """llama-vision-smoke (float32, the cross layer's gate opened): a
     prefill (4 causal and 1 non-causal flash launch, all on the simple
     kernel at dh 16) and two decode steps re-attending the image
@@ -1359,7 +1386,96 @@ def test_flash_sm90_f32_forced_and_refused(cuda):
     _flash_close(got, simple, torch.float32)
 
 
-def test_hybrid_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch):
+# -- the padded Hopper route (head dims below a tile) ------------------------
+# Every equal head dim whose row is a multiple of 16 bytes runs on the
+# Hopper kernel of its type in the smallest tile that holds it, TMA's
+# zero columns past it; held to the plain version with the tolerance of
+# the type, causal and without causality one key into the last key tile.
+
+PAD_DIMS = ([(torch.bfloat16, d) for d in (8, 16, 24, 32, 40, 48, 56, 72, 80,
+                                           96, 104, 120, 136, 160, 184, 192,
+                                           200, 248)]
+            + [(torch.float32, d) for d in (4, 8, 12, 16, 20, 28, 32, 36, 48,
+                                            60, 68, 80, 96, 100, 124, 132,
+                                            160, 192, 220, 252)])
+
+
+@pytest.mark.parametrize("causal,S,T", [(True, 130, 130), (False, 65, 129),
+                                        (False, 33, 1)])
+@pytest.mark.parametrize("dtype,dh", PAD_DIMS,
+                         ids=[f"{str(t).split('.')[-1]}-dh{d}"
+                              for t, d in PAD_DIMS])
+def test_padded_hopper_route_matches_plain(cuda, causal, S, T, dtype, dh):
+    from repro_torch.kernels import attention as fa
+
+    q, k, v = (t.to(dtype) for t in _f32_qkv(
+        2, S, T, 8, 2, dh, dh, S + T + dh, cuda))
+    hopper = "sm90" if dtype == torch.bfloat16 else "sm90_f32"
+    assert fa.flash_kernel_for(q, k, v) == hopper
+    reset_launch_counts()
+    got = fa.flash_attention(q, k, v, causal=causal)
+    counts = launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_sm90"],
+            counts["flash_attention_sm90_f32"]) == (
+        1, int(hopper == "sm90"), int(hopper == "sm90_f32"))
+    assert got.shape == (2, S, 8, dh) and got.dtype == dtype
+    _flash_close(got, fa.flash_attention_ref(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 80),
+                                      (torch.bfloat16, 16),
+                                      (torch.float32, 36),
+                                      (torch.float32, 96)])
+def test_padded_hopper_route_reads_views_and_is_causal(cuda, dtype, dh):
+    """q, k, v as views of one fused projection 16 bytes in (no copy), on
+    the padded route; changing keys and values from position t on leaves
+    every earlier row bitwise unchanged."""
+    from repro_torch.kernels import attention as fa
+
+    B, S, H, K, t = 2, 150, 4, 2, 77
+    gen = torch.Generator().manual_seed(dh)
+    pad = 16 // (2 if dtype == torch.bfloat16 else 4)
+    qkv = torch.randn(B, S, (H + 2 * K) * dh + pad, generator=gen).to(
+        cuda, dtype)[..., pad:]
+    q = qkv[..., :H * dh].view(B, S, H, dh)
+    k = qkv[..., H * dh:(H + K) * dh].view(B, S, K, dh)
+    v = qkv[..., (H + K) * dh:].view(B, S, K, dh)
+    hopper = "sm90" if dtype == torch.bfloat16 else "sm90_f32"
+    assert not q.is_contiguous() and fa.flash_kernel_for(q, k, v) == hopper
+    out = fa.flash_attention(q, k, v)
+    _flash_close(out, fa.flash_attention_ref(q, k, v), dtype)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, t:] = 8 * torch.randn_like(k2[:, t:].float()).to(dtype)
+    v2[:, t:] = -v2[:, t:] + 3
+    out2 = fa.flash_attention(q, k2, v2)
+    assert torch.equal(out[:, :t], out2[:, :t])
+    assert not torch.equal(out[:, t:], out2[:, t:])
+
+
+def test_views_tma_cannot_describe_stay_on_the_simple_kernel(cuda):
+    """Off-grid head-dim rows (bfloat16 dh 100, float32 dh 30), a head
+    dim that is not contiguous, an expanded kv head: the simple kernel,
+    held to the plain version."""
+    from repro_torch.kernels import attention as fa
+
+    cases = [_qkv(2, 70, 4, 2, 100, torch.bfloat16, 1, cuda),
+             _qkv(2, 70, 4, 2, 30, torch.float32, 2, cuda)]
+    q, k, v = _qkv(2, 70, 4, 2, 80, torch.bfloat16, 3, cuda)
+    cases.append((q.transpose(-1, -2).contiguous().transpose(-1, -2), k, v))
+    q, k, v = _qkv(2, 70, 4, 1, 16, torch.float32, 4, cuda)
+    cases.append((q, k.expand(2, 70, 4, 16), v.expand(2, 70, 4, 16)))
+    for q, k, v in cases:
+        assert fa.flash_kernel_for(q, k, v) == "simple"
+        reset_launch_counts()
+        got = fa.flash_attention(q, k, v)
+        counts = launch_counts()
+        assert (counts["flash_attention"], counts["flash_attention_sm90"],
+                counts["flash_attention_sm90_f32"]) == (1, 0, 0)
+        _flash_close(got, fa.flash_attention_ref(q, k, v), q.dtype)
+
+
+def test_hybrid_smoke_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                   exact_flash):
     """recurrentgemma-smoke (float32): a prefill of 12 tokens on the
     window's 16 slots (the local layer on the simple kernel), then decode
     through the ring's wrap to position 20, on the card within 1e-5 of
@@ -1575,7 +1691,7 @@ def test_datamover_message_shapes_match_plain_on_both_designs(
 
 # -- the disaggregated serving tier ------------------------------------------
 
-def test_disagg_tier_on_the_card_matches_the_cpu(cuda):
+def test_disagg_tier_on_the_card_matches_the_cpu(cuda, exact_flash):
     """tinyllama-smoke (float32) through the disaggregated tier (2 + 2
     kernels, 2 lanes each) on the card gives the CPU run's tokens, 6
     migrations at 2 exchanges each, no error bit, every landed lane
@@ -2290,7 +2406,8 @@ def test_lane_migration_on_the_card_matches_the_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
-def test_lane_tier_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+def test_lane_tier_on_the_card_matches_the_cpu(cuda, arch, monkeypatch,
+                                                exact_flash):
     """recurrentgemma-smoke and xlstm-smoke (float32) through the tier (2
     + 2 kernels, 2 lanes each) on the card: every landed lane bitwise the
     prefill worker's, 6 migrations at 2 exchanges, no error bit, the CPU

@@ -14,8 +14,14 @@ on the card, a key length of its own (``T != S``) among them: taken
 without causality, refused with it; equal head dims up to 256 are
 taken (recurrentgemma's 256 against the Pallas kernel and the windowed
 ``_attend`` too), 257 refused.  The non-causal function is held to
-the JAX package in ``tests/test_torch_vlm.py``.
+the JAX package in ``tests/test_torch_vlm.py``.  The identity the Hopper
+kernels' padded tiles rest on is held on the plain version: q, k and v
+zero-padded to the tile with the true head dim's scale give the same
+function in the first dh columns and zeros past them (dh 16, 32, 80,
+96), and the plain version matches the Pallas kernel at dh 16 and 80.
 """
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -276,3 +282,57 @@ def test_noncausal_limit_sees_an_unmasked_ragged_key_tile(BK, T):
     unmasked = fa.flash_attention_ref(q, kz, vz, causal=False)
     err = (unmasked - want).abs().max().item()
     assert err > 3e-2 * want.abs().max().item()
+
+
+# -- the identity the padded Hopper tiles rest on -----------------------------
+# A head dim d below the tile's runs with q, k and v zero past d: the zero
+# columns add nothing to q·k, the scale stays the true d's, and v's zero
+# columns give zero output columns, which the kernels never store.
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dh", [16, 32, 80, 96])
+def test_zero_padded_head_dim_with_its_own_scale_is_the_same_function(
+        dh, dtype):
+    _, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(dh)
+    B, S, H, K = 2, 37, 4, 2
+    q, k, v = (_torch(rng.standard_normal(shape), tdt)
+               for shape in ((B, S, H, dh), (B, S, K, dh), (B, S, K, dh)))
+    # each Hopper kernel's smallest tile wider than dh (the one dh runs
+    # in, or the next where dh is a tile's own, as 16 and 32 are)
+    tiles = sorted({min(t for t in kernel_tiles if t > dh)
+                    for kernel_tiles in (fl.SM90_TILES, fl.SM90_F32_TILES)})
+    for tile, causal in itertools.product(tiles, (True, False)):
+        qp, kp, vp = (torch.nn.functional.pad(x, (0, tile - dh))
+                      for x in (q, k, v))
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        got = fa.flash_attention_ref(qp, kp, vp, causal=causal,
+                                     scale=1 / np.sqrt(dh))
+        assert got.shape == (B, S, H, tile)
+        np.testing.assert_allclose(got[..., :dh].float().numpy(),
+                                   want.float().numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        assert not got[..., dh:].any()
+        # the scale of the tile's width is another function
+        assert not torch.allclose(fa.flash_attention_ref(
+            qp, kp, vp, causal=causal)[..., :dh].float(), want.float(),
+            rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("dh", [16, 80])
+def test_plain_flash_matches_pallas_interpret_at_padded_head_dims(dh, dtype):
+    """Head dims the Hopper kernels pad (16 to 64 or 32, 80 to 128): the
+    plain version against the Pallas kernel in interpret mode, with the
+    reference's tolerances."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(dh + 1)
+    q, k, v = (rng.standard_normal((2, 128, dh)).astype(np.float32)
+               for _ in range(3))
+    want = jax_flash(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                     jnp.asarray(v, jdt), block_q=64, block_k=64)
+    got = fa.flash_attention(*(_torch(x, tdt)[:, :, None]
+                               for x in (q, k, v)))
+    np.testing.assert_allclose(got[:, :, 0].float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)

@@ -3,13 +3,18 @@
 ``kernels.attention.flash.flash_kernel_for`` is a pure function of
 dtype, shapes, strides and pointer alignment: the Hopper kernel
 (``csrc/flash_sm90.cu``, TMA + ``wgmma``) takes bfloat16 q, k, v on
-TMA's 16-byte grid at (q·k, v) head dims (64, 64), (128, 128), MLA's
-(192, 128) and (256, 256), the float32 Hopper kernel
+TMA's 16-byte grid at MLA's (q·k, v) head dims (192, 128) and at every
+equal head dim whose row is a multiple of 16 bytes (a multiple of 8 up
+to 256, padded to a tile of 16, 32, 64, 128 or 256), the float32 Hopper
+kernel
 (``csrc/flash_sm90_f32.cu``, TMA + TF32 ``mma.sync``) float32 ones on
-the same grid at the same head dims, and the simple kernel
-(``csrc/flash.cu``) everything else the wrapper accepts.  The kernels
-run only on the card (``tests/test_torch_cuda.py``); here the choice,
-the build registry and the counters are checked without one.
+the same grid at MLA's pair and equal multiples of 4 (tiles of 32, 64,
+128, 256), and the simple kernel (``csrc/flash.cu``) what TMA cannot
+describe: a head dim that is not contiguous, a zero or off-grid stride,
+a misaligned pointer, a row that is not a multiple of 16 bytes (bf16
+dh 100, float32 dh 30).  The kernels run only on the card
+(``tests/test_torch_cuda.py``); here the choice, the tiles, the build
+registry and the counters are checked without one.
 """
 
 import itertools
@@ -66,11 +71,11 @@ def _shared_kv_heads():
 
 
 @pytest.mark.parametrize("make", [
-    # float32 at a head dim neither Hopper kernel takes, and off the grid
-    lambda: _qkv(dh=96, dtype=F32),
+    # float32 off the grid: a row of 3*128 + 2 float32
     lambda: _fused(1, 40, 1, 1, 128, 3 * 128 + 2, dtype=F32),
-    lambda: _qkv(dh=16), lambda: _qkv(dh=32), lambda: _qkv(dh=48),
-    lambda: _qkv(dh=100), lambda: _qkv(dh=96),
+    # head-dim rows that are not a multiple of 16 bytes
+    lambda: _qkv(dh=100), lambda: _qkv(dh=30, dtype=F32),
+    lambda: _qkv(dh=4), lambda: _qkv(dh=250, dtype=F32),
     _mixed_dtypes,
     _head_dim_not_contiguous,                   # stride(-1) != 1
     _shared_kv_heads,                           # a zero stride
@@ -78,11 +83,86 @@ def _shared_kv_heads():
     lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 4),
     # strides on the grid, pointers 8 bytes off it
     lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 8, offset=4),
-], ids=["float32", "float32-dh128", "dh16", "dh32", "dh48", "dh100", "dh96",
+], ids=["float32-dh128", "dh100", "float32-dh30", "dh4", "float32-dh250",
         "mixed-dtypes", "head-dim-strided", "zero-stride",
         "stride-off-grid", "pointer-off-grid"])
 def test_other_inputs_go_to_the_simple_kernel(make):
     assert fl.flash_kernel_for(*make()) == "simple"
+
+
+@pytest.mark.parametrize("dh,dtype,route", [
+    # head dims off the four tiles' own: the smoke configs' 16 and 32,
+    # 48, phi-3-mini's 96, in bfloat16 and float32
+    (16, BF16, "sm90"), (32, BF16, "sm90"), (48, BF16, "sm90"),
+    (96, BF16, "sm90"), (96, F32, "sm90_f32"),
+    # phi-2's 80, the grid's smallest rows, and dims between the tiles
+    (80, BF16, "sm90"), (8, BF16, "sm90"), (136, BF16, "sm90"),
+    (200, BF16, "sm90"), (248, BF16, "sm90"), (192, BF16, "sm90"),
+    (4, F32, "sm90_f32"), (16, F32, "sm90_f32"), (36, F32, "sm90_f32"),
+    (80, F32, "sm90_f32"), (100, F32, "sm90_f32"), (252, F32, "sm90_f32"),
+], ids=["dh16", "dh32", "dh48", "dh96", "float32-dh96", "dh80", "dh8",
+        "dh136", "dh200", "dh248", "dh192", "float32-dh4", "float32-dh16",
+        "float32-dh36", "float32-dh80", "float32-dh100", "float32-dh252"])
+def test_hopper_kernels_take_head_dims_padded_to_their_tiles(dh, dtype,
+                                                            route):
+    assert fl.flash_kernel_for(*_qkv(2, 65, 8, 2, dh, dtype)) == route
+
+
+@pytest.mark.parametrize("dtype,step", [(BF16, 8), (F32, 4)])
+def test_route_rule_over_every_head_dim(dtype, step):
+    """Every equal head dim 1..256 of a contiguous q, k, v: the Hopper
+    kernel of the type exactly where the row is a multiple of 16 bytes;
+    the simple kernel elsewhere and past 256 (which ``check_shapes``
+    refuses)."""
+    hopper = "sm90" if dtype == BF16 else "sm90_f32"
+    for dh in range(1, fl.MAX_DH + 9):
+        want = hopper if dh % step == 0 and dh <= fl.MAX_DH else "simple"
+        assert fl.flash_kernel_for(*_qkv(1, 3, 2, 1, dh, dtype)) == want, dh
+        assert fl.sm90_head_dims(dtype, dh, dh) == (want == hopper)
+
+
+@pytest.mark.parametrize("dtype,dh,tile", [
+    (BF16, 8, 16), (BF16, 16, 16), (BF16, 24, 32), (BF16, 32, 32),
+    (BF16, 40, 64), (BF16, 64, 64), (BF16, 72, 128),
+    (BF16, 80, 128), (BF16, 96, 128), (BF16, 128, 128), (BF16, 136, 256),
+    (BF16, 192, 256), (BF16, 256, 256),
+    (F32, 4, 32), (F32, 16, 32), (F32, 32, 32), (F32, 36, 64),
+    (F32, 64, 64), (F32, 80, 128), (F32, 96, 128), (F32, 132, 256),
+    (F32, 256, 256)])
+def test_padded_head_dim_runs_in_the_smallest_tile_that_holds_it(dtype, dh,
+                                                                 tile):
+    assert fl.sm90_tile(dtype, dh, dh) == (tile, tile)
+    assert fl.sm90_tile(dtype, 192, 128) == fl.MLA_HEAD_DIMS
+
+
+def test_tiles_match_the_sources_dispatch():
+    """The tiles the route reports are the ones each source instantiates
+    and dispatches to: bfloat16 MIN_TILE (16) / 32 / 64 / 128 / 256
+    (multiples of 8), float32 SMALL_TILE (32) / 64 / 128 / 256 (multiples
+    of 4), MLA's pair in both."""
+    bf16 = _build.SOURCES["flash_sm90"].read_text()
+    f32 = _build.SOURCES["flash_sm90_f32"].read_text()
+    least = int(re.search(r"constexpr int MIN_TILE = (\d+);",
+                          bf16).group(1))
+    assert fl.SM90_TILES[0] == least == 16
+    for tile in fl.SM90_TILES[:2]:
+        assert (f"if (MIN_TILE <= {tile} && dh <= {tile}) "
+                f"FLASH_SM90_RUN({tile}, {tile}, true)") in bf16
+    for tile in fl.SM90_TILES[2:-1]:
+        assert (f"if (dh <= {tile}) FLASH_SM90_RUN({tile}, {tile}, true)"
+                in bf16)
+    assert "dh % 8 != 0" in bf16 and "dh % 4 != 0" in f32
+    small = int(re.search(r"constexpr int SMALL_TILE = (\d+);",
+                          f32).group(1))
+    assert fl.SM90_F32_TILES[0] == small == 32
+    for tile in fl.SM90_F32_TILES[1:-1]:
+        assert (f"if (dh <= {tile}) FLASH_F32_RUN({tile}, {tile}, true)"
+                in f32)
+    # the tiles' own head dims, unpadded: MLA's pair among them
+    for run, text in (("FLASH_SM90_RUN", bf16), ("FLASH_F32_RUN", f32)):
+        for dqk, dv in ((64, 64), (128, 128), fl.MLA_HEAD_DIMS, (256, 256)):
+            assert (f"if (dh == {dqk} && dv == {dv}) {run}({dqk}, {dv}, "
+                    f"false)") in text
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -94,8 +174,8 @@ def test_float32_hopper_kernel_takes_head_dims_64_and_128(dh, H, K, B, S):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: _qkv(dh=16, dtype=F32),      # tinyllama-smoke: the simple one
-    lambda: _qkv(dh=48, dtype=F32),
+    lambda: _qkv(dh=30, dtype=F32),      # a 120-byte row
+    lambda: _qkv(dh=50, dtype=F32),
     lambda: (_qkv(dtype=F32)[0].transpose(-1, -2).contiguous()
              .transpose(-1, -2), *_qkv(dtype=F32)[1:]),
     lambda: (_qkv(K=1, dtype=F32)[0],
@@ -104,7 +184,7 @@ def test_float32_hopper_kernel_takes_head_dims_64_and_128(dh, H, K, B, S):
     lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 2, dtype=F32),
     # strides on the grid, pointers 8 bytes off it
     lambda: _fused(1, 40, 1, 1, 64, 3 * 64 + 4, offset=2, dtype=F32),
-], ids=["dh16", "dh48", "head-dim-strided", "zero-stride", "stride-off-grid",
+], ids=["dh30", "dh50", "head-dim-strided", "zero-stride", "stride-off-grid",
         "pointer-off-grid"])
 def test_float32_off_the_hopper_grid_goes_to_the_simple_kernel(make):
     assert fl.flash_kernel_for(*make()) == "simple"
