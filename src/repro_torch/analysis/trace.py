@@ -14,7 +14,9 @@ JAX package traces a ``lax.scan`` body once and records one instance).
 :func:`scope` takes the place of ``jax.named_scope``: it pushes an
 event's ``shoal.<op>#e<seq>`` tag onto a stack, and while a recorder is
 active every exchange the op layer makes (``ops._permute``) is counted
-against the innermost tag -- the port's :func:`recover_tags`.
+against the innermost tag -- the port's :func:`recover_tags`.  While
+:mod:`repro_torch.runtime.spans` records too, the scope is also a span
+named ``shoal.<op>`` (its ``tag`` an attr): one naming for both.
 
 Recording costs nothing when no recorder is active: call sites test
 :func:`active` before they build an event, and :func:`scope` then
@@ -43,6 +45,8 @@ import dataclasses
 from typing import Iterator
 
 import torch
+
+from repro_torch.runtime import spans
 
 # ops that write destination segment memory
 WRITE_OPS = ("put_long", "put_long_strided", "put_long_vectored",
@@ -229,16 +233,19 @@ def emit(op: str, pattern, **kw) -> str | None:
 
 
 class _Scope:
-    __slots__ = ("tag",)
+    __slots__ = ("tag", "span")
 
     def __init__(self, tag: str) -> None:
         self.tag = tag
+        self.span = spans.span(tag.split("#")[0], tag=tag)
 
     def __enter__(self) -> None:
+        self.span.__enter__()
         _SCOPES.append(self.tag)
 
     def __exit__(self, *exc) -> None:
         _SCOPES.pop()
+        self.span.__exit__(*exc)
 
 
 def scope(tag: str | None):

@@ -25,7 +25,12 @@ Each call of a ring collective, of ``all_to_all_vectored`` and of
 ``ctx.collectives`` (``reduce_scatter``, ``all_gather``, ``all_reduce``,
 ``all_to_all``; the barrier is an all-reduce, ``lax.psum`` in the JAX
 package): one op per collective, as a compiled program counts them,
-whatever its traversals.  ``broadcast_from`` is permutes only.
+whatever its traversals.  ``broadcast_from`` is permutes only.  Each
+launch of the ring kernel adds its bytes to its kind in
+``ctx.ring_bytes``: the stacked input read once and the output written
+once.  While :mod:`repro_torch.runtime.spans` records, each ring launch
+and each all-to-all is a ``shoal.<kind>`` span whose attrs hold ``K``,
+those bytes and the exchanges it added.
 
 The ring collectives and ``all_to_all_vectored`` are differentiable.
 When their input requires grad they run as a ``torch.autograd.Function``
@@ -49,9 +54,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ops
-from repro_torch.core.state import ShoalContext
+from repro_torch.core.state import COLLECTIVE_KINDS, ShoalContext
 from repro_torch.kernels.gascore_dma import (ALL_GATHER, ALL_REDUCE,
                                              REDUCE_SCATTER, ring_collective)
+from repro_torch.runtime import spans
 
 
 def _ring_perm(n: int) -> list[tuple[int, int]]:
@@ -70,15 +76,31 @@ def _pad_to_chunks(x: torch.Tensor, n: int):
     return flat.reshape(x.shape[0], n, chunk).contiguous(), pad
 
 
+_SPANS = {kind: f"shoal.{kind}" for kind in COLLECTIVE_KINDS}
+
+
+def _ring_launch(ctx: ShoalContext, kind: str, buf: torch.Tensor, schedule,
+                 exchanges: int) -> torch.Tensor:
+    """One launch of the ring kernel: counts its ``exchanges``, its call
+    and its bytes (``ctx.ring_bytes``) under ``kind``, in a
+    ``shoal.<kind>`` span that records them."""
+    with spans.span(_SPANS[kind], K=ctx.num_kernels) as span:
+        out = ring_collective(buf, schedule)
+        ctx.exchanges += exchanges
+        ctx.collectives[kind] += 1
+        nbytes = buf.nbytes + out.nbytes
+        ctx.ring_bytes[kind] += nbytes
+        if span is not None:
+            span.attrs.update(bytes=nbytes, exchanges=exchanges)
+    return out
+
+
 def _reduce_scatter(ctx: ShoalContext, x: torch.Tensor) -> torch.Tensor:
     n = ctx.num_kernels
     if n == 1:
         return x.reshape(1, -1)
     buf, _ = _pad_to_chunks(x, n)
-    out = ring_collective(buf, REDUCE_SCATTER)
-    ctx.exchanges += n - 1
-    ctx.collectives["reduce_scatter"] += 1
-    return out
+    return _ring_launch(ctx, "reduce_scatter", buf, REDUCE_SCATTER, n - 1)
 
 
 def _all_gather(ctx: ShoalContext, chunk: torch.Tensor) -> torch.Tensor:
@@ -86,10 +108,8 @@ def _all_gather(ctx: ShoalContext, chunk: torch.Tensor) -> torch.Tensor:
     n = ctx.num_kernels
     if n == 1:
         return chunk[:, None]
-    out = ring_collective(chunk.contiguous(), ALL_GATHER)
-    ctx.exchanges += n - 1
-    ctx.collectives["all_gather"] += 1
-    return out
+    return _ring_launch(ctx, "all_gather", chunk.contiguous(), ALL_GATHER,
+                        n - 1)
 
 
 def _all_reduce(ctx: ShoalContext, x: torch.Tensor) -> torch.Tensor:
@@ -97,9 +117,8 @@ def _all_reduce(ctx: ShoalContext, x: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return x
     buf, pad = _pad_to_chunks(x, n)
-    full = ring_collective(buf, ALL_REDUCE).reshape(x.shape[0], -1)
-    ctx.exchanges += 2 * (n - 1)
-    ctx.collectives["all_reduce"] += 1
+    full = _ring_launch(ctx, "all_reduce", buf, ALL_REDUCE,
+                        2 * (n - 1)).reshape(x.shape[0], -1)
     return full[:, :full.shape[1] - pad].reshape(x.shape)
 
 
@@ -113,10 +132,14 @@ def _all_to_all(ctx: ShoalContext, x: torch.Tensor,
                          f"blocks (tiled={tiled})")
     if n == 1:
         return x
-    ctx.exchanges += 1
-    ctx.collectives["all_to_all"] += 1
-    blocks = x.reshape(n, n, m // n, *x.shape[2:])
-    return blocks.transpose(0, 1).reshape(x.shape)
+    with spans.span("shoal.all_to_all", K=n) as span:
+        ctx.exchanges += 1
+        ctx.collectives["all_to_all"] += 1
+        blocks = x.reshape(n, n, m // n, *x.shape[2:])
+        out = blocks.transpose(0, 1).reshape(x.shape)
+        if span is not None:
+            span.attrs.update(bytes=2 * x.nbytes, exchanges=1)
+        return out
 
 
 def _rs_adjoint(ctx: ShoalContext, g: torch.Tensor, shape) -> torch.Tensor:

@@ -14,7 +14,8 @@ makes (``exchanges``): one per kernel-axis gather, the counterpart of a
 collective-permute in the compiled program of the JAX package; and the
 collective calls of :mod:`repro_torch.core.collectives` by kind
 (``collectives``), one per call, as the compiled program counts one
-all-to-all, all-reduce, all-gather or reduce-scatter op per collective.
+all-to-all, all-reduce, all-gather or reduce-scatter op per collective,
+and the bytes of their ring-kernel launches by kind (``ring_bytes``).
 """
 
 from __future__ import annotations
@@ -260,6 +261,9 @@ class ShoalContext:
       exchanges: link traversals made so far (kernel-axis gathers).
       collectives: collective calls made so far, by kind
         (:data:`COLLECTIVE_KINDS`).
+      ring_bytes: bytes of the ring-kernel launches made so far, by the
+        same kinds: each launch's stacked input read once and its output
+        written once (``all_to_all`` runs no ring launch and stays 0).
     """
 
     def __init__(self, num_kernels: int, transport: Transport = TCP,
@@ -274,6 +278,7 @@ class ShoalContext:
         self.handlers = hd.DEFAULT_TABLE if handlers is None else handlers
         self.exchanges = 0
         self.collectives = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.ring_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
         self._patterns: dict[tuple, PatternTable] = {}
 
     def my_id(self) -> torch.Tensor:

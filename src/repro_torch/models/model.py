@@ -69,6 +69,7 @@ from repro_torch.models import blocks as bl
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec
 from repro_torch.models import xlstm as xl
+from repro_torch.runtime import spans
 from repro_torch.tree import tree_leaves, tree_unstack
 
 # float32 subtrees: the block norms, MLA's latent norms, cross-attention's
@@ -276,7 +277,7 @@ def _block_cache(cfg, kind, B: int, slots: int, device, lead=()):
 
 def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
                  differentiable=False, ep=None, image_feats=None, ring=None,
-                 last=False):
+                 last=False, index=0):
     """Returns (x, aux): the MoE block's load-balance loss, None for any
     other block.  ``last``: the block ends its superblock, so its last
     batch-free product ends a checkpoint region and the backward never
@@ -286,56 +287,66 @@ def _apply_block(cfg, kind, p, x, positions, *, cache=None, fresh=False,
     takes it (MLA and cross blocks ignore it, as in the JAX package).
     ``image_feats``: the cross block's keys and values, ``(B, N,
     d_model)``.  An RG-LRU, mLSTM or sLSTM block's ``cache`` is its
-    state, written in place; the xLSTM cells norm their own input."""
-    if kind == "mlstm":
-        x, _ = xl.mlstm_block(p["cell"], x, nh=cfg.n_heads,
-                              chunk=cfg.mlstm_chunk, state=cache,
-                              unread=last)
+    state, written in place; the xLSTM cells norm their own input.
+    ``index``: the block's layer, the ``layer`` of its spans
+    (``model.attention`` or ``model.rglru``, then ``model.ffn``; an
+    xLSTM cell is one ``model.xlstm``)."""
+    if kind in ("mlstm", "slstm"):
+        with spans.span("model.xlstm", layer=index):
+            if kind == "mlstm":
+                x, _ = xl.mlstm_block(p["cell"], x, nh=cfg.n_heads,
+                                      chunk=cfg.mlstm_chunk, state=cache,
+                                      unread=last)
+            else:
+                x, _ = xl.slstm_block(p["cell"], x, nh=cfg.n_heads,
+                                      state=cache, unread=last)
         return x, None
-    if kind == "slstm":
-        x, _ = xl.slstm_block(p["cell"], x, nh=cfg.n_heads, state=cache,
-                              unread=last)
-        return x, None
-    h = _norm(cfg, p["ln1"], x)
+    if kind == "cross" and image_feats is None:
+        raise ValueError(f"{cfg.name}: a cross-attention block needs "
+                         f"image_feats (B, N, d_model), got None; pass "
+                         f"batch['image_feats'] or "
+                         f"decode_step(..., image_feats=)")
+    with spans.span("model.rglru" if kind == "rglru" else "model.attention",
+                    layer=index):
+        x = x + _mix(cfg, kind, p, _norm(cfg, p["ln1"], x), positions,
+                     cache=cache, fresh=fresh, differentiable=differentiable,
+                     image_feats=image_feats, ring=ring)
+    with spans.span("model.ffn", layer=index):
+        h = _norm(cfg, p["ln2"], x)
+        if kind != "moe":
+            return x + _mlp(cfg, p["mlp"], h, unread=last), None
+        if ep is None:
+            f, aux = moe_lib.moe_ffn(p["moe"], h, cfg.moe, unread=last)
+            return x + f, aux
+        f, aux = ep(p["moe"], h)
+        if cfg.moe.n_shared:        # shared experts run outside the island
+            f = f + moe_lib.shared_experts(p["moe"], h, unread=last)
+        return x + f, aux
+
+
+def _mix(cfg, kind, p, h, positions, *, cache, fresh, differentiable,
+         image_feats, ring):
+    """The block's token mixing of its normed input ``h``: the RG-LRU,
+    cross-attention, MLA or GQA (``_apply_block``)."""
     if kind == "rglru":
         r, _ = rec.rglru_block(p["rnn"], h, state=cache)
-        x = x + r
-        h = _norm(cfg, p["ln2"], x)
-        return x + _mlp(cfg, p["mlp"], h, unread=last), None
+        return r
     if kind == "cross":
-        if image_feats is None:
-            raise ValueError(f"{cfg.name}: a cross-attention block needs "
-                             f"image_feats (B, N, d_model), got None; pass "
-                             f"batch['image_feats'] or "
-                             f"decode_step(..., image_feats=)")
-        x = x + attn.cross_attention(p["xattn"], h, image_feats,
-                                     H=cfg.n_heads, K=cfg.n_kv_heads,
-                                     dh=cfg.dh,
-                                     differentiable=differentiable)
-        h = _norm(cfg, p["ln2"], x)
-        return x + _mlp(cfg, p["mlp"], h, unread=last), None
+        return attn.cross_attention(p["xattn"], h, image_feats,
+                                    H=cfg.n_heads, K=cfg.n_kv_heads,
+                                    dh=cfg.dh, differentiable=differentiable)
     if cfg.mla and kind != "attn_local":
         a, _ = attn.mla(p["attn"], h, positions, H=cfg.n_heads, dims=cfg.mla,
                         cache=cache, fresh=fresh,
                         differentiable=differentiable)
-    else:
-        window = cfg.window if kind == "attn_local" else 0
-        a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
-                        K=cfg.n_kv_heads, dh=cfg.dh, window=window,
-                        rope_base=cfg.rope_base, cache=cache, fresh=fresh,
-                        differentiable=differentiable,
-                        ring=None if window else ring)
-    x = x + a
-    h = _norm(cfg, p["ln2"], x)
-    if kind != "moe":
-        return x + _mlp(cfg, p["mlp"], h, unread=last), None
-    if ep is None:
-        f, aux = moe_lib.moe_ffn(p["moe"], h, cfg.moe, unread=last)
-        return x + f, aux
-    f, aux = ep(p["moe"], h)
-    if cfg.moe.n_shared:            # shared experts run outside the island
-        f = f + moe_lib.shared_experts(p["moe"], h, unread=last)
-    return x + f, aux
+        return a
+    window = cfg.window if kind == "attn_local" else 0
+    a, _ = attn.gqa(p["attn"], h, positions, H=cfg.n_heads,
+                    K=cfg.n_kv_heads, dh=cfg.dh, window=window,
+                    rope_base=cfg.rope_base, cache=cache, fresh=fresh,
+                    differentiable=differentiable,
+                    ring=None if window else ring)
+    return a
 
 
 # --------------------------------------------------------------------------
@@ -505,15 +516,16 @@ class Model:
         remat = cfg.remat if caches is None and torch.is_grad_enabled() \
             else "none"
         aux_total = torch.zeros((), dtype=torch.float32, device=self.device)
+        first = 0                    # the layer index of the next block
         for si, (pat, reps) in enumerate(self.segs):
             seg_params = {key: tree_unstack(p, reps)
                           for key, p in params["segments"][si].items()}
             seg_cache = None if caches is None else {
                 key: tree_unstack(c, reps) for key, c in caches[si].items()}
 
-            def superblock(x, p_layer, c_layer=None, pat=pat):
-                """One pass over ``pat``: (x, the blocks' summed aux or
-                None)."""
+            def superblock(x, p_layer, c_layer=None, pat=pat, first=0):
+                """One pass over ``pat`` from layer ``first``: (x, the
+                blocks' summed aux or None)."""
                 aux_sb = None
                 for i, kind in enumerate(pat):
                     key = f"b{i}_{kind}"
@@ -522,7 +534,7 @@ class Model:
                         cache=None if c_layer is None else c_layer[key],
                         fresh=fresh, differentiable=differentiable,
                         ep=self._island, image_feats=image_feats, ring=ring,
-                        last=i == len(pat) - 1)
+                        last=i == len(pat) - 1, index=first + i)
                     if aux is not None:
                         aux_sb = aux if aux_sb is None else aux_sb + aux
                 return x, aux_sb
@@ -531,13 +543,16 @@ class Model:
                 p_layer = {key: p[layer] for key, p in seg_params.items()}
                 if seg_cache is not None:
                     x, aux = superblock(x, p_layer, {
-                        key: c[layer] for key, c in seg_cache.items()})
+                        key: c[layer] for key, c in seg_cache.items()},
+                        first=first)
                 elif remat == "none":
-                    x, aux = superblock(x, p_layer)
+                    x, aux = superblock(x, p_layer, first=first)
                 else:
-                    x, aux = _checkpointed(remat, superblock, x, p_layer)
+                    x, aux = _checkpointed(remat, superblock, x, p_layer,
+                                           None, pat, first)
                 if aux is not None:
                     aux_total = aux_total + aux
+                first += len(pat)
         return x, caches, aux_total
 
     def _positions(self, B: int, S: int):
@@ -551,18 +566,28 @@ class Model:
         MoE layers.  Attention goes through
         the forward-only flash kernel unless ``differentiable`` asks for
         the plain route that autograd differentiates (``loss``)."""
-        x = self._embed_in(params, batch)
+        x, aux = self._trunk(params, batch, differentiable)
+        return self._unembed(params, x), aux
+
+    def _trunk(self, params, batch, differentiable: bool):
+        """The embedding (a ``model.embed`` span) and every layer:
+        ``(x, aux)`` before the final norm."""
+        with spans.span("model.embed"):
+            x = self._embed_in(params, batch)
         B, S = x.shape[:2]
         x, _, aux = self._run_segments(params, x, self._positions(B, S),
                                        differentiable=differentiable,
                                        image_feats=batch.get("image_feats"))
-        return self._unembed(params, x), aux
+        return x, aux
 
     def loss(self, params, batch):
         """Mean next-token cross-entropy of ``batch["labels"]`` plus
-        ``aux_loss_weight * aux``, through the differentiable forward."""
-        logits, aux = self.forward_train(params, batch, differentiable=True)
-        ce = bl.softmax_xent(logits, batch["labels"])
+        ``aux_loss_weight * aux``, through the differentiable forward;
+        the final norm, the unembedding and the cross-entropy are one
+        ``model.head`` span."""
+        x, aux = self._trunk(params, batch, differentiable=True)
+        with spans.span("model.head"):
+            ce = bl.softmax_xent(self._unembed(params, x), batch["labels"])
         return ce + self.cfg.aux_loss_weight * aux
 
     # -- serving -------------------------------------------------------------

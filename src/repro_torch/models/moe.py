@@ -58,6 +58,7 @@ from repro_torch.actors.coalesce import pack_meta_lane, unpack_meta_lane
 from repro_torch.core import collectives as coll
 from repro_torch.core.state import ShoalContext
 from repro_torch.models import blocks as bl
+from repro_torch.runtime import spans
 
 ROUTED = ("router", "wg", "wu", "wd")      # the island's leaves
 
@@ -199,21 +200,42 @@ def _dispatch_local(p_local, x, dims: MoEDims, e_lo: int, E_local: int,
     whose weights are ``p_local``.  Tokens routed elsewhere contribute
     zero here (combined by the caller)."""
     T, d = x.shape
-    gates, experts, aux = _route(p_local["router"], x, dims)
-    flat_e = experts.reshape(-1)
-    flat_g = gates.reshape(-1)
-    flat_tok = torch.arange(T, device=x.device).repeat_interleave(dims.top_k)
+    shard = e_lo // E_local
+    with spans.span("moe.route", shard=shard):
+        gates, experts, aux = _route(p_local["router"], x, dims)
+    with spans.span("moe.experts", shard=shard):
+        flat_e = experts.reshape(-1)
+        flat_g = gates.reshape(-1)
+        flat_tok = torch.arange(T, device=x.device).repeat_interleave(
+            dims.top_k)
 
-    rank = _ranks(flat_e, dims.n_experts)
-    local = (flat_e >= e_lo) & (flat_e < e_lo + E_local) & (rank < capacity)
-    n_slots = E_local * capacity
-    slot = torch.where(local, (flat_e - e_lo) * capacity + rank, n_slots)
-    x_slots = _fill(n_slots, slot, local, x[flat_tok])
-    y_e = _expert_compute(p_local, x_slots[:-1].reshape(E_local, capacity, d))
-    y_slots = y_e.reshape(n_slots, d)
-    contrib = torch.where(local[:, None],
-                          y_slots[torch.clamp(slot, 0, n_slots - 1)], 0)
-    return _combine(contrib * flat_g[:, None], T, dims.top_k), aux
+        rank = _ranks(flat_e, dims.n_experts)
+        mine = (flat_e >= e_lo) & (flat_e < e_lo + E_local)
+        local = mine & (rank < capacity)
+        n_slots = E_local * capacity
+        if spans.counting():
+            _count_dispatch(T * dims.top_k if E_local == dims.n_experts
+                            else mine.sum(), local.sum(), n_slots)
+        slot = torch.where(local, (flat_e - e_lo) * capacity + rank, n_slots)
+        x_slots = _fill(n_slots, slot, local, x[flat_tok])
+        y_e = _expert_compute(p_local,
+                              x_slots[:-1].reshape(E_local, capacity, d))
+        y_slots = y_e.reshape(n_slots, d)
+        contrib = torch.where(local[:, None],
+                              y_slots[torch.clamp(slot, 0, n_slots - 1)], 0)
+        return _combine(contrib * flat_g[:, None], T, dims.top_k), aux
+
+
+def _count_dispatch(routed, kept, slots: int) -> None:
+    """A dispatch's counters while :mod:`repro_torch.runtime.spans`
+    records: the pairs routed to its slots, those kept (under the
+    capacity), the slots it computes and the pairs it dropped.  The
+    pair counts are host ints or one-element tensors, summed on the
+    device."""
+    spans.add("moe.routed_pairs", routed)
+    spans.add("moe.kept_pairs", kept)
+    spans.add("moe.slots", slots)
+    spans.add("moe.dropped_pairs", routed - kept)
 
 
 # --------------------------------------------------------------------------
@@ -236,6 +258,8 @@ def _a2a_send(router, x, dims: MoEDims, E_local: int, n_shards: int):
     C = max(1, int(-(-T * k * dims.capacity_factor // n_shards)))
     rank = _ranks(dest, n_shards)
     ok = rank < C
+    if spans.counting():
+        _count_dispatch(T * k, ok.sum(), n_shards * C)
     slot = torch.where(ok, dest * C + rank, n_shards * C)
     send_x = _fill(n_shards * C, slot, ok, x[flat_tok])
     send_e = _fill(n_shards * C, slot, ok, (flat_e + 1).to(torch.int32))
@@ -347,8 +371,11 @@ def moe_routed_island(p, h, dims: MoEDims, mesh: ExpertMesh,
         return torch.stack(rows).reshape((K, D) + rows[0].shape)
 
     if dims.dispatch == "a2a":
-        sent = [_a2a_send(slabs[s]["router"], x[s, g], dims, E_local, K)
-                for s, g in shards]
+        sent = []
+        for s, g in shards:
+            with spans.span("moe.route", shard=s):
+                sent.append(_a2a_send(slabs[s]["router"], x[s, g], dims,
+                                      E_local, K))
         auxs = [a for _, _, a in sent]
         send = stack([b for b, _, _ in sent])          # (K, D, n, C, d + 1)
         # one exchange carries every data group: block j of every group
@@ -356,13 +383,17 @@ def moe_routed_island(p, h, dims: MoEDims, mesh: ExpertMesh,
         r = coll.all_to_all_vectored(
             ctx, send.transpose(1, 2).reshape(K, K, -1), tiled=False)
         r = r.reshape((K, K, D) + send.shape[3:]).transpose(1, 2)
-        y = stack([_a2a_experts(slabs[s], r[s, g], s, E_local)
-                   for s, g in shards])                # (K, D, n, C, d)
-        ry = coll.all_to_all_vectored(
-            ctx, y.transpose(1, 2).reshape(K, K, -1), tiled=False)
-        ry = ry.reshape((K, K, D) + y.shape[3:]).transpose(1, 2)
-        out = stack([_a2a_combine(ry[s, g], sent[i][1], k).float()
-                     for i, (s, g) in enumerate(shards)])
+        ys = []
+        for s, g in shards:
+            with spans.span("moe.experts", shard=s):
+                ys.append(_a2a_experts(slabs[s], r[s, g], s, E_local))
+        y = stack(ys)                                  # (K, D, n, C, d)
+        with spans.span("moe.combine"):
+            ry = coll.all_to_all_vectored(
+                ctx, y.transpose(1, 2).reshape(K, K, -1), tiled=False)
+            ry = ry.reshape((K, K, D) + y.shape[3:]).transpose(1, 2)
+            out = stack([_a2a_combine(ry[s, g], sent[i][1], k).float()
+                         for i, (s, g) in enumerate(shards)])
     elif dims.dispatch == "rs":
         Tl = x.shape[2]
         full = coll.ring_all_gather(ctx, x)            # (K, n, D Tl d)
@@ -375,14 +406,17 @@ def moe_routed_island(p, h, dims: MoEDims, mesh: ExpertMesh,
         part = stack([o.float() for o, _ in ran])      # (K, D, K Tl, d)
         # kernel j's reduced chunk is token block j of every data group
         part = part.reshape(K, D, K, Tl, d).transpose(1, 2)
-        out = coll.ring_reduce_scatter(ctx, part).reshape(K, D, Tl, d)
+        with spans.span("moe.combine"):
+            out = coll.ring_reduce_scatter(ctx, part).reshape(K, D, Tl, d)
     elif dims.dispatch == "psum":
         T = x.shape[2]
         capacity = max(1, int(T * k * dims.capacity_factor / E))
         ran = [_dispatch_local(slabs[s], x[s, g], dims, s * E_local,
                                E_local, capacity) for s, g in shards]
         auxs = [a for _, a in ran]
-        out = coll.ring_all_reduce(ctx, stack([o.float() for o, _ in ran]))
+        with spans.span("moe.combine"):
+            out = coll.ring_all_reduce(ctx, stack([o.float()
+                                                   for o, _ in ran]))
     else:
         raise ValueError(f"unknown MoE dispatch {dims.dispatch!r}")
     aux = coll.ring_all_reduce(ctx, stack(auxs))[0].sum() / (K * D)

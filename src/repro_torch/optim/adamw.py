@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.runtime import spans
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -41,8 +42,9 @@ def adamw_init(params) -> dict:
 
 def global_norm(tree) -> torch.Tensor:
     """The float32 L2 norm over every leaf of ``tree``."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    with spans.span("optim.global_norm"):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
 
 
 # words of a leaf updated at once in place: bounds the float32
@@ -59,6 +61,11 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params,
     ``opt_state`` (and returns them), ``INPLACE_CHUNK`` words at a time:
     the same numbers, without a second copy of the state (the JAX
     trainer's buffer donation)."""
+    with spans.span("optim.adamw"):
+        return _adamw_update(cfg, grads, opt_state, params, inplace)
+
+
+def _adamw_update(cfg, grads, opt_state, params, inplace):
     count = opt_state["count"] + 1
     gn = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)

@@ -46,6 +46,7 @@ from repro_torch.core.state import ShoalContext
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw as aw
 from repro_torch.optim import dist as od
+from repro_torch.runtime import spans
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BACKENDS = ("xla", "shoal")
@@ -137,8 +138,10 @@ class Trainer:
         live = tree_unflatten(params, leaves)
         n = self.tcfg.microbatches
         if n == 1:
-            loss = self.model.loss(live, batch)
-            grads = _grad(loss, leaves)
+            with spans.span("model.forward"):
+                loss = self.model.loss(live, batch)
+            with spans.span("model.backward"):
+                grads = _grad(loss, leaves)
             return loss.detach(), tree_unflatten(params, grads)
         B = next(iter(batch.values())).shape[0]
         if B % n:
@@ -148,8 +151,10 @@ class Trainer:
         total, acc = None, None
         for i in range(n):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss = self.model.loss(live, part)
-            grads = _grad(loss / n, leaves)
+            with spans.span("model.forward", microbatch=i):
+                loss = self.model.loss(live, part)
+            with spans.span("model.backward", microbatch=i):
+                grads = _grad(loss / n, leaves)
             total = loss.detach() if total is None else total + loss.detach()
             acc = ([g.float() for g in grads] if acc is None
                    else [a + g.float() for a, g in zip(acc, grads)])
@@ -165,10 +170,13 @@ class Trainer:
             raise ValueError(f"batch of {B} rows does not split over {K} "
                              "data-parallel members")
         rows = B // K
-        return [self.value_and_grad(
+        out = []
+        for m in range(K):
+            with spans.span("train.member", member=m):
+                out.append(self.value_and_grad(
                     params, {k: v[m * rows:(m + 1) * rows]
-                             for k, v in batch.items()})
-                for m in range(K)]
+                             for k, v in batch.items()}))
+        return out
 
     # -- the shoal sync ----------------------------------------------------------
 
@@ -183,6 +191,12 @@ class Trainer:
         ring, and the result is float32.  ``member_grads`` is emptied and
         each member's leaf released once stacked, so the members'
         gradients and the ring's buffers are not all held at once."""
+        with spans.span("train.sync") as span:
+            if span is not None:
+                span.attrs["leaves"] = len(tree_leaves(member_grads[0]))
+            return self._sync(member_grads, residual)
+
+    def _sync(self, member_grads: list, residual):
         ctx, K = self.ctx, self.kernels
         like = tree_map(lambda _: 0, member_grads[0])     # the structure
         per_member = [tree_leaves(g) for g in member_grads]
@@ -243,8 +257,9 @@ class Trainer:
         """One train step: ``(new state, metrics)``; ``state`` is left
         as it was, unless ``donate`` hands its parameters and optimizer
         state to the new one, updated in place."""
-        loss, grads, res = self.grads(state, batch)
-        return self.apply_update(state, grads, loss, res)
+        with spans.span("train.step"):
+            loss, grads, res = self.grads(state, batch)
+            return self.apply_update(state, grads, loss, res)
 
     def make_train_step(self):
         return self.step
