@@ -47,7 +47,16 @@ share).  The padded Hopper route -- head dims below a tile, zero columns
 past them -- is timed beside the simple kernel and SDPA at dh 32, 16
 (H 8), phi-2's 80 and phi-3-mini's 96 (H 32) in both types, and
 qwen2-smoke (dh 16) is served in bfloat16 through it, its prefill
-logits held to the plain version.
+logits held to the plain version.  Then the training route's kernels
+-- the Hopper forward writing each row's log-sum-exp and the Hopper
+backward (``flash_sm90_bwd.cu``) -- at qwen2-1.5b's (B 4 x S 2048 x H 12
+/ 2) and dbrx-132b's (B 8 x S 512 x H 48 / 8) training shapes, dh 128:
+output, log-sum-exp and dQ / dK / dV held to float32 autograd on the
+same inputs (1e-2 of the largest value, lse 1e-4), timed in turns
+beside the plain route's forward and backward and SDPA's; every trainer
+below is held to the launches its config predicts on that route (a
+forward a layer, one more recomputed, a backward a layer, for each
+bf16 GQA layer at dh 64 or 128).
 Phase 8 serves the same model through the disaggregated tier: 2 prefill
 and 2 decode kernels, 2 lanes each, every finished prefill's KV cache
 moved to a decode lane as ONE vectored put into the decode kernel's
@@ -2016,6 +2025,198 @@ def check_flash(torch, device):
     return records
 
 
+# the training route (``flash_attention_lse_cuda``, then
+# ``flash_attention_bwd_cuda``) at the benchmark's training shapes, bf16:
+# qwen2-1.5b's B 4 x S 2048 x H 12 (K 2) and dbrx-132b's B 8 x S 512 x
+# H 48 (K 8), both at dh 128
+TRAIN_FLASH_CASES = (("qwen2-1.5b-train", (4, 2048, 12, 2, 128)),
+                     ("dbrx-132b-train", (8, 512, 48, 8, 128)))
+# the card tests' limits (tests/test_torch_cuda_flash_train.py): output
+# and gradients over the largest |want| of float32 autograd on the same
+# bf16 inputs (P and dS are bf16 operands), the log-sum-exp absolute
+TRAIN_FLASH_TOL, TRAIN_LSE_TOL = 1e-2, 1e-4
+TRAIN_FLASH_NAMES = ("flash_attention_sm90_lse", "flash_attention_sm90_bwd")
+FLASH_BWD_SRC = "src/repro_torch/kernels/attention/csrc/flash_sm90_bwd.cu"
+
+
+def _train_rel(torch, got, want, what):
+    """max |got - want| over the largest |want|; raises past
+    ``TRAIN_FLASH_TOL`` or on a value that is not finite."""
+    torch.cuda.synchronize()
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    require(bool(torch.isfinite(got).all()) and rel <= TRAIN_FLASH_TOL,
+            f"{what}: max|err| / max|want| {rel} beyond {TRAIN_FLASH_TOL}")
+    return rel
+
+
+def check_flash_train(torch, device):
+    """The training route's two kernels on the card at
+    ``TRAIN_FLASH_CASES``: the Hopper forward with the log-sum-exp
+    (``flash_attention_sm90_fwd_lse``) and the Hopper backward
+    (``flash_sm90_bwd.cu``: D, dK / dV, dQ), the output, lse, dQ, dK and
+    dV held to float32 autograd through ``flash_attention_ref`` on the
+    same bf16 inputs (``TRAIN_FLASH_TOL``, ``TRAIN_LSE_TOL``), each
+    shape's route ``train_kernel_for``'s.  Device ms in turns (the two
+    kernels, the plain route ``_attend``'s forward and backward,
+    ``scaled_dot_product_attention``'s -- the library yardstick, used
+    nowhere in the port -- then the same in reverse), a pair that
+    spreads taken again (:func:`steady_turns`); the bound by operations
+    (2 products forward, 5 backward, at the bf16 rate) or by bytes.
+    Returns ``{kernel name: record}``, launches filled in later."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import flash as fl
+    from repro_torch.kernels.attention import ref
+    from repro_torch.models.attention import _attend
+
+    gen = torch.Generator(device=device).manual_seed(38)
+    records = {
+        "flash_attention_sm90_lse": {
+            "name": "flash_attention_sm90_lse", "route": "cuda",
+            "source": FLASH_SM90_SRC, "replaces": FLASH_TPU, "launches": 0},
+        "flash_attention_sm90_bwd": {
+            "name": "flash_attention_sm90_bwd", "route": "cuda",
+            "source": FLASH_BWD_SRC,
+            "replaces": "none (the TPU flash kernel is forward-only)",
+            "launches": 0}}
+    for case, (B, S, H, Kv, dh) in TRAIN_FLASH_CASES:
+        q, k, v, dout = [torch.randn(B, S, n, dh, generator=gen,
+                                     device=device).to(torch.bfloat16)
+                         for n in (H, Kv, Kv, H)]
+        route = fl.train_kernel_for(q, k, v)
+        require(route == "sm90", f"{case}: training route {route}")
+        out, lse = fl.flash_attention_lse_cuda(q, k, v)
+        dq, dk, dv = fl.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        qf, kf, vf = [t.float().requires_grad_() for t in (q, k, v)]
+        want = ref.flash_attention_ref(qf, kf, vf)
+        grads = torch.autograd.grad(want, (qf, kf, vf), dout.float())
+        with torch.no_grad():
+            _, lse_want = ref.flash_attention_lse_ref(qf, kf, vf)
+        errs = {"out": _train_rel(torch, out, want, f"{case} out")}
+        lse_err = (lse - lse_want).abs().max().item()
+        require(lse_err <= TRAIN_LSE_TOL, f"{case} lse: max|err| {lse_err} "
+                f"beyond {TRAIN_LSE_TOL}")
+        for name, got, g in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+            errs[name] = _train_rel(torch, got, g, f"{case} {name}")
+        del qf, kf, vf, want, grads, lse_want, dq, dk, dv
+
+        # the plain route and the library, each with a graph to
+        # differentiate again
+        qg, kg, vg = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        pos = torch.arange(S, device=device).expand(B, S)
+        plain = _attend(qg.reshape(B, S, Kv, H // Kv, dh), kg, vg, pos, pos)
+        plain_dout = dout.reshape(plain.shape)
+        qt, kt, vt = [t.detach().transpose(1, 2).contiguous()
+                      .requires_grad_() for t in (q, k, v)]
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        lib_dout = dout.transpose(1, 2).contiguous()
+        fns = {
+            "lse": lambda: fl.flash_attention_lse_cuda(q, k, v),
+            "bwd": lambda: fl.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                       dout),
+            "plain_fwd": lambda: _attend(
+                q.reshape(B, S, Kv, H // Kv, dh), k, v, pos, pos),
+            "plain_bwd": lambda: torch.autograd.grad(
+                plain, (qg, kg, vg), plain_dout, retain_graph=True),
+            "lib_fwd": lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                enable_gqa=True),
+            "lib_bwd": lambda: torch.autograd.grad(
+                lib, (qt, kt, vt), lib_dout, retain_graph=True)}
+
+        def run(r):
+            return device_ms(fns[r], reps=5 if r.startswith("plain")
+                             else 20)
+
+        order = tuple(fns)
+        turns = {r: [] for r in order}
+        for r in order + order[::-1]:
+            turns[r].append(run(r))
+        for r in order:
+            turns[r] = steady_turns(turns[r], lambda r=r: run(r),
+                                    f"training flash {r}, {case}")
+        ms = {r: float(np.mean(ts)) for r, ts in turns.items()}
+        pairs = B * H * S * S          # causal: S^2 / 2 pairs, 2 ops each
+        size = q.element_size()
+        io = {"lse": (2 * q.numel() + 2 * k.numel()) * size + 4 * lse.numel(),
+              "bwd": (4 * q.numel() + 4 * k.numel()) * size
+              + 4 * lse.numel()}
+        shape = f"B{B}xS{S}xH{H}xK{Kv}xdh{dh}"
+        for r, name, products, plain_ms, lib_ms in (
+                ("lse", "flash_attention_sm90_lse", 2, "plain_fwd",
+                 "lib_fwd"),
+                ("bwd", "flash_attention_sm90_bwd", 5, "plain_bwd",
+                 "lib_bwd")):
+            m = {"nbytes": io[r], "ops": pairs * dh * products,
+                 "rate": BF16_FLOPS}
+            bound_ms, bound_by = bound(m)
+            rec = {"shape": shape, "ms": ms[r], "plain_ms": ms[plain_ms],
+                   "library_ms": ms[lib_ms], "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   "max_rel_err": (errs["out"] if r == "lse" else
+                                   max(errs[g] for g in ("dq", "dk", "dv")))}
+            if r == "lse":
+                rec["lse_max_abs_err"] = lse_err
+            records[name][case] = rec
+            say("kernels", kernel=name, case=case, shape=shape,
+                dtype="bfloat16", ms=f"{ms[r]:.5f}",
+                plain_ms=f"{ms[plain_ms]:.5f}",
+                library_ms=f"{ms[lib_ms]:.5f}",
+                bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                share_of_bound=f"{bound_ms / ms[r]:.4f}",
+                tol=TRAIN_FLASH_TOL,
+                **({"out_rel_err": f"{errs['out']:.3e}",
+                    "lse_max_abs_err": f"{lse_err:.3e}",
+                    "lse_tol": TRAIN_LSE_TOL} if r == "lse" else
+                   {f"{g}_rel_err": f"{errs[g]:.3e}"
+                    for g in ("dq", "dk", "dv")}),
+                turns_ms=json.dumps({x: [round(t, 5) for t in turns[x]]
+                                     for x in (r, plain_ms, lib_ms)}))
+        del q, k, v, dout, out, lse, qg, kg, vg, plain, qt, kt, vt, lib
+        torch.cuda.empty_cache()
+    # the qwen2 case stands as each kernel's headline record
+    for rec in records.values():
+        rec.update({x: rec[TRAIN_FLASH_CASES[0][0]][x]
+                    for x in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "max_rel_err")})
+    return records
+
+
+def train_route_layers(torch, cfg, seq) -> int:
+    """The layers of ``cfg`` whose differentiable pass over ``seq``
+    tokens takes the training route's kernels (``train_kernel_for``):
+    GQA self-attention -- dense and MoE layers, and local ones where
+    ``seq`` fits the window; not MLA, not cross-attention -- in bfloat16
+    at a head dim the backward is built for."""
+    from repro_torch.kernels.attention import flash as fl
+
+    if cfg.dtype != torch.bfloat16 or cfg.mla is not None \
+            or cfg.dh not in fl.BWD_HEAD_DIMS:
+        return 0
+    return sum(reps * sum(kind in ("dense", "moe")
+                          or kind == "attn_local" and seq <= cfg.window
+                          for kind in pat)
+               for pat, reps in cfg.segments())
+
+
+def check_train_route(torch, cfg, seq, passes, counts, what) -> int:
+    """The training route's launches in ``counts`` after ``passes``
+    forward-and-backward passes of ``cfg`` over ``seq`` tokens: a
+    forward a layer that takes the route (:func:`train_route_layers`),
+    one more where ``cfg.remat`` recomputes it, a backward a layer.
+    Raises on any other count; returns the layers."""
+    layers = train_route_layers(torch, cfg, seq)
+    fwd = passes * layers * (1 if cfg.remat == "none" else 2)
+    got = tuple(counts[n] for n in TRAIN_FLASH_NAMES)
+    require(got == (fwd, passes * layers),
+            f"{what}: training flash launches (forward, backward) {got}, "
+            f"want ({fwd}, {passes * layers}): {passes} passes x {layers} "
+            f"layers under remat {cfg.remat}")
+    return layers
+
+
 def f32_shape(shape, m, simple):
     """The float32 Hopper kernel at one shape, beside the simple kernel
     on the same inputs: its TF32 bound (:func:`bound`) and the FFMA
@@ -3184,6 +3385,9 @@ def phase_train(torch, device, cfg=None, batch_rows=TRAIN_BATCH,
                 f"ring launches per step {per_step} (want {leaves}), "
                 f"cluster {counts['ring_cluster_sm90']} (want "
                 f"{steps} x {sm90}), flash {counts['flash_attention']}")
+        # every member's pass on the training route's kernels
+        check_train_route(torch, cfg, seq, steps * TRAIN_K, counts,
+                          f"{tag} {cfg.name}")
     ms = float(np.median(step_ms[1:]))
     say(tag, main_path="ok", model=cfg.name, backend="shoal",
         card=card_line(), losses=[f"{v:.5f}" for v in losses],
@@ -5668,6 +5872,8 @@ def check_ep_train(torch, device):
             f"{moe_layers * EP_STEP_RINGS}), {exchanges} exchanges in "
             f"{EP_STEPS} steps (want {EP_STEP_EXCHANGES} a MoE layer), "
             f"flash {counts['flash_attention']}")
+    check_train_route(torch, cfg, TRAIN_SEQ, EP_STEPS, counts,
+                      f"ep train {cfg.name}")
     ms = float(np.median(step_ms[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     peak_mb = torch.cuda.max_memory_allocated(device) / 2 ** 20
@@ -5897,6 +6103,9 @@ def train_full_depth(torch, device, cfg=None, rows=TRAIN_BATCH,
             f"{cfg.name}: {len(reg)} checkpoint regions in {steps} steps")
     require(counts["flash_attention"] == 0,
             f"training launched the flash kernel: {counts}")
+    # dh 256: the plain route, no training flash launch
+    check_train_route(torch, cfg, seq, steps, counts,
+                      f"remat full-depth {cfg.name}")
     tokens = rows * seq
     ms = float(np.median(step_ms[1:]))
     say("remat", check="full-depth", main_path="ok", model=cfg.name,
@@ -6771,6 +6980,9 @@ def main() -> int:
         ring_ptxas_summary(logs.get("gascore_dma_sm90", ""))
     served, model, params = phase_serving(torch, device)
     kernels.update(served)
+    t0 = time.perf_counter()
+    kernels.update(check_flash_train(torch, device))
+    say("kernels", flash_train_seconds=f"{time.perf_counter() - t0:.1f}")
     mla_flash = check_flash_mla(torch, device)
     mla_flash["simple"]["ptxas"] = ring_ptxas_summary(logs.get("flash", ""),
                                                       MLA_PTXAS)
@@ -6826,6 +7038,8 @@ def main() -> int:
     for rec in rings:           # the trainer's all-reduces, by kernel
         rec["path_launches"]["train"] = ring_launches(trained, rec["name"])
     rings.append(train_ring)
+    for name in TRAIN_FLASH_NAMES:      # phase 9's members, on the route
+        kernels[name]["path_launches"] = {"train": trained[name]}
     t0 = time.perf_counter()
     linted = phase_lint(torch, device, jacobi_ops=jacobi_ops)
     say("lint", seconds=f"{time.perf_counter() - t0:.1f}",
@@ -6901,8 +7115,8 @@ def main() -> int:
         for rec in rings:
             rec["path_launches"][run] = ring_launches(ran, rec["name"])
         for name in ("flash_attention", "flash_attention_sm90",
-                     "flash_attention_sm90_f32"):
-            kernels[name]["path_launches"][run] = ran[name]
+                     "flash_attention_sm90_f32") + TRAIN_FLASH_NAMES:
+            kernels[name].setdefault("path_launches", {})[run] = ran[name]
     # the float32 Hopper kernel's main path: the float32 logit checks of
     # phases 6 and 11, one launch a layer each
     f32["launches"] = sum(n for run, n in f32["path_launches"].items()
@@ -6911,6 +7125,9 @@ def main() -> int:
                 for arch in (ARCH, "qwen2-1.5b")),
             f"the float32 logit checks did not launch the float32 Hopper "
             f"kernel: {f32['path_launches']}")
+    for name in TRAIN_FLASH_NAMES:      # every trainer's, checked by phase
+        kernels[name]["launches"] = sum(
+            kernels[name]["path_launches"].values())
     rings.extend(family_rings + moe_rings)
     dms = dm_records(dmc, {"ops": grew, "get_service": get_service,
                            "jacobi": counts, "messages": messages,

@@ -24,7 +24,9 @@ the kernel on CUDA tensors and runs the plain version on CPU tensors:
   ``wgmma``) for bfloat16 at head dims 64, 128 and 256 and at MLA's q·k
   192 with v 128, a Hopper kernel for float32 at the same head dims (TMA
   tile ring, TF32 ``mma.sync``), and a simple kernel for every other
-  input it holds.
+  input it holds; and for training, a differentiable route in bfloat16
+  at head dims 64 and 128: the Hopper forward writing each row's
+  log-sum-exp and a Hopper backward (``wgmma``) of its own.
 
 CUDA sources live under each kernel's ``csrc/`` and are compiled with
 ``nvcc`` at first use (:mod:`repro_torch.kernels._build`).
@@ -36,7 +38,9 @@ from repro_torch.kernels.am_pack.am_pack import (launch_gather,
                                                  launch_scatter_sm90)
 from repro_torch.kernels.attention.flash import (flash_attention_cuda,
                                                  launch_flash_sm90,
+                                                 launch_flash_sm90_bwd,
                                                  launch_flash_sm90_f32,
+                                                 launch_flash_sm90_lse,
                                                  noncausal_launches)
 from repro_torch.kernels.gascore_dma.gascore_dma import (
     launch_ring_sm90, ring_allreduce_dma_cuda, ring_collective_cuda)
@@ -56,6 +60,10 @@ LAUNCH_COUNTERS = {
     "flash_attention_sm90": launch_flash_sm90,      # the bf16 Hopper kernel
     "flash_attention_sm90_f32": launch_flash_sm90_f32,  # the float32 one
     "flash_attention_noncausal": noncausal_launches,  # either, causal off
+    # the training route: the bf16 Hopper forward with the log-sum-exp,
+    # and its backward (one a backward: D, dK / dV, dQ)
+    "flash_attention_sm90_lse": launch_flash_sm90_lse,
+    "flash_attention_sm90_bwd": launch_flash_sm90_bwd,
 }
 
 

@@ -33,6 +33,7 @@ SOURCES = {
     "flash": _PKG / "attention" / "csrc" / "flash.cu",
     "flash_sm90": _PKG / "attention" / "csrc" / "flash_sm90.cu",
     "flash_sm90_f32": _PKG / "attention" / "csrc" / "flash_sm90_f32.cu",
+    "flash_sm90_bwd": _PKG / "attention" / "csrc" / "flash_sm90_bwd.cu",
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -94,6 +94,13 @@
 // unequal but MLA's, a head dim that is not contiguous, strides or
 // pointers off TMA's 16-byte grid) go to csrc/flash.cu; the wrapper
 // decides by shape before the launch.
+//
+// Log-sum-exp (training).  flash_attention_sm90_fwd_lse runs the causal
+// kernel at dh 64 and 128 with the LSE flag on: the epilogue also writes
+// each query row's float32 log-sum-exp of its scaled scores, lse (B, H,
+// S), from the running max and sum the softmax already keeps, (m +
+// log2 l) ln 2, for the backward of csrc/flash_sm90_bwd.cu.  The flag is
+// a template argument: the serving instantiations compile without it.
 
 #include <cuda.h>            // CUtensorMap and the driver's enums only
 #include <cuda_bf16.h>
@@ -124,6 +131,7 @@ constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int SM_SMEM = 233472;     // an SM's shared memory (228 KB)
 constexpr int CTA_SMEM = 232448;    // the most one CTA may take (227 KB)
 constexpr float NEG = -1e30f;       // the masked score of the TPU kernel
+constexpr float LN2 = 0.6931471805599453f;
 
 // DQK: q's and k's head dim; DV: v's
 template <int DQK, int DV>
@@ -540,12 +548,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 // no branch of the non-causal one in its tile loop.  PAD: the head dims
 // dqk / dv are below the tile's DQK / DV (the padded route); without it
 // they are the tile's own and the kernel compiles as if it had none.
-template <int DQK, int DV, bool CAUSAL, bool PAD>
+// LSE: also write each row's log-sum-exp to lse (B, H, S); without it
+// lse is never read.
+template <int DQK, int DV, bool CAUSAL, bool PAD, bool LSE = false>
 __global__ void __launch_bounds__(THREADS, Cfg<DQK, DV>::MIN_BLOCKS)
     flash_attention_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
-                                __nv_bfloat16* __restrict__ o, int S, int T,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int S, int T,
                                 int H, int G, int B, int n_qb, int dqk,
                                 int dv, float scale_log2) {
   using C = Cfg<DQK, DV>;
@@ -754,6 +765,14 @@ __global__ void __launch_bounds__(THREADS, Cfg<DQK, DV>::MIN_BLOCKS)
   // is (B, S, H, dv)
   const float d0 = fmaxf(quad_sum(l0), 1e-30f);
   const float d1 = fmaxf(quad_sum(l1), 1e-30f);
+  if constexpr (LSE) {
+    // m is in log2 units of the scaled score: lse = (m + log2 l) ln 2
+    if (lane % 4 == 0) {
+      float* lrow = lse + ((long long)b * H + h) * S;
+      if (row0 < S) lrow[row0] = (m0 + log2f(d0)) * LN2;
+      if (row0 + 8 < S) lrow[row0 + 8] = (m1 + log2f(d1)) * LN2;
+    }
+  }
   const int d_out = PAD ? dv : DV;
   __nv_bfloat16* o0 =
       o + (((long long)b * S + row0) * H + h) * d_out + col0;
@@ -839,12 +858,12 @@ bool on_grid(const void* p, const long long* st) {
          st[1] > 0 && st[2] > 0;
 }
 
-template <int DQK, int DV, bool CAUSAL, bool PAD>
+template <int DQK, int DV, bool CAUSAL, bool PAD, bool LSE = false>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* o, int B, int S, int T, int H, int K, int dqk, int dv,
-           cudaStream_t st) {
+           void* o, float* lse, int B, int S, int T, int H, int K, int dqk,
+           int dv, cudaStream_t st) {
   using C = Cfg<DQK, DV>;
-  auto kernel = flash_attention_kernel_sm90<DQK, DV, CAUSAL, PAD>;
+  auto kernel = flash_attention_kernel_sm90<DQK, DV, CAUSAL, PAD, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -854,7 +873,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   const float scale_log2 =
       (float)(1.0 / sqrt((double)dqk) * 1.4426950408889634);
   kernel<<<n_qb * H * B, THREADS, C::SMEM, st>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, S, T, H, H / K, B, n_qb, dqk, dv,
+      tq, tk, tv, (__nv_bfloat16*)o, lse, S, T, H, H / K, B, n_qb, dqk, dv,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -873,10 +892,27 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (r == 0) r = encode(&tk, k, B, T, K, dqk, k_strides, C::BK, C::BOX);
   if (r == 0) r = encode(&tv, v, B, T, K, dv, v_strides, C::BK, C::BOX);
   if (r != 0) return r;
-  return causal ? launch<DQK, DV, true, PAD>(tq, tk, tv, o, B, S, T, H, K,
-                                             dqk, dv, st)
-                : launch<DQK, DV, false, PAD>(tq, tk, tv, o, B, S, T, H, K,
-                                              dqk, dv, st);
+  return causal ? launch<DQK, DV, true, PAD>(tq, tk, tv, o, nullptr, B, S, T,
+                                             H, K, dqk, dv, st)
+                : launch<DQK, DV, false, PAD>(tq, tk, tv, o, nullptr, B, S,
+                                              T, H, K, dqk, dv, st);
+}
+
+// the causal tile of the training route (dh 64 or 128, the tile's own),
+// writing the log-sum-exp beside the output
+template <int D>
+int run_lse(const void* q, const void* k, const void* v, void* o, float* lse,
+            int B, int S, int H, int K, const long long* q_strides,
+            const long long* k_strides, const long long* v_strides,
+            cudaStream_t st) {
+  using C = Cfg<D, D>;
+  CUtensorMap tq, tk, tv;
+  int r = encode(&tq, q, B, S, H, D, q_strides, BQ, C::BOX);
+  if (r == 0) r = encode(&tk, k, B, S, K, D, k_strides, C::BK, C::BOX);
+  if (r == 0) r = encode(&tv, v, B, S, K, D, v_strides, C::BK, C::BOX);
+  if (r != 0) return r;
+  return launch<D, D, true, false, true>(tq, tk, tv, o, lse, B, S, S, H, K,
+                                         D, D, st);
 }
 
 }  // namespace
@@ -920,6 +956,30 @@ int flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
   if (dh <= 128) FLASH_SM90_RUN(128, 128, true)
   FLASH_SM90_RUN(256, 256, true)
 #undef FLASH_SM90_RUN
+}
+
+// The training forward: causal, T == S, dh 64 or 128 (q, k, v as
+// flash_attention_sm90_fwd takes them), o a contiguous (B, S, H, dh) and
+// lse a contiguous float32 (B, H, S), each row's log-sum-exp of its
+// scaled scores (natural log).
+int flash_attention_sm90_fwd_lse(const void* q, const void* k, const void* v,
+                                 void* o, float* lse, int B, int S, int H,
+                                 int K, int dh, const long long* q_strides,
+                                 const long long* k_strides,
+                                 const long long* v_strides, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
+      (long long)((S + BQ - 1) / BQ) * H * B > 0x7fffffffLL ||
+      !on_grid(q, q_strides) || !on_grid(k, k_strides) ||
+      !on_grid(v, v_strides) || (reinterpret_cast<uintptr_t>(o) % 16) != 0)
+    return ERR_SHAPE;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dh == 64)
+    return run_lse<64>(q, k, v, o, lse, B, S, H, K, q_strides, k_strides,
+                       v_strides, st);
+  if (dh == 128)
+    return run_lse<128>(q, k, v, o, lse, B, S, H, K, q_strides, k_strides,
+                        v_strides, st);
+  return ERR_SHAPE;
 }
 
 const char* flash_sm90_error_string(int code) {

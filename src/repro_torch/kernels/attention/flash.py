@@ -30,6 +30,16 @@ Launches are counted on ``flash_attention_cuda.launches`` (any kernel),
 on ``launch_flash_sm90.launches`` and ``launch_flash_sm90_f32.launches``
 (each Hopper kernel alone) and on ``noncausal_launches.launches`` (any
 kernel with ``causal`` off).
+
+The training route (:func:`train_kernel_for`): causal bfloat16 GQA at
+head dims ``BWD_HEAD_DIMS`` on the same grid, differentiable through
+``ops.flash_attention_train``.  Its forward is ``flash_sm90.cu``'s
+kernel with the log-sum-exp flag on (``flash_attention_sm90_fwd_lse``,
+:func:`flash_attention_lse_cuda`, counted on
+``launch_flash_sm90_lse.launches``), its backward
+``csrc/flash_sm90_bwd.cu`` (``flash_attention_sm90_bwd``: D, then dK /
+dV and dQ by ``wgmma``; :func:`flash_attention_bwd_cuda`, counted on
+``launch_flash_sm90_bwd.launches``, one a backward).
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ MLA_HEAD_DIMS = (192, 128)  # the one (q·k, v) pair of unequal head dims
 # (192, 128)); an equal head dim runs in the smallest that holds it
 SM90_TILES = (16, 32, 64, 128, 256)     # flash_sm90.cu's MIN_TILE 16
 SM90_F32_TILES = (32, 64, 128, 256)     # flash_sm90_f32.cu's SMALL_TILE 32
+# the equal head dims the training route's backward is instantiated at
+BWD_HEAD_DIMS = (64, 128)
 TMA_ALIGN = 16              # bytes: TMA's base-address and stride grid
 MAX_GRID_YZ = 65535         # heads (grid y) and batch (grid z)
 KERNELS = ("sm90", "sm90_f32", "simple")
@@ -75,6 +87,10 @@ def _lib_sm90():
                                                  _I, _I, _I, _I, _Strides,
                                                  _Strides, _Strides, _I, _P]
         lib.flash_attention_sm90_fwd.restype = _I
+        lib.flash_attention_sm90_fwd_lse.argtypes = [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _Strides, _Strides,
+            _Strides, _P]
+        lib.flash_attention_sm90_fwd_lse.restype = _I
         lib.flash_sm90_error_string.argtypes = [_I]
         lib.flash_sm90_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -133,6 +149,38 @@ def flash_kernel_for(q: torch.Tensor, k: torch.Tensor,
         if any(s <= 0 or s * t.element_size() % TMA_ALIGN for s in outer):
             return "simple"
     return route
+
+
+def sm90_train_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int = 0) -> bool:
+    """Whether the training route's kernels take causal self-attention
+    over these q, k, v, wherever they lie: q ``(B, S, H, dh)`` over k
+    and v of its own length, ``H % K == 0``, no key masked by the window
+    (``window`` 0 or ``S <= window``), bfloat16, equal head dims of
+    ``BWD_HEAD_DIMS``, on TMA's grid as :func:`flash_kernel_for` takes
+    them.  A pure function of shapes, strides, dtype and alignment."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        return False
+    S, H, dh = q.shape[1:]
+    if k.shape[1] != S or v.shape[:3] != k.shape[:3] or H % k.shape[2]:
+        return False
+    if window and S > window:
+        return False
+    if v.shape[-1] != dh or dh not in BWD_HEAD_DIMS or k.shape[-1] != dh:
+        return False
+    return q.dtype == torch.bfloat16 and flash_kernel_for(q, k, v) == "sm90"
+
+
+def train_kernel_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int = 0) -> str:
+    """``"sm90"`` when a differentiable causal attention over these
+    inputs runs on the training route's kernels: CUDA tensors that
+    :func:`sm90_train_takes`; else ``"plain"`` (the CPU, float32, other
+    head dims, views TMA cannot describe, a window that masks).  A pure
+    function of device, shapes, strides, dtype and alignment."""
+    if q.device.type == "cuda" and sm90_train_takes(q, k, v, window=window):
+        return "sm90"
+    return "plain"
 
 
 def check_shapes(q_shape, k_shape, v_shape, causal: bool = True) -> None:
@@ -286,8 +334,97 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _lib_sm90_bwd():
+    lib = _build.load("flash_sm90_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_sm90_bwd.argtypes = [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            _Strides, _Strides, _Strides, _Strides, _P]
+        lib.flash_attention_sm90_bwd.restype = _I
+        lib.flash_sm90_bwd_error_string.argtypes = [_I]
+        lib.flash_sm90_bwd_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _check_train(*ts):
+    q = ts[0]
+    for t in ts:
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError("the training route's kernels take CUDA "
+                             "tensors on one device")
+    if train_kernel_for(*ts[:3]) != "sm90":
+        raise ValueError("the training route's kernels do not take these "
+                         "inputs (see train_kernel_for)")
+
+
+def launch_flash_sm90_lse(q, k, v, out, lse) -> None:
+    """Launch the causal Hopper forward with the log-sum-exp flag on:
+    ``out (B, S, H, dh)`` and ``lse (B, H, S)`` float32, both
+    contiguous; raises if the launch fails."""
+    lib = _lib_sm90()
+    B, S, H, dh = q.shape
+    status = lib.flash_attention_sm90_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), B, S, H, k.shape[2], dh, _Strides(*q.stride()),
+        _Strides(*k.stride()), _Strides(*v.stride()),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"flash_attention_sm90_fwd_lse: error {status} "
+                           f"({lib.flash_sm90_error_string(status).decode()})")
+    launch_flash_sm90_lse.launches += 1
+
+
+def launch_flash_sm90_bwd(q, k, v, out, dout, lse, dq, dk, dv) -> None:
+    """Launch the Hopper backward (D, dK / dV, dQ) on checked inputs;
+    ``dout`` and the gradients contiguous; raises if a launch fails."""
+    lib = _lib_sm90_bwd()
+    B, S, H, dh = q.shape
+    dsum = torch.empty_like(lse)
+    status = lib.flash_attention_sm90_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], dh,
+        _Strides(*q.stride()), _Strides(*k.stride()), _Strides(*v.stride()),
+        _Strides(*dout.stride()),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(
+            f"flash_attention_sm90_bwd: error {status} "
+            f"({lib.flash_sm90_bwd_error_string(status).decode()})")
+    launch_flash_sm90_bwd.launches += 1
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor):
+    """Causal attention on the training route's forward: ``q (B, S, H,
+    dh)``, ``k`` and ``v (B, S, K, dh)`` that :func:`train_kernel_for`
+    sends to ``"sm90"`` -> ``(out (B, S, H, dh), lse (B, H, S))``, lse
+    the float32 log-sum-exp of each query row's scaled scores."""
+    _check_train(q, k, v)
+    B, S, H, dh = q.shape
+    out = torch.empty(B, S, H, dh, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    launch_flash_sm90_lse(q, k, v, out, lse)
+    return out, lse
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_lse_cuda`'s
+    output at ``dout (B, S, H, dh)``, given its ``out`` and ``lse``."""
+    _check_train(q, k, v, out, lse, dout)
+    dout = dout.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    launch_flash_sm90_bwd(q, k, v, out.contiguous(), dout, lse, dq, dk, dv)
+    return dq, dk, dv
+
+
 flash_attention_cuda.launches = 0
 launch_flash_sm90.launches = 0
+launch_flash_sm90_lse.launches = 0
+launch_flash_sm90_bwd.launches = 0
 launch_flash_sm90_f32.launches = 0
 # launches of either kernel with causal=False
 noncausal_launches = types.SimpleNamespace(launches=0)

@@ -9,21 +9,28 @@ Shape conventions: activations (B, S, d); heads H, kv heads K, head dim
 slots serves any sequence length, and sliding-window attention
 (recurrentgemma's local layers) keeps a ring of ``window`` slots.
 
-Two routes compute the same attention:
+Three routes compute the same attention:
 
 * the kernel route: when the attention context is exactly the prompt
   (no cache, or a fresh ring cache with S <= W) and no key of it is
   beyond a ``window`` (S <= window), causal attention by index through
   ``kernels.attention.flash_attention`` -- the hand-written CUDA kernel
-  on the card;
+  on the card, forward-only;
+* the training route, for a ``differentiable`` pass without a cache
+  (``Model.loss``) where ``kernels.attention.train_kernel_for`` sends
+  the inputs to the card's kernels (CUDA, bfloat16, head dims 64 and
+  128 on TMA's grid, no key the window masks):
+  ``kernels.attention.flash_attention_train``, one differentiable
+  operator -- the Hopper forward writing each row's log-sum-exp, and a
+  Hopper backward of its own;
 * the plain route, :func:`_attend`: masked attention over the ring cache
   by position, exactly as the JAX package computes it (decode, a prompt
   longer than the ring, a cache that already holds entries, a prompt
   longer than the window: the kernels have no window, nor has the TPU
-  kernel), and over the prompt itself when the caller asks for a
-  ``differentiable`` pass (``Model.loss``): the kernels have no
-  backward, and neither has the JAX package's flash kernel, whose
-  trainer attends through ``_attend``.
+  kernel), and over the prompt itself in a ``differentiable`` pass the
+  training route does not take (the CPU -- the JAX package's flash
+  kernel has no backward and its trainer attends through ``_attend`` --,
+  float32, other head dims, views TMA cannot describe).
 
 MLA (:func:`mla`) takes the same two routes for its prompt passes, with
 a q·k head dim of ``dh_nope + dh_rope`` and a v head dim of ``dh_v``
@@ -53,11 +60,26 @@ import math
 
 import torch
 
-from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.attention import (flash_attention,
+                                           flash_attention_train,
+                                           train_kernel_for)
 from repro_torch.models import blocks as bl
 from repro_torch.models.ring_attention import ring_attention
+from repro_torch.runtime import spans
 
 NEG = -1e30
+
+
+def _count(kernel: bool, x: torch.Tensor) -> None:
+    """A differentiable attention call over ``x``'s device: on the
+    training route's kernels (counter ``attention.kernel_calls``), or on
+    the plain route off the CPU, where the kernels would run
+    (``attention.plain_calls``); the CPU has no kernels, so its plain
+    calls are not counted.  Forward calls, as every counter."""
+    if kernel:
+        spans.add("attention.kernel_calls", 1)
+    elif x.device.type != "cpu":
+        spans.add("attention.plain_calls", 1)
 
 
 # --------------------------------------------------------------------------
@@ -153,9 +175,12 @@ def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
     cache dict, written in place; returns (out, cache).
     ``fresh``: every slot of ``cache`` is unwritten (pos -1), checked by
     the caller; with S <= W the context is then exactly x as well.
-    ``differentiable``: without a cache, attend through :func:`_attend`
-    (the JAX package's ``gqa(cache=None)`` route), which autograd can
-    differentiate, instead of the forward-only kernel.
+    ``differentiable``: without a cache, attend through a route autograd
+    differentiates instead of the forward-only kernel: the training
+    route's kernels (``flash_attention_train``) where
+    ``train_kernel_for`` takes q, k, v and the window masks no key, else
+    :func:`_attend` (the JAX package's ``gqa(cache=None)`` route).  The
+    attend call without a cache is an ``attention.core`` span.
     ``window``: sliding-window (local) attention, each query over the
     ``window`` positions up to its own; 0 for none.  A prompt of S <=
     window tokens over itself sees no key the window masks, so it takes
@@ -186,6 +211,8 @@ def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
     v = v.reshape(B, S, K, dh)
 
     if ring is not None and S > 1 and not window:
+        if differentiable:
+            _count(False, x)
         out = ring_attention(ring, q.reshape(B, S, K, H // K, dh), k, v,
                              positions)
         if cache is not None:   # prefill: still record k/v for decode
@@ -196,11 +223,19 @@ def gqa(params, x, positions, *, H, K, dh, window=0, rope_base=10000.0,
                 kw, vw, pw = k, v, positions
             _ring_write(cache, kw.to(cache["k"].dtype),
                         vw.to(cache["v"].dtype), pw)
-    elif cache is None and (differentiable or window and S > window):
-        out = _attend(q.reshape(B, S, K, H // K, dh), k, v, positions,
-                      positions, window=window)
     elif cache is None:
-        out = flash_attention(q, k, v)
+        with spans.span("attention.core"):
+            kernel = differentiable and train_kernel_for(
+                q, k, v, window=window) == "sm90"
+            if differentiable:
+                _count(kernel, x)
+            if kernel:
+                out = flash_attention_train(q, k, v)
+            elif differentiable or window and S > window:
+                out = _attend(q.reshape(B, S, K, H // K, dh), k, v,
+                              positions, positions, window=window)
+            else:
+                out = flash_attention(q, k, v)
     else:
         W = cache["k"].shape[1]
         if S > W:  # prefill longer than the ring: only the last W matter
@@ -260,6 +295,8 @@ def cross_attention(params, x, kv_feats, *, H, K, dh, differentiable=False):
     v = (feats @ params["wv"].to(x.dtype)).reshape(B, N, K, dh)
     q = bl.rms_norm(q, params["qln"])
     k = bl.rms_norm(k, params["kln"])
+    if differentiable:
+        _count(False, x)
     if S > 1 and not differentiable:
         out = flash_attention(q.reshape(B, S, H, dh), k, v, causal=False)
     else:
@@ -418,6 +455,8 @@ def mla(params, x, positions, *, H, dims: MLADims, cache=None, fresh=False,
     if cache is None:
         ckv_c, kr_c, k_pos = ckv, kr, positions
         kernel = not differentiable
+        if differentiable:
+            _count(False, x)
     elif fresh and S <= W:      # the cache holds exactly this prompt
         ckv_c, kr_c, k_pos = ckv_w.to(x.dtype), kr_w.to(x.dtype), pw
         kernel = True

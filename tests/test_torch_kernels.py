@@ -23,7 +23,8 @@ from repro.runtime.topology import make_cpu_mesh
 from repro_torch.kernels import (am_pack as dm, gascore_dma as gd,
                                  jacobi as jk, launch_counts,
                                  reset_launch_counts)
-from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.attention import (flash_attention,
+                                           flash_attention_train)
 
 RNG = np.random.default_rng(11)
 
@@ -194,6 +195,9 @@ def test_cpu_tensors_never_launch_a_kernel():
                     torch.ones(1, 4, 1, 8))
     flash_attention(*(torch.ones(1, 4, h, 64, dtype=torch.bfloat16)
                       for h in (2, 1, 1)))
+    qkv = [torch.ones(1, 4, h, 64, dtype=torch.bfloat16, requires_grad=True)
+           for h in (2, 1, 1)]
+    flash_attention_train(*qkv).sum().backward()
     assert launch_counts() == {"datamover_gather": 0,
                                "datamover_scatter": 0,
                                "datamover_gather_sm90": 0,
@@ -203,4 +207,6 @@ def test_cpu_tensors_never_launch_a_kernel():
                                "flash_attention": 0,
                                "flash_attention_sm90": 0,
                                "flash_attention_sm90_f32": 0,
-                               "flash_attention_noncausal": 0}
+                               "flash_attention_noncausal": 0,
+                               "flash_attention_sm90_lse": 0,
+                               "flash_attention_sm90_bwd": 0}

@@ -38,7 +38,7 @@ from repro_torch.runtime import spans
 from repro_torch.training import Trainer, TrainerConfig
 from repro_torch.tree import tree_leaves
 
-PREFIXES = ("train.", "model.", "moe.", "optim.", "shoal.")
+PREFIXES = ("train.", "model.", "attention.", "moe.", "optim.", "shoal.")
 
 
 def _trainer(backend: str, remat: str = "dots"):
